@@ -5,37 +5,52 @@ card (H100), CUDA's nvcc, g++ and zlib:
 
     python3 chip_smoke.py
 
-It builds every kernel of the port's main path from the checkout's
-sources and drives the north-star job through the port's own CLI. It
-exits non-zero when a phase fails (nothing is caught), when torch sees no
-card, or when the port is not importable:
+It builds every kernel of the port's main paths from the checkout's
+sources and drives both `--fastcmp 0.5` jobs through the port's own CLI.
+It exits non-zero when a phase fails (nothing is caught), when torch sees
+no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: nvcc for csrc/tri_eq.cu (sm_90a), g++ for the native sketcher
-   and formatter; build seconds and ptxas' register/spill report;
-3. kernel against plain, on the card: exact u16 equality of
+2. build: nvcc for csrc/tri_eq.cu and csrc/tri_comb.cu (sm_90a) and g++
+   for the native sketcher and formatter, all started together; build
+   seconds and ptxas' register/spill report;
+3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
-   1000, 1025, 4097} and m in {64, 256, 1024} with planted identical,
-   all-0x00 and all-0xFF rows; the similarity table built on the card
-   must equal the CPU-built table bit for bit;
-4. golden digest: the port's CLI on the card over the seeded n=777
-   corpus must reproduce the SHA-256 in
-   tests/goldens/torch_port_bbit_nibble.json, which a CPU test ties to
-   the JAX package's output;
-5. main path at full size: N = 10240 genomes, 512 ancestors x 20
+   1000, 1025, 4097} and m in {64, 256, 1024}, and of `tri_comb_counts`
+   and `tri_comb_counts_plain` (eq and gt) for the same n and m in
+   {30, 64, 256, 1024}, with planted identical, all-0x00 and all-0xFF
+   rows; the similarity table built on the card must equal the CPU-built
+   table bit for bit;
+4. golden digests: the port's CLI on the card over the seeded n=777
+   corpus must reproduce the SHA-256s in
+   tests/goldens/torch_port_{bbit,ab}_nibble.json, which CPU tests tie
+   to the JAX package's output;
+5. b-bit main path at full size: N = 10240 genomes, 512 ancestors x 20
    mutants at 0.5-5% divergence, through
    `sketch -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs --binary-output
    --cmpout out.bin -F list.txt` on the card. Checks the output size,
-   that the kernel's launch counter moved during the run, that the
+   that the tri_eq launch counter moved during the run, that the
    kernel's full (N, N) count matrix equals the plain version's, and
    that every emitted value is the similarity table at the plain
-   counts. Prints the phase walls and unique pairs/s.
+   counts. Prints the phase walls and unique pairs/s;
+6. a/b main path at full size: the same corpus through
+   `sketch -k 31 -S 1024 --fastcmp 0.5 --binary-output --cmpout out.bin
+   -F list.txt`. Checks the output size, that the tri_comb launch
+   counter moved during the run, that the kernel's full (N, N) eq and gt
+   equal the plain version's, that the card's a/b epilogue equals the
+   CPU's bit for bit on every (gt, lt) in [0, m]^2 at the job's b, and
+   that every emitted value is the CPU epilogue at the plain counts.
+   Prints the wall, unique pairs/s and the spans.
+
+Each main path runs with every launch counter set to 0 just before its
+CLI call and read just after it.
 
 Reduction: the north-star job uses 50 kb genomes; this one uses 20 kb.
 The comparison's work depends only on N and m, 20 kb genomes still carry
 about 20k distinct 31-mers (more than 5 m, so every register fills and
 the job stays out of the OPH small-input regime), and it cuts the
-generated FASTA from about 520 MB to about 205 MB.
+generated FASTA from about 520 MB to about 205 MB. The corpus is written
+once and read by both main paths.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -48,6 +63,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -87,18 +103,26 @@ def phase_device():
 
 def phase_build():
     from dashing2_tpu_torch import native
+    from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
+    builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
+              "ophsketch": native.load_oph_lib,
+              "emitfmt": native.load_emit_lib}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
     t0 = time.perf_counter()
-    NT.load_kernel()
-    t1 = time.perf_counter()
-    native.load_oph_lib()
-    native.load_emit_lib()
-    t2 = time.perf_counter()
-    _say(f"[build] nvcc tri_eq.cu {t1 - t0:.3f} s; g++ native libs "
-         f"{t2 - t1:.3f} s")
-    for ln in native.build_logs.get("tri_eq", "").splitlines():
-        if "registers" in ln or "spill" in ln:
-            _say(f"[build] ptxas: {ln.strip()}")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
+        secs = {name: f.result() for name, f in futs.items()}
+    _say(f"[build] all four in {time.perf_counter() - t0:.3f} s, in "
+         "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    for name in ("tri_eq", "tri_comb"):
+        for ln in native.build_logs.get(name, "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                _say(f"[build] ptxas {name}: {ln.strip()}")
 
 
 def _planted(rng, n: int, m: int):
@@ -118,17 +142,19 @@ def phase_kernel_vs_plain():
     import numpy as np
     import torch
     from dashing2_tpu_torch.cmp.core import sim_table
+    from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
+    sizes = (1, 2, 63, 129, 1000, 1025, 4097)
     rng = np.random.default_rng(2026)
-    worst = 0
+    worst_eq = 0
     for m in (64, 256, 1024):
-        for n in (1, 2, 63, 129, 1000, 1025, 4097):
+        for n in sizes:
             a = torch.from_numpy(_planted(rng, n, m)).cuda()
             got = NT.tri_eq_counts(a, m).to(torch.int32)
             want = NT.tri_eq_counts_plain(a, m).to(torch.int32)
             torch.cuda.synchronize()
             err = int((got - want).abs().max())
-            worst = max(worst, err)
+            worst_eq = max(worst_eq, err)
             assert err == 0, f"kernel != plain at n={n} m={m}: {err}"
             assert int(got.diagonal().min()) == m
         tc = sim_table("nibble-bbit", m, 0.5, "cuda").cpu().numpy()
@@ -137,7 +163,23 @@ def phase_kernel_vs_plain():
     _say("[kernel] tri_eq_counts == plain (exact u16) at n in {1, 2, 63, "
          "129, 1000, 1025, 4097} x m in {64, 256, 1024}; card-built sim "
          "table == CPU table bit for bit")
-    return worst
+    rng = np.random.default_rng(2027)
+    worst_comb = 0
+    for m in (30, 64, 256, 1024):
+        for n in sizes:
+            a = torch.from_numpy(_planted(rng, n, m)).cuda()
+            got = NC.tri_comb_counts(a, m)
+            want = NC.tri_comb_counts_plain(a, m)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("eq", "gt")):
+                err = int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+                worst_comb = max(worst_comb, err)
+                assert err == 0, f"tri_comb {what} != plain at n={n} m={m}"
+            assert int(got[0].diagonal().to(torch.int32).min()) == m
+            assert int(got[1].diagonal().to(torch.int32).max()) == 0
+    _say("[kernel] tri_comb_counts == plain (exact u16 eq and gt) at n in "
+         "{1, 2, 63, 129, 1000, 1025, 4097} x m in {30, 64, 256, 1024}")
+    return worst_eq, worst_comb
 
 
 def _corpus(name: str, seed: int, n_anc: int, n_mut: int, length: int,
@@ -152,10 +194,9 @@ def _corpus(name: str, seed: int, n_anc: int, n_mut: int, length: int,
     return lst
 
 
-def phase_golden():
+def phase_golden(name: str):
     from dashing2_tpu_torch import cli
-    with open(os.path.join(ROOT, "tests", "goldens",
-                           "torch_port_bbit_nibble.json")) as f:
+    with open(os.path.join(ROOT, "tests", "goldens", name)) as f:
         gold = json.load(f)
     c = gold["corpus"]
     lst = _corpus("golden", c["seed"], c["n_ancestors"], c["n_mutants"],
@@ -168,52 +209,89 @@ def phase_golden():
         data = f.read()
     digest = hashlib.sha256(data).hexdigest()
     assert (len(data), digest) == (gold["bytes"], gold["sha256"]), digest
-    _say(f"[golden] n={gold['n']} m={gold['m']}: sha256 {digest} matches "
-         "the committed JAX digest")
+    _say(f"[golden] {name} n={gold['n']} m={gold['m']}: sha256 {digest} "
+         "matches the committed JAX digest")
 
 
-def phase_main_path():
-    import numpy as np
-    import torch
+def _run_cli(tag: str, argv, n: int, counters):
+    """One CLI call with every launch counter set to 0 just before it;
+    returns (wall seconds, spans, launches per counter name)."""
     from dashing2_tpu_torch import cli, timing
-    from dashing2_tpu_torch.cmp import core as C
-    from dashing2_tpu_torch.config import Dashing2DistOptions
-    from dashing2_tpu_torch.ops import nibble_tri as NT
-    from dashing2_tpu_torch.sketch.core import sketch_fastx
-
-    n, m = NORTH_STAR_N, 1024
-    t0 = time.perf_counter()
-    lst = _corpus("northstar", NS_SEED, NS_ANCESTORS, NS_MUTANTS, NS_LENGTH)
-    _say(f"[main] corpus: {n} genomes x {NS_LENGTH} bp written in "
-         f"{time.perf_counter() - t0:.3f} s")
-    out = os.path.join(WORK, "northstar", "out.bin")
-    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "0.5",
-            "--bbit-sigs", "--binary-output", "--cmpout", out, "-F", lst]
-
     timing.reset_spans()
-    NT.reset_launches()
+    for mod in counters.values():
+        mod.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = NT.launches
+    launches = {name: mod.launches for name, mod in counters.items()}
     spans = timing.spans()
     assert rc == 0, rc
-    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
-    assert launches >= 1, "the main path never launched tri_eq"
     pairs = n * (n - 1) // 2
-    _say(f"[main] CLI wall {wall:.3f} s for {pairs} unique pairs: "
-         f"{pairs / wall:.6e} unique pairs/s; tri_eq launches {launches}")
-    for key in ("sketch", "sketch/native-files", "sketch/finalize",
-                "compare+emit", "cmp/prep", "cmp/table", "cmp/h2d",
-                "cmp/kernel", "cmp/d2h", "cmp/table-gather", "emit/write"):
-        _say(f"[main] span {key}: {spans.get(key, 0.0):.6f} s")
+    _say(f"[{tag}] CLI wall {wall:.3f} s for {pairs} unique pairs: "
+         f"{pairs / wall:.6e} unique pairs/s; launches {launches}")
+    return wall, spans, launches
+
+
+def _say_spans(tag: str, spans, keys) -> None:
+    for key in keys:
+        _say(f"[{tag}] span {key}: {spans.get(key, 0.0):.6f} s")
+
+
+def _sketch(lst: str):
+    """The corpus' sketches, once for both main paths' kernel checks
+    (_prep densifies them in place on first use; a second _prep finds
+    nothing left to densify)."""
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.sketch.core import sketch_fastx
+    with open(lst) as f:
+        groups = [ln.strip() for ln in f if ln.strip()]
+    return sketch_fastx(Dashing2DistOptions(k=31, sketchsize=1024), groups)
+
+
+def _rows_equal(vals, n: int, row_fn) -> None:
+    """Every row i of the condensed output equals row_fn(i0, i1)[i - i0]
+    over [i + 1, n), for row blocks [i0, i1)."""
+    import numpy as np
+    off = 0
+    for i0 in range(0, n - 1, 1024):
+        i1 = min(i0 + 1024, n - 1)
+        want = row_fn(i0, i1)
+        for i in range(i0, i1):
+            row = vals[off:off + n - 1 - i]
+            assert np.array_equal(row.view(np.uint32),
+                                  want[i - i0, i + 1:].view(np.uint32)), i
+            off += n - 1 - i
+
+
+def _histogram(vals) -> list:
+    import numpy as np
+    return np.histogram(vals, bins=[0, 1e-9, 0.1, 0.5, 0.9, 1.0001]
+                        )[0].tolist()
+
+
+def phase_main_bbit(lst: str, sketches, counters):
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.ops import nibble_tri as NT
+
+    n, m = NORTH_STAR_N, 1024
+    out = os.path.join(WORK, "northstar", "out.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "0.5",
+            "--bbit-sigs", "--binary-output", "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli("main", argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    assert launches["tri_eq"] >= 1, "the main path never launched tri_eq"
+    _say_spans("main", spans, (
+        "sketch", "sketch/native-files", "sketch/finalize", "compare+emit",
+        "cmp/prep", "cmp/table", "cmp/h2d", "cmp/kernel", "cmp/d2h",
+        "cmp/table-gather", "emit/write"))
 
     # the same job's registers, once more, for the kernel-vs-plain check
     opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5,
                                truncation_method=1)
-    with open(lst) as f:
-        groups = [ln.strip() for ln in f if ln.strip()]
-    creps, _ = C._prep(opts, sketch_fastx(opts, groups))
+    creps, _ = C._prep(opts, sketches)
     packed = torch.from_numpy(creps.data).cuda()
     NT.tri_eq_counts(packed, m)                       # warm-up
     torch.cuda.synchronize()
@@ -235,16 +313,82 @@ def phase_main_path():
     table = C.sim_table("nibble-bbit", m, 0.5, "cuda").cpu().numpy()
     vals = np.fromfile(out, dtype=np.float32)
     assert np.isfinite(vals).all()
-    off = 0
-    for i in range(n - 1):
-        row = vals[off:off + n - 1 - i]
-        assert np.array_equal(row.view(np.uint32),
-                              table[counts[i, i + 1:]].view(np.uint32)), i
-        off += n - 1 - i
-    hist = np.histogram(vals, bins=[0, 1e-9, 0.1, 0.5, 0.9, 1.0001])[0]
-    _say(f"[main] output == table[plain counts] for all {pairs} pairs; "
-         f"similarity counts in [0,1e-9) [1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {hist.tolist()}")
-    return launches, err, kernel_ms, plain_ms
+    _rows_equal(vals, n, lambda i0, i1: table[counts[i0:i1]])
+    _say(f"[main] output == table[plain counts] for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return launches["tri_eq"], err, kernel_ms, plain_ms
+
+
+def phase_main_ab(lst: str, sketches, counters):
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.cmp import estimators as E
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.enums import Measure
+    from dashing2_tpu_torch.ops import nibble_comb as NC
+
+    n, m = NORTH_STAR_N, 1024
+    out = os.path.join(WORK, "northstar", "out_ab.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "0.5",
+            "--binary-output", "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli("ab", argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    assert launches["tri_comb"] >= 1, "the a/b path never launched tri_comb"
+    _say_spans("ab", spans, (
+        "sketch", "sketch/native-files", "sketch/finalize", "compare+emit",
+        "cmp/prep", "cmp/h2d", "cmp/kernel", "cmp/epilogue", "cmp/d2h",
+        "emit/write"))
+
+    opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5)
+    creps, _ = C._prep(opts, sketches)
+    packed = torch.from_numpy(creps.data).cuda()
+    NC.tri_comb_counts(packed, m)                     # warm-up
+    torch.cuda.synchronize()
+    kernel_ms = _cuda_ms(lambda: NC.tri_comb_counts(packed, m), 20)
+    NC.tri_comb_counts_plain(packed, m)               # warm-up
+    plain_ms = _cuda_ms(lambda: NC.tri_comb_counts_plain(packed, m), 3)
+    got = NC.tri_comb_counts(packed, m)
+    want = NC.tri_comb_counts_plain(packed, m)
+    err = 0
+    for g, w, what in zip(got, want, ("eq", "gt")):
+        e = int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+        assert e == 0, f"tri_comb {what} != plain on the job's registers"
+        err = max(err, e)
+    eq = want[0].cpu().to(torch.int32)
+    gt = want[1].cpu().to(torch.int32)
+    del got, want
+    _say(f"[ab] tri_comb kernel {kernel_ms:.6f} ms (CUDA events, mean of "
+         f"20 after a warm-up); plain {plain_ms:.6f} ms (mean of 3); full "
+         f"{n}x{n} eq and gt equal")
+
+    # the card's epilogue == the CPU's on every (gt, lt) at the job's b
+    bf = max(creps.b, 1.0 + 1e-9)
+    table, gbinv = C._gb_args(bf, m)
+    c = torch.arange(m + 1, dtype=torch.int32)
+    cg, cl = torch.meshgrid(c, c, indexing="ij")
+    for fused in (True, False):
+        on_cpu = E.compressed_ab_measures32(
+            cg, cl, m, bf, 0.5, Measure.SIMILARITY, table, gbinv, fused)
+        on_card = E.compressed_ab_measures32(
+            cg.cuda(), cl.cuda(), m, bf, 0.5, Measure.SIMILARITY, table,
+            gbinv, fused).cpu()
+        assert torch.equal(on_cpu.view(torch.int32),
+                           on_card.view(torch.int32)), fused
+    _say(f"[ab] card epilogue == CPU epilogue bit for bit on all "
+         f"{(m + 1) ** 2} (gt, lt) at b = {bf!r} (fused and numpy forms)")
+
+    # every emitted value is the CPU epilogue at the plain counts
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: E.compressed_ab_measures32(
+        gt[i0:i1], m - eq[i0:i1] - gt[i0:i1], m, bf, 0.5,
+        Measure.SIMILARITY, table, gbinv).numpy())
+    _say(f"[ab] output == CPU epilogue at the plain counts for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return launches["tri_comb"], err, kernel_ms, plain_ms
 
 
 def main() -> int:
@@ -253,25 +397,40 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 2
     import dashing2_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from dashing2_tpu_torch.ops import nibble_comb as NC
+    from dashing2_tpu_torch.ops import nibble_tri as NT
+    counters = {"tri_eq": NT, "tri_comb": NC}
     smi = phase_device()
     phase_build()
-    worst = phase_kernel_vs_plain()
+    worst_eq, worst_comb = phase_kernel_vs_plain()
     try:
-        phase_golden()
-        launches, err, kernel_ms, plain_ms = phase_main_path()
+        phase_golden("torch_port_bbit_nibble.json")
+        phase_golden("torch_port_ab_nibble.json")
+        t0 = time.perf_counter()
+        lst = _corpus("northstar", NS_SEED, NS_ANCESTORS, NS_MUTANTS,
+                      NS_LENGTH)
+        _say(f"[main] corpus: {NORTH_STAR_N} genomes x {NS_LENGTH} bp "
+             f"written in {time.perf_counter() - t0:.3f} s")
+        sketches = _sketch(lst)
+        eq_run = phase_main_bbit(lst, sketches, counters)
+        comb_run = phase_main_ab(lst, sketches, counters)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    record = {"kernels": [{
-        "name": "tri_eq_counts",
-        "route": "cuda",
-        "source": "dashing2_tpu_torch/csrc/tri_eq.cu",
-        "replaces": "dashing2_tpu/ops/pallas_cmp.py:447",
-        "launches": launches,
-        "max_abs_err": max(worst, err),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}
-    print(json.dumps(record))
+    kernels = []
+    for name, src, line, worst, (launches, err, ms, plain_ms) in (
+            ("tri_eq_counts", "tri_eq.cu", 447, worst_eq, eq_run),
+            ("tri_comb_counts", "tri_comb.cu", 367, worst_comb, comb_run)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dashing2_tpu_torch/csrc/{src}",
+            "replaces": f"dashing2_tpu/ops/pallas_cmp.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(worst, err),
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 Port of dashing2_tpu/cli.py: `_add_shared` and `_build_opts` are copies,
 so flags keep their reference names and build the same options. Only the
-`sketch` subcommand exists, and it runs only the slice the port covers:
+`sketch` subcommand exists, and it runs only the slices the port covers:
 native sketching of FASTA/FASTQ inputs, then (with --cmpout) the
-`--fastcmp 0.5 --bbit-sigs` SIMILARITY all-pairs matrix, emitted as
+`--fastcmp 0.5` SIMILARITY all-pairs matrix over nibble registers, b-bit
+(`--bbit-sigs`) or SetSketch a/b quantised (without it), emitted as
 binary f32, PHYLIP or the symmetric TSV. Every other option is rejected
 with an error naming it. `--device` (default cuda) picks where the
 comparison runs; a CUDA request without a card exits non-zero and never
@@ -312,9 +313,8 @@ def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
     slice)."""
     errs = [flag for dest, flag in _OUTSIDE_SLICE.items()
             if getattr(a, dest) != p.get_default(dest)]
-    if opts.outfile_path and not (opts.fd_level == 0.5
-                                  and opts.truncation_method > 0):
-        errs.append("comparisons other than --fastcmp 0.5 --bbit-sigs")
+    if opts.outfile_path and opts.fd_level != 0.5:
+        errs.append("comparisons other than --fastcmp 0.5")
     return errs
 
 

@@ -1,16 +1,22 @@
 """Comparison core: densify -> compress -> all-pairs counts -> similarity.
 
-Port of dashing2_tpu/cmp/core.py for the `--fastcmp 0.5 --bbit-sigs`
-self-pairs route:
+Port of dashing2_tpu/cmp/core.py for the `--fastcmp 0.5` self-pairs
+routes, SIMILARITY only:
 
-* `make_compressed` (b-bit nibble branch), `_prep` and `_representation`
-  are numpy copies;
-* `sim_table` is `_sim_table` built in torch on the job's device, bit for
-  bit the JAX package's table;
-* `pairwise_matrix` is the counts-pull branch of the JAX function: the
-  CUDA kernel of ops/nibble_tri.py gives (n, n) u16 eq counts on the
-  device, they cross to the host in one copy, and each emitted block is
-  the (m+1)-entry similarity table gathered at its counts.
+* `make_compressed` (both nibble branches: b-bit truncation with
+  --bbit-sigs, SetSketch a/b quantisation without), `_prep`,
+  `_representation` and `_gb_args` are numpy copies;
+* nibble-bbit: `sim_table` is `_sim_table` built in torch on the job's
+  device, bit for bit the JAX package's table. The CUDA kernel of
+  ops/nibble_tri.py gives (n, n) u16 eq counts on the device, they cross
+  to the host in one copy, and each emitted block is the (m+1)-entry
+  table gathered at its counts (the JAX counts-pull branch);
+* nibble-ab: the CUDA kernel of ops/nibble_comb.py gives (n, n) u16 eq
+  and gt counts on the device, the a/b epilogue
+  (estimators.compressed_ab_measures32) runs on the device per emitted
+  row block, and the f32 block crosses to the host. The value depends on
+  two counts, so no (m+1) table serves it (the JAX package keeps 'ab'
+  kinds off its counts pull for the same reason).
 
 The JAX package packs the pulled counts into 3-byte pairs
 (`_pack_tri_counts_fn`, `_unpack_tri_f32`) because its device sat behind
@@ -35,6 +41,7 @@ from ..config import Dashing2DistOptions
 from ..device import resolve, synchronize
 from ..enums import KmerSketchResultType, Measure, SketchSpace
 from ..ops import sketch_kernels as SK
+from ..ops.nibble_comb import tri_comb_counts
 from ..ops.nibble_tri import tri_eq_counts
 from ..result import SketchingResult
 from ..timing import span
@@ -44,12 +51,22 @@ from . import estimators as E
 # whose whole (n, n) count matrix the self-pairs route holds at once
 SELF_MAX = 16384
 
+# the JAX package's jitted self-pairs route takes 64 <= n
+# (pairwise_matrix l.2364); below it its generic row-block route runs the
+# numpy a/b epilogue, whose bits differ (estimators.compressed_ab_measures32)
+FUSED_MIN_N = 64
+
+# SetSketch q for nibble registers (cmp_core.cpp:248; the 0.5 entry of
+# the JAX package's _QLUT, the one width the port quantises)
+_Q_NIBBLE = 15.4
+
 
 @dataclasses.dataclass
 class CompressedReps:
-    """dashing2_tpu/cmp/core.py::CompressedReps without the a/b
-    quantization parameters, which only the a/b kinds read."""
+    """dashing2_tpu/cmp/core.py::CompressedReps."""
     data: Optional[np.ndarray]   # (N, m/2) packed nibbles
+    a: float = -1.0              # SetSketch a/b (a/b-quantised kinds)
+    b: float = -1.0
     truncation: int = 0
     nibble_packed: bool = False
 
@@ -58,22 +75,49 @@ def creps_from_reference(creps) -> CompressedReps:
     """Copy a dashing2_tpu.cmp.core.CompressedReps into the port's."""
     return CompressedReps(
         data=None if creps.data is None else np.array(creps.data, copy=True),
+        a=float(creps.a), b=float(creps.b),
         truncation=int(creps.truncation),
         nibble_packed=bool(creps.nibble_packed))
 
 
 def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
                     kmers: Optional[np.ndarray]) -> CompressedReps:
-    """b-bit truncation of f64 signatures to packed nibbles
-    (cmp_core.cpp:293-320, --fastcmp 0.5 --bbit-sigs): the low 4 bits of
-    each register's reg2sig hash, two registers per byte, the even
-    register in the low nibble."""
-    if not (opts.fd_level == 0.5 and opts.truncation_method > 0
-            and not opts.sketch_compressed_set
+    """f64 signatures -> packed nibbles, two registers per byte, the even
+    register in the low nibble (cmp_core.cpp:209-322, --fastcmp 0.5):
+
+    * without --bbit-sigs, SetSketch a/b quantisation: (b, a) calibrated
+      over every live register of the job (optimal_parameters, q = 15.4),
+      then v = clip(floor(1 - log(sig/a)/log b), 0, 16). A register whose
+      v is 16 spills into its neighbour's nibble, as in the JAX package;
+    * with --bbit-sigs, b-bit truncation: the low 4 bits of each
+      register's reg2sig hash."""
+    if not (opts.fd_level == 0.5 and not opts.sketch_compressed_set
             and opts.sspace != SketchSpace.SPACE_EDIT_DISTANCE):
         raise NotImplementedError(
-            "only --fastcmp 0.5 --bbit-sigs registers are ported "
-            "(ROADMAP Queue 1 items 4-5)")
+            "only --fastcmp 0.5 registers are ported (ROADMAP Queue 1 "
+            "items 4-5)")
+    if opts.truncation_method <= 0:
+        q = _Q_NIBBLE
+        a, b = opts.compressed_a, opts.compressed_b
+        if a <= 0 or b <= 0:
+            flat = sigs.reshape(-1)
+            live = (flat > 0) & (flat != np.finfo(np.float64).max)
+            if not live.any():
+                raise ValueError("no live registers to calibrate a/b")
+            minreg = float(flat[live].min())
+            maxreg = float(flat[live].max())
+            b, a = E.optimal_parameters(minreg, maxreg, q)
+        if a == 0.0 or np.isinf(b):
+            bb = dataclasses.replace(opts, truncation_method=1)
+            return make_compressed(bb, sigs, kmers)
+        logbinv = 1.0 / np.log1p(b - 1.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            sub = 1.0 - np.log(sigs / a) * logbinv
+        v = np.clip(sub, 0, int(q) + 1).astype(np.int64)
+        flat = v.reshape(-1)
+        packed = (flat[0::2] | (flat[1::2] << 4)).astype(np.uint8)
+        return CompressedReps(packed.reshape(sigs.shape[0], -1), a=a, b=b,
+                              truncation=0, nibble_packed=True)
     if kmers is not None and kmers.size == sigs.size:
         sig64 = H.wanghash(kmers.astype(np.uint64))
     else:
@@ -119,13 +163,19 @@ def _prep(opts: Dashing2DistOptions, result: SketchingResult
 
 def _representation(opts: Dashing2DistOptions, result: SketchingResult,
                     creps: CompressedReps):
-    """(kind, data) for the count engines; the slice has one kind."""
-    if creps.data is None or not (creps.nibble_packed
-                                  and creps.truncation > 0):
+    """(kind, data) for the count engines: packed nibbles only."""
+    if creps.data is None or not creps.nibble_packed:
         raise NotImplementedError(
-            "only nibble-bbit registers are ported (ROADMAP Queue 1 "
-            "items 4-5)")
-    return "nibble-bbit", creps.data
+            "only nibble registers are ported (ROADMAP Queue 1 items 4-5)")
+    return ("nibble-bbit" if creps.truncation > 0 else "nibble-ab"), \
+        creps.data
+
+
+def _gb_args(b: float, m: int):
+    """(bit-product table, 1/(1-1/b)) for the f32 nibble a/b epilogue
+    (estimators.gb_bit_table)."""
+    return (E.gb_bit_table(b, m),
+            np.float32(1.0 / (1.0 - 1.0 / np.float64(b))))
 
 
 def sim_table(kind: str, m: int, fd: float, device="cpu") -> torch.Tensor:
@@ -184,7 +234,7 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
     rows of a symmetric all-pairs job, computed on `device`.
 
     upper_only=True (symmetric/PHYLIP emitters): only the upper trapezoid
-    [:, start:] of each block is gathered; the lower-left is zeros, which
+    [:, start:] of each block is computed; the lower-left is zeros, which
     those emitters never read."""
     dev = resolve(device)
     if block <= 0:
@@ -194,6 +244,9 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
     with span("cmp/prep"):
         creps, result = _prep(opts, result)
         kind, data = _representation(opts, result, creps)
+    if kind == "nibble-ab":
+        yield from _nibble_ab_blocks(opts, creps, n, block, upper_only, dev)
+        return
     m = opts.sketchsize
     with span("cmp/table"):
         table = sim_table(kind, m, opts.fd_level, dev).cpu().numpy()
@@ -214,3 +267,37 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
             else:
                 blk = table[counts[start:start + b]]
         yield start, blk
+
+
+def _nibble_ab_blocks(opts: Dashing2DistOptions, creps: CompressedReps,
+                      n: int, block: int, upper_only: bool,
+                      dev: torch.device) -> Iterator[Tuple[int, np.ndarray]]:
+    """nibble-ab rows of pairwise_matrix: (eq, gt) counts on `dev` in one
+    kernel launch, then per row block the a/b epilogue on `dev` over
+    (gt, lt = m - eq - gt) and one f32 copy to the host. Item i of a pair
+    is the row, so gt[i, j] is the epilogue's multiplied operand, as in
+    the JAX package; its epilogue's bits depend on n (FUSED_MIN_N, see
+    estimators.compressed_ab_measures32)."""
+    m = opts.sketchsize
+    with span("cmp/prep"):
+        bf = max(creps.b, 1.0 + 1e-9)
+        table, gbinv = _gb_args(bf, m)
+    with span("cmp/h2d"):
+        packed = torch.from_numpy(np.ascontiguousarray(creps.data)).to(dev)
+    with span("cmp/kernel"):
+        eq, gt = tri_comb_counts(packed, m)
+        synchronize(dev)
+    del packed
+    for start in range(0, n, block):
+        b = min(block, n - start)
+        c0 = start if upper_only else 0
+        with span("cmp/epilogue"):
+            g = gt[start:start + b, c0:].to(torch.int32)
+            lt = m - eq[start:start + b, c0:].to(torch.int32) - g
+            vals = E.compressed_ab_measures32(
+                g, lt, m, bf, opts.fd_level, opts.measure, table, gbinv,
+                fused=n >= FUSED_MIN_N)
+            synchronize(dev)
+        with span("cmp/d2h"):
+            blk = vals.cpu().numpy()
+        yield start, (_expand_upper(blk, start, n) if upper_only else blk)

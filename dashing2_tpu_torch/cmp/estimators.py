@@ -1,11 +1,20 @@
 """Similarity estimators on integer register-count tensors, in torch.
 
-Port of dashing2_tpu/cmp/estimators.py::bbit_measures32 for
-Measure.SIMILARITY, the one measure the slice emits. The other measures
-divide by per-pair cardinalities and are ROADMAP Queue 1 item 4.
+Port of dashing2_tpu/cmp/estimators.py for Measure.SIMILARITY, the one
+measure the port emits:
+
+* `bbit_measures32` for b-bit registers (eq counts);
+* `compressed_ab_measures32` for SetSketch a/b-quantised nibbles (gt and
+  lt counts), with the host numpy constants it needs
+  (`optimal_parameters`, `gb_bit_table`, `_pow_b_neg32`).
+
+The other measures divide by per-pair cardinalities and are ROADMAP
+Queue 1 item 4.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -40,3 +49,99 @@ def bbit_measures32(eqc: torch.Tensor, m: int, fd_level: float,
         return torch.tensor(x, dtype=torch.float32, device=dev)
     num = eqc.to(torch.float32) * f32(float(1 << bits)) - f32(float(m))
     return torch.maximum(f32(0.0), num * f32(recip))
+
+
+def optimal_parameters(minreg: float, maxreg: float, q: float
+                       ) -> Tuple[float, float]:
+    """SetSketch (b, a) for a register value range (setsketch.cpp:7-10):
+    b = exp(log(max/min)/q), a = max/b."""
+    if maxreg < minreg:
+        minreg, maxreg = maxreg, minreg
+    b = float(np.exp(np.log(maxreg / minreg) / q))
+    a = maxreg / b
+    return b, a
+
+
+def gb_bit_table(b: float, m: int) -> np.ndarray:
+    """(2, nbits) f32 constants of the bit-selected g_b power: row 0 holds
+    c_k = b^(-2^k / m), row 1 the complements 1 - c_k; computed in f64
+    on the host and rounded once to f32."""
+    nbits = max(1, int(m).bit_length())
+    pows = np.array([np.power(np.float64(b), -(float(1 << k) / m))
+                     for k in range(nbits)], dtype=np.float64)
+    return np.stack([pows.astype(np.float32),
+                     (1.0 - pows).astype(np.float32)])
+
+
+def _pow_b_neg32(counts: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """b^(-c/m) for integer counts as the f32 bit-product of row 0 of
+    gb_bit_table, multiplied in ascending bit order."""
+    c = counts.astype(np.int32)
+    r = np.full(c.shape, np.float32(1.0), dtype=np.float32)
+    one = np.float32(1.0)
+    row = table[0]
+    for k in range(table.shape[-1]):
+        bit = ((c >> k) & 1).astype(bool)
+        r = r * np.where(bit, row[k], one)
+    return r
+
+
+def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
+                             b: float, fd_level: float, measure: Measure,
+                             table: np.ndarray = None,
+                             gbinv: np.float32 = None,
+                             fused: bool = True) -> torch.Tensor:
+    """f32 a/b SetSketch similarity of integer (gt, lt) counts with the
+    JAX package's bits (its product form, gb_form='product'). The JAX
+    source writes
+
+        alpha = u[gt] * gbinv,  beta = u[lt] * gbinv,  ab = alpha + beta
+        sim = max(0, 1 - ab),   u[c] = 1 - b^(-c/m) (f32 bit-product)
+
+    and its docstring calls the form FMA-immune. It is not, and which
+    bits come out depends on the JAX route:
+
+    * fused=True, the jitted self-pairs route (64 <= n): XLA contracts
+      the sum into one fused multiply-add, fma(u[gt], gbinv, beta), so
+      u[gt] * gbinv is never rounded and the value is NOT symmetric in
+      (gt, lt) in its last bit. The port computes
+      ab = f32(f64(u[gt]) * f64(gbinv) + f64(beta)): the product of two
+      f32 values is exact in f64, the sum is rounded to f64 and then to
+      f32, and over every (gt, lt) in [0, m]^2 that equals the JAX
+      package's bits (tests/test_torch_ab_epilogue.py). The caller passes
+      gt for the row item (the multiplied operand) and lt = the column
+      item's gt (the addend).
+    * fused=False, the JAX package's numpy epilogue (the generic
+      row-block route, n < 64): alpha and beta are each rounded to f32
+      and then added, symmetric in (gt, lt).
+
+    Eager torch never contracts, so the same code gives the same bits on
+    the CPU and on the card. `table` and `gbinv` default to
+    gb_bit_table(b, m) and f32(1 / (1 - 1/b)), as cmp/core.py::_gb_args
+    builds them."""
+    if measure != Measure.SIMILARITY:
+        raise NotImplementedError(
+            f"{measure.name} on a/b registers is not ported "
+            "(ROADMAP Queue 1 item 4)")
+    if fd_level >= 8.0:
+        raise NotImplementedError(
+            "full-width a/b registers are not ported (ROADMAP Queue 1 "
+            "item 5)")
+    if table is None:
+        table = gb_bit_table(b, m)
+        gbinv = np.float32(1.0 / (1.0 - 1.0 / np.float64(b)))
+    # (m+1,) f32 tables over every count, each step one f32 rounding as
+    # in the JAX graph: u[c] = 1 - b^(-c/m), B[c] = u[c] * gbinv
+    u = np.float32(1.0) - _pow_b_neg32(np.arange(m + 1), table)
+    B = (u * np.float32(gbinv)).astype(np.float32)
+    dev = gtc.device
+    if fused:
+        u64 = torch.from_numpy(u.astype(np.float64)).to(dev)
+        b64 = torch.from_numpy(B.astype(np.float64)).to(dev)
+        g64 = torch.tensor(float(gbinv), dtype=torch.float64, device=dev)
+        ab = (u64[gtc.long()] * g64 + b64[ltc.long()]).to(torch.float32)
+    else:
+        b32 = torch.from_numpy(B).to(dev)
+        ab = b32[gtc.long()] + b32[ltc.long()]
+    return torch.clamp_min(torch.tensor(1.0, dtype=torch.float32,
+                                        device=dev) - ab, 0.0)

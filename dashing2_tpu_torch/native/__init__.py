@@ -20,11 +20,14 @@ import ctypes
 import hashlib
 import os
 import re
+import shutil
 import subprocess
 import threading
 from typing import Callable, Dict, List, Sequence
 
 _lock = threading.Lock()
+# one lock per library, so that different libraries build in parallel
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # the last build's compiler output per library name (nvcc -Xptxas -v
 # reports registers and spills there); read by chip_smoke.py
@@ -76,8 +79,11 @@ def build_shared(name: str, sources: Sequence[str],
                  tag_extra: str = "") -> ctypes.CDLL:
     """Compile `sources` (once per content hash) with `command(out_path)`
     and load the result. Raises OSError or CalledProcessError (with the
-    compiler's output) when the build fails."""
+    compiler's output) when the build fails. Different libraries may be
+    built from different threads at once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         probe = command("OUT")
@@ -103,6 +109,26 @@ def _gxx(src: str, link: Sequence[str], cflags: Sequence[str]):
     def cmd(out: str) -> List[str]:
         return (["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
                  "-o", out] + list(cflags) + list(link))
+    return cmd
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) \
+        + [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise FileNotFoundError("nvcc not found (set CUDA_HOME)")
+
+
+def nvcc_command(src: str) -> Callable[[str], List[str]]:
+    """build_shared command for one CUDA source with a plain C interface:
+    sm_90a, and ptxas' register/spill report kept in build_logs."""
+    def cmd(out: str) -> List[str]:
+        return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", out, src]
     return cmd
 
 

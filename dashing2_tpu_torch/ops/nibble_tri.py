@@ -17,8 +17,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-from typing import List
 
 import torch
 
@@ -35,7 +33,7 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _check(packed: torch.Tensor, m: int) -> None:
+def check_packed(packed: torch.Tensor, m: int) -> None:
     if packed.dtype != torch.uint8:
         raise TypeError(f"packed registers must be uint8, got {packed.dtype}")
     if packed.dim() != 2 or packed.shape[0] < 1:
@@ -59,7 +57,7 @@ def tri_eq_counts_plain(packed: torch.Tensor, m: int) -> torch.Tensor:
     partial sum is an integer <= m < 2^24. It turns
     `torch.backends.cuda.matmul.allow_tf32` off for its duration (and
     restores it), so the products on the card run in full f32."""
-    _check(packed, m)
+    check_packed(packed, m)
     n = packed.shape[0]
     dev = packed.device
     regs = torch.cat([packed & 0xF, packed >> 4], dim=1)      # (n, m)
@@ -77,27 +75,11 @@ def tri_eq_counts_plain(packed: torch.Tensor, m: int) -> torch.Tensor:
     return eq.to(torch.int32).to(torch.uint16)
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) \
-        + [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise FileNotFoundError("nvcc not found (set CUDA_HOME)")
-
-
-def _nvcc_cmd(out: str) -> List[str]:
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", out, SOURCE]
-
-
 def load_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load csrc/tri_eq.cu; raises when
     nvcc is missing or the build fails."""
-    from ..native import build_shared
-    lib = build_shared("tri_eq", [SOURCE], _nvcc_cmd)
+    from ..native import build_shared, nvcc_command
+    lib = build_shared("tri_eq", [SOURCE], nvcc_command(SOURCE))
     if not getattr(lib, "_sigs_set", False):
         lib.tri_eq_counts_u16.restype = ctypes.c_int
         lib.tri_eq_counts_u16.argtypes = [
@@ -107,9 +89,9 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
-def _words(packed: torch.Tensor) -> torch.Tensor:
+def packed_words(packed: torch.Tensor) -> torch.Tensor:
     """Rows padded with zero bytes to whole u32 words (zero pad nibbles
-    never count as mismatches), 4-byte aligned."""
+    are never unequal or greater), 4-byte aligned."""
     mb = packed.shape[1]
     wb = -(-mb // 4) * 4
     if wb != mb or packed.data_ptr() % 4:
@@ -125,14 +107,14 @@ def tri_eq_counts(packed: torch.Tensor, m: int) -> torch.Tensor:
     tensor's device: the CUDA kernel for a CUDA tensor (asynchronous, on
     the current stream), the plain version for a CPU tensor."""
     global launches
-    _check(packed, m)
+    check_packed(packed, m)
     if packed.device.type == "cpu":
         return tri_eq_counts_plain(packed, m)
     if packed.device.type != "cuda":
         raise ValueError(f"no tri_eq_counts for device {packed.device}")
     lib = load_kernel()
     n = packed.shape[0]
-    words = _words(packed)
+    words = packed_words(packed)
     out = torch.empty((n, n), dtype=torch.uint16, device=packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream

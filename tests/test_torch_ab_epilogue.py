@@ -1,0 +1,148 @@
+"""Port parity: the nibble a/b epilogue and its constants, bit for bit.
+
+The port's `compressed_ab_measures32` (torch) must give the JAX package's
+f32 bits on every count pair (gt, lt) in [0, m]^2, with b calibrated by
+`optimal_parameters` on a real job's sketches:
+
+* fused=True against the JAX function jitted, as the JAX self-pairs
+  route runs it (XLA contracts its sum into one fma);
+* fused=False against the JAX function on numpy, as the JAX row-block
+  route runs it for n < 64.
+
+The host constants (`optimal_parameters`, `gb_bit_table`, `_gb_args`)
+and `make_compressed`'s a/b registers (data, a, b) must equal the JAX
+package's. Tolerance zero everywhere (f32 compared as u32 patterns).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dashing2_tpu.cmp import core as JC
+from dashing2_tpu.cmp import estimators as JE
+from dashing2_tpu.config import Dashing2DistOptions as JOptions
+from dashing2_tpu.enums import Measure as JMeasure
+from dashing2_tpu.sketch.core import sketch_fastx as jax_sketch_fastx
+from dashing2_tpu_torch.cmp import core as PC
+from dashing2_tpu_torch.cmp import estimators as PE
+from dashing2_tpu_torch.config import Dashing2DistOptions
+from dashing2_tpu_torch.enums import Measure
+from dashing2_tpu_torch.io.corpus import write_corpus
+from dashing2_tpu_torch.result import from_reference
+from dashing2_tpu_torch.sketch.core import sketch_fastx
+
+
+@pytest.fixture(scope="module")
+def paths(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ab_job")
+    return write_corpus(str(d / "fa"), seed=404, n_ancestors=8,
+                        n_mutants=10, length=3000)
+
+
+def _ab_opts(m: int, cls=Dashing2DistOptions):
+    return cls(k=31, sketchsize=m, fd_level=0.5)
+
+
+@pytest.fixture(scope="module")
+def job_b(paths):
+    """m -> the b that make_compressed calibrates on the job's sketches."""
+    out = {}
+    for m in (64, 128, 1024):
+        creps, _ = PC._prep(_ab_opts(m), sketch_fastx(_ab_opts(m), paths))
+        out[m] = creps.b
+    return out
+
+
+def _all_pairs(m: int):
+    c = np.arange(m + 1, dtype=np.int32)
+    return np.meshgrid(c, c, indexing="ij")
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("m", [64, 128, 1024])
+def test_fused_epilogue_bits_equal_jitted_jax(job_b, m):
+    b = max(job_b[m], 1.0 + 1e-9)
+    assert 1.01 < b < 10.0
+    table, gbinv = PC._gb_args(b, m)
+    gt, lt = _all_pairs(m)
+    one = jnp.ones((1, 1), jnp.float64)
+    want = jax.jit(lambda g, l, t, gi: JE.compressed_ab_measures32(
+        g, l, m, b, 0.5, one, one, JMeasure.SIMILARITY, 31, xp=jnp,
+        table=t, gbinv=gi, gb_form="product"))(
+            jnp.asarray(gt), jnp.asarray(lt), table, gbinv)
+    got = PE.compressed_ab_measures32(
+        torch.from_numpy(gt), torch.from_numpy(lt), m, b, 0.5,
+        Measure.SIMILARITY, table, gbinv)
+    assert got.dtype == torch.float32 and got.shape == gt.shape
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("m", [64, 128, 1024])
+def test_numpy_form_epilogue_bits_equal_jax_numpy(job_b, m):
+    b = max(job_b[m], 1.0 + 1e-9)
+    gt, lt = _all_pairs(m)
+    want = JE.compressed_ab_measures32(gt, lt, m, b, 0.5, 1.0, 1.0,
+                                       JMeasure.SIMILARITY, 31)
+    got = PE.compressed_ab_measures32(
+        torch.from_numpy(gt), torch.from_numpy(lt), m, b, 0.5,
+        Measure.SIMILARITY, fused=False)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_fused_form_is_not_symmetric():
+    """The contracted sum rounds differently when (gt, lt) swap: a
+    'compute one triangle, mirror it' epilogue would break parity."""
+    m = 1024
+    gt, lt = _all_pairs(m)
+    v = PE.compressed_ab_measures32(torch.from_numpy(gt),
+                                    torch.from_numpy(lt), m, 1.0733, 0.5,
+                                    Measure.SIMILARITY).numpy()
+    assert (_bits(v) != _bits(v.T)).any()
+
+
+@pytest.mark.parametrize("lo,hi", [(1e-9, 3e-4), (0.5, 0.25), (2.0, 2.0),
+                                   (1e-300, 1.0)])
+def test_optimal_parameters_equal_jax(lo, hi):
+    assert PE.optimal_parameters(lo, hi, 15.4) == \
+        JE.optimal_parameters(lo, hi, 15.4)
+
+
+@pytest.mark.parametrize("m", [30, 64, 256, 1024, 4096])
+@pytest.mark.parametrize("b", [1.0000001, 1.0571, 1.0733, 2.68])
+def test_gb_tables_equal_jax(m, b):
+    np.testing.assert_array_equal(_bits(PE.gb_bit_table(b, m)),
+                                  _bits(JE.gb_bit_table(b, m)))
+    (pt, pg), (jt, jg) = PC._gb_args(b, m), JC._gb_args(b, m)
+    np.testing.assert_array_equal(_bits(pt), _bits(jt))
+    assert pg.dtype == np.float32 and _bits(pg) == _bits(jg)
+    c = np.arange(m + 1)
+    np.testing.assert_array_equal(_bits(PE._pow_b_neg32(c, pt)),
+                                  _bits(JE._pow_b_neg32(c, jt)))
+
+
+@pytest.mark.parametrize("m", [64, 256])
+def test_make_compressed_ab_equals_jax(paths, m, monkeypatch):
+    monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
+    ref = jax_sketch_fastx(_ab_opts(m, JOptions), paths)
+    jax_creps, _ = JC._prep(_ab_opts(m, JOptions), ref)
+    port_creps, _ = PC._prep(_ab_opts(m), sketch_fastx(_ab_opts(m), paths))
+    carried = PC.creps_from_reference(jax_creps)
+    for c in (port_creps, carried):
+        assert c.nibble_packed and c.truncation == 0
+        assert (c.a, c.b) == (jax_creps.a, jax_creps.b)
+        np.testing.assert_array_equal(c.data, jax_creps.data)
+    assert PC._representation(_ab_opts(m), from_reference(ref),
+                              port_creps)[0] == "nibble-ab"
+
+
+def test_other_measures_are_not_ported():
+    c = torch.arange(5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PE.compressed_ab_measures32(c, c, 4, 1.07, 0.5, Measure.POISSON_LLR)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PE.compressed_ab_measures32(c, c, 4, 1.07, 8.0, Measure.SIMILARITY)

@@ -1,13 +1,23 @@
-"""Port parity for the whole slice: the north-star flags through both
-CLIs, on the CPU.
+"""Port parity for the whole of both slices: the `--fastcmp 0.5` flag
+sets through both CLIs, on the CPU.
 
-`sketch -k 31 -S 256 --fastcmp 0.5 --bbit-sigs` over seeded FASTA runs
-through dashing2_tpu_torch.cli.main(..., "--device", "cpu") and through
+`sketch -k 31 -S 256 --fastcmp 0.5`, with --bbit-sigs (b-bit nibbles)
+and without (SetSketch a/b nibbles), over seeded FASTA runs through
+dashing2_tpu_torch.cli.main(..., "--device", "cpu") and through
 dashing2_tpu.cli.main, on the JAX package's default CPU route and on its
-accelerator route (counts pull + upper trapezoids, one device). The
-output bytes must be equal (tolerance zero). The JAX package's sketches
-also go through `from_reference` into the port's `pairwise_matrix`,
-whose blocks must equal the JAX function's.
+accelerator route (counts pull where the kind allows it + upper
+trapezoids, one device). The output bytes must be equal (tolerance
+zero). The JAX package's sketches also go through `from_reference` into
+the port's `pairwise_matrix`, whose blocks must equal the JAX
+function's.
+
+The port runs on one card, so it is held to the JAX package's
+single-device routes. For a/b nibbles the JAX bytes depend on the device
+count: its multi-device route contracts the epilogue's fused multiply-add
+on the other operand (fma(u[lt], g, B[gt]) where one device gives
+fma(u[gt], g, B[lt]); see dashing2_tpu_torch/cmp/estimators.py), so the
+a/b cases run the JAX package with DASHING2_TPU_MULTICHIP=0 on the test
+suite's 8-device CPU mesh.
 """
 
 import os
@@ -28,6 +38,13 @@ from dashing2_tpu_torch.result import from_reference
 
 NORTH_STAR = ["sketch", "-k", "31", "-S", "256", "--fastcmp", "0.5",
               "--bbit-sigs"]
+# the two --fastcmp 0.5 flag sets: argv, the options they build, and the
+# environment that keeps the JAX package on a single-device route
+FLAGS = {
+    "bbit": (NORTH_STAR, dict(truncation_method=1), {}),
+    "ab": (NORTH_STAR[:-1], dict(truncation_method=0),
+           {"DASHING2_TPU_MULTICHIP": "0"}),
+}
 JAX_ROUTES = {
     "default": {},
     "accelerator": {"DASHING2_TPU_PULL_COUNTS": "force",
@@ -56,13 +73,14 @@ def _read(path):
 
 @pytest.mark.parametrize("route", sorted(JAX_ROUTES))
 @pytest.mark.parametrize("fmt", sorted(FORMATS))
-def test_cli_output_bytes_equal_jax(corpus, fmt, route, tmp_path,
+@pytest.mark.parametrize("flags", sorted(FLAGS))
+def test_cli_output_bytes_equal_jax(corpus, flags, fmt, route, tmp_path,
                                     monkeypatch):
     lst, paths = corpus
     out_port, out_jax = str(tmp_path / "port.out"), str(tmp_path / "jax.out")
-    argv = NORTH_STAR + FORMATS[fmt] + ["-F", lst]
+    argv = FLAGS[flags][0] + FORMATS[fmt] + ["-F", lst]
     assert cli.main(argv + ["--cmpout", out_port, "--device", "cpu"]) == 0
-    for key, val in JAX_ROUTES[route].items():
+    for key, val in {**JAX_ROUTES[route], **FLAGS[flags][2]}.items():
         monkeypatch.setenv(key, val)
     assert jax_cli.main(argv + ["--cmpout", out_jax]) == 0
     got, want = _read(out_port), _read(out_jax)
@@ -85,14 +103,15 @@ def test_sketch_outfile_bytes_equal_jax(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("route", sorted(JAX_ROUTES))
-def test_pairwise_blocks_from_reference_equal_jax(corpus, route,
+@pytest.mark.parametrize("flags", sorted(FLAGS))
+def test_pairwise_blocks_from_reference_equal_jax(corpus, flags, route,
                                                   monkeypatch):
     lst, paths = corpus
-    kw = dict(k=31, sketchsize=256, fd_level=0.5, truncation_method=1)
+    kw = dict(k=31, sketchsize=256, fd_level=0.5, **FLAGS[flags][1])
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
     port_res = from_reference(ref)
-    for key, val in JAX_ROUTES[route].items():
+    for key, val in {**JAX_ROUTES[route], **FLAGS[flags][2]}.items():
         monkeypatch.setenv(key, val)
     got = list(PC.pairwise_matrix(Dashing2DistOptions(**kw), port_res,
                                   block=64, device="cpu"))
@@ -103,17 +122,20 @@ def test_pairwise_blocks_from_reference_equal_jax(corpus, route,
         np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
 
 
-def test_compressed_registers_equal_jax(corpus, monkeypatch):
+@pytest.mark.parametrize("flags", sorted(FLAGS))
+def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
     _, paths = corpus
-    kw = dict(k=31, sketchsize=256, fd_level=0.5, truncation_method=1)
+    kw = dict(k=31, sketchsize=256, fd_level=0.5, **FLAGS[flags][1])
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
     port_creps, _ = PC._prep(Dashing2DistOptions(**kw), from_reference(ref))
     jax_creps, _ = JC._prep(JOptions(**kw), ref)
     carried = PC.creps_from_reference(jax_creps)
     assert carried.nibble_packed and port_creps.nibble_packed
-    np.testing.assert_array_equal(port_creps.data, jax_creps.data)
-    np.testing.assert_array_equal(carried.data, jax_creps.data)
+    for c in (port_creps, carried):
+        np.testing.assert_array_equal(c.data, jax_creps.data)
+        assert (c.a, c.b, c.truncation) == \
+            (jax_creps.a, jax_creps.b, jax_creps.truncation)
 
 
 @pytest.mark.parametrize("extra", [
@@ -131,7 +153,7 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["sketch", "-S", "256", "--fastcmp", "0.5"],        # nibble a/b
+    ["sketch", "-S", "256", "--fastcmp", "2"],          # u16 a/b
     ["sketch", "-S", "256", "--fastcmp", "1", "--bbit-sigs"],
     ["sketch", "-S", "256"],                            # full registers
     ["cmp", "-S", "256", "--fastcmp", "0.5", "--bbit-sigs"],
@@ -150,7 +172,7 @@ def test_pairwise_rejects_routes_outside_the_slice(corpus, monkeypatch):
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
     bad = [Dashing2DistOptions(**kw, measure=Measure.POISSON_LLR),
-           Dashing2DistOptions(k=31, sketchsize=256, fd_level=0.5)]
+           Dashing2DistOptions(k=31, sketchsize=256, fd_level=1.0)]
     for opts in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             next(PC.pairwise_matrix(opts, from_reference(ref),

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA kernel against its plain PyTorch
-version, and the CUDA route of the comparison against the CPU route.
+"""Card-only tests of the port: the CUDA kernels against their plain
+PyTorch versions, and the CUDA routes of the comparison against the CPU
+routes.
 
 Marked `cuda`; each skips without a card. This file imports neither jax
 nor the JAX package, so it also runs where JAX is not installed:
@@ -12,7 +13,10 @@ import pytest
 import torch
 
 from dashing2_tpu_torch.cmp import core as C
+from dashing2_tpu_torch.cmp import estimators as E
 from dashing2_tpu_torch.config import Dashing2DistOptions
+from dashing2_tpu_torch.enums import Measure
+from dashing2_tpu_torch.ops import nibble_comb as NC
 from dashing2_tpu_torch.ops import nibble_tri as NT
 from dashing2_tpu_torch.result import SketchingResult
 
@@ -76,15 +80,61 @@ def test_sim_table_on_card_bits_equal_cpu(card, m):
                                   on_cpu.view(np.uint32))
 
 
+@pytest.mark.parametrize("m", [30, 64, 1024])
+@pytest.mark.parametrize("n", [1, 2, 63, 129, 1025])
+def test_comb_kernel_matches_plain(card, n, m):
+    a = torch.from_numpy(_packed(n, m, seed=2 * n + m)).to(card)
+    before = NC.launches
+    got = NC.tri_comb_counts(a, m)
+    assert NC.launches == before + 1
+    want = NC.tri_comb_counts_plain(a, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint16 and g.device.type == "cuda"
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    if n <= 129:
+        p = _packed(n, m, 2 * n + m)
+        u = np.concatenate([p & 0xF, p >> 4], axis=1)
+        np.testing.assert_array_equal(
+            got[1].cpu().numpy(), (u[:, None, :] > u[None, :, :]).sum(2))
+
+
+def test_comb_kernel_on_unaligned_view(card):
+    base = torch.from_numpy(_packed(65, 64, seed=10)).to(card)
+    flat = torch.cat([torch.zeros(1, dtype=torch.uint8, device=card),
+                      base.reshape(-1)])
+    view = flat[1:].view(65, 32)
+    assert view.data_ptr() % 4
+    got = NC.tri_comb_counts(view, 64)
+    for g, w in zip(got, NC.tri_comb_counts_plain(base, 64)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("m,b", [(64, 2.68), (256, 1.0733), (1024, 3.43)])
+def test_ab_epilogue_on_card_bits_equal_cpu(card, m, b, fused):
+    c = torch.arange(m + 1, dtype=torch.int32)
+    gt, lt = torch.meshgrid(c, c, indexing="ij")
+    on_cpu = E.compressed_ab_measures32(gt, lt, m, b, 0.5,
+                                        Measure.SIMILARITY, fused=fused)
+    on_card = E.compressed_ab_measures32(gt.to(card), lt.to(card), m, b,
+                                         0.5, Measure.SIMILARITY,
+                                         fused=fused).cpu()
+    np.testing.assert_array_equal(on_card.numpy().view(np.uint32),
+                                  on_cpu.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [40, 300])
 @pytest.mark.parametrize("upper_only", [False, True])
-def test_pairwise_matrix_cuda_equals_cpu(card, upper_only):
-    n, m = 300, 256
+@pytest.mark.parametrize("truncation", [1, 0])
+def test_pairwise_matrix_cuda_equals_cpu(card, upper_only, truncation, n):
+    m = 256
     rng = np.random.default_rng(5)
     sigs = rng.random((n, m))
     sigs[7] = sigs[3]
     sigs[11, ::5] = 0.0           # empty registers: densified
     opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5,
-                               truncation_method=1)
+                               truncation_method=truncation)
 
     def run(device):
         res = SketchingResult(names=[f"s{i}" for i in range(n)],

@@ -1,16 +1,20 @@
-"""The committed digest of the slice's output, re-derived on the CPU.
+"""The committed digests of the slices' output, re-derived on the CPU.
 
-tests/goldens/torch_port_bbit_nibble.json holds the SHA-256 of the JAX
-package's `--fastcmp 0.5 --bbit-sigs --binary-output` output over a
-seeded corpus (n=777, -S 256, -k 31, 4 kb genomes; splitmix64 bases, so
-no numpy version changes them). This test ties that digest to the JAX
-package and to the port's plain PyTorch path; chip_smoke.py holds the
-port's CUDA path to the same digest on the card.
+tests/goldens/torch_port_{bbit,ab}_nibble.json hold the SHA-256 of the
+JAX package's `--fastcmp 0.5 [--bbit-sigs] --binary-output` output over
+a seeded corpus (n=777, -S 256, -k 31, 4 kb genomes; splitmix64 bases,
+so no numpy version changes them). These tests tie each digest to the
+JAX package (under the golden's "env", if any) and to the port's plain
+PyTorch path; chip_smoke.py holds the port's CUDA path to the same
+digests on the card. The port also reproduces the JAX package's own
+a/b golden, tests/goldens/fastcmp_nibble.bin (n=6, which the JAX package
+computes on its numpy route).
 """
 
 import hashlib
 import json
 import os
+import sys
 
 import pytest
 
@@ -18,13 +22,14 @@ import dashing2_tpu.cli as jax_cli
 from dashing2_tpu_torch import cli
 from dashing2_tpu_torch.io.corpus import write_corpus
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
-                      "torch_port_bbit_nibble.json")
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDENS = {"bbit": "torch_port_bbit_nibble.json",
+           "ab": "torch_port_ab_nibble.json"}
 
 
-@pytest.fixture(scope="module")
-def golden():
-    with open(GOLDEN) as f:
+@pytest.fixture(scope="module", params=sorted(GOLDENS))
+def golden(request):
+    with open(os.path.join(HERE, "goldens", GOLDENS[request.param])) as f:
         return json.load(f)
 
 
@@ -39,23 +44,42 @@ def workdir(golden, tmp_path_factory):
     return d
 
 
-def _digest(main, argv, workdir, extra=()):
+def _digest(main, argv, workdir, extra=(), out="out.bin"):
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
         assert main(list(argv) + list(extra)) == 0
-        with open("out.bin", "rb") as f:
+        with open(out, "rb") as f:
             data = f.read()
-        os.remove("out.bin")
+        os.remove(out)
     finally:
         os.chdir(cwd)
     return len(data), hashlib.sha256(data).hexdigest()
 
 
 @pytest.mark.parametrize("package", ["jax", "port-cpu"])
-def test_golden_digest(golden, workdir, package):
+def test_golden_digest(golden, workdir, package, monkeypatch):
     if package == "jax":
+        for key, val in golden.get("env", {}).items():
+            monkeypatch.setenv(key, val)
         got = _digest(jax_cli.main, golden["argv"], workdir)
     else:
         got = _digest(cli.main, golden["argv"], workdir, ["--device", "cpu"])
     assert got == (golden["bytes"], golden["sha256"])
+
+
+def test_port_reproduces_jax_fastcmp_nibble_golden(tmp_path):
+    sys.path.insert(0, HERE)
+    try:
+        from golden_configs import CONFIGS, LENGTH, N_GENOMES
+        from make_fixtures import make
+    finally:
+        sys.path.remove(HERE)
+    make(str(tmp_path), n_genomes=N_GENOMES, length=LENGTH, seed=42)
+    args, _ = CONFIGS["fastcmp_nibble.bin"]
+    got = _digest(cli.main, args, tmp_path, ["--device", "cpu"],
+                  out="fastcmp_nibble.bin")
+    with open(os.path.join(HERE, "goldens", "fastcmp_nibble.bin"),
+              "rb") as f:
+        want = f.read()
+    assert got == (len(want), hashlib.sha256(want).hexdigest())

@@ -16,6 +16,7 @@ import sys
 import dashing2_tpu_torch, dashing2_tpu_torch.cli
 import dashing2_tpu_torch.cmp.core, dashing2_tpu_torch.sketch.core
 import dashing2_tpu_torch.io.emitters, dashing2_tpu_torch.ops.nibble_tri
+import dashing2_tpu_torch.ops.nibble_comb, dashing2_tpu_torch.cmp.estimators
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dashing2_tpu."))
              or m == "dashing2_tpu")
