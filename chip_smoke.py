@@ -6,25 +6,32 @@ card (H100), CUDA's nvcc, g++ and zlib:
     python3 chip_smoke.py
 
 It builds every kernel of the port's main paths from the checkout's
-sources and drives both `--fastcmp 0.5` jobs through the port's own CLI.
+sources and drives both `--fastcmp 0.5` jobs and the default
+full-register job (no `--fastcmp`) through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: nvcc for csrc/tri_eq.cu and csrc/tri_comb.cu (sm_90a) and g++
-   for the native sketcher and formatter, all started together; build
-   seconds and ptxas' register/spill report;
+2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu and csrc/gtlt.cu
+   (sm_90a) and g++ for the native sketcher and formatter, all started
+   together; build seconds and ptxas' register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
    1000, 1025, 4097} and m in {64, 256, 1024}, and of `tri_comb_counts`
    and `tri_comb_counts_plain` (eq and gt) for the same n and m in
    {30, 64, 256, 1024}, with planted identical, all-0x00 and all-0xFF
-   rows; the similarity table built on the card must equal the CPU-built
-   table bit for bit;
+   rows; of `gtlt_self_counts` and `gtlt_self_counts_plain`, and of
+   `gtlt_counts` and `gtlt_counts_plain` (gt and lt, against a second
+   matrix and on the row-block route's row slices), for the same n and
+   m, with u64 registers of which about half have the top bit set and
+   planted identical rows, equal registers, all-zero and all-ones rows;
+   the similarity tables (b-bit, and full in both forms) built on the
+   card must equal the CPU-built tables bit for bit;
 4. golden digests: the port's CLI on the card over the seeded n=777
    corpus must reproduce the SHA-256s in
-   tests/goldens/torch_port_{bbit,ab}_nibble.json, which CPU tests tie
-   to the JAX package's output;
+   tests/goldens/torch_port_{bbit,ab}_nibble.json and
+   torch_port_full.json, which CPU tests tie to the JAX package's
+   output;
 5. b-bit main path at full size: N = 10240 genomes, 512 ancestors x 20
    mutants at 0.5-5% divergence, through
    `sketch -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs --binary-output
@@ -40,17 +47,32 @@ no card, or when the port is not importable:
    equal the plain version's, that the card's a/b epilogue equals the
    CPU's bit for bit on every (gt, lt) in [0, m]^2 at the job's b, and
    that every emitted value is the CPU epilogue at the plain counts.
-   Prints the wall, unique pairs/s and the spans.
+   Prints the wall, unique pairs/s and the spans;
+7. default full-register job at full size: the same corpus through
+   `sketch -k 31 -S 1024 --binary-output --cmpout out.bin -F list.txt`
+   (self-pairs route, `gtlt_self_counts`). Checks the output size, that
+   the gtlt_self launch counter moved during the run, that the kernel's
+   full (N, N) counts equal the plain version's, and that every emitted
+   value is the table at the plain counts. Prints the wall, unique
+   pairs/s, the spans and the kernel's and plain version's times;
+8. row-block job above SELF_MAX: N = 20480 genomes, 1024 ancestors x 20
+   mutants, through the same argv (row-block route, one `gtlt_counts`
+   launch per 4096-row block). Checks the output size, that the gtlt
+   launch counter moved once per row block and gtlt_self not at all, and
+   that every emitted value is the CPU epilogue at the plain version's
+   counts, 1024 rows at a time. Times `gtlt_counts` on one full-width
+   block (4096 x 20480) against its plain version.
 
 Each main path runs with every launch counter set to 0 just before its
-CLI call and read just after it.
+CLI call and read just after it. Each phase prints its wall.
 
-Reduction: the north-star job uses 50 kb genomes; this one uses 20 kb.
-The comparison's work depends only on N and m, 20 kb genomes still carry
-about 20k distinct 31-mers (more than 5 m, so every register fills and
-the job stays out of the OPH small-input regime), and it cuts the
-generated FASTA from about 520 MB to about 205 MB. The corpus is written
-once and read by both main paths.
+Reductions: the north-star job uses 50 kb genomes; phases 5-7 use 20 kb
+and phase 8 10 kb. The comparison's work depends only on N and m; 20 kb
+genomes still carry about 20k distinct 31-mers and 10 kb genomes about
+10k (both more than m = 1024, so every register fills and the jobs stay
+out of the OPH small-input regime). The cuts only shorten sketching and
+the generated FASTA: about 205 MB for phases 5-7 (written once, read by
+all three) and 205 MB for phase 8, against 520 MB and 1 GB at 50 kb.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -69,6 +91,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 NORTH_STAR_N, NS_ANCESTORS, NS_MUTANTS, NS_LENGTH = 10240, 512, 20, 20000
 NS_SEED = 11
+ROWS_N, ROWS_ANCESTORS, ROWS_MUTANTS, ROWS_LENGTH = 20480, 1024, 20, 10000
+ROWS_SEED = 12
+# item counts of the kernel-vs-plain phase: tile edges and ragged tails
+KERNEL_SIZES = (1, 2, 63, 129, 1000, 1025, 4097)
 
 
 def _say(msg: str) -> None:
@@ -103,10 +129,11 @@ def phase_device():
 
 def phase_build():
     from dashing2_tpu_torch import native
+    from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
-              "ophsketch": native.load_oph_lib,
+              "gtlt": G.load_kernel, "ophsketch": native.load_oph_lib,
               "emitfmt": native.load_emit_lib}
 
     def timed(fn):
@@ -117,9 +144,9 @@ def phase_build():
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {name: pool.submit(timed, fn) for name, fn in builds.items()}
         secs = {name: f.result() for name, f in futs.items()}
-    _say(f"[build] all four in {time.perf_counter() - t0:.3f} s, in "
+    _say(f"[build] all {len(builds)} in {time.perf_counter() - t0:.3f} s, in "
          "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
-    for name in ("tri_eq", "tri_comb"):
+    for name in ("tri_eq", "tri_comb", "gtlt"):
         for ln in native.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 _say(f"[build] ptxas {name}: {ln.strip()}")
@@ -144,11 +171,10 @@ def phase_kernel_vs_plain():
     from dashing2_tpu_torch.cmp.core import sim_table
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
-    sizes = (1, 2, 63, 129, 1000, 1025, 4097)
     rng = np.random.default_rng(2026)
     worst_eq = 0
     for m in (64, 256, 1024):
-        for n in sizes:
+        for n in KERNEL_SIZES:
             a = torch.from_numpy(_planted(rng, n, m)).cuda()
             got = NT.tri_eq_counts(a, m).to(torch.int32)
             want = NT.tri_eq_counts_plain(a, m).to(torch.int32)
@@ -166,7 +192,7 @@ def phase_kernel_vs_plain():
     rng = np.random.default_rng(2027)
     worst_comb = 0
     for m in (30, 64, 256, 1024):
-        for n in sizes:
+        for n in KERNEL_SIZES:
             a = torch.from_numpy(_planted(rng, n, m)).cuda()
             got = NC.tri_comb_counts(a, m)
             want = NC.tri_comb_counts_plain(a, m)
@@ -180,6 +206,65 @@ def phase_kernel_vs_plain():
     _say("[kernel] tri_comb_counts == plain (exact u16 eq and gt) at n in "
          "{1, 2, 63, 129, 1000, 1025, 4097} x m in {30, 64, 256, 1024}")
     return worst_eq, worst_comb
+
+
+def _planted_u64(rng, n: int, m: int):
+    """(n, m) u64 registers as int64, about half with the top bit set,
+    with identical rows, equal registers, all-zero and all-ones rows."""
+    import numpy as np
+    a = rng.integers(0, 1 << 64, size=(n, m), dtype=np.uint64)
+    if n >= 2:
+        a[n - 1] = a[0]
+        a[1, ::3] = a[0, ::3]
+    if n >= 4:
+        a[2] = 0
+        a[3] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    if n >= 64:
+        a[60:63] = a[5]
+    return a.view(np.int64)
+
+
+def _max_err(got, want) -> int:
+    import torch
+    return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+
+def phase_gtlt_vs_plain():
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp.core import sim_table
+    from dashing2_tpu_torch.ops import gtlt as G
+    rng = np.random.default_rng(2028)
+    worst_self = worst_rect = 0
+    for m in (30, 64, 256, 1024):
+        for n in KERNEL_SIZES:
+            a = torch.from_numpy(_planted_u64(rng, n, m)).cuda()
+            b = torch.from_numpy(_planted_u64(rng, n // 2 + 1, m)).cuda()
+            got = G.gtlt_self_counts(a)
+            err = _max_err(got, G.gtlt_self_counts_plain(a))
+            assert err == 0, f"gtlt_self != plain at n={n} m={m}: {err}"
+            assert int(got.diagonal().to(torch.int32).max()) == 0
+            worst_self = max(worst_self, err)
+            # against a second matrix, and the row-block route's slices
+            s = n // 3
+            for x, y in ((a, b), (a[s:s + 64], a[s:])):
+                for g, w in zip(G.gtlt_counts(x, y),
+                                G.gtlt_counts_plain(x, y)):
+                    err = _max_err(g, w)
+                    assert err == 0, f"gtlt != plain at n={n} m={m}: {err}"
+                    worst_rect = max(worst_rect, err)
+            torch.cuda.synchronize()
+    _say("[kernel] gtlt_self_counts == plain and gtlt_counts == plain (gt "
+         "and lt; against a second matrix and on row slices) exactly at n "
+         "in {1, 2, 63, 129, 1000, 1025, 4097} x m in {30, 64, 256, 1024}")
+    for m in (30, 200, 1024):
+        for fused in (True, False):
+            tc = sim_table("full", m, 8.0, "cuda", fused).cpu().numpy()
+            th = sim_table("full", m, 8.0, "cpu", fused).numpy()
+            assert np.array_equal(tc.view(np.uint32), th.view(np.uint32)), m
+    _say("[kernel] card-built full sim tables (fused and numpy forms) == "
+         "CPU tables bit for bit at m in {30, 200, 1024}")
+    return worst_self, worst_rect
 
 
 def _corpus(name: str, seed: int, n_anc: int, n_mut: int, length: int,
@@ -391,35 +476,174 @@ def phase_main_ab(lst: str, sketches, counters):
     return launches["tri_comb"], err, kernel_ms, plain_ms
 
 
+FULL_SPANS = ("sketch", "sketch/native-files", "sketch/finalize",
+              "compare+emit", "cmp/prep", "cmp/table", "cmp/h2d",
+              "cmp/kernel", "cmp/epilogue", "cmp/d2h", "emit/write")
+
+
+def _full_regs(sketches, m: int):
+    """The job's ordered u64 registers on the card (int64 bit patterns),
+    from the sketches the CLI run made again."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    opts = Dashing2DistOptions(k=31, sketchsize=m)
+    C._prep(opts, sketches)
+    bits = C._ordered_cached(opts, sketches)
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int64)).cuda()
+
+
+def phase_main_full(lst: str, sketches, counters):
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.ops import gtlt as G
+
+    n, m = NORTH_STAR_N, 1024
+    out = os.path.join(WORK, "northstar", "out_full.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--binary-output",
+            "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli("full", argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    assert launches["gtlt_self"] >= 1, "the full path never launched gtlt_self"
+    _say_spans("full", spans, FULL_SPANS)
+
+    regs = _full_regs(sketches, m)
+    G.gtlt_self_counts(regs)                          # warm-up
+    torch.cuda.synchronize()
+    kernel_ms = _cuda_ms(lambda: G.gtlt_self_counts(regs), 20)
+    G.gtlt_self_counts_plain(regs)                    # warm-up
+    plain_ms = _cuda_ms(lambda: G.gtlt_self_counts_plain(regs), 3)
+    got = G.gtlt_self_counts(regs)
+    want = G.gtlt_self_counts_plain(regs)
+    err = _max_err(got, want)
+    assert err == 0, f"gtlt_self != plain on the job's registers: {err}"
+    counts = want.cpu().numpy().astype(np.int32)
+    del got, want, regs
+    _say(f"[full] gtlt_self kernel {kernel_ms:.6f} ms (CUDA events, mean of "
+         f"20 after a warm-up); plain {plain_ms:.6f} ms (mean of 3); full "
+         f"{n}x{n} counts equal")
+
+    # every emitted value is the table at the plain counts (gt + gt^T)
+    table = C.sim_table("full", m, 8.0, "cpu", fused=True).numpy()
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: table[counts[i0:i1]
+                                              + counts[:, i0:i1].T])
+    _say(f"[full] output == table[plain gt + lt] for all {n * (n - 1) // 2} "
+         f"pairs; similarity counts in [0,1e-9) [1e-9,.1) [.1,.5) [.5,.9) "
+         f"[.9,1]: {_histogram(vals)}")
+    return launches["gtlt_self"], err, kernel_ms, plain_ms
+
+
+def phase_rowblock(counters):
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.cmp import estimators as E
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.enums import Measure
+    from dashing2_tpu_torch.ops import gtlt as G
+
+    n, m = ROWS_N, 1024
+    assert n > C.SELF_MAX
+    t0 = time.perf_counter()
+    lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,
+                  ROWS_LENGTH)
+    _say(f"[rows] corpus: {n} genomes x {ROWS_LENGTH} bp written in "
+         f"{time.perf_counter() - t0:.3f} s")
+    out = os.path.join(WORK, "rowblock", "out.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--binary-output",
+            "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli("rows", argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    block = C._block_size(Dashing2DistOptions(k=31, sketchsize=m))
+    blocks = -(-n // block)
+    assert launches["gtlt"] == blocks and launches["gtlt_self"] == 0, \
+        (launches, blocks)
+    _say(f"[rows] {blocks} row blocks of {block}: gtlt launched once each")
+    _say_spans("rows", spans, FULL_SPANS)
+
+    regs = _full_regs(_sketch(lst), m)
+    rows, cols = regs[:block], regs
+    G.gtlt_counts(rows, cols)                         # warm-up
+    torch.cuda.synchronize()
+    kernel_ms = _cuda_ms(lambda: G.gtlt_counts(rows, cols), 20)
+    G.gtlt_counts_plain(rows, cols)                   # warm-up
+    plain_ms = _cuda_ms(lambda: G.gtlt_counts_plain(rows, cols), 3)
+    err = 0
+    for g, w in zip(G.gtlt_counts(rows, cols),
+                    G.gtlt_counts_plain(rows, cols)):
+        err = max(err, _max_err(g, w))
+    assert err == 0, f"gtlt != plain on the job's first block: {err}"
+    _say(f"[rows] gtlt kernel {kernel_ms:.6f} ms on one {block}x{n} block "
+         f"(CUDA events, mean of 20 after a warm-up); plain {plain_ms:.6f} "
+         "ms (mean of 3); gt and lt equal")
+
+    # every emitted value is the CPU epilogue at the plain counts
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+
+    def want(i0, i1):
+        gt, lt = G.gtlt_counts_plain(regs[i0:i1], regs[i0:])
+        sim = E.full_setsketch_measures32(gt.cpu(), lt.cpu(), m,
+                                          Measure.SIMILARITY, fused=False)
+        return C._expand_upper(sim.numpy(), i0, n)
+    _rows_equal(vals, n, want)
+    _say(f"[rows] output == CPU epilogue at the plain counts for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return launches["gtlt"], err, kernel_ms, plain_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 2
     import dashing2_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
-    counters = {"tri_eq": NT, "tri_comb": NC}
-    smi = phase_device()
-    phase_build()
-    worst_eq, worst_comb = phase_kernel_vs_plain()
+    counters = {"tri_eq": NT, "tri_comb": NC, "gtlt_self": G.self_launches,
+                "gtlt": G.rect_launches}
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _say(f"[wall] phase {name}: {time.perf_counter() - t0:.3f} s")
+        return out
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    worst_eq, worst_comb = timed("kernels", phase_kernel_vs_plain)
+    worst_self, worst_rect = timed("gtlt kernels", phase_gtlt_vs_plain)
     try:
-        phase_golden("torch_port_bbit_nibble.json")
-        phase_golden("torch_port_ab_nibble.json")
+        for gold in ("torch_port_bbit_nibble.json",
+                     "torch_port_ab_nibble.json", "torch_port_full.json"):
+            timed(f"golden {gold}", phase_golden, gold)
         t0 = time.perf_counter()
         lst = _corpus("northstar", NS_SEED, NS_ANCESTORS, NS_MUTANTS,
                       NS_LENGTH)
         _say(f"[main] corpus: {NORTH_STAR_N} genomes x {NS_LENGTH} bp "
              f"written in {time.perf_counter() - t0:.3f} s")
-        sketches = _sketch(lst)
-        eq_run = phase_main_bbit(lst, sketches, counters)
-        comb_run = phase_main_ab(lst, sketches, counters)
+        sketches = timed("sketch for the checks", _sketch, lst)
+        eq_run = timed("b-bit job", phase_main_bbit, lst, sketches, counters)
+        comb_run = timed("a/b job", phase_main_ab, lst, sketches, counters)
+        self_run = timed("full job", phase_main_full, lst, sketches,
+                         counters)
+        shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
+        rect_run = timed("row-block job", phase_rowblock, counters)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    _say(f"[wall] all phases: {time.perf_counter() - t_start:.3f} s")
     kernels = []
     for name, src, line, worst, (launches, err, ms, plain_ms) in (
             ("tri_eq_counts", "tri_eq.cu", 447, worst_eq, eq_run),
-            ("tri_comb_counts", "tri_comb.cu", 367, worst_comb, comb_run)):
+            ("tri_comb_counts", "tri_comb.cu", 367, worst_comb, comb_run),
+            ("gtlt_self_counts", "gtlt.cu", 162, worst_self, self_run),
+            ("gtlt_counts", "gtlt.cu", 45, worst_rect, rect_run)):
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -4,9 +4,11 @@ Port of dashing2_tpu/cli.py: `_add_shared` and `_build_opts` are copies,
 so flags keep their reference names and build the same options. Only the
 `sketch` subcommand exists, and it runs only the slices the port covers:
 native sketching of FASTA/FASTQ inputs, then (with --cmpout) the
-`--fastcmp 0.5` SIMILARITY all-pairs matrix over nibble registers, b-bit
-(`--bbit-sigs`) or SetSketch a/b quantised (without it), emitted as
-binary f32, PHYLIP or the symmetric TSV. Every other option is rejected
+SIMILARITY all-pairs matrix over the full registers (no `--fastcmp`, or
+`--fastcmp 8`; `--f32-registers` compares them rounded to f32) or over
+`--fastcmp 0.5` nibble registers, b-bit (`--bbit-sigs`) or SetSketch a/b
+quantised (without it), emitted as binary f32, PHYLIP or the symmetric
+TSV. Every other option is rejected
 with an error naming it. `--device` (default cuda) picks where the
 comparison runs; a CUDA request without a card exits non-zero and never
 carries on on the CPU.
@@ -302,8 +304,7 @@ _OUTSIDE_SLICE = {
     "by_chrom": "--by-chrom", "maxcand": "--maxcand",
     "index_save": "--index-save", "index_load": "--index-load",
     "setsketch_ab": "--setsketch-ab", "pairlist": "--pairlist",
-    "seqs_in_ram": "--seqs-in-ram", "regt32": "--f32-registers",
-    "warm_only": "--warm-only",
+    "seqs_in_ram": "--seqs-in-ram", "warm_only": "--warm-only",
 }
 
 
@@ -313,8 +314,12 @@ def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
     slice)."""
     errs = [flag for dest, flag in _OUTSIDE_SLICE.items()
             if getattr(a, dest) != p.get_default(dest)]
-    if opts.outfile_path and opts.fd_level != 0.5:
-        errs.append("comparisons other than --fastcmp 0.5")
+    if opts.outfile_path:
+        if opts.fd_level not in (0.5, 8.0):
+            errs.append("comparisons other than --fastcmp 0.5 and full "
+                        "registers")
+        elif opts.fd_level == 8.0 and opts.truncation_method > 0:
+            errs.append("--bbit-sigs without --fastcmp 0.5")
     return errs
 
 

@@ -1,11 +1,13 @@
 """Comparison core: densify -> compress -> all-pairs counts -> similarity.
 
-Port of dashing2_tpu/cmp/core.py for the `--fastcmp 0.5` self-pairs
-routes, SIMILARITY only:
+Port of dashing2_tpu/cmp/core.py for symmetric all-pairs jobs,
+SIMILARITY only: the `--fastcmp 0.5` nibble routes and the default
+full-register route (no `--fastcmp`):
 
 * `make_compressed` (both nibble branches: b-bit truncation with
-  --bbit-sigs, SetSketch a/b quantisation without), `_prep`,
-  `_representation` and `_gb_args` are numpy copies;
+  --bbit-sigs, SetSketch a/b quantisation without; none at fd >= 8),
+  `_prep`, `_ordered_bits`, `_representation` and `_gb_args` are numpy
+  copies;
 * nibble-bbit: `sim_table` is `_sim_table` built in torch on the job's
   device, bit for bit the JAX package's table. The CUDA kernel of
   ops/nibble_tri.py gives (n, n) u16 eq counts on the device, they cross
@@ -16,7 +18,16 @@ routes, SIMILARITY only:
   (estimators.compressed_ab_measures32) runs on the device per emitted
   row block, and the f32 block crosses to the host. The value depends on
   two counts, so no (m+1) table serves it (the JAX package keeps 'ab'
-  kinds off its counts pull for the same reason).
+  kinds off its counts pull for the same reason);
+* full: the f64 signatures' ordered u64 bit patterns, compared by the
+  CUDA kernels of ops/gtlt.py. Its similarity depends only on
+  c = gt + lt, so an (m+1) table over c, built on the device, serves it
+  (the JAX counts-pull route does the same). For 2 <= n <= SELF_MAX one
+  `gtlt_self_counts` launch gives (n, n) u16 with gt above and lt below
+  the diagonal; for n > SELF_MAX each row block [s, s+b) is one
+  `gtlt_counts` launch against rows [s, n) (the JAX generic row-block
+  route). Either way each block's c is summed and looked up on the
+  device, and the f32 block crosses to the host.
 
 The JAX package packs the pulled counts into 3-byte pairs
 (`_pack_tri_counts_fn`, `_unpack_tri_f32`) because its device sat behind
@@ -40,7 +51,9 @@ from .. import hashing as H
 from ..config import Dashing2DistOptions
 from ..device import resolve, synchronize
 from ..enums import KmerSketchResultType, Measure, SketchSpace
+from ..ops import cmp_kernels as CK
 from ..ops import sketch_kernels as SK
+from ..ops.gtlt import gtlt_counts, gtlt_self_counts
 from ..ops.nibble_comb import tri_comb_counts
 from ..ops.nibble_tri import tri_eq_counts
 from ..result import SketchingResult
@@ -53,7 +66,8 @@ SELF_MAX = 16384
 
 # the JAX package's jitted self-pairs route takes 64 <= n
 # (pairwise_matrix l.2364); below it its generic row-block route runs the
-# numpy a/b epilogue, whose bits differ (estimators.compressed_ab_measures32)
+# numpy epilogues, whose bits differ (estimators.compressed_ab_measures32,
+# estimators.full_setsketch_measures32)
 FUSED_MIN_N = 64
 
 # SetSketch q for nibble registers (cmp_core.cpp:248; the 0.5 entry of
@@ -90,12 +104,17 @@ def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
       then v = clip(floor(1 - log(sig/a)/log b), 0, 16). A register whose
       v is 16 spills into its neighbour's nibble, as in the JAX package;
     * with --bbit-sigs, b-bit truncation: the low 4 bits of each
-      register's reg2sig hash."""
+      register's reg2sig hash.
+
+    At fd >= 8 (no --fastcmp) nothing is compressed: the full registers
+    are compared (`_representation`)."""
+    if opts.fd_level >= 8.0 and not opts.sketch_compressed_set:
+        return CompressedReps(data=None)
     if not (opts.fd_level == 0.5 and not opts.sketch_compressed_set
             and opts.sspace != SketchSpace.SPACE_EDIT_DISTANCE):
         raise NotImplementedError(
-            "only --fastcmp 0.5 registers are ported (ROADMAP Queue 1 "
-            "items 4-5)")
+            "only --fastcmp 0.5 and full registers are ported (ROADMAP "
+            "Queue 2 item 5)")
     if opts.truncation_method <= 0:
         q = _Q_NIBBLE
         a, b = opts.compressed_a, opts.compressed_b
@@ -161,14 +180,49 @@ def _prep(opts: Dashing2DistOptions, result: SketchingResult
     return creps, result
 
 
+def _ordered_bits(opts: Dashing2DistOptions, sigs: np.ndarray) -> np.ndarray:
+    """Signatures -> order-preserving unsigned bit patterns. f64 -> u64
+    by default; with regt32 (--f32-registers, the RegT=float build
+    analogue) registers round to f32 and compare as u32 (both sides round
+    identically, so the estimator sees the float build's gt/lt counts)."""
+    if opts.regt32:
+        # same loud failure as f64_to_ordered_u64: a negative signature
+        # would silently invert the gt/lt ordering under the u32 view
+        if np.signbit(sigs).any():
+            raise ValueError("negative signature values cannot be "
+                             "order-mapped to u32")
+        return sigs.astype(np.float32).view(np.uint32)
+    return CK.f64_to_ordered_u64(sigs)
+
+
+def _ordered_cached(opts: Dashing2DistOptions,
+                    result: SketchingResult) -> np.ndarray:
+    """_ordered_bits over the full signature matrix, computed once per
+    (result, regt32) and cached on the result."""
+    key = bool(opts.regt32)
+    cache = getattr(result, "_ordered_cache", None)
+    if cache is None or cache[0] != key:
+        cache = (key, _ordered_bits(opts, result.signatures))
+        result._ordered_cache = cache
+    return cache[1]
+
+
 def _representation(opts: Dashing2DistOptions, result: SketchingResult,
                     creps: CompressedReps):
-    """(kind, data) for the count engines: packed nibbles only."""
-    if creps.data is None or not creps.nibble_packed:
-        raise NotImplementedError(
-            "only nibble registers are ported (ROADMAP Queue 1 items 4-5)")
-    return ("nibble-bbit" if creps.truncation > 0 else "nibble-ab"), \
-        creps.data
+    """(kind, data) for the count engines: packed nibbles, or the full
+    registers' ordered bits (u64, or u32 with regt32)."""
+    if creps.data is not None:
+        if not creps.nibble_packed:
+            raise NotImplementedError(
+                "u8/u16/u32 registers are not ported (ROADMAP Queue 2 "
+                "item 5)")
+        return ("nibble-bbit" if creps.truncation > 0 else "nibble-ab"), \
+            creps.data
+    if opts.sspace == SketchSpace.SPACE_SET and opts.truncation_method <= 0:
+        return "full", _ordered_cached(opts, result)
+    raise NotImplementedError(
+        "equality-compared full registers (--bbit-sigs without --fastcmp, "
+        "or non-set sketch spaces) are not ported (ROADMAP Queue 1 item 5)")
 
 
 def _gb_args(b: float, m: int):
@@ -178,17 +232,26 @@ def _gb_args(b: float, m: int):
             np.float32(1.0 / (1.0 - 1.0 / np.float64(b))))
 
 
-def sim_table(kind: str, m: int, fd: float, device="cpu") -> torch.Tensor:
-    """(m+1,) f32 SIMILARITY value for every possible eq count, built in
+def sim_table(kind: str, m: int, fd: float, device="cpu",
+              fused: bool = True) -> torch.Tensor:
+    """(m+1,) f32 SIMILARITY value for every possible count, built in
     torch on `device` (dashing2_tpu/cmp/core.py::_sim_table, whose k
-    argument SIMILARITY never reads). The same bits as the JAX package's
-    table: see estimators.bbit_measures32."""
-    if kind != "nibble-bbit":
-        raise NotImplementedError(
-            f"similarity tables for {kind} registers are not ported "
-            "(ROADMAP Queue 1 item 4)")
+    argument SIMILARITY never reads):
+
+    * nibble-bbit, indexed by the eq count: the JAX package's table bit
+      for bit (estimators.bbit_measures32);
+    * full, indexed by c = gt + lt (the JAX table is indexed by
+      eq = m - c): the epilogue of the JAX route the caller mirrors,
+      `fused` as in estimators.full_setsketch_measures32."""
     counts = torch.arange(m + 1, dtype=torch.int32, device=resolve(device))
-    return E.bbit_measures32(counts, m, fd, Measure.SIMILARITY)
+    if kind == "nibble-bbit":
+        return E.bbit_measures32(counts, m, fd, Measure.SIMILARITY)
+    if kind == "full":
+        return E.full_setsketch_measures32(counts, torch.zeros_like(counts),
+                                           m, Measure.SIMILARITY, fused)
+    raise NotImplementedError(
+        f"similarity tables for {kind} registers are not ported "
+        "(ROADMAP Queue 1 item 4)")
 
 
 def _block_size(opts: Dashing2DistOptions) -> int:
@@ -209,7 +272,8 @@ def _expand_upper(arr: np.ndarray, start: int, n: int) -> np.ndarray:
     return out
 
 
-def _check_route(opts: Dashing2DistOptions, n: int, nq: int) -> None:
+def _check_route(opts: Dashing2DistOptions, n: int, nq: int,
+                 kind: str) -> None:
     if nq:
         raise NotImplementedError(
             "panel (query/reference) comparisons are not ported "
@@ -217,10 +281,13 @@ def _check_route(opts: Dashing2DistOptions, n: int, nq: int) -> None:
     if opts.measure != Measure.SIMILARITY:
         raise NotImplementedError(
             f"{opts.measure.name} is not ported (ROADMAP Queue 1 item 4)")
-    if not 2 <= n <= SELF_MAX:
+    if n < 2:
+        raise NotImplementedError(f"n={n}: all-pairs jobs take 2 <= n")
+    if n > SELF_MAX and kind != "full":
         raise NotImplementedError(
-            f"n={n}: the self-pairs route takes 2 <= n <= {SELF_MAX}; the "
-            "row-block route is not ported (ROADMAP Queue 1 item 7)")
+            f"n={n}: {kind} registers take the self-pairs route, "
+            f"2 <= n <= {SELF_MAX}; their row-block route is not ported "
+            "(ROADMAP Queue 1 item 7)")
     if opts.sketchsize >= 1 << 16:
         raise NotImplementedError(
             f"m={opts.sketchsize}: u16 counts need m < 65536; the f32 "
@@ -240,10 +307,13 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
     if block <= 0:
         block = _block_size(opts)
     n = result.n if result.names else len(result.cardinalities)
-    _check_route(opts, n, result.nqueries())
     with span("cmp/prep"):
         creps, result = _prep(opts, result)
         kind, data = _representation(opts, result, creps)
+    _check_route(opts, n, result.nqueries(), kind)
+    if kind == "full":
+        yield from _full_blocks(opts, data, n, block, upper_only, dev)
+        return
     if kind == "nibble-ab":
         yield from _nibble_ab_blocks(opts, creps, n, block, upper_only, dev)
         return
@@ -297,6 +367,56 @@ def _nibble_ab_blocks(opts: Dashing2DistOptions, creps: CompressedReps,
             vals = E.compressed_ab_measures32(
                 g, lt, m, bf, opts.fd_level, opts.measure, table, gbinv,
                 fused=n >= FUSED_MIN_N)
+            synchronize(dev)
+        with span("cmp/d2h"):
+            blk = vals.cpu().numpy()
+        yield start, (_expand_upper(blk, start, n) if upper_only else blk)
+
+
+def _full_blocks(opts: Dashing2DistOptions, bits: np.ndarray, n: int,
+                 block: int, upper_only: bool, dev: torch.device
+                 ) -> Iterator[Tuple[int, np.ndarray]]:
+    """full rows of pairwise_matrix: the ordered register bits go to `dev`
+    once as int64 (u32 bits with regt32 are widened, as gtlt_pallas
+    widens its input), then per row block c = gt + lt is summed on `dev`,
+    looked up in the sim table there, and the f32 block crosses to the
+    host.
+
+    * n <= SELF_MAX: one gtlt_self_counts launch; block rows r read gt
+      at gt[r, c0:] and lt at gt[c0:, r]^T;
+    * n > SELF_MAX: one gtlt_counts launch per block, rows r against
+      rows [c0, n), the registers staying on `dev` across blocks.
+
+    The table mirrors the JAX route of the same n (FUSED_MIN_N <= n <=
+    SELF_MAX is its jitted self-pairs route; see
+    estimators.full_setsketch_measures32)."""
+    m = opts.sketchsize
+    self_pairs = n <= SELF_MAX
+    with span("cmp/table"):
+        table = sim_table("full", m, opts.fd_level, dev,
+                          fused=self_pairs and n >= FUSED_MIN_N)
+    with span("cmp/h2d"):
+        regs = torch.from_numpy(
+            np.ascontiguousarray(bits, dtype=np.uint64).view(np.int64)
+        ).to(dev)
+    if self_pairs:
+        with span("cmp/kernel"):
+            gt = gtlt_self_counts(regs)
+            synchronize(dev)
+        del regs
+    for start in range(0, n, block):
+        b = min(block, n - start)
+        c0 = start if upper_only else 0
+        rows = slice(start, start + b)
+        if not self_pairs:
+            with span("cmp/kernel"):
+                g, lt = gtlt_counts(regs[rows], regs[c0:])
+                synchronize(dev)
+        with span("cmp/epilogue"):
+            if self_pairs:
+                g, lt = gt[rows, c0:], gt[c0:, rows].T
+            c = g.to(torch.int32) + lt.to(torch.int32)
+            vals = table[c.long()]
             synchronize(dev)
         with span("cmp/d2h"):
             blk = vals.cpu().numpy()

@@ -6,7 +6,9 @@ measure the port emits:
 * `bbit_measures32` for b-bit registers (eq counts);
 * `compressed_ab_measures32` for SetSketch a/b-quantised nibbles (gt and
   lt counts), with the host numpy constants it needs
-  (`optimal_parameters`, `gb_bit_table`, `_pow_b_neg32`).
+  (`optimal_parameters`, `gb_bit_table`, `_pow_b_neg32`);
+* `full_setsketch_measures32` for full 64-bit registers (gt and lt
+  counts, the default mode).
 
 The other measures divide by per-pair cardinalities and are ROADMAP
 Queue 1 item 4.
@@ -145,3 +147,54 @@ def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
         ab = b32[gtc.long()] + b32[ltc.long()]
     return torch.clamp_min(torch.tensor(1.0, dtype=torch.float32,
                                         device=dev) - ab, 0.0)
+
+
+def full_setsketch_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
+                              measure: Measure, fused: bool = True
+                              ) -> torch.Tensor:
+    """f32 similarity of integer (gt, lt) counts of full registers, with
+    the JAX package's bits. The JAX source writes
+
+        s = f32(gt + lt) * f32(1/m),  eq = 1 - s,
+        sim = 0 where eq <= 1e-15 (or eq <= 0), else eq
+
+    and the value depends only on c = gt + lt, which is summed first.
+    For m a power of two, c * f32(1/m) is exact and every route gives the
+    same bits. For other m the JAX route decides:
+
+    * fused=True, the jitted self-pairs routes (64 <= n <= SELF_MAX, one
+      device or the multi-device mesh): XLA contracts `1 - s` into one
+      fused multiply-add, fma(-c, f32(1/m), 1), so the product is never
+      rounded. The port computes f32(1 - f64(c) * f64(f32(1/m))): with
+      c <= m < 2^16 and a 24-bit reciprocal above 2^-16, the product
+      and the difference are exact in f64 (both fit in 41 significant
+      bits), so the one rounding is the cast to f32, which is the fma's.
+      At c = m the
+      fma leaves a residue of either sign (2.2e-8 at m = 100, -2.4e-8 at
+      m = 300); a negative one becomes 0, a positive one stays.
+    * fused=False, the JAX package's numpy epilogue (the generic row-block
+      route: n < 64, and N > SELF_MAX on its CPU backend): s is rounded
+      to f32, then 1 - s; c = m gives exactly 0.
+
+    Over every c in [0, m] both forms equal those JAX routes bit for bit
+    (tests/test_torch_full.py). The JAX package's own (m+1) table
+    (cmp/core.py::_sim_table, its counts-pull route) follows neither
+    rule: XLA fused it at m in {1000, 1023} and not at {100, 200, 300}.
+
+    Eager torch rounds every operation, on the CPU and on the card
+    alike."""
+    if measure != Measure.SIMILARITY:
+        raise NotImplementedError(
+            f"{measure.name} on full registers is not ported (ROADMAP "
+            "Queue 1 item 4)")
+    dev = gtc.device
+    c = gtc.to(torch.int32) + ltc.to(torch.int32)
+    recip = float(np.float32(1.0 / m))
+
+    def f32(x: float) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    if fused:
+        eq = (1.0 - c.to(torch.float64) * recip).to(torch.float32)
+    else:
+        eq = f32(1.0) - c.to(torch.float32) * f32(recip)
+    return torch.where(eq <= f32(1e-15), f32(0.0), eq)

@@ -37,9 +37,16 @@ def _copy(a) -> Optional[np.ndarray]:
 def from_reference(ref) -> SketchingResult:
     """Copy a dashing2_tpu.result.SketchingResult (or anything with its
     attribute names) into the port's container. Arrays are copied, so the
-    port's in-place densification never touches the reference's data."""
-    return SketchingResult(names=list(ref.names),
-                           cardinalities=_copy(ref.cardinalities),
-                           signatures=_copy(ref.signatures),
-                           kmers=_copy(ref.kmers),
-                           nq=int(ref.nq))
+    port's in-place densification never touches the reference's data.
+    The ordered-register cache that the reference's full-register
+    comparison leaves on its result (`_ordered_cache`: (regt32, bits)) is
+    carried too, so both packages compare the same register bits."""
+    res = SketchingResult(names=list(ref.names),
+                          cardinalities=_copy(ref.cardinalities),
+                          signatures=_copy(ref.signatures),
+                          kmers=_copy(ref.kmers),
+                          nq=int(ref.nq))
+    cache = getattr(ref, "_ordered_cache", None)
+    if cache is not None:
+        res._ordered_cache = (bool(cache[0]), _copy(cache[1]))
+    return res

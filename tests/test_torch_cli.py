@@ -1,8 +1,9 @@
-"""Port parity for the whole of both slices: the `--fastcmp 0.5` flag
-sets through both CLIs, on the CPU.
+"""Port parity for the whole of the slices: the `--fastcmp 0.5` flag sets
+and the default full-register job through both CLIs, on the CPU.
 
 `sketch -k 31 -S 256 --fastcmp 0.5`, with --bbit-sigs (b-bit nibbles)
-and without (SetSketch a/b nibbles), over seeded FASTA runs through
+and without (SetSketch a/b nibbles), and `sketch -k 31 -S 256` (full
+registers, no --fastcmp), over seeded FASTA runs through
 dashing2_tpu_torch.cli.main(..., "--device", "cpu") and through
 dashing2_tpu.cli.main, on the JAX package's default CPU route and on its
 accelerator route (counts pull where the kind allows it + upper
@@ -17,7 +18,9 @@ count: its multi-device route contracts the epilogue's fused multiply-add
 on the other operand (fma(u[lt], g, B[gt]) where one device gives
 fma(u[gt], g, B[lt]); see dashing2_tpu_torch/cmp/estimators.py), so the
 a/b cases run the JAX package with DASHING2_TPU_MULTICHIP=0 on the test
-suite's 8-device CPU mesh.
+suite's 8-device CPU mesh. For full registers at m = 256 every JAX route
+gives the same bits (tests/test_torch_full.py adds its one-device and
+row-block routes, and holds each route's bits at other m).
 """
 
 import os
@@ -38,13 +41,15 @@ from dashing2_tpu_torch.result import from_reference
 
 NORTH_STAR = ["sketch", "-k", "31", "-S", "256", "--fastcmp", "0.5",
               "--bbit-sigs"]
-# the two --fastcmp 0.5 flag sets: argv, the options they build, and the
-# environment that keeps the JAX package on a single-device route
+# the flag sets: argv, the options they build, and the environment that
+# keeps the JAX package on a single-device route where its bits need it
 FLAGS = {
-    "bbit": (NORTH_STAR, dict(truncation_method=1), {}),
-    "ab": (NORTH_STAR[:-1], dict(truncation_method=0),
+    "bbit": (NORTH_STAR, dict(fd_level=0.5, truncation_method=1), {}),
+    "ab": (NORTH_STAR[:-1], dict(fd_level=0.5, truncation_method=0),
            {"DASHING2_TPU_MULTICHIP": "0"}),
+    "full": (NORTH_STAR[:5], dict(fd_level=8.0, truncation_method=0), {}),
 }
+NIBBLE_FLAGS = ["ab", "bbit"]
 JAX_ROUTES = {
     "default": {},
     "accelerator": {"DASHING2_TPU_PULL_COUNTS": "force",
@@ -107,7 +112,7 @@ def test_sketch_outfile_bytes_equal_jax(corpus, tmp_path):
 def test_pairwise_blocks_from_reference_equal_jax(corpus, flags, route,
                                                   monkeypatch):
     lst, paths = corpus
-    kw = dict(k=31, sketchsize=256, fd_level=0.5, **FLAGS[flags][1])
+    kw = dict(k=31, sketchsize=256, **FLAGS[flags][1])
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
     port_res = from_reference(ref)
@@ -122,10 +127,10 @@ def test_pairwise_blocks_from_reference_equal_jax(corpus, flags, route,
         np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
 
 
-@pytest.mark.parametrize("flags", sorted(FLAGS))
+@pytest.mark.parametrize("flags", NIBBLE_FLAGS)
 def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
     _, paths = corpus
-    kw = dict(k=31, sketchsize=256, fd_level=0.5, **FLAGS[flags][1])
+    kw = dict(k=31, sketchsize=256, **FLAGS[flags][1])
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
     port_creps, _ = PC._prep(Dashing2DistOptions(**kw), from_reference(ref))
@@ -155,8 +160,9 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["sketch", "-S", "256", "--fastcmp", "2"],          # u16 a/b
     ["sketch", "-S", "256", "--fastcmp", "1", "--bbit-sigs"],
-    ["sketch", "-S", "256"],                            # full registers
+    ["sketch", "-S", "256", "--bbit-sigs"],             # eq-compared full
     ["cmp", "-S", "256", "--fastcmp", "0.5", "--bbit-sigs"],
+    ["sketch", "-S", "256", "--fastcmp", "4"],          # u32 a/b
 ])
 def test_cli_rejects_other_comparisons(corpus, argv, tmp_path):
     lst, _ = corpus

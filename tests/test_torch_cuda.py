@@ -16,6 +16,7 @@ from dashing2_tpu_torch.cmp import core as C
 from dashing2_tpu_torch.cmp import estimators as E
 from dashing2_tpu_torch.config import Dashing2DistOptions
 from dashing2_tpu_torch.enums import Measure
+from dashing2_tpu_torch.ops import gtlt as G
 from dashing2_tpu_torch.ops import nibble_comb as NC
 from dashing2_tpu_torch.ops import nibble_tri as NT
 from dashing2_tpu_torch.result import SketchingResult
@@ -143,6 +144,115 @@ def test_pairwise_matrix_cuda_equals_cpu(card, upper_only, truncation, n):
         return list(C.pairwise_matrix(opts, res, block=64,
                                       upper_only=upper_only, device=device))
     got, want = run(card), run("cpu")
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def _regs(n: int, m: int, seed: int) -> np.ndarray:
+    """(n, m) u64 registers, half with the top bit set, with identical
+    rows, equal registers, all-zero and all-ones rows."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 1 << 64, size=(n, m), dtype=np.uint64)
+    if n >= 2:
+        a[n - 1] = a[0]
+        a[1, ::3] = a[0, ::3]
+    if n >= 4:
+        a[2] = 0
+        a[3] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    return a
+
+
+def _dev(a: np.ndarray, card) -> torch.Tensor:
+    return torch.from_numpy(a.view(np.int64)).to(card)
+
+
+@pytest.mark.parametrize("m", [30, 64, 1024])
+@pytest.mark.parametrize("n", [1, 2, 63, 129, 1025])
+def test_gtlt_self_kernel_matches_plain(card, n, m):
+    a = _regs(n, m, seed=3 * n + m)
+    t = _dev(a, card)
+    before = G.self_launches.launches
+    got = G.gtlt_self_counts(t)
+    assert G.self_launches.launches == before + 1
+    want = G.gtlt_self_counts_plain(t)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint16 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if n <= 129:
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      (a[:, None] > a[None]).sum(2))
+
+
+@pytest.mark.parametrize("m", [30, 64, 1024])
+@pytest.mark.parametrize("na,nb", [(1, 1), (2, 65), (63, 129), (129, 1000),
+                                   (1025, 64)])
+def test_gtlt_kernel_matches_plain(card, na, nb, m):
+    a, b = _regs(na, m, seed=na + m), _regs(nb, m, seed=nb + m + 1)
+    ta, tb = _dev(a, card), _dev(b, card)
+    before = G.rect_launches.launches
+    got = G.gtlt_counts(ta, tb)
+    assert G.rect_launches.launches == before + 1
+    want = G.gtlt_counts_plain(ta, tb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint16 and g.shape == (na, nb)
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    if na * nb <= 129 * 1000:
+        np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                      (a[:, None] < b[None]).sum(2))
+
+
+def test_gtlt_kernel_on_row_slices(card):
+    """The row-block route's operands: rows [s, s+b) against rows [s, n)
+    of one register matrix on the card."""
+    a = _regs(300, 64, seed=12)
+    t = _dev(a, card)
+    full = G.gtlt_self_counts(t).cpu().numpy()
+    for s in (0, 64, 237):
+        gt, lt = G.gtlt_counts(t[s:s + 64], t[s:])
+        np.testing.assert_array_equal(gt.cpu().numpy(), full[s:s + 64, s:])
+        np.testing.assert_array_equal(lt.cpu().numpy(),
+                                      full[s:, s:s + 64].T)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("m", [64, 200, 1024, 4096])
+def test_full_sim_table_on_card_bits_equal_cpu(card, m, fused):
+    on_card = C.sim_table("full", m, 8.0, card, fused).cpu().numpy()
+    on_cpu = C.sim_table("full", m, 8.0, "cpu", fused).numpy()
+    np.testing.assert_array_equal(on_card.view(np.uint32),
+                                  on_cpu.view(np.uint32))
+
+
+@pytest.mark.parametrize("self_max", [C.SELF_MAX, 0])
+@pytest.mark.parametrize("upper_only", [False, True])
+@pytest.mark.parametrize("n", [40, 300])
+def test_full_pairwise_matrix_cuda_equals_cpu(card, n, upper_only, self_max,
+                                              monkeypatch):
+    """Both full-register routes (self-pairs, and row blocks with
+    SELF_MAX forced to 0) on the card against the CPU."""
+    m = 200
+    monkeypatch.setattr(C, "SELF_MAX", self_max)
+    rng = np.random.default_rng(6)
+    sigs = rng.exponential(size=(n, m))
+    sigs[7] = sigs[3]
+    sigs[9, ::2] = sigs[4, ::2]
+    sigs[11, ::5] = 0.0
+    opts = Dashing2DistOptions(k=31, sketchsize=m)
+
+    def run(device):
+        res = SketchingResult(names=[f"s{i}" for i in range(n)],
+                              cardinalities=np.full(n, 1e4),
+                              signatures=sigs.copy())
+        return list(C.pairwise_matrix(opts, res, block=64,
+                                      upper_only=upper_only, device=device))
+    before = (G.self_launches.launches, G.rect_launches.launches)
+    got = run(card)
+    launched = (G.self_launches.launches - before[0],
+                G.rect_launches.launches - before[1])
+    assert launched == ((0, -(-n // 64)) if self_max == 0 else (1, 0))
+    want = run("cpu")
     assert [s for s, _ in got] == [s for s, _ in want]
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))

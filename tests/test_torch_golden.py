@@ -1,14 +1,16 @@
 """The committed digests of the slices' output, re-derived on the CPU.
 
-tests/goldens/torch_port_{bbit,ab}_nibble.json hold the SHA-256 of the
-JAX package's `--fastcmp 0.5 [--bbit-sigs] --binary-output` output over
-a seeded corpus (n=777, -S 256, -k 31, 4 kb genomes; splitmix64 bases,
-so no numpy version changes them). These tests tie each digest to the
-JAX package (under the golden's "env", if any) and to the port's plain
+tests/goldens/torch_port_{bbit,ab}_nibble.json and torch_port_full.json
+hold the SHA-256 of the JAX package's `--fastcmp 0.5 [--bbit-sigs]
+--binary-output` and default full-register (no --fastcmp) output over a
+seeded corpus (n=777, -S 256, -k 31, 4 kb genomes; splitmix64 bases, so
+no numpy version changes them). These tests tie each digest to the JAX
+package (under the golden's "env", if any) and to the port's plain
 PyTorch path; chip_smoke.py holds the port's CUDA path to the same
 digests on the card. The port also reproduces the JAX package's own
-a/b golden, tests/goldens/fastcmp_nibble.bin (n=6, which the JAX package
-computes on its numpy route).
+goldens of these modes (n=6, which the JAX package computes on its numpy
+route): the a/b tests/goldens/fastcmp_nibble.bin, and the full-register
+oph_sim.bin and oph_phylip.txt.
 """
 
 import hashlib
@@ -24,7 +26,8 @@ from dashing2_tpu_torch.io.corpus import write_corpus
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = {"bbit": "torch_port_bbit_nibble.json",
-           "ab": "torch_port_ab_nibble.json"}
+           "ab": "torch_port_ab_nibble.json",
+           "full": "torch_port_full.json"}
 
 
 @pytest.fixture(scope="module", params=sorted(GOLDENS))
@@ -68,7 +71,9 @@ def test_golden_digest(golden, workdir, package, monkeypatch):
     assert got == (golden["bytes"], golden["sha256"])
 
 
-def test_port_reproduces_jax_fastcmp_nibble_golden(tmp_path):
+def _reproduce_jax_golden(name, tmp_path):
+    """The port's CLI with the JAX package's golden config `name`, in the
+    golden fixtures' directory, against the committed file."""
     sys.path.insert(0, HERE)
     try:
         from golden_configs import CONFIGS, LENGTH, N_GENOMES
@@ -76,10 +81,17 @@ def test_port_reproduces_jax_fastcmp_nibble_golden(tmp_path):
     finally:
         sys.path.remove(HERE)
     make(str(tmp_path), n_genomes=N_GENOMES, length=LENGTH, seed=42)
-    args, _ = CONFIGS["fastcmp_nibble.bin"]
-    got = _digest(cli.main, args, tmp_path, ["--device", "cpu"],
-                  out="fastcmp_nibble.bin")
-    with open(os.path.join(HERE, "goldens", "fastcmp_nibble.bin"),
-              "rb") as f:
+    args, _ = CONFIGS[name]
+    got = _digest(cli.main, args, tmp_path, ["--device", "cpu"], out=name)
+    with open(os.path.join(HERE, "goldens", name), "rb") as f:
         want = f.read()
     assert got == (len(want), hashlib.sha256(want).hexdigest())
+
+
+def test_port_reproduces_jax_fastcmp_nibble_golden(tmp_path):
+    _reproduce_jax_golden("fastcmp_nibble.bin", tmp_path)
+
+
+@pytest.mark.parametrize("name", ["oph_sim.bin", "oph_phylip.txt"])
+def test_port_reproduces_jax_full_register_goldens(name, tmp_path):
+    _reproduce_jax_golden(name, tmp_path)
