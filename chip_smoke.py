@@ -6,15 +6,17 @@ card (H100), CUDA's nvcc, g++ and zlib:
     python3 chip_smoke.py
 
 It builds every kernel of the port's main paths from the checkout's
-sources and drives both `--fastcmp 0.5` jobs and the default
-full-register job (no `--fastcmp`) through the port's own CLI.
+sources and drives both `--fastcmp 0.5` jobs, the `--fastcmp 1|2|4`
+jobs and the default full-register job (no `--fastcmp`) through the
+port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu and csrc/gtlt.cu
-   (sm_90a) and g++ for the native sketcher and formatter, all started
-   together; build seconds and ptxas' register/spill report;
+2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu and
+   csrc/int_counts.cu (sm_90a) and g++ for the native sketcher and
+   formatter, all started together; build seconds and ptxas'
+   register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
    1000, 1025, 4097} and m in {64, 256, 1024}, and of `tri_comb_counts`
@@ -26,12 +28,19 @@ no card, or when the port is not importable:
    m, with u64 registers of which about half have the top bit set and
    planted identical rows, equal registers, all-zero and all-ones rows;
    the similarity tables (b-bit, and full in both forms) built on the
-   card must equal the CPU-built tables bit for bit;
+   card must equal the CPU-built tables bit for bit; and of
+   `int_counts_self` (eq and gtlt modes) and `int_counts` (eq, gt, lt,
+   against a second matrix and on row slices) with their plain versions,
+   u8 and u16 registers, for the same n and m, with planted identical,
+   all-zero and all-max rows, equal registers and top-bit values; the
+   b-bit tables of every width (fused and numpy forms) and the a/b
+   complement epilogue over every (gt, lt) built on the card must equal
+   the CPU's bit for bit;
 4. golden digests: the port's CLI on the card over the seeded n=777
    corpus must reproduce the SHA-256s in
-   tests/goldens/torch_port_{bbit,ab}_nibble.json and
-   torch_port_full.json, which CPU tests tie to the JAX package's
-   output;
+   tests/goldens/torch_port_{bbit,ab}_nibble.json, torch_port_full.json,
+   torch_port_u8_bbit.json and torch_port_u16_ab.json, which CPU tests
+   tie to the JAX package's output;
 5. b-bit main path at full size: N = 10240 genomes, 512 ancestors x 20
    mutants at 0.5-5% divergence, through
    `sketch -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs --binary-output
@@ -55,24 +64,37 @@ no card, or when the port is not importable:
    full (N, N) counts equal the plain version's, and that every emitted
    value is the table at the plain counts. Prints the wall, unique
    pairs/s, the spans and the kernel's and plain version's times;
-8. row-block job above SELF_MAX: N = 20480 genomes, 1024 ancestors x 20
-   mutants, through the same argv (row-block route, one `gtlt_counts`
-   launch per 4096-row block). Checks the output size, that the gtlt
-   launch counter moved once per row block and gtlt_self not at all, and
-   that every emitted value is the CPU epilogue at the plain version's
-   counts, 1024 rows at a time. Times `gtlt_counts` on one full-width
-   block (4096 x 20480) against its plain version.
+8. the `--fastcmp 1 --bbit-sigs`, `--fastcmp 1`, `--fastcmp 2
+   --bbit-sigs` and `--fastcmp 2` jobs on the same corpus (self-pairs
+   route, `int_counts_self` in eq or gtlt mode), and `--fastcmp 4` (u32
+   a/b registers, `gtlt_self_counts`). Each checks the output size, that
+   its kernel's launch counter moved during the run, that the kernel's
+   full (N, N) counts equal the plain version's (u8 and u16), that the
+   card's epilogue equals the CPU's over every count (the b-bit table,
+   or the a/b value at every (gt, lt) in [0, m]^2 at the job's b), and
+   that every emitted value is the CPU epilogue at the plain counts.
+   Prints the wall, unique pairs/s, the spans and the kernel's and plain
+   version's times;
+9. row-block jobs above SELF_MAX: N = 20480 genomes, 1024 ancestors x 20
+   mutants, through the default job's argv (row-block route, one
+   `gtlt_counts` launch per 4096-row block), then through `--fastcmp 1`
+   (one `int_counts` launch per block). Each checks the output size,
+   that its rectangular launch counter moved once per row block and the
+   self-pairs counters not at all, and that every emitted value is the
+   CPU epilogue at the plain version's counts, 1024 rows at a time.
+   Times `gtlt_counts` and `int_counts` on one full-width block
+   (4096 x 20480) against their plain versions.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall.
 
-Reductions: the north-star job uses 50 kb genomes; phases 5-7 use 20 kb
-and phase 8 10 kb. The comparison's work depends only on N and m; 20 kb
+Reductions: the north-star job uses 50 kb genomes; phases 5-8 use 20 kb
+and phase 9 10 kb. The comparison's work depends only on N and m; 20 kb
 genomes still carry about 20k distinct 31-mers and 10 kb genomes about
 10k (both more than m = 1024, so every register fills and the jobs stay
 out of the OPH small-input regime). The cuts only shorten sketching and
-the generated FASTA: about 205 MB for phases 5-7 (written once, read by
-all three) and 205 MB for phase 8, against 520 MB and 1 GB at 50 kb.
+the generated FASTA: about 205 MB for phases 5-8 (written once, read by
+all of them) and 205 MB for phase 9, against 520 MB and 1 GB at 50 kb.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -130,10 +152,12 @@ def phase_device():
 def phase_build():
     from dashing2_tpu_torch import native
     from dashing2_tpu_torch.ops import gtlt as G
+    from dashing2_tpu_torch.ops import int_counts as IC
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
-              "gtlt": G.load_kernel, "ophsketch": native.load_oph_lib,
+              "gtlt": G.load_kernel, "int_counts": IC.load_kernel,
+              "ophsketch": native.load_oph_lib,
               "emitfmt": native.load_emit_lib}
 
     def timed(fn):
@@ -146,7 +170,7 @@ def phase_build():
         secs = {name: f.result() for name, f in futs.items()}
     _say(f"[build] all {len(builds)} in {time.perf_counter() - t0:.3f} s, in "
          "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
-    for name in ("tri_eq", "tri_comb", "gtlt"):
+    for name in ("tri_eq", "tri_comb", "gtlt", "int_counts"):
         for ln in native.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 _say(f"[build] ptxas {name}: {ln.strip()}")
@@ -267,6 +291,90 @@ def phase_gtlt_vs_plain():
     return worst_self, worst_rect
 
 
+def _planted_int(rng, n: int, m: int, dt):
+    """(n, m) u8 or u16 registers as the kernels take them (u16 as int16
+    bit patterns), with identical rows, equal registers, all-zero and
+    all-max rows, and values on both sides of the top bit."""
+    import numpy as np
+    top = int(np.iinfo(dt).max)
+    a = rng.integers(0, top + 1, size=(n, m), dtype=np.uint64).astype(dt)
+    if n >= 2:
+        a[n - 1] = a[0]
+        a[1, ::3] = a[0, ::3]
+    if n >= 5:
+        a[2] = 0
+        a[3] = top
+        a[4, 0::2] = (top + 1) // 2
+        a[4, 1::2] = (top + 1) // 2 - 1
+    if n >= 64:
+        a[60:63] = a[5]
+    return a.view(np.int16) if dt == np.uint16 else a
+
+
+def phase_int_vs_plain():
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import estimators as E
+    from dashing2_tpu_torch.cmp.core import sim_table
+    from dashing2_tpu_torch.enums import Measure
+    from dashing2_tpu_torch.ops import int_counts as IC
+    rng = np.random.default_rng(2029)
+    worst_self = worst_rect = 0
+    for dt in (np.uint8, np.uint16):
+        for m in (30, 64, 256, 1024):
+            for n in KERNEL_SIZES:
+                a = torch.from_numpy(_planted_int(rng, n, m, dt)).cuda()
+                b = torch.from_numpy(
+                    _planted_int(rng, n // 2 + 1, m, dt)).cuda()
+                for mode in ("eq", "gtlt"):
+                    got = IC.int_counts_self(a, mode)
+                    err = _max_err(got, IC.int_counts_self_plain(a, mode))
+                    assert err == 0, \
+                        f"int_counts_self {mode} != plain at n={n} m={m}"
+                    worst_self = max(worst_self, err)
+                    diag = got.diagonal().to(torch.int32)
+                    assert int(diag.min()) == int(diag.max()) == \
+                        (m if mode == "eq" else 0)
+                s = n // 3
+                for x, y in ((a, b), (a[s:s + 64], a[s:])):
+                    for g, w in zip(IC.int_counts(x, y),
+                                    IC.int_counts_plain(x, y)):
+                        err = _max_err(g, w)
+                        assert err == 0, f"int_counts != plain at n={n} m={m}"
+                        worst_rect = max(worst_rect, err)
+                torch.cuda.synchronize()
+    _say("[kernel] int_counts_self == plain (eq and gtlt modes) and "
+         "int_counts == plain (eq, gt, lt; against a second matrix and on "
+         "row slices) exactly, u8 and u16, at n in {1, 2, 63, 129, 1000, "
+         "1025, 4097} x m in {30, 64, 256, 1024}")
+    for fd in (0.5, 1.0, 2.0, 4.0):
+        kind = "nibble-bbit" if fd == 0.5 else "bbit"
+        for m in (30, 256, 1024):
+            for fused in (True, False):
+                tc = sim_table(kind, m, fd, "cuda", fused).cpu().numpy()
+                th = sim_table(kind, m, fd, "cpu", fused).numpy()
+                assert np.array_equal(tc.view(np.uint32),
+                                      th.view(np.uint32)), (fd, m, fused)
+    for fd, b in ((1.0, 1.0545), (2.0, 1.000206), (4.0, 1.0000000031)):
+        for m in (30, 1024):
+            c = torch.arange(m + 1, dtype=torch.int32)
+            cg, cl = torch.meshgrid(c, c, indexing="ij")
+            for fused in (True, False):
+                on_cpu = E.compressed_ab_measures32(
+                    cg, cl, m, b, fd, Measure.SIMILARITY, fused=fused,
+                    gb_form="complement")
+                on_card = E.compressed_ab_measures32(
+                    cg.cuda(), cl.cuda(), m, b, fd, Measure.SIMILARITY,
+                    fused=fused, gb_form="complement").cpu()
+                assert torch.equal(on_cpu.view(torch.int32),
+                                   on_card.view(torch.int32)), (fd, m, fused)
+    _say("[kernel] card-built b-bit tables (fd 0.5, 1, 2, 4; fused and numpy "
+         "forms) and a/b complement epilogues over every (gt, lt) (fd 1, 2, "
+         "4) == CPU bit for bit at m in {30, 256, 1024} (tables) and "
+         "{30, 1024} (epilogues)")
+    return worst_self, worst_rect
+
+
 def _corpus(name: str, seed: int, n_anc: int, n_mut: int, length: int,
             divergence=(0.005, 0.05)) -> str:
     from dashing2_tpu_torch.io.corpus import write_corpus
@@ -370,8 +478,8 @@ def phase_main_bbit(lst: str, sketches, counters):
     assert launches["tri_eq"] >= 1, "the main path never launched tri_eq"
     _say_spans("main", spans, (
         "sketch", "sketch/native-files", "sketch/finalize", "compare+emit",
-        "cmp/prep", "cmp/table", "cmp/h2d", "cmp/kernel", "cmp/d2h",
-        "cmp/table-gather", "emit/write"))
+        "cmp/prep", "cmp/table", "cmp/h2d", "cmp/kernel", "cmp/epilogue",
+        "cmp/d2h", "emit/write"))
 
     # the same job's registers, once more, for the kernel-vs-plain check
     opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5,
@@ -537,7 +645,131 @@ def phase_main_full(lst: str, sketches, counters):
     return launches["gtlt_self"], err, kernel_ms, plain_ms
 
 
-def phase_rowblock(counters):
+def _int_job(sketches, m: int, fd: float, bbit: bool, n: int):
+    """The options, compressed registers (on the card, as pairwise_matrix
+    passes them to the kernels) and kind of a `--fastcmp fd` job, from
+    the sketches the CLI run made again."""
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=fd,
+                               truncation_method=int(bbit))
+    creps, _ = C._prep(opts, sketches)
+    kind, data = C._representation(opts, sketches, creps)
+    return opts, creps, kind, C._device_regs(data, torch.device("cuda"))
+
+
+def _job_epilogue(tag: str, kind: str, opts, creps, n: int):
+    """The job's epilogue on the CPU as a function of its counts, after
+    holding the card's to it bit for bit over every count: the (m+1)
+    table for b-bit kinds, the (m+1)^2 table over every (gt, lt) for
+    a/b kinds. Returns fn(eq, gt, lt) of int64 host arrays."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    m = opts.sketchsize
+    on_cpu = C._epilogue(kind, opts, creps, n, torch.device("cpu"))
+    on_card = C._epilogue(kind, opts, creps, n, torch.device("cuda"))
+    c = torch.arange(m + 1, dtype=torch.int32)
+    if kind.endswith("bbit"):
+        host = on_cpu(c, None, None)
+        card = on_card(c.cuda(), None, None).cpu()
+    else:
+        cg, cl = torch.meshgrid(c, c, indexing="ij")
+        host = on_cpu(None, cg, cl)
+        card = on_card(None, cg.cuda(), cl.cuda()).cpu()
+    assert torch.equal(host.view(torch.int32), card.view(torch.int32)), tag
+    table = host.numpy()
+    _say(f"[{tag}] card epilogue == CPU epilogue bit for bit on all "
+         f"{table.size} counts" + ("" if kind.endswith("bbit") else
+                                   f" (gt, lt) at b = {creps.b!r}"))
+    if kind.endswith("bbit"):
+        return lambda eq, gt, lt: table[eq]
+    return lambda eq, gt, lt: table[gt, lt]
+
+
+INT_JOBS = (("u8-bbit", 1.0, True), ("u8-ab", 1.0, False),
+            ("u16-bbit", 2.0, True), ("u16-ab", 2.0, False))
+
+
+def phase_main_int(tag: str, fd: float, bbit: bool, lst: str, sketches,
+                   counters):
+    """One `--fastcmp 1|2` job at full size (self-pairs route,
+    int_counts_self), checked as the nibble jobs are."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.ops import int_counts as IC
+
+    n, m = NORTH_STAR_N, 1024
+    out = os.path.join(WORK, "northstar", f"out_{tag}.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", f"{fd:g}"] \
+        + (["--bbit-sigs"] if bbit else []) \
+        + ["--binary-output", "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli(tag, argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    assert launches["int_counts_self"] >= 1, \
+        f"the {tag} job never launched int_counts_self"
+    _say_spans(tag, spans, FULL_SPANS)
+
+    opts, creps, kind, regs = _int_job(sketches, m, fd, bbit, n)
+    mode = "eq" if bbit else "gtlt"
+    IC.int_counts_self(regs, mode)                    # warm-up
+    torch.cuda.synchronize()
+    kernel_ms = _cuda_ms(lambda: IC.int_counts_self(regs, mode), 20)
+    IC.int_counts_self_plain(regs, mode)              # warm-up
+    plain_ms = _cuda_ms(lambda: IC.int_counts_self_plain(regs, mode), 3)
+    got = IC.int_counts_self(regs, mode)
+    want = IC.int_counts_self_plain(regs, mode)
+    err = _max_err(got, want)
+    assert err == 0, f"int_counts_self != plain on the {tag} registers"
+    counts = want.cpu().numpy().astype(np.int64)
+    del got, want, regs
+    _say(f"[{tag}] int_counts_self ({mode}) kernel {kernel_ms:.6f} ms (CUDA "
+         f"events, mean of 20 after a warm-up); plain {plain_ms:.6f} ms "
+         f"(mean of 3); full {n}x{n} counts equal")
+
+    # every emitted value is the CPU epilogue at the plain counts
+    epi = _job_epilogue(tag, kind, opts, creps, n)
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: epi(
+        counts[i0:i1], counts[i0:i1], counts[:, i0:i1].T))
+    _say(f"[{tag}] output == CPU epilogue at the plain counts for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return launches["int_counts_self"], err, kernel_ms, plain_ms
+
+
+def phase_main_u32(lst: str, sketches, counters):
+    """`--fastcmp 4` (u32 a/b registers) at full size: widened to int64,
+    counted by gtlt_self_counts."""
+    import numpy as np
+    from dashing2_tpu_torch.ops import gtlt as G
+
+    n, m, tag = NORTH_STAR_N, 1024, "u32-ab"
+    out = os.path.join(WORK, "northstar", "out_u32.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "4",
+            "--binary-output", "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli(tag, argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    assert launches["gtlt_self"] >= 1 and launches["int_counts_self"] == 0, \
+        launches
+    _say_spans(tag, spans, FULL_SPANS)
+    opts, creps, kind, regs = _int_job(sketches, m, 4.0, False, n)
+    assert kind == "ab" and creps.data.dtype == np.uint32
+    counts = G.gtlt_self_counts_plain(regs).cpu().numpy().astype(np.int64)
+    del regs
+    epi = _job_epilogue(tag, kind, opts, creps, n)
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: epi(
+        None, counts[i0:i1], counts[:, i0:i1].T))
+    _say(f"[{tag}] output == CPU epilogue at the plain gt/lt counts for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+
+
+def phase_rowblock(lst: str, sketches, counters):
     import numpy as np
     import torch
     from dashing2_tpu_torch.cmp import core as C
@@ -548,11 +780,6 @@ def phase_rowblock(counters):
 
     n, m = ROWS_N, 1024
     assert n > C.SELF_MAX
-    t0 = time.perf_counter()
-    lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,
-                  ROWS_LENGTH)
-    _say(f"[rows] corpus: {n} genomes x {ROWS_LENGTH} bp written in "
-         f"{time.perf_counter() - t0:.3f} s")
     out = os.path.join(WORK, "rowblock", "out.bin")
     argv = ["sketch", "-k", "31", "-S", str(m), "--binary-output",
             "--cmpout", out, "-F", lst]
@@ -565,7 +792,7 @@ def phase_rowblock(counters):
     _say(f"[rows] {blocks} row blocks of {block}: gtlt launched once each")
     _say_spans("rows", spans, FULL_SPANS)
 
-    regs = _full_regs(_sketch(lst), m)
+    regs = _full_regs(sketches, m)
     rows, cols = regs[:block], regs
     G.gtlt_counts(rows, cols)                         # warm-up
     torch.cuda.synchronize()
@@ -597,6 +824,61 @@ def phase_rowblock(counters):
     return launches["gtlt"], err, kernel_ms, plain_ms
 
 
+def phase_rowblock_int(lst: str, sketches, counters):
+    """`--fastcmp 1` (u8 a/b) above SELF_MAX: one int_counts launch per
+    row block, the numpy-route epilogue."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.ops import int_counts as IC
+
+    n, m, tag = ROWS_N, 1024, "rows-u8"
+    out = os.path.join(WORK, "rowblock", "out_u8.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "1",
+            "--binary-output", "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli(tag, argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    opts, creps, kind, regs = _int_job(sketches, m, 1.0, False, n)
+    block = C._block_size(opts)
+    blocks = -(-n // block)
+    assert launches["int_counts"] == blocks \
+        and launches["int_counts_self"] == 0 \
+        and launches["gtlt"] == launches["gtlt_self"] == 0, (launches, blocks)
+    _say(f"[{tag}] {blocks} row blocks of {block}: int_counts launched once "
+         "each")
+    _say_spans(tag, spans, FULL_SPANS)
+
+    rows = regs[:block]
+    IC.int_counts(rows, regs)                         # warm-up
+    torch.cuda.synchronize()
+    kernel_ms = _cuda_ms(lambda: IC.int_counts(rows, regs), 20)
+    IC.int_counts_plain(rows, regs)                   # warm-up
+    plain_ms = _cuda_ms(lambda: IC.int_counts_plain(rows, regs), 3)
+    err = 0
+    for g, w in zip(IC.int_counts(rows, regs), IC.int_counts_plain(rows, regs)):
+        err = max(err, _max_err(g, w))
+    assert err == 0, f"int_counts != plain on the job's first block: {err}"
+    _say(f"[{tag}] int_counts kernel {kernel_ms:.6f} ms on one {block}x{n} "
+         f"u8 block (CUDA events, mean of 20 after a warm-up); plain "
+         f"{plain_ms:.6f} ms (mean of 3); eq, gt and lt equal")
+
+    # every emitted value is the CPU epilogue at the plain counts
+    epi = _job_epilogue(tag, kind, opts, creps, n)
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+
+    def want(i0, i1):
+        _, gt, lt = IC.int_counts_plain(regs[i0:i1], regs[i0:])
+        sim = epi(None, gt.cpu().numpy().astype(np.int64),
+                  lt.cpu().numpy().astype(np.int64))
+        return C._expand_upper(sim, i0, n)
+    _rows_equal(vals, n, want)
+    _say(f"[{tag}] output == CPU epilogue at the plain counts for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return launches["int_counts"], err, kernel_ms, plain_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -604,10 +886,12 @@ def main() -> int:
         return 2
     import dashing2_tpu_torch  # noqa: F401  (fails outside a checkout)
     from dashing2_tpu_torch.ops import gtlt as G
+    from dashing2_tpu_torch.ops import int_counts as IC
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
     counters = {"tri_eq": NT, "tri_comb": NC, "gtlt_self": G.self_launches,
-                "gtlt": G.rect_launches}
+                "gtlt": G.rect_launches, "int_counts_self": IC.self_launches,
+                "int_counts": IC.rect_launches}
     t_start = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -619,9 +903,12 @@ def main() -> int:
     timed("build", phase_build)
     worst_eq, worst_comb = timed("kernels", phase_kernel_vs_plain)
     worst_self, worst_rect = timed("gtlt kernels", phase_gtlt_vs_plain)
+    worst_int_self, worst_int_rect = timed("int_counts kernels",
+                                           phase_int_vs_plain)
     try:
         for gold in ("torch_port_bbit_nibble.json",
-                     "torch_port_ab_nibble.json", "torch_port_full.json"):
+                     "torch_port_ab_nibble.json", "torch_port_full.json",
+                     "torch_port_u8_bbit.json", "torch_port_u16_ab.json"):
             timed(f"golden {gold}", phase_golden, gold)
         t0 = time.perf_counter()
         lst = _corpus("northstar", NS_SEED, NS_ANCESTORS, NS_MUTANTS,
@@ -633,17 +920,40 @@ def main() -> int:
         comb_run = timed("a/b job", phase_main_ab, lst, sketches, counters)
         self_run = timed("full job", phase_main_full, lst, sketches,
                          counters)
+        int_runs = {tag: timed(f"{tag} job", phase_main_int, tag, fd, bbit,
+                               lst, sketches, counters)
+                    for tag, fd, bbit in INT_JOBS}
+        timed("u32-ab job", phase_main_u32, lst, sketches, counters)
+        del sketches
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
-        rect_run = timed("row-block job", phase_rowblock, counters)
+        t0 = time.perf_counter()
+        lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,
+                      ROWS_LENGTH)
+        _say(f"[rows] corpus: {ROWS_N} genomes x {ROWS_LENGTH} bp written "
+             f"in {time.perf_counter() - t0:.3f} s")
+        sketches = timed("sketch for the row-block checks", _sketch, lst)
+        rect_run = timed("row-block job", phase_rowblock, lst, sketches,
+                         counters)
+        int_rect_run = timed("u8 row-block job", phase_rowblock_int, lst,
+                             sketches, counters)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     _say(f"[wall] all phases: {time.perf_counter() - t_start:.3f} s")
+    # int_counts_self: launches summed over the four --fastcmp 1|2 jobs,
+    # times of the u8 a/b job's gtlt mode (each job's are printed above)
+    int_self_run = (sum(r[0] for r in int_runs.values()),
+                    max(r[1] for r in int_runs.values()),
+                    int_runs["u8-ab"][2], int_runs["u8-ab"][3])
     kernels = []
     for name, src, line, worst, (launches, err, ms, plain_ms) in (
             ("tri_eq_counts", "tri_eq.cu", 447, worst_eq, eq_run),
             ("tri_comb_counts", "tri_comb.cu", 367, worst_comb, comb_run),
             ("gtlt_self_counts", "gtlt.cu", 162, worst_self, self_run),
-            ("gtlt_counts", "gtlt.cu", 45, worst_rect, rect_run)):
+            ("gtlt_counts", "gtlt.cu", 45, worst_rect, rect_run),
+            ("int_counts_self", "int_counts.cu", 239, worst_int_self,
+             int_self_run),
+            ("int_counts", "int_counts.cu", 239, worst_int_rect,
+             int_rect_run)):
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -6,10 +6,10 @@ so flags keep their reference names and build the same options. Only the
 native sketching of FASTA/FASTQ inputs, then (with --cmpout) the
 SIMILARITY all-pairs matrix over the full registers (no `--fastcmp`, or
 `--fastcmp 8`; `--f32-registers` compares them rounded to f32) or over
-`--fastcmp 0.5` nibble registers, b-bit (`--bbit-sigs`) or SetSketch a/b
-quantised (without it), emitted as binary f32, PHYLIP or the symmetric
-TSV. Every other option is rejected
-with an error naming it. `--device` (default cuda) picks where the
+`--fastcmp 0.5`, `1`, `2` or `4` registers (nibbles, u8, u16, u32),
+b-bit (`--bbit-sigs`) or SetSketch a/b quantised (without it), emitted
+as binary f32, PHYLIP or the symmetric TSV. Every other option is
+rejected with an error naming it. `--device` (default cuda) picks where the
 comparison runs; a CUDA request without a card exits non-zero and never
 carries on on the CPU.
 """
@@ -308,18 +308,23 @@ _OUTSIDE_SLICE = {
 }
 
 
-def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
-                  opts: Dashing2DistOptions) -> List[str]:
+def _slice_errors(p: argparse.ArgumentParser,
+                  a: argparse.Namespace) -> List[str]:
     """Options this port does not run yet (empty if the job is in the
-    slice)."""
+    slice). The flags are checked before any options are built, so that
+    a flag outside the slice is reported as such even where building
+    the options would fail (--fastcmp-bytes and --setsketch-ab need
+    FullSetSketch sketching)."""
     errs = [flag for dest, flag in _OUTSIDE_SLICE.items()
             if getattr(a, dest) != p.get_default(dest)]
-    if opts.outfile_path:
-        if opts.fd_level not in (0.5, 8.0):
-            errs.append("comparisons other than --fastcmp 0.5 and full "
-                        "registers")
-        elif opts.fd_level == 8.0 and opts.truncation_method > 0:
-            errs.append("--bbit-sigs without --fastcmp 0.5")
+    if errs or not a.cmpout:
+        return errs
+    opts = _build_opts(a)
+    if opts.fd_level not in (0.5, 1.0, 2.0, 4.0, 8.0):
+        errs.append("comparisons other than --fastcmp 0.5, 1, 2, 4 and "
+                    "full registers")
+    elif opts.fd_level == 8.0 and opts.truncation_method > 0:
+        errs.append("--bbit-sigs without --fastcmp 0.5, 1, 2 or 4")
     return errs
 
 
@@ -365,10 +370,10 @@ def _main(argv: List[str]) -> int:
         print(f"dashing2-tpu-torch: error: {e}", file=sys.stderr)
         return 2
     groups = _collect_inputs(a)
-    opts = _build_opts(a)
-    errs = _slice_errors(ps, a, opts)
+    errs = _slice_errors(ps, a)
     if errs:
         ps.error("not ported yet (see ROADMAP.md): " + ", ".join(errs))
+    opts = _build_opts(a)
     if not groups:
         ps.error("no input files")
     if opts.verbosity >= 1:

@@ -1,33 +1,29 @@
 """Comparison core: densify -> compress -> all-pairs counts -> similarity.
 
 Port of dashing2_tpu/cmp/core.py for symmetric all-pairs jobs,
-SIMILARITY only: the `--fastcmp 0.5` nibble routes and the default
-full-register route (no `--fastcmp`):
+SIMILARITY only: the `--fastcmp 0.5`, `1`, `2` and `4` routes, each
+b-bit (`--bbit-sigs`) or SetSketch a/b quantised (without it), and the
+default full-register route (no `--fastcmp`):
 
-* `make_compressed` (both nibble branches: b-bit truncation with
-  --bbit-sigs, SetSketch a/b quantisation without; none at fd >= 8),
-  `_prep`, `_ordered_bits`, `_representation` and `_gb_args` are numpy
-  copies;
-* nibble-bbit: `sim_table` is `_sim_table` built in torch on the job's
-  device, bit for bit the JAX package's table. The CUDA kernel of
-  ops/nibble_tri.py gives (n, n) u16 eq counts on the device, they cross
-  to the host in one copy, and each emitted block is the (m+1)-entry
-  table gathered at its counts (the JAX counts-pull branch);
-* nibble-ab: the CUDA kernel of ops/nibble_comb.py gives (n, n) u16 eq
-  and gt counts on the device, the a/b epilogue
-  (estimators.compressed_ab_measures32) runs on the device per emitted
-  row block, and the f32 block crosses to the host. The value depends on
-  two counts, so no (m+1) table serves it (the JAX package keeps 'ab'
-  kinds off its counts pull for the same reason);
-* full: the f64 signatures' ordered u64 bit patterns, compared by the
-  CUDA kernels of ops/gtlt.py. Its similarity depends only on
-  c = gt + lt, so an (m+1) table over c, built on the device, serves it
-  (the JAX counts-pull route does the same). For 2 <= n <= SELF_MAX one
-  `gtlt_self_counts` launch gives (n, n) u16 with gt above and lt below
-  the diagonal; for n > SELF_MAX each row block [s, s+b) is one
-  `gtlt_counts` launch against rows [s, n) (the JAX generic row-block
-  route). Either way each block's c is summed and looked up on the
-  device, and the f32 block crosses to the host.
+* `make_compressed` (nibbles packed two per byte; u8, u16 and u32
+  registers one per element; none at fd >= 8), `_prep`, `_ordered_bits`,
+  `_representation` and `_gb_args` are numpy copies;
+* the counts run on the device (`_count_blocks`). For 2 <= n <= SELF_MAX
+  one self-pairs launch gives an (n, n) u16 matrix: eq counts
+  (ops/nibble_tri.py for b-bit nibbles, ops/int_counts.py in "eq" mode
+  for u8/u16 b-bit registers), or gt above and lt below the diagonal
+  (ops/nibble_comb.py for a/b nibbles, ops/int_counts.py in "gtlt" mode
+  for u8/u16 a/b registers, ops/gtlt.py for u32 registers, widened to
+  int64, and for the full registers' ordered u64 bits). For n > SELF_MAX
+  each row block [s, s+b) is one rectangular launch (ops/int_counts.py)
+  against rows [s, n), the JAX generic row-block route; the nibble kinds
+  have no rectangular kernel and take 2 <= n <= SELF_MAX;
+* the similarity of each row block is computed on the device: b-bit
+  kinds gather an (m+1) table at the eq counts, full registers at
+  c = gt + lt (`sim_table`), a/b kinds run
+  estimators.compressed_ab_measures32, whose value depends on two
+  counts. The f32 block crosses to the host. Every epilogue follows
+  the JAX route of the same n (FUSED_MIN_N, SELF_MAX).
 
 The JAX package packs the pulled counts into 3-byte pairs
 (`_pack_tri_counts_fn`, `_unpack_tri_f32`) because its device sat behind
@@ -53,7 +49,7 @@ from ..device import resolve, synchronize
 from ..enums import KmerSketchResultType, Measure, SketchSpace
 from ..ops import cmp_kernels as CK
 from ..ops import sketch_kernels as SK
-from ..ops.gtlt import gtlt_counts, gtlt_self_counts
+from ..ops.int_counts import int_counts, int_counts_self
 from ..ops.nibble_comb import tri_comb_counts
 from ..ops.nibble_tri import tri_eq_counts
 from ..result import SketchingResult
@@ -66,19 +62,27 @@ SELF_MAX = 16384
 
 # the JAX package's jitted self-pairs route takes 64 <= n
 # (pairwise_matrix l.2364); below it its generic row-block route runs the
-# numpy epilogues, whose bits differ (estimators.compressed_ab_measures32,
-# estimators.full_setsketch_measures32)
+# numpy epilogues, whose bits differ (estimators.bbit_measures32,
+# estimators.compressed_ab_measures32, estimators.full_setsketch_measures32)
 FUSED_MIN_N = 64
 
-# SetSketch q for nibble registers (cmp_core.cpp:248; the 0.5 entry of
-# the JAX package's _QLUT, the one width the port quantises)
-_Q_NIBBLE = 15.4
+# the row count up to which the JAX package's `_tiled_epilogue` (l.670)
+# evaluates a whole count matrix at once; above it, a scan over 1024-row
+# tiles, whose fused multiply-add takes the other a/b operand
+_TILED_ROWS = 4096
+
+# SetSketch q per register width (cmp_core.cpp:248), and the shift that
+# keeps a b-bit register's top bits, as the JAX package has them
+_QLUT = {1.0: 254.3, 2.0: 65534.0, 4.0: 4294967294.0,
+         8.0: 18446744073709551615.0, 0.5: 15.4}
+_BBIT_SHIFT = {1.0: 58, 2.0: 48, 4.0: 32, 8.0: 0}
+_REG_TYPES = {1.0: np.uint8, 2.0: np.uint16, 4.0: np.uint32}
 
 
 @dataclasses.dataclass
 class CompressedReps:
     """dashing2_tpu/cmp/core.py::CompressedReps."""
-    data: Optional[np.ndarray]   # (N, m/2) packed nibbles
+    data: Optional[np.ndarray]   # (N, m) u8/u16/u32 or (N, m/2) nibbles
     a: float = -1.0              # SetSketch a/b (a/b-quantised kinds)
     b: float = -1.0
     truncation: int = 0
@@ -96,27 +100,34 @@ def creps_from_reference(creps) -> CompressedReps:
 
 def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
                     kmers: Optional[np.ndarray]) -> CompressedReps:
-    """f64 signatures -> packed nibbles, two registers per byte, the even
-    register in the low nibble (cmp_core.cpp:209-322, --fastcmp 0.5):
+    """f64 signatures -> fd_level-byte registers (cmp_core.cpp:209-322):
+    nibbles (--fastcmp 0.5) packed two per byte, the even register in the
+    low nibble; u8, u16 and u32 (--fastcmp 1, 2, 4) one per element.
 
     * without --bbit-sigs, SetSketch a/b quantisation: (b, a) calibrated
-      over every live register of the job (optimal_parameters, q = 15.4),
-      then v = clip(floor(1 - log(sig/a)/log b), 0, 16). A register whose
-      v is 16 spills into its neighbour's nibble, as in the JAX package;
-    * with --bbit-sigs, b-bit truncation: the low 4 bits of each
-      register's reg2sig hash.
+      over every live register of the job (optimal_parameters, q from
+      _QLUT), then v = clip(floor(1 - log(sig/a)/log b), 0, int(q) + 1),
+      NaN and -inf to 0 and +inf to q + 1 for the wide widths. A nibble
+      whose v is 16 spills into its neighbour's nibble, as in the JAX
+      package;
+    * with --bbit-sigs, b-bit truncation of each register's reg2sig hash:
+      its low 4 bits for nibbles, its top bits for the wide widths
+      (_BBIT_SHIFT: the top 6 bits for u8, 16 for u16, 32 for u32).
 
     At fd >= 8 (no --fastcmp) nothing is compressed: the full registers
     are compared (`_representation`)."""
-    if opts.fd_level >= 8.0 and not opts.sketch_compressed_set:
+    fd = opts.fd_level
+    if fd >= 8.0 and not opts.sketch_compressed_set:
         return CompressedReps(data=None)
-    if not (opts.fd_level == 0.5 and not opts.sketch_compressed_set
-            and opts.sspace != SketchSpace.SPACE_EDIT_DISTANCE):
+    if opts.sketch_compressed_set \
+            or opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
         raise NotImplementedError(
-            "only --fastcmp 0.5 and full registers are ported (ROADMAP "
-            "Queue 2 item 5)")
+            "sketch-compressed (--setsketch-ab) and edit-distance registers "
+            "are not ported (ROADMAP Queue 1 item 9)")
+    if fd not in _QLUT:
+        raise ValueError(f"no register width for --fastcmp {fd:g}")
     if opts.truncation_method <= 0:
-        q = _Q_NIBBLE
+        q = _QLUT[fd]
         a, b = opts.compressed_a, opts.compressed_b
         if a <= 0 or b <= 0:
             flat = sigs.reshape(-1)
@@ -132,20 +143,28 @@ def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
         logbinv = 1.0 / np.log1p(b - 1.0)
         with np.errstate(divide="ignore", invalid="ignore"):
             sub = 1.0 - np.log(sigs / a) * logbinv
-        v = np.clip(sub, 0, int(q) + 1).astype(np.int64)
-        flat = v.reshape(-1)
-        packed = (flat[0::2] | (flat[1::2] << 4)).astype(np.uint8)
-        return CompressedReps(packed.reshape(sigs.shape[0], -1), a=a, b=b,
-                              truncation=0, nibble_packed=True)
+        if fd == 0.5:
+            v = np.clip(sub, 0, int(q) + 1).astype(np.int64)
+            flat = v.reshape(-1)
+            packed = (flat[0::2] | (flat[1::2] << 4)).astype(np.uint8)
+            return CompressedReps(packed.reshape(sigs.shape[0], -1), a=a,
+                                  b=b, truncation=0, nibble_packed=True)
+        v = np.clip(np.nan_to_num(sub, nan=0.0, posinf=q + 1, neginf=0.0),
+                    0, int(q) + 1).astype(np.int64)
+        return CompressedReps(v.astype(_REG_TYPES[fd]), a=a, b=b,
+                              truncation=0)
     if kmers is not None and kmers.size == sigs.size:
         sig64 = H.wanghash(kmers.astype(np.uint64))
     else:
         sig64 = H.reg2sig(sigs.view(np.uint64).reshape(sigs.shape))
-    flat = sig64.reshape(-1)
-    packed = ((flat[0::2] & np.uint64(0xF))
-              | ((flat[1::2] & np.uint64(0xF)) << np.uint64(4)))
-    return CompressedReps(packed.astype(np.uint8).reshape(sigs.shape[0], -1),
-                          truncation=1, nibble_packed=True)
+    if fd == 0.5:
+        flat = sig64.reshape(-1)
+        packed = ((flat[0::2] & np.uint64(0xF))
+                  | ((flat[1::2] & np.uint64(0xF)) << np.uint64(4)))
+        return CompressedReps(packed.astype(np.uint8).reshape(
+            sigs.shape[0], -1), truncation=1, nibble_packed=True)
+    shifted = sig64 >> np.uint64(_BBIT_SHIFT[fd])
+    return CompressedReps(shifted.astype(_REG_TYPES[fd]), truncation=1)
 
 
 def _prep(opts: Dashing2DistOptions, result: SketchingResult
@@ -209,14 +228,12 @@ def _ordered_cached(opts: Dashing2DistOptions,
 
 def _representation(opts: Dashing2DistOptions, result: SketchingResult,
                     creps: CompressedReps):
-    """(kind, data) for the count engines: packed nibbles, or the full
-    registers' ordered bits (u64, or u32 with regt32)."""
+    """(kind, data) for the count engines: packed nibbles ('nibble-bbit',
+    'nibble-ab'), u8/u16/u32 registers ('bbit', 'ab'), or the full
+    registers' ordered bits ('full': u64, or u32 with regt32)."""
     if creps.data is not None:
-        if not creps.nibble_packed:
-            raise NotImplementedError(
-                "u8/u16/u32 registers are not ported (ROADMAP Queue 2 "
-                "item 5)")
-        return ("nibble-bbit" if creps.truncation > 0 else "nibble-ab"), \
+        kind = "bbit" if creps.truncation > 0 else "ab"
+        return ("nibble-" + kind if creps.nibble_packed else kind), \
             creps.data
     if opts.sspace == SketchSpace.SPACE_SET and opts.truncation_method <= 0:
         return "full", _ordered_cached(opts, result)
@@ -226,8 +243,8 @@ def _representation(opts: Dashing2DistOptions, result: SketchingResult,
 
 
 def _gb_args(b: float, m: int):
-    """(bit-product table, 1/(1-1/b)) for the f32 nibble a/b epilogue
-    (estimators.gb_bit_table)."""
+    """(gb_bit_table, f32(1/(1-1/b))) for the f32 a/b epilogue
+    (estimators.compressed_ab_measures32)."""
     return (E.gb_bit_table(b, m),
             np.float32(1.0 / (1.0 - 1.0 / np.float64(b))))
 
@@ -236,16 +253,16 @@ def sim_table(kind: str, m: int, fd: float, device="cpu",
               fused: bool = True) -> torch.Tensor:
     """(m+1,) f32 SIMILARITY value for every possible count, built in
     torch on `device` (dashing2_tpu/cmp/core.py::_sim_table, whose k
-    argument SIMILARITY never reads):
+    argument SIMILARITY never reads), in the epilogue of the JAX route
+    the caller mirrors:
 
-    * nibble-bbit, indexed by the eq count: the JAX package's table bit
-      for bit (estimators.bbit_measures32);
+    * nibble-bbit and bbit, indexed by the eq count: `fused` as in
+      estimators.bbit_measures32;
     * full, indexed by c = gt + lt (the JAX table is indexed by
-      eq = m - c): the epilogue of the JAX route the caller mirrors,
-      `fused` as in estimators.full_setsketch_measures32."""
+      eq = m - c): `fused` as in estimators.full_setsketch_measures32."""
     counts = torch.arange(m + 1, dtype=torch.int32, device=resolve(device))
-    if kind == "nibble-bbit":
-        return E.bbit_measures32(counts, m, fd, Measure.SIMILARITY)
+    if kind in ("nibble-bbit", "bbit"):
+        return E.bbit_measures32(counts, m, fd, Measure.SIMILARITY, fused)
     if kind == "full":
         return E.full_setsketch_measures32(counts, torch.zeros_like(counts),
                                            m, Measure.SIMILARITY, fused)
@@ -283,7 +300,7 @@ def _check_route(opts: Dashing2DistOptions, n: int, nq: int,
             f"{opts.measure.name} is not ported (ROADMAP Queue 1 item 4)")
     if n < 2:
         raise NotImplementedError(f"n={n}: all-pairs jobs take 2 <= n")
-    if n > SELF_MAX and kind != "full":
+    if n > SELF_MAX and kind.startswith("nibble"):
         raise NotImplementedError(
             f"n={n}: {kind} registers take the self-pairs route, "
             f"2 <= n <= {SELF_MAX}; their row-block route is not ported "
@@ -294,11 +311,103 @@ def _check_route(opts: Dashing2DistOptions, n: int, nq: int,
             "route is not ported (ROADMAP Queue 1 item 4)")
 
 
+def _device_regs(data: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Registers as the count kernels take them: packed nibbles and u8 as
+    uint8, u16 as int16 bit patterns, u32 and u64 as int64 (u32 widened,
+    as the JAX package's counts_int_pallas widens it)."""
+    data = np.ascontiguousarray(data)
+    if data.dtype == np.uint16:
+        data = data.view(np.int16)
+    elif data.dtype != np.uint8:
+        data = data.astype(np.uint64, copy=False).view(np.int64)
+    return torch.from_numpy(data).to(dev)
+
+
+def _count_blocks(kind: str, data: np.ndarray, m: int, n: int, block: int,
+                  upper_only: bool, dev: torch.device):
+    """Yield (start, (eq, gt, lt)) per row block [start, start + b) on
+    `dev`, each (b, n - c0) with c0 = start if upper_only else 0: the
+    b-bit kinds need eq, the others gt and lt, and a count a kind does
+    not need may be None.
+
+    * n <= SELF_MAX: one self-pairs launch; an eq matrix is read at
+      [rows, c0:], a gt matrix (lt = gt^T) gives gt at [rows, c0:] and lt
+      at [c0:, rows]^T;
+    * n > SELF_MAX: one int_counts launch per block, rows against rows
+      [c0, n), the registers staying on `dev` across blocks."""
+    want_eq = kind.endswith("bbit")
+    with span("cmp/h2d"):
+        regs = _device_regs(data, dev)
+    self_pairs = n <= SELF_MAX
+    if self_pairs:
+        with span("cmp/kernel"):
+            if kind == "nibble-bbit":
+                mat = tri_eq_counts(regs, m)
+            elif kind == "nibble-ab":
+                mat = tri_comb_counts(regs, m)[1]
+            else:
+                mat = int_counts_self(regs, "eq" if want_eq else "gtlt")
+            synchronize(dev)
+        del regs        # free the card while the generator lives on
+    for start in range(0, n, block):
+        rows = slice(start, min(start + block, n))
+        c0 = start if upper_only else 0
+        if not self_pairs:
+            with span("cmp/kernel"):
+                eq, gt, lt = int_counts(regs[rows], regs[c0:])
+                synchronize(dev)
+        elif want_eq:
+            eq, gt, lt = mat[rows, c0:], None, None
+        else:
+            eq, gt, lt = None, mat[rows, c0:], mat[c0:, rows].T
+        yield start, (eq, gt, lt)
+
+
+def _epilogue(kind: str, opts: Dashing2DistOptions, creps: CompressedReps,
+              n: int, dev: torch.device):
+    """The similarity of one block's counts, (eq, gt, lt) -> f32 on `dev`,
+    in the epilogue of the JAX route of the same n (fused for
+    FUSED_MIN_N <= n <= SELF_MAX): a table gather at eq (b-bit kinds) or
+    at c = gt + lt (full), or the a/b estimator (product form for
+    nibbles, complement form for the wide widths).
+
+    The fused a/b value depends on which count the JAX graph's fused
+    multiply-add multiplies (estimators.compressed_ab_measures32). Item i
+    of a pair is the row. The nibble route multiplies gt[i, j]; the wide
+    widths' `_tiled_epilogue` multiplies lt[i, j] while it takes the
+    whole matrix at once (n <= _TILED_ROWS) and gt[i, j] in its
+    1024-row scan above that."""
+    m, fd = opts.sketchsize, opts.fd_level
+    fused = FUSED_MIN_N <= n <= SELF_MAX
+    if kind.endswith("ab"):
+        bf = max(creps.b, 1.0 + 1e-9)
+        table, gbinv = _gb_args(bf, m)
+        if kind == "nibble-ab":
+            return lambda eq, gt, lt: E.compressed_ab_measures32(
+                gt, lt, m, bf, fd, opts.measure, table, gbinv, fused)
+        row_first = n > _TILED_ROWS
+        return lambda eq, gt, lt: E.compressed_ab_measures32(
+            *((gt, lt) if row_first else (lt, gt)), m, bf, fd, opts.measure,
+            table, gbinv, fused, "complement")
+    table = sim_table(kind, m, fd, dev, fused)
+    if kind == "full":
+        return lambda eq, gt, lt: table[gt.to(torch.int32)
+                                        + lt.to(torch.int32)]
+    return lambda eq, gt, lt: table[eq.to(torch.int32)]
+
+
 def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
                     block: int = 0, upper_only: bool = False,
                     device="cuda") -> Iterator[Tuple[int, np.ndarray]]:
     """Yield (first_row_index, (b, n) f32 similarity block) covering all
-    rows of a symmetric all-pairs job, computed on `device`.
+    rows of a symmetric all-pairs job, computed on `device`: the counts
+    (_count_blocks), then per row block the similarity on `device` and
+    one f32 copy to the host.
+
+    The epilogue mirrors the JAX route of the same n: FUSED_MIN_N <= n
+    <= SELF_MAX is its jitted self-pairs route, any other n its numpy
+    row-block route (estimators.bbit_measures32,
+    compressed_ab_measures32, full_setsketch_measures32).
 
     upper_only=True (symmetric/PHYLIP emitters): only the upper trapezoid
     [:, start:] of each block is computed; the lower-left is zeros, which
@@ -311,112 +420,12 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
         creps, result = _prep(opts, result)
         kind, data = _representation(opts, result, creps)
     _check_route(opts, n, result.nqueries(), kind)
-    if kind == "full":
-        yield from _full_blocks(opts, data, n, block, upper_only, dev)
-        return
-    if kind == "nibble-ab":
-        yield from _nibble_ab_blocks(opts, creps, n, block, upper_only, dev)
-        return
-    m = opts.sketchsize
     with span("cmp/table"):
-        table = sim_table(kind, m, opts.fd_level, dev).cpu().numpy()
-    with span("cmp/h2d"):
-        packed = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
-    with span("cmp/kernel"):
-        eq = tri_eq_counts(packed, m)
-        synchronize(dev)
-    with span("cmp/d2h"):
-        counts = eq.cpu().numpy()
-    del eq, packed      # free the card while the generator lives on
-    for start in range(0, n, block):
-        b = min(block, n - start)
-        with span("cmp/table-gather"):
-            if upper_only:
-                blk = _expand_upper(table[counts[start:start + b, start:]],
-                                    start, n)
-            else:
-                blk = table[counts[start:start + b]]
-        yield start, blk
-
-
-def _nibble_ab_blocks(opts: Dashing2DistOptions, creps: CompressedReps,
-                      n: int, block: int, upper_only: bool,
-                      dev: torch.device) -> Iterator[Tuple[int, np.ndarray]]:
-    """nibble-ab rows of pairwise_matrix: (eq, gt) counts on `dev` in one
-    kernel launch, then per row block the a/b epilogue on `dev` over
-    (gt, lt = m - eq - gt) and one f32 copy to the host. Item i of a pair
-    is the row, so gt[i, j] is the epilogue's multiplied operand, as in
-    the JAX package; its epilogue's bits depend on n (FUSED_MIN_N, see
-    estimators.compressed_ab_measures32)."""
-    m = opts.sketchsize
-    with span("cmp/prep"):
-        bf = max(creps.b, 1.0 + 1e-9)
-        table, gbinv = _gb_args(bf, m)
-    with span("cmp/h2d"):
-        packed = torch.from_numpy(np.ascontiguousarray(creps.data)).to(dev)
-    with span("cmp/kernel"):
-        eq, gt = tri_comb_counts(packed, m)
-        synchronize(dev)
-    del packed
-    for start in range(0, n, block):
-        b = min(block, n - start)
-        c0 = start if upper_only else 0
+        epilogue = _epilogue(kind, opts, creps, n, dev)
+    for start, counts in _count_blocks(kind, data, opts.sketchsize, n, block,
+                                       upper_only, dev):
         with span("cmp/epilogue"):
-            g = gt[start:start + b, c0:].to(torch.int32)
-            lt = m - eq[start:start + b, c0:].to(torch.int32) - g
-            vals = E.compressed_ab_measures32(
-                g, lt, m, bf, opts.fd_level, opts.measure, table, gbinv,
-                fused=n >= FUSED_MIN_N)
-            synchronize(dev)
-        with span("cmp/d2h"):
-            blk = vals.cpu().numpy()
-        yield start, (_expand_upper(blk, start, n) if upper_only else blk)
-
-
-def _full_blocks(opts: Dashing2DistOptions, bits: np.ndarray, n: int,
-                 block: int, upper_only: bool, dev: torch.device
-                 ) -> Iterator[Tuple[int, np.ndarray]]:
-    """full rows of pairwise_matrix: the ordered register bits go to `dev`
-    once as int64 (u32 bits with regt32 are widened, as gtlt_pallas
-    widens its input), then per row block c = gt + lt is summed on `dev`,
-    looked up in the sim table there, and the f32 block crosses to the
-    host.
-
-    * n <= SELF_MAX: one gtlt_self_counts launch; block rows r read gt
-      at gt[r, c0:] and lt at gt[c0:, r]^T;
-    * n > SELF_MAX: one gtlt_counts launch per block, rows r against
-      rows [c0, n), the registers staying on `dev` across blocks.
-
-    The table mirrors the JAX route of the same n (FUSED_MIN_N <= n <=
-    SELF_MAX is its jitted self-pairs route; see
-    estimators.full_setsketch_measures32)."""
-    m = opts.sketchsize
-    self_pairs = n <= SELF_MAX
-    with span("cmp/table"):
-        table = sim_table("full", m, opts.fd_level, dev,
-                          fused=self_pairs and n >= FUSED_MIN_N)
-    with span("cmp/h2d"):
-        regs = torch.from_numpy(
-            np.ascontiguousarray(bits, dtype=np.uint64).view(np.int64)
-        ).to(dev)
-    if self_pairs:
-        with span("cmp/kernel"):
-            gt = gtlt_self_counts(regs)
-            synchronize(dev)
-        del regs
-    for start in range(0, n, block):
-        b = min(block, n - start)
-        c0 = start if upper_only else 0
-        rows = slice(start, start + b)
-        if not self_pairs:
-            with span("cmp/kernel"):
-                g, lt = gtlt_counts(regs[rows], regs[c0:])
-                synchronize(dev)
-        with span("cmp/epilogue"):
-            if self_pairs:
-                g, lt = gt[rows, c0:], gt[c0:, rows].T
-            c = g.to(torch.int32) + lt.to(torch.int32)
-            vals = table[c.long()]
+            vals = epilogue(*counts)
             synchronize(dev)
         with span("cmp/d2h"):
             blk = vals.cpu().numpy()

@@ -3,10 +3,11 @@
 Port of dashing2_tpu/cmp/estimators.py for Measure.SIMILARITY, the one
 measure the port emits:
 
-* `bbit_measures32` for b-bit registers (eq counts);
-* `compressed_ab_measures32` for SetSketch a/b-quantised nibbles (gt and
-  lt counts), with the host numpy constants it needs
-  (`optimal_parameters`, `gb_bit_table`, `_pow_b_neg32`);
+* `bbit_measures32` for b-bit registers of every width (eq counts);
+* `compressed_ab_measures32` for SetSketch a/b-quantised registers (gt
+  and lt counts; nibbles in the product form, u8/u16/u32 in the
+  complement form), with the host constants it needs
+  (`optimal_parameters`, `gb_bit_table`, `ab_tables`) and `fma32`;
 * `full_setsketch_measures32` for full 64-bit registers (gt and lt
   counts, the default mode).
 
@@ -25,32 +26,42 @@ from ..enums import Measure
 
 
 def bbit_measures32(eqc: torch.Tensor, m: int, fd_level: float,
-                    measure: Measure) -> torch.Tensor:
-    """f32 b-bit similarity of integer eq counts, with the JAX package's
-    bits: max(0, (eqc * 2^b - m) * r), r = f32(1 / (m * (2^b - 1))).
+                    measure: Measure, fused: bool = True) -> torch.Tensor:
+    """f32 b-bit similarity of integer eq counts with the JAX package's
+    bits. The JAX source writes max(0, (eqc * 2^b - m) / den) with
+    den = f32(m * (2^b - 1)); which bits come out depends on the route:
 
-    The JAX source writes `/ den`, but den is a constant of the traced
-    graph and XLA's algebraic simplifier rewrites division by a constant
-    into multiplication by its f32 reciprocal; the JAX package's
-    similarity table (cmp/core.py::_sim_table) therefore holds the
-    product, which differs from the IEEE quotient by one ulp for about
-    60% of counts. The port computes that product: r is one IEEE f32
-    division done on the host, eqc * 2^b - m is exact (an integer below
-    2^24), and the multiply is one correctly rounded IEEE operation on
-    the CPU and on the card alike, so the bits match on every device."""
+    * fused=True, its jitted routes (the self-pairs routes and the
+      counts-pull table, 64 <= n <= SELF_MAX): den is a constant of the
+      traced graph and XLA's algebraic simplifier rewrites the division
+      into a multiplication by its f32 reciprocal, which differs from
+      the IEEE quotient by one ulp for about 60% of counts. The port
+      computes that product: r = f32(1 / den) is one IEEE division on
+      the host, and the multiply is one correctly rounded operation;
+    * fused=False, its numpy epilogue (the generic row-block route:
+      n < 64, and n > SELF_MAX on its CPU backend): one IEEE f32
+      division by den.
+
+    eqc * 2^b is exact (a power-of-two scale), so eqc * 2^b - m is one
+    correctly rounded subtraction on every route (a fused multiply-add
+    gives the same), and the product or quotient is one more; eager
+    torch gives the same bits on the CPU and on the card."""
     if measure != Measure.SIMILARITY:
         raise NotImplementedError(
             f"{measure.name} on b-bit registers is not ported "
             "(ROADMAP Queue 1 item 4)")
     bits = int(fd_level * 8)
     den = np.float32(np.float64(m) * (np.ldexp(1.0, bits) - 1.0))
-    recip = float(np.float32(1.0) / den)
     dev = eqc.device
 
     def f32(x: float) -> torch.Tensor:
         return torch.tensor(x, dtype=torch.float32, device=dev)
     num = eqc.to(torch.float32) * f32(float(1 << bits)) - f32(float(m))
-    return torch.maximum(f32(0.0), num * f32(recip))
+    if fused:
+        sim = num * f32(float(np.float32(1.0) / den))
+    else:
+        sim = num / f32(float(den))
+    return torch.maximum(f32(0.0), sim)
 
 
 def optimal_parameters(minreg: float, maxreg: float, q: float
@@ -88,37 +99,98 @@ def _pow_b_neg32(counts: np.ndarray, table: np.ndarray) -> np.ndarray:
     return r
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+          ) -> torch.Tensor:
+    """f32 fused multiply-add fma(a, b, c) of f32 values, correctly
+    rounded, in eager torch on any device. The product of two f32 values
+    is exact in f64; TwoSum gives the f64 sum and its rounding error;
+    rounding that sum to odd (moving an inexact sum with an even last bit
+    one f64 ulp towards the exact value) before the cast to f32 makes the
+    one f32 rounding that of the exact a*b + c (53 >= 24 + 2 bits), with
+    no double rounding. Every step is one IEEE f64 operation, so the
+    bits do not depend on the device."""
+    a, b, c = (x.to(torch.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _one_minus_pow_b32(counts: np.ndarray, table: np.ndarray,
+                       fused: bool) -> np.ndarray:
+    """q = 1 - b^(-c/m) for integer counts by the complement recurrence
+    q' = q + u_k (1 - q) over the set bits of c in ascending order (row 1
+    of gb_bit_table), as the JAX package's `_one_minus_pow_b32`. fused
+    gives its jitted bits, where XLA contracts each step into
+    fma(u_k, 1 - q, q); otherwise every operation rounds to f32, as its
+    numpy route does. A step over a clear bit adds 0 either way."""
+    c = counts.astype(np.int32)
+    q = np.zeros(c.shape, np.float32)
+    one, zero = np.float32(1.0), np.float32(0.0)
+    for k in range(table.shape[-1]):
+        uk = np.where(((c >> k) & 1).astype(bool), table[1][k], zero)
+        if fused:
+            q = fma32(torch.from_numpy(uk), torch.from_numpy(one - q),
+                      torch.from_numpy(q)).numpy()
+        else:
+            q = q + uk * (one - q)
+    return q
+
+
+def ab_tables(m: int, table: np.ndarray, gbinv: np.float32,
+              gb_form: str, fused: bool):
+    """(u, B), (m+1,) f32 each over every count c: u[c] = 1 - b^(-c/m) in
+    the JAX package's `gb_form` ('product': 1 minus the bit-product of
+    row 0 of gb_bit_table; 'complement': the recurrence over row 1,
+    fused or not), and B[c] = f32(u[c] * gbinv)."""
+    c = np.arange(m + 1)
+    if gb_form == "product":
+        u = np.float32(1.0) - _pow_b_neg32(c, table)
+    elif gb_form == "complement":
+        u = _one_minus_pow_b32(c, table, fused)
+    else:
+        raise ValueError(f"unknown gb_form {gb_form!r}")
+    return u, (u * np.float32(gbinv)).astype(np.float32)
+
+
 def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
                              b: float, fd_level: float, measure: Measure,
                              table: np.ndarray = None,
                              gbinv: np.float32 = None,
-                             fused: bool = True) -> torch.Tensor:
+                             fused: bool = True,
+                             gb_form: str = "product") -> torch.Tensor:
     """f32 a/b SetSketch similarity of integer (gt, lt) counts with the
-    JAX package's bits (its product form, gb_form='product'). The JAX
-    source writes
+    JAX package's bits. The JAX source writes
 
         alpha = u[gt] * gbinv,  beta = u[lt] * gbinv,  ab = alpha + beta
-        sim = max(0, 1 - ab),   u[c] = 1 - b^(-c/m) (f32 bit-product)
+        sim = max(0, 1 - ab),   u[c] = 1 - b^(-c/m)
 
-    and its docstring calls the form FMA-immune. It is not, and which
-    bits come out depends on the JAX route:
+    with u in one of two f32 forms (ab_tables): the bit-product for
+    nibbles (gb_form='product'), the complement recurrence for u8, u16
+    and u32 registers (gb_form='complement'). Its docstring calls the
+    product form FMA-immune. It is not, and which bits come out depends
+    on the JAX route:
 
-    * fused=True, the jitted self-pairs route (64 <= n): XLA contracts
-      the sum into one fused multiply-add, fma(u[gt], gbinv, beta), so
-      u[gt] * gbinv is never rounded and the value is NOT symmetric in
-      (gt, lt) in its last bit. The port computes
-      ab = f32(f64(u[gt]) * f64(gbinv) + f64(beta)): the product of two
-      f32 values is exact in f64, the sum is rounded to f64 and then to
-      f32, and over every (gt, lt) in [0, m]^2 that equals the JAX
-      package's bits (tests/test_torch_ab_epilogue.py). The caller passes
-      gt for the row item (the multiplied operand) and lt = the column
-      item's gt (the addend).
+    * fused=True, the jitted self-pairs route (64 <= n <= SELF_MAX on one
+      device): XLA contracts the sum into one fused multiply-add,
+      fma(u[gt], gbinv, beta), so u[gt] * gbinv is never rounded and the
+      value is NOT symmetric in (gt, lt) in its last bit; in the
+      complement form it also contracts every step of the recurrence.
+      The port computes both with fma32. The caller passes gt for the row
+      item (the multiplied operand) and lt = the column item's gt (the
+      addend).
     * fused=False, the JAX package's numpy epilogue (the generic
-      row-block route, n < 64): alpha and beta are each rounded to f32
-      and then added, symmetric in (gt, lt).
+      row-block route: n < 64, and n > SELF_MAX on its CPU backend):
+      every operation rounds to f32; alpha and beta are added, symmetric
+      in (gt, lt).
 
-    Eager torch never contracts, so the same code gives the same bits on
-    the CPU and on the card. `table` and `gbinv` default to
+    Over every (gt, lt) in [0, m]^2 each form equals the JAX route's bits
+    (tests/test_torch_ab_epilogue.py). `table` and `gbinv` default to
     gb_bit_table(b, m) and f32(1 / (1 - 1/b)), as cmp/core.py::_gb_args
     builds them."""
     if measure != Measure.SIMILARITY:
@@ -132,18 +204,14 @@ def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
     if table is None:
         table = gb_bit_table(b, m)
         gbinv = np.float32(1.0 / (1.0 - 1.0 / np.float64(b)))
-    # (m+1,) f32 tables over every count, each step one f32 rounding as
-    # in the JAX graph: u[c] = 1 - b^(-c/m), B[c] = u[c] * gbinv
-    u = np.float32(1.0) - _pow_b_neg32(np.arange(m + 1), table)
-    B = (u * np.float32(gbinv)).astype(np.float32)
+    u, B = ab_tables(m, table, gbinv, gb_form, fused)
     dev = gtc.device
+    b32 = torch.from_numpy(B).to(dev)
     if fused:
-        u64 = torch.from_numpy(u.astype(np.float64)).to(dev)
-        b64 = torch.from_numpy(B.astype(np.float64)).to(dev)
-        g64 = torch.tensor(float(gbinv), dtype=torch.float64, device=dev)
-        ab = (u64[gtc.long()] * g64 + b64[ltc.long()]).to(torch.float32)
+        u32 = torch.from_numpy(u).to(dev)
+        g32 = torch.tensor(float(gbinv), dtype=torch.float32, device=dev)
+        ab = fma32(u32[gtc.long()], g32, b32[ltc.long()])
     else:
-        b32 = torch.from_numpy(B).to(dev)
         ab = b32[gtc.long()] + b32[ltc.long()]
     return torch.clamp_min(torch.tensor(1.0, dtype=torch.float32,
                                         device=dev) - ab, 0.0)

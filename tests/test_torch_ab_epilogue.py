@@ -1,13 +1,21 @@
-"""Port parity: the nibble a/b epilogue and its constants, bit for bit.
+"""Port parity: the a/b epilogues and their constants, bit for bit.
 
 The port's `compressed_ab_measures32` (torch) must give the JAX package's
 f32 bits on every count pair (gt, lt) in [0, m]^2, with b calibrated by
 `optimal_parameters` on a real job's sketches:
 
-* fused=True against the JAX function jitted, as the JAX self-pairs
-  route runs it (XLA contracts its sum into one fma);
-* fused=False against the JAX function on numpy, as the JAX row-block
-  route runs it for n < 64.
+* nibbles (product form), fused=True against the JAX function jitted, as
+  the JAX self-pairs route runs it (XLA contracts its sum into one fma);
+  fused=False against the JAX function on numpy, as the JAX row-block
+  route runs it for n < 64;
+* u8, u16 and u32 registers (complement form): the (m+1) table
+  u[c] = 1 - b^(-c/m) against the JAX recurrence jitted (each step
+  contracted into an fma) and on numpy, at the b of a real fd = 1, 2
+  and 4 job; the whole value against the JAX jitted epilogue over a
+  count matrix with lt = gt^T, as its self-pairs routes build it, on
+  both sides of its 4096-row scan threshold (the fma multiplies the
+  column's count below it, the row's above), and against its numpy
+  form.
 
 The host constants (`optimal_parameters`, `gb_bit_table`, `_gb_args`)
 and `make_compressed`'s a/b registers (data, a, b) must equal the JAX
@@ -146,3 +154,95 @@ def test_other_measures_are_not_ported():
         PE.compressed_ab_measures32(c, c, 4, 1.07, 0.5, Measure.POISSON_LLR)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PE.compressed_ab_measures32(c, c, 4, 1.07, 8.0, Measure.SIMILARITY)
+
+
+WIDE = (1.0, 2.0, 4.0)
+
+
+@pytest.fixture(scope="module")
+def wide_b(paths):
+    """fd -> the b that make_compressed calibrates on the job's sketches
+    at m = 256 (b depends on the register range and q, not on m)."""
+    out = {}
+    for fd in WIDE:
+        opts = Dashing2DistOptions(k=31, sketchsize=256, fd_level=fd)
+        out[fd] = PC._prep(opts, sketch_fastx(opts, paths))[0].b
+    return out
+
+
+@pytest.mark.parametrize("m", [256, 1024])
+@pytest.mark.parametrize("fd", WIDE)
+def test_complement_table_bits_equal_jax(wide_b, fd, m):
+    b = max(wide_b[fd], 1.0 + 1e-9)
+    assert 1.0 < b < 1.2
+    table, gbinv = PC._gb_args(b, m)
+    c = np.arange(m + 1, dtype=np.int32)
+    jitted = jax.jit(lambda cc, t: JE._one_minus_pow_b32(cc, t, jnp))(
+        jnp.asarray(c), table)
+    for fused, want in ((True, jitted), (False, JE._one_minus_pow_b32(c,
+                                                                   table))):
+        u, B = PE.ab_tables(m, table, gbinv, "complement", fused)
+        assert u.dtype == B.dtype == np.float32 and u.shape == (m + 1,)
+        np.testing.assert_array_equal(_bits(u), _bits(want))
+        np.testing.assert_array_equal(_bits(B), _bits(u * gbinv))
+
+
+def _gt_matrix(m: int, n: int) -> np.ndarray:
+    """(n, n) gt counts, lt = gt^T, holding every (gt, lt) in [0, m]^2 at
+    (i, m + 1 + j) = (i, j)."""
+    gt = np.zeros((n, n), np.int32)
+    c = np.arange(m + 1, dtype=np.int32)
+    gt[:m + 1, m + 1:2 * m + 2] = c[:, None]
+    gt[m + 1:2 * m + 2, :m + 1] = c[:, None]
+    return gt
+
+
+@pytest.mark.parametrize("m,n", [(256, "whole"), (300, "whole"),
+                                 (256, "scan")])
+@pytest.mark.parametrize("fd", WIDE)
+def test_complement_epilogue_bits_equal_jax_routes(wide_b, fd, m, n):
+    rows = 2 * m + 2 if n == "whole" else 4224
+    assert (rows > PC._TILED_ROWS) == (n == "scan")
+    b = max(wide_b[fd], 1.0 + 1e-9)
+    table, gbinv = PC._gb_args(b, m)
+    cnt = _gt_matrix(m, rows)
+    fn = JC._counts_epilogue_fn("ab", m, JMeasure.SIMILARITY, 31, fd)
+    want = np.asarray(fn(jnp.asarray(cnt), np.ones(rows), np.float64(b),
+                         table, gbinv))[:m + 1, m + 1:2 * m + 2]
+    gt, lt = _all_pairs(m)
+    args = (gt, lt) if n == "scan" else (lt, gt)
+    got = PE.compressed_ab_measures32(
+        *(torch.from_numpy(x) for x in args), m, b, fd, Measure.SIMILARITY,
+        table, gbinv, True, "complement")
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    other = PE.compressed_ab_measures32(
+        *(torch.from_numpy(x) for x in args[::-1]), m, b, fd,
+        Measure.SIMILARITY, table, gbinv, True, "complement")
+    assert (_bits(other.numpy()) != _bits(want)).any()
+    if n == "whole":
+        want = JE.compressed_ab_measures32(gt, lt, m, b, fd, 1.0, 1.0,
+                                           JMeasure.SIMILARITY, 31,
+                                           gb_form="complement")
+        got = PE.compressed_ab_measures32(
+            torch.from_numpy(gt), torch.from_numpy(lt), m, b, fd,
+            Measure.SIMILARITY, table, gbinv, False, "complement")
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_fma32_is_one_rounding():
+    """fma32 against exact rational arithmetic on values where a rounded
+    product, or a sum rounded twice, would differ."""
+    from fractions import Fraction
+    rng = np.random.default_rng(7)
+    a = rng.random(2000).astype(np.float32)
+    b = (rng.random(2000) * 1e3).astype(np.float32)
+    c = (rng.random(2000) * 1e-3).astype(np.float32)
+    got = PE.fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        lo = np.float32(float(exact))
+        near = sorted((np.nextafter(lo, np.float32(-np.inf)), lo,
+                       np.nextafter(lo, np.float32(np.inf))),
+                      key=lambda v: (abs(Fraction(float(v)) - exact),
+                                     int(np.float32(v).view(np.uint32)) & 1))
+        assert g == near[0]

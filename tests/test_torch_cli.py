@@ -158,11 +158,11 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["sketch", "-S", "256", "--fastcmp", "2"],          # u16 a/b
-    ["sketch", "-S", "256", "--fastcmp", "1", "--bbit-sigs"],
+    ["sketch", "-S", "256", "--fastcmp-bytes"],         # a, b given: u8
+    ["sketch", "-S", "256", "--setsketch-ab", "20,1.2"],
     ["sketch", "-S", "256", "--bbit-sigs"],             # eq-compared full
     ["cmp", "-S", "256", "--fastcmp", "0.5", "--bbit-sigs"],
-    ["sketch", "-S", "256", "--fastcmp", "4"],          # u32 a/b
+    ["sketch", "-S", "256", "--fastcmp", "1", "--containment"],
 ])
 def test_cli_rejects_other_comparisons(corpus, argv, tmp_path):
     lst, _ = corpus
@@ -178,7 +178,8 @@ def test_pairwise_rejects_routes_outside_the_slice(corpus, monkeypatch):
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
     bad = [Dashing2DistOptions(**kw, measure=Measure.POISSON_LLR),
-           Dashing2DistOptions(k=31, sketchsize=256, fd_level=1.0)]
+           Dashing2DistOptions(k=31, sketchsize=256, fd_level=1.0,
+                               measure=Measure.CONTAINMENT)]
     for opts in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             next(PC.pairwise_matrix(opts, from_reference(ref),

@@ -17,6 +17,7 @@ from dashing2_tpu_torch.cmp import estimators as E
 from dashing2_tpu_torch.config import Dashing2DistOptions
 from dashing2_tpu_torch.enums import Measure
 from dashing2_tpu_torch.ops import gtlt as G
+from dashing2_tpu_torch.ops import int_counts as IC
 from dashing2_tpu_torch.ops import nibble_comb as NC
 from dashing2_tpu_torch.ops import nibble_tri as NT
 from dashing2_tpu_torch.result import SketchingResult
@@ -252,6 +253,168 @@ def test_full_pairwise_matrix_cuda_equals_cpu(card, n, upper_only, self_max,
     launched = (G.self_launches.launches - before[0],
                 G.rect_launches.launches - before[1])
     assert launched == ((0, -(-n // 64)) if self_max == 0 else (1, 0))
+    want = run("cpu")
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def _ints(n: int, m: int, dt, seed: int) -> np.ndarray:
+    """(n, m) u8 or u16 registers with identical rows, equal registers,
+    all-zero and all-max rows, and values on both sides of the top
+    bit."""
+    top = int(np.iinfo(dt).max)
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, top + 1, size=(n, m), dtype=np.uint64).astype(dt)
+    if n >= 2:
+        a[n - 1] = a[0]
+        a[1, ::3] = a[0, ::3]
+    if n >= 5:
+        a[2] = 0
+        a[3] = top
+        a[4, 0::2] = (top + 1) // 2
+        a[4, 1::2] = (top + 1) // 2 - 1
+    return a
+
+
+def _int_dev(a: np.ndarray, card) -> torch.Tensor:
+    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16
+                            else a).to(card)
+
+
+def _naive_int(a: np.ndarray, b: np.ndarray):
+    x, y = a.astype(np.int64)[:, None], b.astype(np.int64)[None]
+    return (x == y).sum(2), (x > y).sum(2), (x < y).sum(2)
+
+
+@pytest.mark.parametrize("mode", ["eq", "gtlt"])
+@pytest.mark.parametrize("m", [30, 64, 1024])
+@pytest.mark.parametrize("n", [1, 2, 63, 129, 1025])
+@pytest.mark.parametrize("dt", [np.uint8, np.uint16])
+def test_int_counts_self_kernel_matches_plain(card, dt, n, m, mode):
+    a = _ints(n, m, dt, seed=5 * n + m)
+    t = _int_dev(a, card)
+    before = IC.self_launches.launches
+    got = IC.int_counts_self(t, mode)
+    assert IC.self_launches.launches == before + 1
+    want = IC.int_counts_self_plain(t, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint16 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if n <= 129:
+        eq, gt, _ = _naive_int(a, a)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      eq if mode == "eq" else gt)
+
+
+@pytest.mark.parametrize("m", [30, 64, 1024])
+@pytest.mark.parametrize("na,nb", [(1, 1), (2, 65), (63, 129), (129, 1000),
+                                   (1025, 64)])
+@pytest.mark.parametrize("dt", [np.uint8, np.uint16])
+def test_int_counts_kernel_matches_plain(card, dt, na, nb, m):
+    a, b = _ints(na, m, dt, seed=na + m), _ints(nb, m, dt, seed=nb + m + 1)
+    ta, tb = _int_dev(a, card), _int_dev(b, card)
+    before = IC.rect_launches.launches
+    got = IC.int_counts(ta, tb)
+    assert IC.rect_launches.launches == before + 1
+    want = IC.int_counts_plain(ta, tb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint16 and g.shape == (na, nb)
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    if na * nb <= 129 * 1000:
+        for g, w in zip(got, _naive_int(a, b)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.parametrize("dt", [np.uint8, np.uint16])
+def test_int_counts_kernel_on_row_slices(card, dt):
+    """The row-block route's operands: rows [s, s+b) against rows [s, n)
+    of one register matrix on the card, and a u8 row slice that starts
+    off a word boundary."""
+    a = _ints(300, 30, dt, seed=13)
+    t = _int_dev(a, card)
+    eq = IC.int_counts_self(t, "eq").cpu().numpy()
+    gt = IC.int_counts_self(t, "gtlt").cpu().numpy()
+    for s in (0, 1, 64, 237):
+        e, g, lt = (x.cpu().numpy() for x in IC.int_counts(t[s:s + 64], t[s:]))
+        np.testing.assert_array_equal(e, eq[s:s + 64, s:])
+        np.testing.assert_array_equal(g, gt[s:s + 64, s:])
+        np.testing.assert_array_equal(lt, gt[s:, s:s + 64].T)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("m", [30, 256, 1024])
+@pytest.mark.parametrize("fd", [0.5, 1.0, 2.0, 4.0])
+def test_bbit_sim_tables_on_card_bits_equal_cpu(card, fd, m, fused):
+    kind = "nibble-bbit" if fd == 0.5 else "bbit"
+    on_card = C.sim_table(kind, m, fd, card, fused).cpu().numpy()
+    on_cpu = C.sim_table(kind, m, fd, "cpu", fused).numpy()
+    np.testing.assert_array_equal(on_card.view(np.uint32),
+                                  on_cpu.view(np.uint32))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("fd,b", [(1.0, 1.0545), (2.0, 1.000206),
+                                  (4.0, 1.0000000031)])
+def test_complement_epilogue_on_card_bits_equal_cpu(card, fd, b, fused):
+    m = 1024
+    c = torch.arange(m + 1, dtype=torch.int32)
+    gt, lt = torch.meshgrid(c, c, indexing="ij")
+    on_cpu = E.compressed_ab_measures32(gt, lt, m, b, fd, Measure.SIMILARITY,
+                                        fused=fused, gb_form="complement")
+    on_card = E.compressed_ab_measures32(
+        gt.to(card), lt.to(card), m, b, fd, Measure.SIMILARITY, fused=fused,
+        gb_form="complement").cpu()
+    np.testing.assert_array_equal(on_card.numpy().view(np.uint32),
+                                  on_cpu.numpy().view(np.uint32))
+
+
+def test_fma32_on_card_bits_equal_cpu(card):
+    rng = np.random.default_rng(11)
+    x = [torch.from_numpy((rng.random(1 << 16) * s).astype(np.float32))
+         for s in (1.0, 3e3, 1e-3)]
+    on_cpu = E.fma32(*x)
+    on_card = E.fma32(*(t.to(card) for t in x)).cpu()
+    assert torch.equal(on_cpu.view(torch.int32), on_card.view(torch.int32))
+
+
+@pytest.mark.parametrize("self_max", [C.SELF_MAX, 0])
+@pytest.mark.parametrize("n", [40, 300])
+@pytest.mark.parametrize("truncation", [1, 0])
+@pytest.mark.parametrize("fd", [1.0, 2.0, 4.0])
+def test_int_pairwise_matrix_cuda_equals_cpu(card, fd, truncation, n,
+                                             self_max, monkeypatch):
+    """The u8/u16/u32 routes (self-pairs, and row blocks with SELF_MAX
+    forced to 0) on the card against the CPU, upper trapezoids."""
+    m = 200
+    monkeypatch.setattr(C, "SELF_MAX", self_max)
+    rng = np.random.default_rng(7)
+    sigs = rng.exponential(size=(n, m))
+    sigs[7] = sigs[3]
+    sigs[9, ::2] = sigs[4, ::2]
+    sigs[11, ::5] = 0.0
+    opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=fd,
+                               truncation_method=truncation)
+
+    def run(device):
+        res = SketchingResult(names=[f"s{i}" for i in range(n)],
+                              cardinalities=np.full(n, 1e4),
+                              signatures=sigs.copy())
+        return list(C.pairwise_matrix(opts, res, block=64, upper_only=True,
+                                      device=device))
+    counters = (IC.self_launches, IC.rect_launches, G.self_launches,
+                G.rect_launches)
+    before = [c.launches for c in counters]
+    got = run(card)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    blocks = -(-n // 64)
+    if fd == 4.0:
+        assert launched == ([0, 0, 0, blocks] if self_max == 0
+                            else [0, 0, 1, 0])
+    else:
+        assert launched == ([0, blocks, 0, 0] if self_max == 0
+                            else [1, 0, 0, 0])
     want = run("cpu")
     assert [s for s, _ in got] == [s for s, _ in want]
     for (_, g), (_, w) in zip(got, want):

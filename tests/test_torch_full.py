@@ -246,12 +246,12 @@ def test_row_block_route_bytes_equal_self_route_and_jax(corpus, fmt,
     assert cli.main(argv + ["--cmpout", out["self"], "--device", "cpu"]) == 0
     monkeypatch.setenv("DASHING2_TPU_MULTICHIP", "0")
     assert jax_cli.main(argv + ["--cmpout", out["jax1"]]) == 0
-    calls, counts = [], PC.gtlt_counts
+    calls, counts = [], PC.int_counts
 
     def spy(a, b):
         calls.append((a.shape[0], b.shape[0]))
         return counts(a, b)
-    monkeypatch.setattr(PC, "gtlt_counts", spy)
+    monkeypatch.setattr(PC, "int_counts", spy)
     monkeypatch.setattr(PC, "SELF_MAX", 0)
     assert cli.main(argv + ["--cmpout", out["rows"], "--device", "cpu"]) == 0
     # one launch per 64-row block, each against the rows from its start on

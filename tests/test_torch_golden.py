@@ -1,16 +1,18 @@
 """The committed digests of the slices' output, re-derived on the CPU.
 
-tests/goldens/torch_port_{bbit,ab}_nibble.json and torch_port_full.json
-hold the SHA-256 of the JAX package's `--fastcmp 0.5 [--bbit-sigs]
---binary-output` and default full-register (no --fastcmp) output over a
-seeded corpus (n=777, -S 256, -k 31, 4 kb genomes; splitmix64 bases, so
-no numpy version changes them). These tests tie each digest to the JAX
-package (under the golden's "env", if any) and to the port's plain
-PyTorch path; chip_smoke.py holds the port's CUDA path to the same
-digests on the card. The port also reproduces the JAX package's own
-goldens of these modes (n=6, which the JAX package computes on its numpy
-route): the a/b tests/goldens/fastcmp_nibble.bin, and the full-register
-oph_sim.bin and oph_phylip.txt.
+tests/goldens/torch_port_{bbit,ab}_nibble.json, torch_port_full.json,
+torch_port_u8_bbit.json and torch_port_u16_ab.json hold the SHA-256 of
+the JAX package's `--fastcmp 0.5 [--bbit-sigs] --binary-output`, default
+full-register (no --fastcmp), `--fastcmp 1 --bbit-sigs` and
+`--fastcmp 2` output over a seeded corpus (n=777, -S 256, -k 31, 4 kb
+genomes; splitmix64 bases, so no numpy version changes them). These tests
+tie each digest to the JAX package (under the golden's "env", if any) and
+to the port's plain PyTorch path; chip_smoke.py holds the port's CUDA
+path to the same digests on the card. The port also reproduces the JAX
+package's own goldens of these modes (n=6, which the JAX package computes
+on its numpy route): the a/b tests/goldens/fastcmp_nibble.bin, the u8
+b-bit fastcmp_bbit.bin, and the full-register oph_sim.bin and
+oph_phylip.txt.
 """
 
 import hashlib
@@ -27,7 +29,9 @@ from dashing2_tpu_torch.io.corpus import write_corpus
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = {"bbit": "torch_port_bbit_nibble.json",
            "ab": "torch_port_ab_nibble.json",
-           "full": "torch_port_full.json"}
+           "full": "torch_port_full.json",
+           "u8-bbit": "torch_port_u8_bbit.json",
+           "u16-ab": "torch_port_u16_ab.json"}
 
 
 @pytest.fixture(scope="module", params=sorted(GOLDENS))
@@ -90,6 +94,12 @@ def _reproduce_jax_golden(name, tmp_path):
 
 def test_port_reproduces_jax_fastcmp_nibble_golden(tmp_path):
     _reproduce_jax_golden("fastcmp_nibble.bin", tmp_path)
+
+
+def test_port_reproduces_jax_fastcmp_bbit_golden(tmp_path):
+    """`--fastcmp 1 --bbit-sigs` at n=6: the JAX package's numpy route,
+    whose b-bit epilogue is one IEEE division."""
+    _reproduce_jax_golden("fastcmp_bbit.bin", tmp_path)
 
 
 @pytest.mark.parametrize("name", ["oph_sim.bin", "oph_phylip.txt"])
