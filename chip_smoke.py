@@ -19,7 +19,9 @@ no card, or when the port is not importable:
    register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
-   1000, 1025, 4097} and m in {64, 256, 1024}, and of `tri_comb_counts`
+   1000, 1025, 4097} and m in {30, 62, 64, 100, 256, 1024} (m not a
+   multiple of the kernel's 32-register k step is where its pad rule
+   bites), the diagonal m, and of `tri_comb_counts`
    and `tri_comb_counts_plain` (eq and gt) for the same n and m in
    {30, 64, 256, 1024}, with planted identical, all-0x00 and all-0xFF
    rows; of `gtlt_self_counts` and `gtlt_self_counts_plain`, and of
@@ -88,6 +90,21 @@ no card, or when the port is not importable:
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall.
 
+Beside each kernel's time the script reckons its bound (the least time
+the card could take for the same work, from this run's shapes: the
+larger of its operations over the peak rate of their type and its bytes
+over the memory rate, `_bound`) and times one PyTorch call that computes
+the same function where there is one (`library_ms`, a yardstick the port
+never calls): `torch._int_mm` over the int8 one-hot operands of the JAX
+package's enc_onehot_T / enc_combined_T for tri_eq and tri_comb (all N^2
+pairs; the expansion is done before the timed window), `torch.cdist(x,
+x, p=0)` over the f32 registers for int_counts_self in eq mode (the
+unequal-register count, eq = m - d). No single call computes (gt, lt)
+counts, so gtlt_self_counts, gtlt_counts and int_counts have none. The
+kernels line gives int_counts_self twice: `int_counts_self` with the
+u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
+with the u8 b-bit job's eq-mode times and its library call.
+
 Reductions: the north-star job uses 50 kb genomes; phases 5-8 use 20 kb
 and phase 9 10 kb. The comparison's work depends only on N and m; 20 kb
 genomes still carry about 20k distinct 31-mers and 10 kb genomes about
@@ -117,6 +134,15 @@ ROWS_N, ROWS_ANCESTORS, ROWS_MUTANTS, ROWS_LENGTH = 20480, 1024, 20, 10000
 ROWS_SEED = 12
 # item counts of the kernel-vs-plain phase: tile edges and ragged tails
 KERNEL_SIZES = (1, 2, 63, 129, 1000, 1025, 4097)
+# register counts of tri_eq's kernel-vs-plain phase
+TRI_EQ_MS = (30, 62, 64, 100, 256, 1024)
+# peak rates of one H100 SXM at 700 W: int8 tensor operations (dense,
+# from NVIDIA's H100 datasheet) and, for the integer kernels, the
+# SM's 64 INT32 lanes and 16 popcount lanes a clock x 132 SMs x 1.98 GHz
+# boost (Hopper's SM layout); device memory 3.35 TB/s
+RATES = {"int8": 1.979e15, "int32": 132 * 64 * 1.98e9,
+         "popc": 132 * 16 * 1.98e9}
+HBM = 3.35e12
 
 
 def _say(msg: str) -> None:
@@ -134,6 +160,40 @@ def _cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def _bound(ops: float, kind: str, nbytes: float):
+    """(bound ms, what sets it): the larger of `ops` operations at the
+    peak rate of `kind` and `nbytes` (each input read once, each output
+    written once) at the memory rate."""
+    t_ops = ops / RATES[kind] * 1e3
+    t_bytes = nbytes / HBM * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _library_ms(fn, reps: int) -> float:
+    """Mean device time of one PyTorch call, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    return _cuda_ms(fn, reps)
+
+
+def _nibble_operands(packed, combined: bool):
+    """The (N, 16m) int8 operands of the JAX package's nibble products,
+    transposed: enc_onehot_T's [a == v] and, with `combined`,
+    enc_combined_T's [a == v] - 128 [a < v], register-major
+    k = 16 r + v in its register order (low nibbles, then high)."""
+    import torch
+    regs = torch.cat([packed & 0xF, packed >> 4], dim=1)
+    lv = torch.arange(16, dtype=torch.uint8, device=packed.device)
+    n, m = regs.shape
+    eq = (regs.unsqueeze(2) == lv).to(torch.int8).reshape(n, 16 * m)
+    if not combined:
+        return eq, eq
+    lt = (regs.unsqueeze(2) < lv).to(torch.int8).reshape(n, 16 * m)
+    return eq, eq + lt * -128
 
 
 def phase_device():
@@ -197,7 +257,7 @@ def phase_kernel_vs_plain():
     from dashing2_tpu_torch.ops import nibble_tri as NT
     rng = np.random.default_rng(2026)
     worst_eq = 0
-    for m in (64, 256, 1024):
+    for m in TRI_EQ_MS:
         for n in KERNEL_SIZES:
             a = torch.from_numpy(_planted(rng, n, m)).cuda()
             got = NT.tri_eq_counts(a, m).to(torch.int32)
@@ -206,13 +266,15 @@ def phase_kernel_vs_plain():
             err = int((got - want).abs().max())
             worst_eq = max(worst_eq, err)
             assert err == 0, f"kernel != plain at n={n} m={m}: {err}"
-            assert int(got.diagonal().min()) == m
+            diag = got.diagonal()
+            assert int(diag.min()) == int(diag.max()) == m
         tc = sim_table("nibble-bbit", m, 0.5, "cuda").cpu().numpy()
         th = sim_table("nibble-bbit", m, 0.5, "cpu").numpy()
         assert np.array_equal(tc.view(np.uint32), th.view(np.uint32)), m
-    _say("[kernel] tri_eq_counts == plain (exact u16) at n in {1, 2, 63, "
-         "129, 1000, 1025, 4097} x m in {64, 256, 1024}; card-built sim "
-         "table == CPU table bit for bit")
+    _say("[kernel] tri_eq_counts == plain (exact u16, diagonal m) at n in "
+         "{1, 2, 63, 129, 1000, 1025, 4097} x m in {"
+         + ", ".join(map(str, TRI_EQ_MS)) + "}; "
+         "card-built sim table == CPU table bit for bit")
     rng = np.random.default_rng(2027)
     worst_comb = 0
     for m in (30, 64, 256, 1024):
@@ -498,9 +560,20 @@ def phase_main_bbit(lst: str, sketches, counters):
     t0 = time.perf_counter()
     counts = want.cpu().numpy()
     d2h = time.perf_counter() - t0
+    del got, want
     _say(f"[main] tri_eq kernel {kernel_ms:.6f} ms (CUDA events, mean of "
          f"20 after a warm-up); plain {plain_ms:.6f} ms (mean of 3); full "
          f"{n}x{n} counts equal; u16 d2h copy {d2h:.6f} s")
+    onehot, _ = _nibble_operands(packed, combined=False)
+    library_ms = _library_ms(lambda: torch._int_mm(onehot, onehot.t()), 5)
+    del onehot
+    bound_ms, bound_by = _bound(n * (n + 1) // 2 * 16 * m * 2, "int8",
+                                n * m // 2 + 2 * n * n)
+    _say(f"[main] tri_eq bound {bound_ms:.6f} ms ({bound_by}: N(N+1)/2 "
+         f"pairs x 16m int8 MACs x 2 at 1,979 TOP/s); kernel at "
+         f"{100 * bound_ms / kernel_ms:.1f}% of it; library torch._int_mm "
+         f"over the (N, 16m) int8 one-hot {library_ms:.6f} ms (mean of 5; "
+         "all N^2 pairs, the expansion before the timed window)")
 
     # every emitted value is the table at the plain version's counts
     table = C.sim_table("nibble-bbit", m, 0.5, "cuda").cpu().numpy()
@@ -510,7 +583,9 @@ def phase_main_bbit(lst: str, sketches, counters):
     _say(f"[main] output == table[plain counts] for all "
          f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
          f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
-    return launches["tri_eq"], err, kernel_ms, plain_ms
+    return dict(launches=launches["tri_eq"], err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def phase_main_ab(lst: str, sketches, counters):
@@ -555,6 +630,16 @@ def phase_main_ab(lst: str, sketches, counters):
     _say(f"[ab] tri_comb kernel {kernel_ms:.6f} ms (CUDA events, mean of "
          f"20 after a warm-up); plain {plain_ms:.6f} ms (mean of 3); full "
          f"{n}x{n} eq and gt equal")
+    onehot, comb = _nibble_operands(packed, combined=True)
+    library_ms = _library_ms(lambda: torch._int_mm(onehot, comb.t()), 5)
+    del onehot, comb
+    bound_ms, bound_by = _bound(n * (n + 1) // 2 * 16 * m * 2, "int8",
+                                n * m // 2 + 4 * n * n)
+    _say(f"[ab] tri_comb bound {bound_ms:.6f} ms ({bound_by}: one int8 "
+         f"product, as enc_combined_T's); kernel at "
+         f"{100 * bound_ms / kernel_ms:.1f}% of it; library torch._int_mm "
+         f"one-hot x combined {library_ms:.6f} ms (mean of 5; all N^2 "
+         "pairs, the encoding before the timed window, no decode)")
 
     # the card's epilogue == the CPU's on every (gt, lt) at the job's b
     bf = max(creps.b, 1.0 + 1e-9)
@@ -581,7 +666,9 @@ def phase_main_ab(lst: str, sketches, counters):
     _say(f"[ab] output == CPU epilogue at the plain counts for all "
          f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
          f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
-    return launches["tri_comb"], err, kernel_ms, plain_ms
+    return dict(launches=launches["tri_comb"], err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 FULL_SPANS = ("sketch", "sketch/native-files", "sketch/finalize",
@@ -632,6 +719,12 @@ def phase_main_full(lst: str, sketches, counters):
     _say(f"[full] gtlt_self kernel {kernel_ms:.6f} ms (CUDA events, mean of "
          f"20 after a warm-up); plain {plain_ms:.6f} ms (mean of 3); full "
          f"{n}x{n} counts equal")
+    bound_ms, bound_by = _bound(n * (n + 1) // 2 * 2 * 2 * m, "int32",
+                                8 * n * m + 2 * n * n)
+    _say(f"[full] gtlt_self bound {bound_ms:.6f} ms ({bound_by}: one 32-bit "
+         "integer operation per word of each register pair per count, gt "
+         f"and lt); kernel at {100 * bound_ms / kernel_ms:.1f}% of it; "
+         "library: none (no single PyTorch call computes gt/lt counts)")
 
     # every emitted value is the table at the plain counts (gt + gt^T)
     table = C.sim_table("full", m, 8.0, "cpu", fused=True).numpy()
@@ -642,7 +735,9 @@ def phase_main_full(lst: str, sketches, counters):
     _say(f"[full] output == table[plain gt + lt] for all {n * (n - 1) // 2} "
          f"pairs; similarity counts in [0,1e-9) [1e-9,.1) [.1,.5) [.5,.9) "
          f"[.9,1]: {_histogram(vals)}")
-    return launches["gtlt_self"], err, kernel_ms, plain_ms
+    return dict(launches=launches["gtlt_self"], err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def _int_job(sketches, m: int, fd: float, bbit: bool, n: int):
@@ -723,10 +818,27 @@ def phase_main_int(tag: str, fd: float, bbit: bool, lst: str, sketches,
     err = _max_err(got, want)
     assert err == 0, f"int_counts_self != plain on the {tag} registers"
     counts = want.cpu().numpy().astype(np.int64)
-    del got, want, regs
+    del got, want
     _say(f"[{tag}] int_counts_self ({mode}) kernel {kernel_ms:.6f} ms (CUDA "
          f"events, mean of 20 after a warm-up); plain {plain_ms:.6f} ms "
          f"(mean of 3); full {n}x{n} counts equal")
+    width = regs.element_size()
+    ncounts = 1 if bbit else 2          # eq; or neq and gt (lt = m - eq - gt)
+    bound_ms, bound_by = _bound(n * (n + 1) // 2 * ncounts * m * width / 4,
+                                "popc", width * n * m + 2 * n * n)
+    library_ms = None
+    if bbit:
+        x = (regs.to(torch.int32) & 0xFFFF).to(torch.float32)   # u8, u16
+        library_ms = _library_ms(lambda: torch.cdist(x, x, p=0), 3)
+        del x
+    del regs
+    _say(f"[{tag}] int_counts_self bound {bound_ms:.6f} ms ({bound_by}: one "
+         "popcount per 32-bit word of each register pair per count); kernel "
+         f"at {100 * bound_ms / kernel_ms:.1f}% of it; library " + (
+             f"torch.cdist(x, x, p=0) over the f32 registers {library_ms:.6f}"
+             " ms (mean of 3; the unequal-register count, eq = m - d)"
+             if bbit else "none (no single PyTorch call computes gt/lt "
+             "counts)"))
 
     # every emitted value is the CPU epilogue at the plain counts
     epi = _job_epilogue(tag, kind, opts, creps, n)
@@ -737,7 +849,9 @@ def phase_main_int(tag: str, fd: float, bbit: bool, lst: str, sketches,
     _say(f"[{tag}] output == CPU epilogue at the plain counts for all "
          f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
          f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
-    return launches["int_counts_self"], err, kernel_ms, plain_ms
+    return dict(launches=launches["int_counts_self"], err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def phase_main_u32(lst: str, sketches, counters):
@@ -807,6 +921,12 @@ def phase_rowblock(lst: str, sketches, counters):
     _say(f"[rows] gtlt kernel {kernel_ms:.6f} ms on one {block}x{n} block "
          f"(CUDA events, mean of 20 after a warm-up); plain {plain_ms:.6f} "
          "ms (mean of 3); gt and lt equal")
+    bound_ms, bound_by = _bound(block * n * 2 * 2 * m, "int32",
+                                8 * (block + n) * m + 4 * block * n)
+    _say(f"[rows] gtlt bound {bound_ms:.6f} ms ({bound_by}: one 32-bit "
+         "integer operation per word of each register pair per count, gt "
+         f"and lt); kernel at {100 * bound_ms / kernel_ms:.1f}% of it; "
+         "library: none (no single PyTorch call computes gt/lt counts)")
 
     # every emitted value is the CPU epilogue at the plain counts
     vals = np.fromfile(out, dtype=np.float32)
@@ -821,7 +941,9 @@ def phase_rowblock(lst: str, sketches, counters):
     _say(f"[rows] output == CPU epilogue at the plain counts for all "
          f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
          f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
-    return launches["gtlt"], err, kernel_ms, plain_ms
+    return dict(launches=launches["gtlt"], err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def phase_rowblock_int(lst: str, sketches, counters):
@@ -861,6 +983,12 @@ def phase_rowblock_int(lst: str, sketches, counters):
     _say(f"[{tag}] int_counts kernel {kernel_ms:.6f} ms on one {block}x{n} "
          f"u8 block (CUDA events, mean of 20 after a warm-up); plain "
          f"{plain_ms:.6f} ms (mean of 3); eq, gt and lt equal")
+    bound_ms, bound_by = _bound(block * n * 2 * m / 4, "popc",
+                                (block + n) * m + 6 * block * n)
+    _say(f"[{tag}] int_counts bound {bound_ms:.6f} ms ({bound_by}: one "
+         "popcount per 32-bit word of each register pair for eq and for gt; "
+         f"lt = m - eq - gt); kernel at {100 * bound_ms / kernel_ms:.1f}% of "
+         "it; library: none (no single PyTorch call computes gt/lt counts)")
 
     # every emitted value is the CPU epilogue at the plain counts
     epi = _job_epilogue(tag, kind, opts, creps, n)
@@ -876,7 +1004,9 @@ def phase_rowblock_int(lst: str, sketches, counters):
     _say(f"[{tag}] output == CPU epilogue at the plain counts for all "
          f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
          f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
-    return launches["int_counts"], err, kernel_ms, plain_ms
+    return dict(launches=launches["int_counts"], err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def main() -> int:
@@ -940,18 +1070,25 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     _say(f"[wall] all phases: {time.perf_counter() - t_start:.3f} s")
     # int_counts_self: launches summed over the four --fastcmp 1|2 jobs,
-    # times of the u8 a/b job's gtlt mode (each job's are printed above)
-    int_self_run = (sum(r[0] for r in int_runs.values()),
-                    max(r[1] for r in int_runs.values()),
-                    int_runs["u8-ab"][2], int_runs["u8-ab"][3])
+    # times and bound of the u8 a/b job's gtlt mode; int_counts_self_eq:
+    # the same kernel in eq mode, launches of the two b-bit jobs, times,
+    # bound and library call of the u8 b-bit job (each job's are printed
+    # above)
+    int_self_run = dict(int_runs["u8-ab"],
+                        launches=sum(r["launches"] for r in int_runs.values()),
+                        err=max(r["err"] for r in int_runs.values()))
+    int_self_eq_run = dict(int_runs["u8-bbit"], launches=sum(
+        int_runs[t]["launches"] for t in ("u8-bbit", "u16-bbit")))
     kernels = []
-    for name, src, line, worst, (launches, err, ms, plain_ms) in (
+    for name, src, line, worst, run in (
             ("tri_eq_counts", "tri_eq.cu", 447, worst_eq, eq_run),
             ("tri_comb_counts", "tri_comb.cu", 367, worst_comb, comb_run),
             ("gtlt_self_counts", "gtlt.cu", 162, worst_self, self_run),
             ("gtlt_counts", "gtlt.cu", 45, worst_rect, rect_run),
             ("int_counts_self", "int_counts.cu", 239, worst_int_self,
              int_self_run),
+            ("int_counts_self_eq", "int_counts.cu", 239, worst_int_self,
+             int_self_eq_run),
             ("int_counts", "int_counts.cu", 239, worst_int_rect,
              int_rect_run)):
         kernels.append({
@@ -959,10 +1096,13 @@ def main() -> int:
             "route": "cuda",
             "source": f"dashing2_tpu_torch/csrc/{src}",
             "replaces": f"dashing2_tpu/ops/pallas_cmp.py:{line}",
-            "launches": launches,
-            "max_abs_err": max(worst, err),
-            "ms": ms,
-            "plain_ms": plain_ms,
+            "launches": run["launches"],
+            "max_abs_err": max(worst, run["err"]),
+            "ms": run["ms"],
+            "plain_ms": run["plain_ms"],
+            "bound_ms": run["bound_ms"],
+            "bound_by": run["bound_by"],
+            "library_ms": run["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -147,9 +147,23 @@ def ab_tables(m: int, table: np.ndarray, gbinv: np.float32,
     """(u, B), (m+1,) f32 each over every count c: u[c] = 1 - b^(-c/m) in
     the JAX package's `gb_form` ('product': 1 minus the bit-product of
     row 0 of gb_bit_table; 'complement': the recurrence over row 1,
-    fused or not), and B[c] = f32(u[c] * gbinv)."""
+    fused or not), and B[c] = f32(u[c] * gbinv).
+
+    In the product form, fused gives the jitted bits: XLA contracts the
+    last factor's multiply into the `1 -`, u[c] = fma(-r, c_top, 1),
+    where r is the rounded product over the lower bits and c_top the top
+    bit's factor (1 where that bit of c is clear). At m a power of two
+    the top bit is set only at c = m, where both forms agree; at other m
+    they differ in the last bit for some counts."""
     c = np.arange(m + 1)
-    if gb_form == "product":
+    if gb_form == "product" and fused:
+        top = table.shape[-1] - 1
+        r = _pow_b_neg32(c, table[:, :top])
+        ctop = np.where(((c >> top) & 1).astype(bool), table[0][top],
+                        np.float32(1.0)).astype(np.float32)
+        u = fma32(torch.from_numpy(-r), torch.from_numpy(ctop),
+                  torch.ones(m + 1, dtype=torch.float32)).numpy()
+    elif gb_form == "product":
         u = np.float32(1.0) - _pow_b_neg32(c, table)
     elif gb_form == "complement":
         u = _one_minus_pow_b32(c, table, fused)

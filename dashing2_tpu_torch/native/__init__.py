@@ -2,11 +2,14 @@
 build directory.
 
 Port of dashing2_tpu/native/__init__.py (`_load_lib`, `load_oph_lib`,
-`load_emit_lib`). The C++ sources are the JAX package's own
-(dashing2_tpu/native/oph_sketch.cpp and emit_fmt.cpp), compiled by file
-path: reading a source file is not importing the package. Unlike the
-JAX loader, a failed build raises: the port has no Python fallback for
-anything on its main path.
+`load_emit_lib`). The C++ sources in this directory, oph_sketch.cpp,
+fastx_reader.h and emit_fmt.cpp, are copies of the JAX package's files
+of the same names in its native/ directory, line for line (one comment
+of fastx_reader.h cites the upstream source by name instead of by a
+local path); the port builds only these copies and reads no file of the
+JAX package. Unlike
+the JAX loader, a failed build raises: the port has no Python fallback
+for anything on its main path.
 
 `build_shared` is the one build routine. It keys each shared library on
 a hash of its sources, the local headers they include, and the command
@@ -35,9 +38,6 @@ build_logs: Dict[str, str] = {}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PACKAGE_DIR = os.path.dirname(_HERE)
-# the JAX package's C++ sources, read by path (never imported)
-JAX_NATIVE_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "dashing2_tpu",
-                              "native")
 
 
 def build_dir() -> str:
@@ -133,12 +133,12 @@ def nvcc_command(src: str) -> Callable[[str], List[str]]:
 
 
 def load_oph_lib() -> ctypes.CDLL:
-    """The JAX package's native threaded OPH sketcher (oph_sketch.cpp),
+    """The native threaded OPH sketcher (the port's copy of oph_sketch.cpp),
     with the file-driver entry `oph_sketch_files` the slice calls.
     Built with -march=native, so the build is scoped by the host's CPU
     feature flags (a library tuned for another microarchitecture loads
     fine and then dies of SIGILL)."""
-    src = os.path.join(JAX_NATIVE_DIR, "oph_sketch.cpp")
+    src = os.path.join(_HERE, "oph_sketch.cpp")
     lib = build_shared("ophsketch", [src],
                        _gxx(src, ["-lpthread", "-lz"],
                             ["-march=native", "-funroll-loops"]),
@@ -163,9 +163,9 @@ def load_oph_lib() -> ctypes.CDLL:
 
 
 def load_emit_lib() -> ctypes.CDLL:
-    """The JAX package's native float-row formatter (emit_fmt.cpp:
+    """The native float-row formatter (the port's copy of emit_fmt.cpp:
     std::to_chars shortest round-trip)."""
-    src = os.path.join(JAX_NATIVE_DIR, "emit_fmt.cpp")
+    src = os.path.join(_HERE, "emit_fmt.cpp")
     lib = build_shared("emitfmt", [src], _gxx(src, [], []))
     if not getattr(lib, "_sigs_set", False):
         lib.fmt_f32_rows.restype = ctypes.c_size_t

@@ -4,9 +4,11 @@ Port of the TPU kernel dashing2_tpu/ops/pallas_cmp.py::_tri_eq_kernel
 (reached through tri_counts_tiles(want_gtlt=False) from
 dashing2_tpu/cmp/core.py::_self_counts_fn_m). The Hopper kernel is
 csrc/tri_eq.cu, compiled with nvcc for sm_90a into a shared library with
-a plain C interface and bound with ctypes; its source note says how it
-is built and what bounds it (about N^2/2 * m/8 u32 word compares:
-integer-issue and popcount bound, with tiny operands).
+a plain C interface and bound with ctypes. Like the TPU kernel it
+contracts an int8 one-hot of the registers on the matrix units
+(mma.sync), but it builds the one-hot in registers from the packed
+nibbles; `onehot_fragment_words` models the words it builds. Its source
+note says what bounds it (N(N+1)/2 x 16m int8 MACs).
 
 `tri_eq_counts` chooses by the tensor's device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs `tri_eq_counts_plain`. There
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import os
 
+import numpy as np
 import torch
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
@@ -75,6 +78,24 @@ def tri_eq_counts_plain(packed: torch.Tensor, m: int) -> torch.Tensor:
     return eq.to(torch.int32).to(torch.uint16)
 
 
+def onehot_fragment_words(nibbles, t: int, pad=False) -> np.ndarray:
+    """The u32 fragment words csrc/tri_eq.cu builds from 4-bit registers
+    for the lanes with t = lane & 3 of an mma.sync m16n8k32 fragment:
+    bytes k = 4t..4t+3 of the register's one-hot row, that is
+    1 << 8 (nib - 4t) where 4t <= nib < 4t + 4, else 0.
+
+    The kernel shifts 1 by (8 nib) ^ (32 t | 128 pad) with PTX shl.b32,
+    which gives 0 for any shift of 32 or more: bits 5-6 of 8 nib are
+    nib >> 2, so the xor leaves 8 (nib & 3) where nib >> 2 == t and 32 or
+    more elsewhere, and a pad register (`pad`, the A side's bytes at or
+    past m/2) shifts by 128 or more. Both arguments broadcast; the result
+    has their shape."""
+    nib = np.asarray(nibbles, dtype=np.int64)
+    s = (8 * nib) ^ (32 * int(t) | 128 * np.asarray(pad, dtype=np.int64))
+    return np.where(s < 32, np.left_shift(1, np.minimum(s, 31)),
+                    0).astype(np.uint32)
+
+
 def load_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load csrc/tri_eq.cu; raises when
     nvcc is missing or the build fails."""
@@ -89,12 +110,13 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
-def packed_words(packed: torch.Tensor) -> torch.Tensor:
-    """Rows padded with zero bytes to whole u32 words (zero pad nibbles
-    are never unequal or greater), 4-byte aligned."""
+def packed_words(packed: torch.Tensor, align: int = 4) -> torch.Tensor:
+    """Rows padded with zero bytes to whole multiples of `align` bytes (u32
+    words by default; zero pad nibbles are never unequal or greater),
+    `align`-byte aligned."""
     mb = packed.shape[1]
-    wb = -(-mb // 4) * 4
-    if wb != mb or packed.data_ptr() % 4:
+    wb = -(-mb // align) * align
+    if wb != mb or packed.data_ptr() % align:
         padded = torch.zeros((packed.shape[0], wb), dtype=torch.uint8,
                              device=packed.device)
         padded[:, :mb] = packed
@@ -114,7 +136,7 @@ def tri_eq_counts(packed: torch.Tensor, m: int) -> torch.Tensor:
         raise ValueError(f"no tri_eq_counts for device {packed.device}")
     lib = load_kernel()
     n = packed.shape[0]
-    words = packed_words(packed)
+    words = packed_words(packed, 16)          # 16-byte cp.async rows
     out = torch.empty((n, n), dtype=torch.uint16, device=packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream

@@ -5,7 +5,9 @@ f32 bits on every count pair (gt, lt) in [0, m]^2, with b calibrated by
 `optimal_parameters` on a real job's sketches:
 
 * nibbles (product form), fused=True against the JAX function jitted, as
-  the JAX self-pairs route runs it (XLA contracts its sum into one fma);
+  the JAX self-pairs route runs it (XLA contracts its sum into one fma,
+  and at m not a power of two the last factor of the bit-product into
+  the `1 -`);
   fused=False against the JAX function on numpy, as the JAX row-block
   route runs it for n < 64;
 * u8, u16 and u32 registers (complement form): the (m+1) table
@@ -57,7 +59,7 @@ def _ab_opts(m: int, cls=Dashing2DistOptions):
 def job_b(paths):
     """m -> the b that make_compressed calibrates on the job's sketches."""
     out = {}
-    for m in (64, 128, 1024):
+    for m in (30, 64, 100, 128, 1000, 1024):
         creps, _ = PC._prep(_ab_opts(m), sketch_fastx(_ab_opts(m), paths))
         out[m] = creps.b
     return out
@@ -72,7 +74,7 @@ def _bits(x) -> np.ndarray:
     return np.asarray(x, np.float32).view(np.uint32)
 
 
-@pytest.mark.parametrize("m", [64, 128, 1024])
+@pytest.mark.parametrize("m", [30, 64, 100, 128, 1000, 1024])
 def test_fused_epilogue_bits_equal_jitted_jax(job_b, m):
     b = max(job_b[m], 1.0 + 1e-9)
     assert 1.01 < b < 10.0

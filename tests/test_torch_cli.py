@@ -190,3 +190,36 @@ def test_pairwise_rejects_routes_outside_the_slice(corpus, monkeypatch):
     with pytest.raises(NotImplementedError, match="2 <= n"):
         next(PC.pairwise_matrix(Dashing2DistOptions(**kw), one,
                                 device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def corpus70(tmp_path_factory):
+    """The smallest corpus of the module with n >= 64, where both
+    packages take their fused (jitted) epilogue route."""
+    d = tmp_path_factory.mktemp("cli_ab_m")
+    paths = write_corpus(str(d / "fa"), seed=70, n_ancestors=7,
+                         n_mutants=10, length=2500)
+    lst = d / "list.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    return str(lst), paths
+
+
+@pytest.mark.parametrize("m", [30, 100])
+def test_nibble_ab_bytes_equal_jax_at_m_not_power_of_two(corpus70, m,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """At m not a power of two the JAX jitted route contracts the last
+    factor of the a/b bit-product into its `1 -`; the port's bytes must
+    follow (cmp/estimators.py::ab_tables)."""
+    lst, paths = corpus70
+    assert len(paths) >= PC.FUSED_MIN_N
+    out_port, out_jax = str(tmp_path / "port.out"), str(tmp_path / "jax.out")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "0.5",
+            "--binary-output", "-F", lst]
+    assert cli.main(argv + ["--cmpout", out_port, "--device", "cpu"]) == 0
+    monkeypatch.setenv("DASHING2_TPU_MULTICHIP", "0")
+    assert jax_cli.main(argv + ["--cmpout", out_jax]) == 0
+    got, want = _read(out_port), _read(out_jax)
+    n = len(paths)
+    assert len(got) == 4 * n * (n - 1) // 2
+    assert got == want

@@ -42,9 +42,16 @@ def _packed(n: int, m: int, seed: int) -> np.ndarray:
     return a
 
 
-@pytest.mark.parametrize("m", [30, 64, 1024])
-@pytest.mark.parametrize("n", [1, 2, 63, 129, 1025])
+# tile edges and ragged tails of the kernels' 64- and 128-row tiles
+KERNEL_SIZES = [1, 2, 63, 129, 1000, 1025, 4097]
+
+
+@pytest.mark.parametrize("m", [30, 62, 64, 100, 256, 1024])
+@pytest.mark.parametrize("n", KERNEL_SIZES)
 def test_kernel_matches_plain(card, n, m):
+    """tri_eq.cu's one-hot product, exact, with the diagonal m; m not a
+    multiple of its 32-register k step (30, 62, 100) is where its pad
+    rule bites."""
     a = torch.from_numpy(_packed(n, m, seed=n + m)).to(card)
     before = NT.launches
     got = NT.tri_eq_counts(a, m)
@@ -53,6 +60,7 @@ def test_kernel_matches_plain(card, n, m):
     torch.cuda.synchronize()
     assert got.dtype == torch.uint16 and got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (got.diagonal().cpu().numpy() == m).all()
     if n <= 129:
         u = np.concatenate([_packed(n, m, n + m) & 0xF,
                             _packed(n, m, n + m) >> 4], axis=1)
