@@ -19,12 +19,15 @@ no card, or when the port is not importable:
    register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
-   1000, 1025, 4097} and m in {30, 62, 64, 100, 256, 1024} (m not a
-   multiple of the kernel's 32-register k step is where its pad rule
-   bites), the diagonal m, and of `tri_comb_counts`
-   and `tri_comb_counts_plain` (eq and gt) for the same n and m in
-   {30, 64, 256, 1024}, with planted identical, all-0x00 and all-0xFF
-   rows; of `gtlt_self_counts` and `gtlt_self_counts_plain`, and of
+   1000, 1025, 4097} and m in {30, 62, 64, 96, 98, 100, 126, 128, 130,
+   256, 1024} (m not a multiple of the kernels' 32-register k step is
+   where their pad rule bites; 96 and 98 sit at the edge of tri_comb's
+   96-register decode chunks, 126-130 at the decode's 127-register
+   limit), the diagonal m, and of `tri_comb_counts` and
+   `tri_comb_counts_plain` (eq and gt) for the same n and m, with
+   planted identical, all-0x00 and all-0xFF rows, and a matrix of equal
+   rows (every register equal: a full chunk's eq in every chunk); of
+   `gtlt_self_counts` and `gtlt_self_counts_plain`, and of
    `gtlt_counts` and `gtlt_counts_plain` (gt and lt, against a second
    matrix and on the row-block route's row slices), for the same n and
    m, with u64 registers of which about half have the top bit set and
@@ -134,8 +137,8 @@ ROWS_N, ROWS_ANCESTORS, ROWS_MUTANTS, ROWS_LENGTH = 20480, 1024, 20, 10000
 ROWS_SEED = 12
 # item counts of the kernel-vs-plain phase: tile edges and ragged tails
 KERNEL_SIZES = (1, 2, 63, 129, 1000, 1025, 4097)
-# register counts of tri_eq's kernel-vs-plain phase
-TRI_EQ_MS = (30, 62, 64, 100, 256, 1024)
+# register counts of tri_eq's and tri_comb's kernel-vs-plain phase
+NIBBLE_MS = (30, 62, 64, 96, 98, 100, 126, 128, 130, 256, 1024)
 # peak rates of one H100 SXM at 700 W: int8 tensor operations (dense,
 # from NVIDIA's H100 datasheet) and, for the integer kernels, the
 # SM's 64 INT32 lanes and 16 popcount lanes a clock x 132 SMs x 1.98 GHz
@@ -257,7 +260,7 @@ def phase_kernel_vs_plain():
     from dashing2_tpu_torch.ops import nibble_tri as NT
     rng = np.random.default_rng(2026)
     worst_eq = 0
-    for m in TRI_EQ_MS:
+    for m in NIBBLE_MS:
         for n in KERNEL_SIZES:
             a = torch.from_numpy(_planted(rng, n, m)).cuda()
             got = NT.tri_eq_counts(a, m).to(torch.int32)
@@ -273,13 +276,15 @@ def phase_kernel_vs_plain():
         assert np.array_equal(tc.view(np.uint32), th.view(np.uint32)), m
     _say("[kernel] tri_eq_counts == plain (exact u16, diagonal m) at n in "
          "{1, 2, 63, 129, 1000, 1025, 4097} x m in {"
-         + ", ".join(map(str, TRI_EQ_MS)) + "}; "
+         + ", ".join(map(str, NIBBLE_MS)) + "}; "
          "card-built sim table == CPU table bit for bit")
     rng = np.random.default_rng(2027)
     worst_comb = 0
-    for m in (30, 64, 256, 1024):
-        for n in KERNEL_SIZES:
-            a = torch.from_numpy(_planted(rng, n, m)).cuda()
+    for m in NIBBLE_MS:
+        equal = np.broadcast_to(_planted(rng, 1, m), (300, m // 2)).copy()
+        for a in [_planted(rng, n, m) for n in KERNEL_SIZES] + [equal]:
+            a = torch.from_numpy(a).cuda()
+            n = a.shape[0]
             got = NC.tri_comb_counts(a, m)
             want = NC.tri_comb_counts_plain(a, m)
             torch.cuda.synchronize()
@@ -289,8 +294,10 @@ def phase_kernel_vs_plain():
                 assert err == 0, f"tri_comb {what} != plain at n={n} m={m}"
             assert int(got[0].diagonal().to(torch.int32).min()) == m
             assert int(got[1].diagonal().to(torch.int32).max()) == 0
+        assert int(got[0].to(torch.int32).min()) == m      # equal rows
     _say("[kernel] tri_comb_counts == plain (exact u16 eq and gt) at n in "
-         "{1, 2, 63, 129, 1000, 1025, 4097} x m in {30, 64, 256, 1024}")
+         "{1, 2, 63, 129, 1000, 1025, 4097} x m in {"
+         + ", ".join(map(str, NIBBLE_MS)) + "}, and on 300 equal rows")
     return worst_eq, worst_comb
 
 

@@ -123,7 +123,7 @@ def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
             or opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
         raise NotImplementedError(
             "sketch-compressed (--setsketch-ab) and edit-distance registers "
-            "are not ported (ROADMAP Queue 1 item 9)")
+            "are not ported (ROADMAP Queue 1 item 6)")
     if fd not in _QLUT:
         raise ValueError(f"no register width for --fastcmp {fd:g}")
     if opts.truncation_method <= 0:
@@ -239,7 +239,7 @@ def _representation(opts: Dashing2DistOptions, result: SketchingResult,
         return "full", _ordered_cached(opts, result)
     raise NotImplementedError(
         "equality-compared full registers (--bbit-sigs without --fastcmp, "
-        "or non-set sketch spaces) are not ported (ROADMAP Queue 1 item 5)")
+        "or non-set sketch spaces) are not ported (ROADMAP Queue 1 item 4)")
 
 
 def _gb_args(b: float, m: int):
@@ -268,7 +268,7 @@ def sim_table(kind: str, m: int, fd: float, device="cpu",
                                            m, Measure.SIMILARITY, fused)
     raise NotImplementedError(
         f"similarity tables for {kind} registers are not ported "
-        "(ROADMAP Queue 1 item 4)")
+        "(ROADMAP Queue 1 item 3)")
 
 
 def _block_size(opts: Dashing2DistOptions) -> int:
@@ -294,21 +294,21 @@ def _check_route(opts: Dashing2DistOptions, n: int, nq: int,
     if nq:
         raise NotImplementedError(
             "panel (query/reference) comparisons are not ported "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 5)")
     if opts.measure != Measure.SIMILARITY:
         raise NotImplementedError(
-            f"{opts.measure.name} is not ported (ROADMAP Queue 1 item 4)")
+            f"{opts.measure.name} is not ported (ROADMAP Queue 1 item 3)")
     if n < 2:
         raise NotImplementedError(f"n={n}: all-pairs jobs take 2 <= n")
     if n > SELF_MAX and kind.startswith("nibble"):
         raise NotImplementedError(
             f"n={n}: {kind} registers take the self-pairs route, "
             f"2 <= n <= {SELF_MAX}; their row-block route is not ported "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 1)")
     if opts.sketchsize >= 1 << 16:
         raise NotImplementedError(
             f"m={opts.sketchsize}: u16 counts need m < 65536; the f32 "
-            "route is not ported (ROADMAP Queue 1 item 4)")
+            "route is not ported (ROADMAP Queue 1 item 3)")
 
 
 def _device_regs(data: np.ndarray, dev: torch.device) -> torch.Tensor:

@@ -12,7 +12,7 @@ measure the port emits:
   counts, the default mode).
 
 The other measures divide by per-pair cardinalities and are ROADMAP
-Queue 1 item 4.
+Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def bbit_measures32(eqc: torch.Tensor, m: int, fd_level: float,
     if measure != Measure.SIMILARITY:
         raise NotImplementedError(
             f"{measure.name} on b-bit registers is not ported "
-            "(ROADMAP Queue 1 item 4)")
+            "(ROADMAP Queue 1 item 3)")
     bits = int(fd_level * 8)
     den = np.float32(np.float64(m) * (np.ldexp(1.0, bits) - 1.0))
     dev = eqc.device
@@ -210,11 +210,11 @@ def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
     if measure != Measure.SIMILARITY:
         raise NotImplementedError(
             f"{measure.name} on a/b registers is not ported "
-            "(ROADMAP Queue 1 item 4)")
+            "(ROADMAP Queue 1 item 3)")
     if fd_level >= 8.0:
         raise NotImplementedError(
             "full-width a/b registers are not ported (ROADMAP Queue 1 "
-            "item 5)")
+            "item 6)")
     if table is None:
         table = gb_bit_table(b, m)
         gbinv = np.float32(1.0 / (1.0 - 1.0 / np.float64(b)))
@@ -268,7 +268,7 @@ def full_setsketch_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
     if measure != Measure.SIMILARITY:
         raise NotImplementedError(
             f"{measure.name} on full registers is not ported (ROADMAP "
-            "Queue 1 item 4)")
+            "Queue 1 item 3)")
     dev = gtc.device
     c = gtc.to(torch.int32) + ltc.to(torch.int32)
     recip = float(np.float32(1.0 / m))

@@ -56,7 +56,7 @@ def emit_rectangular(opts: Dashing2DistOptions, result: SketchingResult,
     kind = opts.output_kind
     if kind not in (OutputKind.SYMMETRIC_ALL_PAIRS, OutputKind.PHYLIP):
         raise NotImplementedError(
-            f"{kind.name} output is not ported (ROADMAP Queue 1 item 7)")
+            f"{kind.name} output is not ported (ROADMAP Queue 1 item 5)")
     names = result.names
     n = result.n if names else len(result.cardinalities)
     lib = None

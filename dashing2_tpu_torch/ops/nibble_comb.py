@@ -5,7 +5,13 @@ Port of the TPU kernel dashing2_tpu/ops/pallas_cmp.py::_tri_comb_kernel
 dashing2_tpu/cmp/core.py::_self_matrix_fn_m, the `--fastcmp 0.5` a/b
 route; counts_nibble_tri_self is its full-matrix form). The Hopper
 kernel is csrc/tri_comb.cu, built and bound as ops/nibble_tri.py's
-tri_eq.cu is; its source note says what bounds it.
+tri_eq.cu is, and run on tri_eq.cu's engine: like the TPU kernel it
+contracts the one-hot of the rows' registers against the combined
+encoding [b == v] - 128 [b < v] of the columns' on the matrix units
+(mma.sync) and decodes eq and gt from each chunk's partial eq - 128 gt.
+`combined_fragment_words` models the B words it builds (once per block,
+into a table in shared memory) and `decode_partials` its decode; its
+source note says what bounds it.
 
 `tri_comb_counts` chooses by the tensor's device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs `tri_comb_counts_plain`. There
@@ -18,6 +24,7 @@ import ctypes
 import os
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .nibble_tri import check_packed, packed_words
@@ -70,6 +77,33 @@ def tri_comb_counts_plain(packed: torch.Tensor, m: int
             gt.to(torch.int32).to(torch.uint16))
 
 
+def combined_fragment_words(nibbles, t: int) -> np.ndarray:
+    """The u32 fragment words csrc/tri_comb.cu builds from 4-bit column
+    registers b (its table's entries) for the lanes with t = lane & 3 of
+    an mma.sync m16n8k32 B fragment: bytes q = 0..3 for levels v = 4t + q of the register's
+    combined row [b == v] - 128 [b < v], that is 1 where v == b, 0x80
+    where v > b, else 0.
+
+    With s = 8 (b - 4t) the kernel takes PTX shl.b32(0x80808001, s),
+    which is 0 for s >= 32 (the group's levels all below b), and ors in
+    0x80808080 where s < 0 (all above b). The argument broadcasts; the
+    result has its shape."""
+    s = 8 * (np.asarray(nibbles, dtype=np.int64) - 4 * int(t))
+    low = np.left_shift(np.int64(0x80808001), np.clip(s, 0, 31)) & 0xFFFFFFFF
+    return np.where(s < 0, 0x80808080,
+                    np.where(s < 32, low, 0)).astype(np.uint32)
+
+
+def decode_partials(partial) -> Tuple[np.ndarray, np.ndarray]:
+    """(eq, gt) of a chunk's partials eq - 128 gt, as csrc/tri_comb.cu
+    and the TPU kernel decode them: gt = (127 - partial) >> 7 and eq =
+    partial + (gt << 7). Exact while eq <= 127, so a chunk holds at most
+    127 registers."""
+    p = np.asarray(partial, dtype=np.int64)
+    gt = (127 - p) >> 7
+    return p + (gt << 7), gt
+
+
 def load_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load csrc/tri_comb.cu; raises
     when nvcc is missing or the build fails."""
@@ -98,7 +132,7 @@ def tri_comb_counts(packed: torch.Tensor, m: int
         raise ValueError(f"no tri_comb_counts for device {packed.device}")
     lib = load_kernel()
     n = packed.shape[0]
-    words = packed_words(packed)
+    words = packed_words(packed, 16)          # 16-byte cp.async rows
     eq = torch.empty((n, n), dtype=torch.uint16, device=packed.device)
     gt = torch.empty((n, n), dtype=torch.uint16, device=packed.device)
     with torch.cuda.device(packed.device):

@@ -4,7 +4,7 @@ Copy of the host functions of dashing2_tpu/ops/sketch_kernels.py:
 `oph_to_sigs`, `oph_cardinality`, `_densify_draw_table` and
 `oph_densify_rows`. The register update itself runs in the JAX package's
 C++ engine (oph_sketch.cpp); a device sketch kernel is ROADMAP Queue 1
-item 6.
+item 7.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ NotImplementedError instead of taking another route: --entmin,
 --parse-by-seq/--by-chrom, non-ONE_PERM results, --count-threshold > 1,
 .xz/.bz2 inputs, filtersets, --cache, and the k-mer artifacts
 (--save-kmers/--save-kmercounts). A device sketch kernel is ROADMAP
-Queue 1 item 6.
+Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str]
     if why:
         raise NotImplementedError(
             "the port sketches only what the native file driver covers; "
-            "not ported: " + ", ".join(why) + " (ROADMAP Queue 1 item 6)")
+            "not ported: " + ", ".join(why) + " (ROADMAP Queue 1 item 7)")
     paths: List[str] = []
     item_of: List[int] = []
     for i, g in enumerate(groups):

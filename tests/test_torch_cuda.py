@@ -90,9 +90,15 @@ def test_sim_table_on_card_bits_equal_cpu(card, m):
                                   on_cpu.view(np.uint32))
 
 
-@pytest.mark.parametrize("m", [30, 64, 1024])
-@pytest.mark.parametrize("n", [1, 2, 63, 129, 1025])
+@pytest.mark.parametrize("m", [30, 62, 64, 94, 96, 98, 100, 126, 128, 130,
+                               256, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 257, 1025, 4097])
 def test_comb_kernel_matches_plain(card, n, m):
+    """tri_comb.cu's one-hot x combined product, exact in eq and gt: n at
+    its 128-row tiles' edges; m at the pad rule (30, 62, 94, 98, 100, 126,
+    130), the edge of its 96-register decode chunks (94, 96, 98), the
+    127-register decode limit and the TPU's 64-register chunks (126, 128,
+    130), and several stages (256 and up)."""
     a = torch.from_numpy(_packed(n, m, seed=2 * n + m)).to(card)
     before = NC.launches
     got = NC.tri_comb_counts(a, m)
@@ -102,11 +108,38 @@ def test_comb_kernel_matches_plain(card, n, m):
     for g, w in zip(got, want):
         assert g.dtype == torch.uint16 and g.device.type == "cuda"
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert (got[0].diagonal().cpu().numpy() == m).all()
+    assert (got[1].diagonal().cpu().numpy() == 0).all()
     if n <= 129:
         p = _packed(n, m, 2 * n + m)
         u = np.concatenate([p & 0xF, p >> 4], axis=1)
         np.testing.assert_array_equal(
             got[1].cpu().numpy(), (u[:, None, :] > u[None, :, :]).sum(2))
+
+
+@pytest.mark.parametrize("m", [30, 128, 130, 1024])
+@pytest.mark.parametrize("planted", ["equal", "zero-fifteen"])
+def test_comb_kernel_planted_rows(card, planted, m):
+    """`equal`: 300 copies of one row, so every register of every pair is
+    equal and every full decode chunk holds 96 equal registers (the
+    decode's limit is 127). `zero-fifteen`: rows of nibble 0 against rows
+    of nibble 15, so gt is m or 0."""
+    if planted == "equal":
+        a = np.broadcast_to(_packed(1, m, seed=m), (300, m // 2)).copy()
+        want_eq = np.full((300, 300), m)
+        want_gt = np.zeros((300, 300), np.int64)
+    else:
+        a = np.zeros((300, m // 2), np.uint8)
+        a[1::2] = 0xFF
+        hi = np.arange(300) % 2 == 1
+        want_eq = np.where(hi[:, None] == hi[None, :], m, 0)
+        want_gt = np.where(hi[:, None] & ~hi[None, :], m, 0)
+    x = torch.from_numpy(a).to(card)
+    eq, gt = NC.tri_comb_counts(x, m)
+    np.testing.assert_array_equal(eq.cpu().numpy(), want_eq)
+    np.testing.assert_array_equal(gt.cpu().numpy(), want_gt)
+    for g, w in zip((eq, gt), NC.tri_comb_counts_plain(x, m)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
 def test_comb_kernel_on_unaligned_view(card):
