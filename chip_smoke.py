@@ -7,8 +7,8 @@ card (H100), CUDA's nvcc, g++ and zlib:
 
 It builds every kernel of the port's main paths from the checkout's
 sources and drives both `--fastcmp 0.5` jobs, the `--fastcmp 1|2|4`
-jobs and the default full-register job (no `--fastcmp`) through the
-port's own CLI.
+jobs, the default full-register job (no `--fastcmp`), a job of every
+other measure and the asymmetric output through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
@@ -88,7 +88,24 @@ no card, or when the port is not importable:
    self-pairs counters not at all, and that every emitted value is the
    CPU epilogue at the plain version's counts, 1024 rows at a time.
    Times `gtlt_counts` and `int_counts` on one full-width block
-   (4096 x 20480) against their plain versions.
+   (4096 x 20480) against their plain versions;
+10. every measure on the N = 10240 corpus (its sketches reused):
+   `--fastcmp 0.5 --bbit-sigs --mash-distance` (tri_eq), `--fastcmp 0.5
+   --union-size` (tri_comb), the default job with `--containment
+   --asymmetric-all-pairs` (gtlt_self, the full square), `--fastcmp 1
+   --intersection` (int_counts_self, gtlt mode), `--fastcmp 2 --bbit-sigs
+   --symmetric-containment` (int_counts_self, eq mode) and `--bbit-sigs`
+   without `--fastcmp` (equality-compared full registers: gtlt_self on the
+   raw bits). Each checks the output size, that its kernel's launch
+   counter moved, and that every emitted value equals the CPU epilogue
+   at the plain version's counts and the job's cardinalities, bit for
+   bit (POISSON_LLR's table is built on the host, so it holds too);
+11. the nibble row-block route on the N = 20480 corpus: `--fastcmp 0.5
+   --bbit-sigs` and `--fastcmp 0.5`, nibbles unpacked on the card once
+   and one `int_counts` launch per row block, tri_eq and tri_comb never.
+   Each checks the output and every emitted value as phase 9 does; the
+   b-bit job times `int_counts` on one unpacked 4096 x 20480 block
+   against its plain version, with its bound.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall.
@@ -774,12 +791,12 @@ def _job_epilogue(tag: str, kind: str, opts, creps, n: int):
     on_card = C._epilogue(kind, opts, creps, n, torch.device("cuda"))
     c = torch.arange(m + 1, dtype=torch.int32)
     if kind.endswith("bbit"):
-        host = on_cpu(c, None, None)
-        card = on_card(c.cuda(), None, None).cpu()
+        host = on_cpu(c, None, None, None, None)
+        card = on_card(c.cuda(), None, None, None, None).cpu()
     else:
         cg, cl = torch.meshgrid(c, c, indexing="ij")
-        host = on_cpu(None, cg, cl)
-        card = on_card(None, cg.cuda(), cl.cuda()).cpu()
+        host = on_cpu(None, cg, cl, None, None)
+        card = on_card(None, cg.cuda(), cl.cuda(), None, None).cpu()
     assert torch.equal(host.view(torch.int32), card.view(torch.int32)), tag
     table = host.numpy()
     _say(f"[{tag}] card epilogue == CPU epilogue bit for bit on all "
@@ -1016,6 +1033,161 @@ def phase_rowblock_int(lst: str, sketches, counters):
                 library_ms=None)
 
 
+# tag, the job's flags, the self-pairs kernel it launches, and the
+# options its flags build (measure by name)
+MEASURE_JOBS = (
+    ("mash-nibble-bbit", ["--fastcmp", "0.5", "--bbit-sigs",
+                          "--mash-distance"], "tri_eq",
+     dict(fd_level=0.5, truncation_method=1, measure="POISSON_LLR")),
+    ("union-nibble-ab", ["--fastcmp", "0.5", "--union-size"], "tri_comb",
+     dict(fd_level=0.5, measure="UNION_SIZE")),
+    ("containment-full-asym", ["--containment", "--asymmetric-all-pairs"],
+     "gtlt_self", dict(measure="CONTAINMENT")),
+    ("intersection-u8-ab", ["--fastcmp", "1", "--intersection"],
+     "int_counts_self", dict(fd_level=1.0, measure="INTERSECTION")),
+    ("symcontain-u16-bbit", ["--fastcmp", "2", "--bbit-sigs",
+                             "--symmetric-containment"], "int_counts_self",
+     dict(fd_level=2.0, truncation_method=1,
+          measure="SYMMETRIC_CONTAINMENT")),
+    ("eqfull", ["--bbit-sigs"], "gtlt_self", dict(truncation_method=1)),
+)
+
+
+def _plain_self_counts(kind: str, regs, m: int):
+    """The (n, n) u16 matrix of the kind's self-pairs kernel, from its
+    plain version on the card."""
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.ops import int_counts as IC
+    from dashing2_tpu_torch.ops import nibble_comb as NC
+    from dashing2_tpu_torch.ops import nibble_tri as NT
+    if kind == "nibble-bbit":
+        return NT.tri_eq_counts_plain(regs, m)
+    if kind == "nibble-ab":
+        return NC.tri_comb_counts_plain(regs, m)[1]
+    return IC.int_counts_self_plain(regs, "eq" if kind in C._EQ_KINDS
+                                    else "gtlt")
+
+
+def phase_measure(tag: str, flags, counter: str, kw, lst: str, sketches,
+                  counters):
+    """One job of a measure other than SIMILARITY (or of the
+    equality-compared full registers) at full size, self-pairs route."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.enums import Measure
+
+    n, m = NORTH_STAR_N, 1024
+    asym = "--asymmetric-all-pairs" in flags
+    out = os.path.join(WORK, "northstar", f"out_{tag}.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m)] + flags + [
+        "--binary-output", "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli(tag, argv, n, counters)
+    assert os.path.getsize(out) == 4 * (n * n if asym
+                                        else n * (n - 1) // 2)
+    assert launches[counter] >= 1, f"the {tag} job never launched {counter}"
+    _say_spans(tag, spans, FULL_SPANS)
+
+    kw = dict(kw, measure=Measure[kw.get("measure", "SIMILARITY")])
+    opts = Dashing2DistOptions(k=31, sketchsize=m, **kw)
+    creps, _ = C._prep(opts, sketches)
+    kind, data = C._representation(opts, sketches, creps)
+    regs = C._device_regs(data, torch.device("cuda"))
+    mat = _plain_self_counts(kind, regs, m).cpu().to(torch.int32)
+    del regs
+    cards = torch.from_numpy(np.asarray(sketches.cardinalities,
+                                        np.float64).astype(np.float32))
+    epi = C._epilogue(kind, opts, creps, n, torch.device("cpu"))
+
+    def want(i0, i1):
+        c0 = 0 if asym else i0
+        v = epi(mat[i0:i1, c0:], mat[i0:i1, c0:], mat[c0:, i0:i1].T,
+                cards[i0:i1, None], cards[None, c0:]).numpy()
+        return v if asym else C._expand_upper(v, i0, n)
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    if asym:
+        sq = vals.reshape(n, n)
+        for i0 in range(0, n, 1024):
+            assert np.array_equal(sq[i0:i0 + 1024].view(np.uint32),
+                                  want(i0, min(i0 + 1024, n))
+                                  .view(np.uint32)), i0
+    else:
+        _rows_equal(vals, n, want)
+    _say(f"[{tag}] {kind} {opts.measure.name}: output == CPU epilogue at the "
+         f"plain counts and the job's cardinalities for all "
+         f"{n * n if asym else n * (n - 1) // 2} values; min "
+         f"{float(vals.min())!r} max {float(vals.max())!r}")
+    return launches
+
+
+def phase_rowblock_nibble(tag: str, bbit: bool, lst: str, sketches,
+                          counters):
+    """`--fastcmp 0.5 [--bbit-sigs]` above SELF_MAX: nibbles unpacked on
+    the card, one int_counts launch per row block, the numpy-route
+    epilogue; the b-bit job times one unpacked block."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.ops import int_counts as IC
+
+    n, m = ROWS_N, 1024
+    out = os.path.join(WORK, "rowblock", f"out_{tag}.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "0.5"] + (
+        ["--bbit-sigs"] if bbit else []) + [
+        "--binary-output", "--cmpout", out, "-F", lst]
+    _, spans, launches = _run_cli(tag, argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5,
+                               truncation_method=int(bbit))
+    creps, _ = C._prep(opts, sketches)
+    kind, data = C._representation(opts, sketches, creps)
+    block = C._block_size(opts)
+    blocks = -(-n // block)
+    assert launches["int_counts"] == blocks \
+        and launches["tri_eq"] == launches["tri_comb"] == 0 \
+        and launches["int_counts_self"] == 0, (launches, blocks)
+    _say(f"[{tag}] {blocks} row blocks of {block}: int_counts launched once "
+         "each on the unpacked nibbles, tri_eq and tri_comb never")
+    _say_spans(tag, spans, FULL_SPANS + ("cmp/unpack",))
+
+    regs = C._unpack_nibbles(C._device_regs(data, torch.device("cuda")))
+    if bbit:
+        rows = regs[:block]
+        IC.int_counts(rows, regs)                     # warm-up
+        torch.cuda.synchronize()
+        kernel_ms = _cuda_ms(lambda: IC.int_counts(rows, regs), 20)
+        IC.int_counts_plain(rows, regs)               # warm-up
+        plain_ms = _cuda_ms(lambda: IC.int_counts_plain(rows, regs), 3)
+        for g, w in zip(IC.int_counts(rows, regs),
+                        IC.int_counts_plain(rows, regs)):
+            assert _max_err(g, w) == 0, "int_counts != plain on nibbles"
+        nr = rows.shape[0]
+        bound_ms, bound_by = _bound(nr * n * 2 * m / 4, "popc",
+                                    (nr + n) * m + 6 * nr * n)
+        _say(f"[{tag}] int_counts kernel {kernel_ms:.6f} ms on one "
+             f"{nr}x{n} unpacked-nibble block (CUDA events, mean of 20 "
+             f"after a warm-up); plain {plain_ms:.6f} ms (mean of 3); eq, gt "
+             f"and lt equal; bound {bound_ms:.6f} ms ({bound_by}); kernel at "
+             f"{100 * bound_ms / kernel_ms:.1f}% of it")
+
+    epi = C._epilogue(kind, opts, creps, n, torch.device("cpu"))
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+
+    def want(i0, i1):
+        eq, gt, lt = (x.cpu() for x in IC.int_counts_plain(regs[i0:i1],
+                                                           regs[i0:]))
+        return C._expand_upper(epi(eq, gt, lt, None, None).numpy(), i0, n)
+    _rows_equal(vals, n, want)
+    _say(f"[{tag}] output == CPU epilogue at the plain counts for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1061,6 +1233,9 @@ def main() -> int:
                                lst, sketches, counters)
                     for tag, fd, bbit in INT_JOBS}
         timed("u32-ab job", phase_main_u32, lst, sketches, counters)
+        measure_runs = {tag: timed(f"{tag} job", phase_measure, tag, flags,
+                                   counter, kw, lst, sketches, counters)
+                        for tag, flags, counter, kw in MEASURE_JOBS}
         del sketches
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
         t0 = time.perf_counter()
@@ -1073,6 +1248,11 @@ def main() -> int:
                          counters)
         int_rect_run = timed("u8 row-block job", phase_rowblock_int, lst,
                              sketches, counters)
+        nibble_rows = {tag: timed(f"{tag} row-block job",
+                                  phase_rowblock_nibble, tag, bbit, lst,
+                                  sketches, counters)
+                       for tag, bbit in (("rows-nibble-bbit", True),
+                                         ("rows-nibble-ab", False))}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     _say(f"[wall] all phases: {time.perf_counter() - t_start:.3f} s")
@@ -1086,6 +1266,18 @@ def main() -> int:
                         err=max(r["err"] for r in int_runs.values()))
     int_self_eq_run = dict(int_runs["u8-bbit"], launches=sum(
         int_runs[t]["launches"] for t in ("u8-bbit", "u16-bbit")))
+    # the measure jobs' and nibble row-block jobs' launches join their
+    # kernels' counts (times and bounds stay those printed above)
+    for run, key, tags in (
+            (eq_run, "tri_eq", ("mash-nibble-bbit",)),
+            (comb_run, "tri_comb", ("union-nibble-ab",)),
+            (self_run, "gtlt_self", ("containment-full-asym", "eqfull")),
+            (int_self_run, "int_counts_self", ("intersection-u8-ab",
+                                               "symcontain-u16-bbit")),
+            (int_self_eq_run, "int_counts_self", ("symcontain-u16-bbit",))):
+        run["launches"] += sum(measure_runs[t][key] for t in tags)
+    int_rect_run["launches"] += sum(r["int_counts"]
+                                    for r in nibble_rows.values())
     kernels = []
     for name, src, line, worst, run in (
             ("tri_eq_counts", "tri_eq.cu", 447, worst_eq, eq_run),

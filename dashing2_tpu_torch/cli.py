@@ -4,14 +4,17 @@ Port of dashing2_tpu/cli.py: `_add_shared` and `_build_opts` are copies,
 so flags keep their reference names and build the same options. Only the
 `sketch` subcommand exists, and it runs only the slices the port covers:
 native sketching of FASTA/FASTQ inputs, then (with --cmpout) the
-SIMILARITY all-pairs matrix over the full registers (no `--fastcmp`, or
-`--fastcmp 8`; `--f32-registers` compares them rounded to f32) or over
-`--fastcmp 0.5`, `1`, `2` or `4` registers (nibbles, u8, u16, u32),
-b-bit (`--bbit-sigs`) or SetSketch a/b quantised (without it), emitted
-as binary f32, PHYLIP or the symmetric TSV. Every other option is
-rejected with an error naming it. `--device` (default cuda) picks where the
-comparison runs; a CUDA request without a card exits non-zero and never
-carries on on the CPU.
+all-pairs matrix of any measure (similarity, `--mash-distance`,
+`--containment`, `--symmetric-containment`, `--intersection`,
+`--union-size`) over the full registers (no `--fastcmp`, or
+`--fastcmp 8`; `--f32-registers` compares them rounded to f32, and
+`--bbit-sigs` compares their bits for equality) or over `--fastcmp 0.5`,
+`1`, `2` or `4` registers (nibbles, u8, u16, u32), b-bit (`--bbit-sigs`)
+or SetSketch a/b quantised (without it), emitted as binary f32, PHYLIP,
+the symmetric TSV or, with `--asymmetric-all-pairs`, the full square.
+Every other option is rejected with an error naming it. `--device`
+(default cuda) picks where the comparison runs; a CUDA request without a
+card exits non-zero and never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -291,11 +294,9 @@ _OUTSIDE_SLICE = {
     "cssize": "--countsketch-size", "prob": "--prob",
     "multiset": "--multiset", "bed": "--bed", "bigwig": "--bigwig",
     "leafcutter": "--leafcutter", "edit_distance": "--edit-distance",
-    "isz": "--intersection", "usz": "--union-size",
-    "mashdist": "--mash-distance", "compute_edit": "--compute-edit-distance",
-    "symcontain": "--symmetric-containment", "containment": "--containment",
+    "compute_edit": "--compute-edit-distance",
     "mmer_set": "--set", "countdict": "--countdict", "mmer_seq": "--seq",
-    "asym": "--asymmetric-all-pairs", "save_kmers": "--save-kmers",
+    "save_kmers": "--save-kmers",
     "save_kmercounts": "--save-kmercounts", "hpcompress": "--hp-compress",
     "refine_exact": "--refine-exact", "full": "--full-setsketch",
     "normalize_intervals": "--normalize-intervals", "cache": "--cache",
@@ -323,8 +324,6 @@ def _slice_errors(p: argparse.ArgumentParser,
     if opts.fd_level not in (0.5, 1.0, 2.0, 4.0, 8.0):
         errs.append("comparisons other than --fastcmp 0.5, 1, 2, 4 and "
                     "full registers")
-    elif opts.fd_level == 8.0 and opts.truncation_method > 0:
-        errs.append("--bbit-sigs without --fastcmp 0.5, 1, 2 or 4")
     return errs
 
 
@@ -394,9 +393,12 @@ def _main(argv: List[str]) -> int:
     if opts.outfile_path:
         from .cmp.core import pairwise_matrix
         from .io.emitters import emit_rectangular
+        # symmetric/PHYLIP emitters never read the lower triangle
+        upper = opts.output_kind in (OutputKind.SYMMETRIC_ALL_PAIRS,
+                                     OutputKind.PHYLIP)
         with phase("compare+emit", opts.verbosity):
             emit_rectangular(opts, result,
-                             pairwise_matrix(opts, result, upper_only=True,
+                             pairwise_matrix(opts, result, upper_only=upper,
                                              device=device))
     return 0
 

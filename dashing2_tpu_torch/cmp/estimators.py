@@ -1,7 +1,6 @@
-"""Similarity estimators on integer register-count tensors, in torch.
+"""Estimators on integer register-count tensors, in torch.
 
-Port of dashing2_tpu/cmp/estimators.py for Measure.SIMILARITY, the one
-measure the port emits:
+Port of dashing2_tpu/cmp/estimators.py's f32 estimators, every measure:
 
 * `bbit_measures32` for b-bit registers of every width (eq counts);
 * `compressed_ab_measures32` for SetSketch a/b-quantised registers (gt
@@ -9,10 +8,23 @@ measure the port emits:
   complement form), with the host constants it needs
   (`optimal_parameters`, `gb_bit_table`, `ab_tables`) and `fma32`;
 * `full_setsketch_measures32` for full 64-bit registers (gt and lt
-  counts, the default mode).
+  counts, the default mode);
+* `equality_measures32` for full registers compared for equality (eq
+  counts, `--bbit-sigs` without `--fastcmp`).
 
-The other measures divide by per-pair cardinalities and are ROADMAP
-Queue 1 item 3.
+Each follows one JAX route by its `fused` flag: fused=True the jitted
+self-pairs route (64 <= n <= SELF_MAX), where XLA rewrites a division by
+a constant into a product with its f32 reciprocal and contracts some
+adds of products into fused multiply-adds; fused=False the numpy route
+(n < 64, and n > SELF_MAX on the CPU), where every f32 operation rounds.
+A division by a per-pair value is IEEE division on every route.
+
+The measures other than SIMILARITY and POISSON_LLR take the pair's f32
+cardinalities: lh (the row item) and rh (the column item), broadcast
+against the counts. The reference's asymmetric quirk is kept: full
+registers divide CONTAINMENT by the column's cardinality, the
+compressed and equality estimators by the row's. POISSON_LLR depends on
+the counts alone; its f32 `log1p` is `log1p32`.
 """
 
 from __future__ import annotations
@@ -24,11 +36,72 @@ import torch
 
 from ..enums import Measure
 
+# the largest f32: NaN and inf values are emitted as it (cmp_core.cpp:573)
+FINF = float(np.finfo(np.float32).max)
+
+CARD_MEASURES = (Measure.INTERSECTION, Measure.UNION_SIZE,
+                  Measure.CONTAINMENT, Measure.SYMMETRIC_CONTAINMENT)
+
+
+def _const(x: float, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def _finite(ret: torch.Tensor) -> torch.Tensor:
+    """NaN and inf -> FINF."""
+    return torch.where(torch.isfinite(ret), ret, _const(FINF, ret.device))
+
+
+def _cards(measure: Measure, lh, rh, dev: torch.device):
+    """The pair's cardinalities as f32 tensors on `dev` (None for the
+    measures that do not read them)."""
+    if measure not in CARD_MEASURES:
+        return None, None
+    if lh is None or rh is None:
+        raise ValueError(f"{measure.name} needs the pair's cardinalities")
+    return (torch.as_tensor(lh).to(dev, torch.float32),
+            torch.as_tensor(rh).to(dev, torch.float32))
+
+
+def _check_measure(measure: Measure) -> None:
+    if measure not in CARD_MEASURES + (Measure.SIMILARITY,
+                                        Measure.POISSON_LLR):
+        raise ValueError(f"measure {measure.name} invalid here")
+
+
+def log1p32(x: torch.Tensor, fused: bool) -> torch.Tensor:
+    """f32 log1p of f32 values, on the host, as one JAX route has it:
+
+    * fused=False, its numpy route: numpy's own f32 `np.log1p`, which is
+      that route's function on its own inputs (bit for bit);
+    * fused=True, its jitted route: XLA's CPU log1p is its own
+      approximation, which neither numpy nor torch reproduces; the port
+      takes the f64 log1p rounded once to f32, within 2 ulp of both JAX
+      routes (README "Documented deviations"; tests/test_torch_measures.py
+      holds the bound).
+
+    The epilogues call it only to build tables over the counts on the
+    host (cmp/core.py::measure_table), so the card gathers these bits."""
+    a = x.detach().cpu().numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        y = (np.log1p(a.astype(np.float64)).astype(np.float32) if fused
+             else np.log1p(a))
+    return torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(x.device)
+
+
+def _poisson(ok: torch.Tensor, arg: torch.Tensor, k: int,
+             fused: bool) -> torch.Tensor:
+    """where(ok, log1p(arg) * f32(-1/k), inf)."""
+    pm = _const(float(np.float32(-1.0 / max(1, k))), arg.device)
+    return torch.where(ok, log1p32(arg, fused) * pm,
+                       _const(float("inf"), arg.device))
+
 
 def bbit_measures32(eqc: torch.Tensor, m: int, fd_level: float,
-                    measure: Measure, fused: bool = True) -> torch.Tensor:
-    """f32 b-bit similarity of integer eq counts with the JAX package's
-    bits. The JAX source writes max(0, (eqc * 2^b - m) / den) with
+                    measure: Measure, fused: bool = True, lh=None, rh=None,
+                    k: int = 31) -> torch.Tensor:
+    """f32 b-bit estimator of integer eq counts with the JAX package's
+    bits. The JAX source writes sim = max(0, (eqc * 2^b - m) / den) with
     den = f32(m * (2^b - 1)); which bits come out depends on the route:
 
     * fused=True, its jitted routes (the self-pairs routes and the
@@ -45,23 +118,42 @@ def bbit_measures32(eqc: torch.Tensor, m: int, fd_level: float,
     eqc * 2^b is exact (a power-of-two scale), so eqc * 2^b - m is one
     correctly rounded subtraction on every route (a fused multiply-add
     gives the same), and the product or quotient is one more; eager
-    torch gives the same bits on the CPU and on the card."""
-    if measure != Measure.SIMILARITY:
-        raise NotImplementedError(
-            f"{measure.name} on b-bit registers is not ported "
-            "(ROADMAP Queue 1 item 3)")
+    torch gives the same bits on the CPU and on the card.
+
+    The cardinality measures divide (lh + rh) by 1 + sim, per pair;
+    POISSON_LLR takes log1p((sim - 1) / (1 + sim)), with sim - 1 from
+    the exact integer (eqc - m) * 2^b."""
+    _check_measure(measure)
     bits = int(fd_level * 8)
     den = np.float32(np.float64(m) * (np.ldexp(1.0, bits) - 1.0))
     dev = eqc.device
-
-    def f32(x: float) -> torch.Tensor:
-        return torch.tensor(x, dtype=torch.float32, device=dev)
-    num = eqc.to(torch.float32) * f32(float(1 << bits)) - f32(float(m))
+    zero, one = _const(0.0, dev), _const(1.0, dev)
+    scale = _const(float(1 << bits), dev)
+    e = eqc.to(torch.float32)
+    num = e * scale - _const(float(m), dev)
     if fused:
-        sim = num * f32(float(np.float32(1.0) / den))
+        r = _const(float(np.float32(1.0) / den), dev)
+        sim = torch.maximum(zero, num * r)
     else:
-        sim = num / f32(float(den))
-    return torch.maximum(f32(0.0), sim)
+        sim = torch.maximum(zero, num / _const(float(den), dev))
+    if measure == Measure.SIMILARITY:
+        return sim
+    if measure == Measure.POISSON_LLR:
+        d = (e - _const(float(m), dev)) * scale
+        simm1 = torch.minimum(zero, d * r if fused
+                              else d / _const(float(den), dev))
+        return _finite(_poisson(sim > 0, simm1 / (one + sim), k, fused))
+    lh, rh = _cards(measure, lh, rh, dev)
+    isz = torch.maximum((lh + rh) / (one + sim), zero)
+    if measure == Measure.INTERSECTION:
+        ret = isz
+    elif measure == Measure.UNION_SIZE:
+        ret = lh + rh - isz
+    elif measure == Measure.CONTAINMENT:
+        ret = isz * sim / lh
+    else:
+        ret = isz * sim / torch.minimum(lh, rh)
+    return _finite(ret)
 
 
 def optimal_parameters(minreg: float, maxreg: float, q: float
@@ -177,8 +269,9 @@ def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
                              table: np.ndarray = None,
                              gbinv: np.float32 = None,
                              fused: bool = True,
-                             gb_form: str = "product") -> torch.Tensor:
-    """f32 a/b SetSketch similarity of integer (gt, lt) counts with the
+                             gb_form: str = "product", lh=None, rh=None,
+                             k: int = 31) -> torch.Tensor:
+    """f32 a/b SetSketch estimator of integer (gt, lt) counts with the
     JAX package's bits. The JAX source writes
 
         alpha = u[gt] * gbinv,  beta = u[lt] * gbinv,  ab = alpha + beta
@@ -195,22 +288,23 @@ def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
       fma(u[gt], gbinv, beta), so u[gt] * gbinv is never rounded and the
       value is NOT symmetric in (gt, lt) in its last bit; in the
       complement form it also contracts every step of the recurrence.
-      The port computes both with fma32. The caller passes gt for the row
-      item (the multiplied operand) and lt = the column item's gt (the
-      addend).
+      The port computes both with fma32. The caller passes gt for the
+      multiplied operand and lt for the addend.
     * fused=False, the JAX package's numpy epilogue (the generic
       row-block route: n < 64, and n > SELF_MAX on its CPU backend):
       every operation rounds to f32; alpha and beta are added, symmetric
       in (gt, lt).
 
-    Over every (gt, lt) in [0, m]^2 each form equals the JAX route's bits
-    (tests/test_torch_ab_epilogue.py). `table` and `gbinv` default to
+    The cardinality measures scale sim by mu = lh + rh where ab >= 1,
+    else max((lh + rh) / (2 - ab), 0); the jitted route contracts
+    UNION_SIZE's `lh + rh - sim * mu` into fma(-sim, mu, lh + rh).
+    POISSON_LLR takes log1p(-ab / (2 - ab)). Over every (gt, lt) in
+    [0, m]^2 each form
+    equals the JAX route's bits (tests/test_torch_ab_epilogue.py,
+    tests/test_torch_measures.py). `table` and `gbinv` default to
     gb_bit_table(b, m) and f32(1 / (1 - 1/b)), as cmp/core.py::_gb_args
     builds them."""
-    if measure != Measure.SIMILARITY:
-        raise NotImplementedError(
-            f"{measure.name} on a/b registers is not ported "
-            "(ROADMAP Queue 1 item 3)")
+    _check_measure(measure)
     if fd_level >= 8.0:
         raise NotImplementedError(
             "full-width a/b registers are not ported (ROADMAP Queue 1 "
@@ -223,26 +317,44 @@ def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
     b32 = torch.from_numpy(B).to(dev)
     if fused:
         u32 = torch.from_numpy(u).to(dev)
-        g32 = torch.tensor(float(gbinv), dtype=torch.float32, device=dev)
-        ab = fma32(u32[gtc.long()], g32, b32[ltc.long()])
+        ab = fma32(u32[gtc.long()], _const(float(gbinv), dev),
+                   b32[ltc.long()])
     else:
         ab = b32[gtc.long()] + b32[ltc.long()]
-    return torch.clamp_min(torch.tensor(1.0, dtype=torch.float32,
-                                        device=dev) - ab, 0.0)
+    zero, one, two = (_const(x, dev) for x in (0.0, 1.0, 2.0))
+    ret = torch.maximum(one - ab, zero)
+    if measure == Measure.SIMILARITY:
+        return ret
+    if measure == Measure.POISSON_LLR:
+        return _finite(_poisson(ret > 0, -ab / (two - ab), k, fused))
+    lh, rh = _cards(measure, lh, rh, dev)
+    mu = torch.where(ab >= one, lh + rh,
+                     torch.maximum((lh + rh) / (two - ab), zero))
+    if measure == Measure.INTERSECTION:
+        ret = ret * mu
+    elif measure == Measure.UNION_SIZE:
+        ret = (fma32(-ret, mu, lh + rh) if fused else lh + rh - ret * mu)
+    elif measure == Measure.CONTAINMENT:
+        ret = ret * mu / lh
+    else:
+        ret = ret * mu / torch.minimum(lh, rh)
+    return _finite(ret)
 
 
 def full_setsketch_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
-                              measure: Measure, fused: bool = True
+                              measure: Measure, fused: bool = True,
+                              lh=None, rh=None, k: int = 31
                               ) -> torch.Tensor:
-    """f32 similarity of integer (gt, lt) counts of full registers, with
+    """f32 estimator of integer (gt, lt) counts of full registers, with
     the JAX package's bits. The JAX source writes
 
         s = f32(gt + lt) * f32(1/m),  eq = 1 - s,
         sim = 0 where eq <= 1e-15 (or eq <= 0), else eq
 
-    and the value depends only on c = gt + lt, which is summed first.
-    For m a power of two, c * f32(1/m) is exact and every route gives the
-    same bits. For other m the JAX route decides:
+    and the value depends only on c = gt + lt, which is summed first,
+    and on the cardinalities. For m a power of two, c * f32(1/m) is
+    exact and every route gives the same bits. For other m the JAX route
+    decides:
 
     * fused=True, the jitted self-pairs routes (64 <= n <= SELF_MAX, one
       device or the multi-device mesh): XLA contracts `1 - s` into one
@@ -258,25 +370,90 @@ def full_setsketch_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
       route: n < 64, and N > SELF_MAX on its CPU backend): s is rounded
       to f32, then 1 - s; c = m gives exactly 0.
 
+    The union ucard = max((lh + rh) / (2 - s), 0) and the intersection
+    ucard * sim; POISSON_LLR takes log1p(-s / (2 - s)). Where eq <= 0
+    every measure is 0 and POISSON_LLR inf. In those graphs s has more
+    than one use, and XLA contracts neither `1 - s` nor `2 - s`: the
+    jitted route rounds s as the numpy route does. It contracts
+    `lh + rh - isz` of UNION_SIZE into fma(-ucard, sim, lh + rh).
+
     Over every c in [0, m] both forms equal those JAX routes bit for bit
-    (tests/test_torch_full.py). The JAX package's own (m+1) table
-    (cmp/core.py::_sim_table, its counts-pull route) follows neither
-    rule: XLA fused it at m in {1000, 1023} and not at {100, 200, 300}.
+    (tests/test_torch_full.py, tests/test_torch_measures.py). The JAX
+    package's own (m+1) table (cmp/core.py::_sim_table, its counts-pull
+    route) follows neither rule: XLA fused it at m in {1000, 1023} and
+    not at {100, 200, 300}.
 
     Eager torch rounds every operation, on the CPU and on the card
     alike."""
-    if measure != Measure.SIMILARITY:
-        raise NotImplementedError(
-            f"{measure.name} on full registers is not ported (ROADMAP "
-            "Queue 1 item 3)")
+    _check_measure(measure)
     dev = gtc.device
     c = gtc.to(torch.int32) + ltc.to(torch.int32)
     recip = float(np.float32(1.0 / m))
-
-    def f32(x: float) -> torch.Tensor:
-        return torch.tensor(x, dtype=torch.float32, device=dev)
-    if fused:
+    zero, one, two = (_const(x, dev) for x in (0.0, 1.0, 2.0))
+    if fused and measure == Measure.SIMILARITY:
         eq = (1.0 - c.to(torch.float64) * recip).to(torch.float32)
+        return torch.where(eq <= _const(1e-15, dev), zero, eq)
+    s = c.to(torch.float32) * _const(recip, dev)
+    eq = one - s
+    two_s = two - s
+    eqv = torch.where(eq <= _const(1e-15, dev), zero, eq)
+    if measure == Measure.SIMILARITY:
+        return eqv
+    dead = eq <= zero
+    inf = _const(float("inf"), dev)
+    if measure == Measure.POISSON_LLR:
+        ret = _poisson(eqv > zero, -s / two_s, k, fused)
+        return _finite(torch.where(dead, inf, ret))
+    lh, rh = _cards(measure, lh, rh, dev)
+    ucard = torch.maximum((lh + rh) / two_s, zero)
+    isz = ucard * eqv
+    if measure == Measure.INTERSECTION:
+        ret = isz
+    elif measure == Measure.UNION_SIZE:
+        ret = (fma32(-ucard, eqv, lh + rh) if fused else lh + rh - isz)
+    elif measure == Measure.CONTAINMENT:
+        ret = isz / rh
     else:
-        eq = f32(1.0) - c.to(torch.float32) * f32(recip)
-    return torch.where(eq <= f32(1e-15), f32(0.0), eq)
+        ret = isz / torch.minimum(lh, rh)
+    return _finite(torch.where(dead, zero, ret))
+
+
+def equality_measures32(eqc: torch.Tensor, m: int, measure: Measure,
+                        fused: bool = True, lh=None, rh=None,
+                        k: int = 31) -> torch.Tensor:
+    """f32 equality-fraction estimator of integer eq counts (full
+    registers compared for equality: `--bbit-sigs` without `--fastcmp`),
+    with the JAX package's bits. The JAX source writes
+
+        sim = f32(eqc) * f32(1/m),  ucard = max((lh + rh) / (1 + sim), 0)
+
+    with the intersection sim * ucard; POISSON_LLR takes
+    log1p(simm1 / (1 + sim)), simm1 = (f32(eqc) - m) * f32(1/m). The
+    product with the reciprocal is in the source, so both routes round it
+    alike (sim has more than one use, and XLA does not contract
+    `1 + sim`); fused=True gives the jitted route's one contraction,
+    `lh + rh - sim * ucard` into fma(-sim, ucard, lh + rh)."""
+    _check_measure(measure)
+    dev = eqc.device
+    recip = _const(float(np.float32(1.0 / m)), dev)
+    zero, one = _const(0.0, dev), _const(1.0, dev)
+    e = eqc.to(torch.float32)
+    sim = e * recip
+    if measure == Measure.SIMILARITY:
+        return sim
+    one_sim = one + sim
+    if measure == Measure.POISSON_LLR:
+        simm1 = (e - _const(float(m), dev)) * recip
+        return _finite(_poisson(sim > zero, simm1 / one_sim, k, fused))
+    lh, rh = _cards(measure, lh, rh, dev)
+    ucard = torch.maximum((lh + rh) / one_sim, zero)
+    if measure == Measure.INTERSECTION:
+        ret = sim * ucard
+    elif measure == Measure.UNION_SIZE:
+        ret = (fma32(-sim, ucard, lh + rh) if fused
+               else lh + rh - sim * ucard)
+    elif measure == Measure.CONTAINMENT:
+        ret = sim * ucard / lh
+    else:
+        ret = sim * ucard / torch.minimum(lh, rh)
+    return _finite(ret)

@@ -1,10 +1,11 @@
 """Distance-matrix emitters: PHYLIP / TSV human text and binary f32.
 
 Copy of dashing2_tpu/io/emitters.py::emit_rectangular, cut to the
-symmetric kinds the slice emits (SYMMETRIC_ALL_PAIRS and PHYLIP). The
-bytes written are the JAX package's, byte for byte. Text values are
-formatted by the native std::to_chars formatter (emit_fmt.cpp), which
-the port requires: a failed build raises instead of falling back.
+all-pairs kinds the port emits (SYMMETRIC_ALL_PAIRS, PHYLIP and
+ASYMMETRIC_ALL_PAIRS). The bytes written are the JAX package's, byte for
+byte. Text values are formatted by the native std::to_chars formatter
+(emit_fmt.cpp), which the port requires: a failed build raises instead
+of falling back.
 
 Reference layouts (src/emitrect.cpp):
 * human PHYLIP (:151): first line = N; rows: name (space-padded to >= 9
@@ -12,8 +13,9 @@ Reference layouts (src/emitrect.cpp):
 * human symmetric (:136-148,353): "#Dashing2 <label> Output",
   "#Dashing2Options: ...", "#Sources\t..." header; rows: padded name,
   (i+1) "\t-" placeholders, then upper-triangle values.
+* human asymmetric: the same header, full rows.
 * binary (:370-399): raw little-endian f32 — condensed upper triangle for
-  symmetric/PHYLIP.
+  symmetric/PHYLIP, full row-major N x N for asymmetric.
 """
 
 from __future__ import annotations
@@ -52,11 +54,15 @@ def _open_out(path: str) -> IO:
 
 def emit_rectangular(opts: Dashing2DistOptions, result: SketchingResult,
                      blocks: Iterator[Tuple[int, np.ndarray]]) -> None:
-    """Stream symmetric measure-matrix blocks to the configured output."""
+    """Stream all-pairs measure-matrix blocks to the configured output:
+    upper triangles for the symmetric kinds, full rows for
+    ASYMMETRIC_ALL_PAIRS."""
     kind = opts.output_kind
-    if kind not in (OutputKind.SYMMETRIC_ALL_PAIRS, OutputKind.PHYLIP):
+    if kind not in (OutputKind.SYMMETRIC_ALL_PAIRS, OutputKind.PHYLIP,
+                    OutputKind.ASYMMETRIC_ALL_PAIRS):
         raise NotImplementedError(
             f"{kind.name} output is not ported (ROADMAP Queue 1 item 5)")
+    full_rows = kind == OutputKind.ASYMMETRIC_ALL_PAIRS
     names = result.names
     n = result.n if names else len(result.cardinalities)
     lib = None
@@ -73,7 +79,8 @@ def emit_rectangular(opts: Dashing2DistOptions, result: SketchingResult,
             if kind == OutputKind.PHYLIP:
                 f.write(f"{n}\n".encode())
             else:
-                f.write(b"#Dashing2 Symmetric pairwise Output\n")
+                label = "Asymmetric" if full_rows else "Symmetric"
+                f.write(f"#Dashing2 {label} pairwise Output\n".encode())
                 f.write(f"#Dashing2Options: {_opts_str(opts)}\n".encode())
                 f.write(b"#Sources")
                 for i in range(len(names)):
@@ -92,7 +99,8 @@ def emit_rectangular(opts: Dashing2DistOptions, result: SketchingResult,
                         row = [nm]
                         if kind == OutputKind.SYMMETRIC_ALL_PAIRS:
                             row.append("\t-" * (i + 1))
-                        row.append(_fmt_row(lib, mat[bi, i + 1:]))
+                        row.append(_fmt_row(
+                            lib, mat[bi] if full_rows else mat[bi, i + 1:]))
                         row.append("\n")
                         out.append("".join(row))
                 with span("emit/write"):
@@ -100,6 +108,10 @@ def emit_rectangular(opts: Dashing2DistOptions, result: SketchingResult,
         else:
             for start, mat in blocks:
                 with span("emit/write"):
+                    if full_rows:
+                        f.write(np.ascontiguousarray(
+                            mat, dtype=np.float32).tobytes())
+                        continue
                     for bi in range(mat.shape[0]):
                         i = start + bi
                         f.write(np.ascontiguousarray(

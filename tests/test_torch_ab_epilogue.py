@@ -152,8 +152,9 @@ def test_make_compressed_ab_equals_jax(paths, m, monkeypatch):
 
 def test_other_measures_are_not_ported():
     c = torch.arange(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PE.compressed_ab_measures32(c, c, 4, 1.07, 0.5, Measure.POISSON_LLR)
+    with pytest.raises(ValueError, match="invalid"):
+        PE.compressed_ab_measures32(c, c, 4, 1.07, 0.5,
+                                    Measure.M_EDIT_DISTANCE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PE.compressed_ab_measures32(c, c, 4, 1.07, 8.0, Measure.SIMILARITY)
 

@@ -144,8 +144,8 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--topk", "3"], ["--greedy", "0.8"], ["--mash-distance"],
-    ["--cache"], ["-Q", "q.txt"], ["--asymmetric-all-pairs"],
+    ["--topk", "3"], ["--greedy", "0.8"], ["--prob"],
+    ["--cache"], ["-Q", "q.txt"], ["--set"],
     ["--full-setsketch"],
 ])
 def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
@@ -160,9 +160,10 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["sketch", "-S", "256", "--fastcmp-bytes"],         # a, b given: u8
     ["sketch", "-S", "256", "--setsketch-ab", "20,1.2"],
-    ["sketch", "-S", "256", "--bbit-sigs"],             # eq-compared full
+    ["sketch", "-S", "256", "--bbit-sigs", "--save-kmers"],  # eq k-mers
     ["cmp", "-S", "256", "--fastcmp", "0.5", "--bbit-sigs"],
-    ["sketch", "-S", "256", "--fastcmp", "1", "--containment"],
+    ["sketch", "-S", "256", "--fastcmp", "1", "--containment",
+     "--multiset"],
 ])
 def test_cli_rejects_other_comparisons(corpus, argv, tmp_path):
     lst, _ = corpus
@@ -177,19 +178,23 @@ def test_pairwise_rejects_routes_outside_the_slice(corpus, monkeypatch):
     kw = dict(k=31, sketchsize=256, fd_level=0.5, truncation_method=1)
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
-    bad = [Dashing2DistOptions(**kw, measure=Measure.POISSON_LLR),
-           Dashing2DistOptions(k=31, sketchsize=256, fd_level=1.0,
-                               measure=Measure.CONTAINMENT)]
-    for opts in bad:
+    # m >= 65536 (u16 counts) and panels stay outside the port
+    bad = [(Dashing2DistOptions(**{**kw, "sketchsize": 1 << 16},
+                                measure=Measure.POISSON_LLR), 0),
+           (Dashing2DistOptions(k=31, sketchsize=256, fd_level=1.0,
+                                measure=Measure.CONTAINMENT), 3)]
+    for opts, nq in bad:
+        res = from_reference(ref)
+        res.nq = nq
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            next(PC.pairwise_matrix(opts, from_reference(ref),
-                                    device="cpu"))
-    one = from_reference(ref)
-    one.names, one.signatures = one.names[:1], one.signatures[:1]
-    one.cardinalities = one.cardinalities[:1]
-    with pytest.raises(NotImplementedError, match="2 <= n"):
-        next(PC.pairwise_matrix(Dashing2DistOptions(**kw), one,
-                                device="cpu"))
+            next(PC.pairwise_matrix(opts, res, device="cpu"))
+    # so do equality-compared saved k-mers (--save-kmers)
+    kmers = from_reference(ref)
+    kmers.kmers = kmers.signatures.view(np.uint64).copy()
+    with pytest.raises(NotImplementedError, match="save-kmers"):
+        next(PC.pairwise_matrix(Dashing2DistOptions(k=31, sketchsize=256,
+                                                    truncation_method=1),
+                                kmers, device="cpu"))
 
 
 @pytest.fixture(scope="module")

@@ -460,3 +460,94 @@ def test_int_pairwise_matrix_cuda_equals_cpu(card, fd, truncation, n,
     assert [s for s, _ in got] == [s for s, _ in want]
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+# kind -> (fd, SetSketch b of a realistic job for the a/b kinds)
+MEASURE_KINDS = {"nibble-bbit": (0.5, 1.0), "nibble-ab": (0.5, 1.0733),
+                 "bbit-u8": (1.0, 1.0), "bbit-u16": (2.0, 1.0),
+                 "bbit-u32": (4.0, 1.0), "ab-u8": (1.0, 1.0571),
+                 "ab-u16": (2.0, 1.0002), "ab-u32": (4.0, 1.0 + 2.7e-9),
+                 "full": (8.0, 1.0), "eqfull": (8.0, 1.0)}
+
+
+@pytest.mark.parametrize("n", [20, 100])
+@pytest.mark.parametrize("msr", [Measure.SIMILARITY, Measure.INTERSECTION,
+                                 Measure.UNION_SIZE, Measure.CONTAINMENT,
+                                 Measure.SYMMETRIC_CONTAINMENT,
+                                 Measure.POISSON_LLR])
+@pytest.mark.parametrize("name", sorted(MEASURE_KINDS))
+def test_measure_epilogue_on_card_bits_equal_cpu(card, name, msr, n):
+    """Every measure's epilogue, as pairwise_matrix builds it (numpy route
+    at n = 20, jitted route at n = 100), on the card against the CPU over
+    seeded counts (every count up to m) and cardinalities with zeros,
+    equal and very unequal pairs."""
+    m = 1000
+    kind = name.split("-")[0] if name.startswith(("bbit", "ab")) else name
+    fd, b = MEASURE_KINDS[name]
+    opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=fd, measure=msr)
+    creps = C.CompressedReps(data=None, b=b)
+    rng = np.random.default_rng(n + int(msr))
+    eq = torch.from_numpy(rng.integers(0, m + 1, (64, 200)))
+    eq[0, :] = torch.arange(200) * 5
+    gt = torch.from_numpy(rng.integers(0, m // 2 + 1, (64, 200)))
+    lt = torch.from_numpy(rng.integers(0, m // 2 + 1, (64, 200)))
+    cards = rng.choice([0.0, 1.0, 2500.0, 1e9, 12345.678], 200) \
+        * rng.uniform(0.5, 2.0, 200)
+    lh = torch.from_numpy(cards[:64].astype(np.float32))[:, None]
+    rh = torch.from_numpy(cards.astype(np.float32))[None, :]
+    counts = [eq, gt, lt, lh, rh]
+    on_cpu = C._epilogue(kind, opts, creps, n, torch.device("cpu"))(*counts)
+    on_card = C._epilogue(kind, opts, creps, n, card)(
+        *(x.to(card) for x in counts)).cpu()
+    assert on_card.dtype == torch.float32 and on_card.shape == (64, 200)
+    assert torch.equal(on_cpu.view(torch.int32), on_card.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 63, 1025])
+def test_nibble_unpack_and_int_counts_on_card(card, n):
+    """The row-block route's on-card nibble unpack, and int_counts over
+    the unpacked u8 registers, against the CPU and the plain version."""
+    m = 256
+    packed = torch.from_numpy(_packed(n, m, seed=n))
+    got = C._unpack_nibbles(packed.to(card))
+    want = C._unpack_nibbles(packed)
+    assert got.dtype == torch.uint8 and got.shape == (n, m)
+    assert torch.equal(got.cpu(), want)
+    s = n // 3
+    for x, y in ((got, got), (got[s:s + 64], got[s:])):
+        for g, w in zip(IC.int_counts(x, y), IC.int_counts_plain(x, y)):
+            assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+@pytest.mark.parametrize("upper_only", [True, False])
+@pytest.mark.parametrize("self_max", [C.SELF_MAX, 0])
+@pytest.mark.parametrize("fd,truncation", [(0.5, 1), (0.5, 0), (8.0, 1)])
+def test_measure_pairwise_matrix_cuda_equals_cpu(card, fd, truncation,
+                                                 self_max, upper_only,
+                                                 monkeypatch):
+    """Nibble and equality-compared full registers, CONTAINMENT and
+    POISSON_LLR, on the self-pairs and row-block routes, symmetric and
+    asymmetric: the card's blocks equal the CPU's."""
+    n, m = 300, 200
+    monkeypatch.setattr(C, "SELF_MAX", self_max)
+    rng = np.random.default_rng(8)
+    sigs = rng.exponential(size=(n, m))
+    sigs[7] = sigs[3]
+    sigs[9, ::2] = sigs[4, ::2]
+    cards = rng.uniform(1e3, 1e6, n)
+    for msr in (Measure.CONTAINMENT, Measure.POISSON_LLR):
+        opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=fd,
+                                   truncation_method=truncation, measure=msr)
+
+        def run(device):
+            res = SketchingResult(names=[f"s{i}" for i in range(n)],
+                                  cardinalities=cards.copy(),
+                                  signatures=sigs.copy())
+            return list(C.pairwise_matrix(opts, res, block=64,
+                                          upper_only=upper_only,
+                                          device=device))
+        got, want = run(card), run("cpu")
+        assert [s for s, _ in got] == [s for s, _ in want]
+        for (_, g), (_, w) in zip(got, want):
+            np.testing.assert_array_equal(g.view(np.uint32),
+                                          w.view(np.uint32))

@@ -19,6 +19,8 @@
 Tolerance zero everywhere (f32 compared as u32 patterns).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,8 +99,8 @@ def test_full_table_is_the_epilogue_on_count_matrices():
         table = PC.sim_table("full", m, 8.0, "cpu", fused)
         direct = PE.full_setsketch_measures32(gt, lt, m, SIM, fused)
         np.testing.assert_array_equal(_bits(table[gt + lt]), _bits(direct))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PE.full_setsketch_measures32(gt, lt, m, Measure.POISSON_LLR)
+    with pytest.raises(ValueError, match="invalid"):
+        PE.full_setsketch_measures32(gt, lt, m, Measure.M_EDIT_DISTANCE)
 
 
 @pytest.mark.parametrize("regt32", [False, True])
@@ -208,14 +210,17 @@ def test_routes_outside_the_slice_raise(monkeypatch):
     res = SketchingResult(names=[f"s{i}" for i in range(n)],
                           cardinalities=np.ones(n),
                           signatures=_sketches(n, m, 4))
+    # equality-compared saved k-mers (--save-kmers) and panels
     eqfull = Dashing2DistOptions(k=31, sketchsize=m, truncation_method=1)
+    kmers = dataclasses.replace(res, kmers=res.signatures.view(np.uint64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(PC.pairwise_matrix(eqfull, res, device="cpu"))
+        next(PC.pairwise_matrix(eqfull, kmers, device="cpu"))
     monkeypatch.setattr(PC, "SELF_MAX", n - 1)
     nibble = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5,
                                  truncation_method=1)
-    with pytest.raises(NotImplementedError, match="row-block"):
-        next(PC.pairwise_matrix(nibble, res, device="cpu"))
+    panel = dataclasses.replace(res, nq=5)
+    with pytest.raises(NotImplementedError, match="panel"):
+        next(PC.pairwise_matrix(nibble, panel, device="cpu"))
     next(PC.pairwise_matrix(Dashing2DistOptions(k=31, sketchsize=m), res,
                             device="cpu"))
 

@@ -71,7 +71,7 @@ def test_table_is_the_epilogue_on_count_matrices():
 
 
 def test_other_measures_and_kinds_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bbit_measures32(torch.arange(5), 4, 0.5, Measure.POISSON_LLR)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="invalid"):
+        bbit_measures32(torch.arange(5), 4, 0.5, Measure.M_EDIT_DISTANCE)
+    with pytest.raises(ValueError, match="no SIMILARITY table"):
         PC.sim_table("nibble-ab", 64, 0.5, "cpu")
