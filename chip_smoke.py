@@ -8,7 +8,9 @@ card (H100), CUDA's nvcc, g++ and zlib:
 It builds every kernel of the port's main paths from the checkout's
 sources and drives both `--fastcmp 0.5` jobs, the `--fastcmp 1|2|4`
 jobs, the default full-register job (no `--fastcmp`), a job of every
-other measure and the asymmetric output through the port's own CLI.
+other measure, the asymmetric output, query panels (`-Q`) and the LSH
+neighbour jobs (`--topk`, `-T`, `--greedy`, `--index-save/-load`)
+through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
@@ -44,8 +46,9 @@ no card, or when the port is not importable:
 4. golden digests: the port's CLI on the card over the seeded n=777
    corpus must reproduce the SHA-256s in
    tests/goldens/torch_port_{bbit,ab}_nibble.json, torch_port_full.json,
-   torch_port_u8_bbit.json and torch_port_u16_ab.json, which CPU tests
-   tie to the JAX package's output;
+   torch_port_u8_bbit.json, torch_port_u16_ab.json and (the panel and
+   neighbour jobs) torch_port_{panel,knn,dedup}.json, which CPU tests tie
+   to the JAX package's output;
 5. b-bit main path at full size: N = 10240 genomes, 512 ancestors x 20
    mutants at 0.5-5% divergence, through
    `sketch -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs --binary-output
@@ -105,7 +108,31 @@ no card, or when the port is not importable:
    and one `int_counts` launch per row block, tri_eq and tri_comb never.
    Each checks the output and every emitted value as phase 9 does; the
    b-bit job times `int_counts` on one unpacked 4096 x 20480 block
-   against its plain version, with its bound.
+   against its plain version, with its bound;
+12. panels (`-Q`) on the N = 10240 corpus: references are the 9216
+   genomes whose index is not a multiple of 10, queries every tenth
+   genome (1024; each has siblings among the references). The default
+   job (`gtlt_counts`), `--fastcmp 0.5 --bbit-sigs` (unpacked nibbles,
+   `int_counts`) and `--fastcmp 1 --containment` (u8 a/b, `int_counts`,
+   the pair's cardinalities). Each checks its launch counters (one
+   rectangular launch per 4096-row reference block, no self-pairs
+   launch), the output's size (9216 x 1024 f32) and every value against
+   the CPU epilogue at the plain version's rectangular counts, and times
+   its kernel on one 4096 x 1024 block against the plain version, with
+   its bound;
+13. neighbour graphs on the same sketches: `--topk 10 --index-save`
+   (full registers, a native-format index), `-T 0.3 --fastcmp 1
+   --bbit-sigs`, `--greedy 0.3 --fastcmp 0.5 --bbit-sigs`, and `--topk
+   10 --index-load` of the saved index. Each checks that no hand kernel
+   launched (pair lists are counted by ops/pair_counts.py, plain
+   PyTorch on the card), that its output bytes equal
+   `neighbor_graph_main` in-process over the same sketches with
+   device="cpu" (the loaded-index run: the built-index run's), and that
+   the card's pair counts equal the CPU's over every pair the job
+   refined; it prints the edge or cluster count, the pairs refined and
+   the spans of both runs. (The reference's `.ssi` layout is held byte
+   for byte by the CPU tests; its save and load walk one Python record
+   a bucket, 1536 subtables x N of them at m = 1024.)
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall.
@@ -125,7 +152,8 @@ kernels line gives int_counts_self twice: `int_counts_self` with the
 u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
 with the u8 b-bit job's eq-mode times and its library call.
 
-Reductions: the north-star job uses 50 kb genomes; phases 5-8 use 20 kb
+Reductions: the north-star job uses 50 kb genomes; phases 5-8, 10, 12 and
+13 use 20 kb
 and phase 9 10 kb. The comparison's work depends only on N and m; 20 kb
 genomes still carry about 20k distinct 31-mers and 10 kb genomes about
 10k (both more than m = 1024, so every register fills and the jobs stay
@@ -473,6 +501,20 @@ def _corpus(name: str, seed: int, n_anc: int, n_mut: int, length: int,
     return lst
 
 
+def _split(lst: str, every: int):
+    """(references list, queries list) next to `lst`: the items whose
+    index is not a multiple of `every`, and the others."""
+    with open(lst) as f:
+        paths = [ln.strip() for ln in f if ln.strip()]
+    d = os.path.dirname(lst)
+    refs, queries = os.path.join(d, "refs.txt"), os.path.join(d, "queries.txt")
+    with open(refs, "w") as f:
+        f.write("\n".join(p for i, p in enumerate(paths) if i % every) + "\n")
+    with open(queries, "w") as f:
+        f.write("\n".join(paths[::every]) + "\n")
+    return refs, queries
+
+
 def phase_golden(name: str):
     from dashing2_tpu_torch import cli
     with open(os.path.join(ROOT, "tests", "goldens", name)) as f:
@@ -481,8 +523,11 @@ def phase_golden(name: str):
     lst = _corpus("golden", c["seed"], c["n_ancestors"], c["n_mutants"],
                   c["length"], tuple(c["divergence"]))
     out = os.path.join(WORK, "golden", "out.bin")
-    argv = [{"list.txt": lst, "out.bin": out}.get(x, x)
-            for x in gold["argv"]] + ["--device", "cuda"]
+    files = {"list.txt": lst, "out.bin": out}
+    if "queries_every" in gold:
+        files["refs.txt"], files["queries.txt"] = _split(
+            lst, gold["queries_every"])
+    argv = [files.get(x, x) for x in gold["argv"]] + ["--device", "cuda"]
     assert cli.main(argv) == 0
     with open(out, "rb") as f:
         data = f.read()
@@ -492,9 +537,11 @@ def phase_golden(name: str):
          "matches the committed JAX digest")
 
 
-def _run_cli(tag: str, argv, n: int, counters):
+def _run_cli(tag: str, argv, n: int, counters, pairs=None):
     """One CLI call with every launch counter set to 0 just before it;
-    returns (wall seconds, spans, launches per counter name)."""
+    returns (wall seconds, spans, launches per counter name). `pairs`:
+    the pairs the job compares (default N(N-1)/2, the unique pairs; 0
+    for jobs whose pairs are known only after the run)."""
     from dashing2_tpu_torch import cli, timing
     timing.reset_spans()
     for mod in counters.values():
@@ -505,9 +552,11 @@ def _run_cli(tag: str, argv, n: int, counters):
     launches = {name: mod.launches for name, mod in counters.items()}
     spans = timing.spans()
     assert rc == 0, rc
-    pairs = n * (n - 1) // 2
-    _say(f"[{tag}] CLI wall {wall:.3f} s for {pairs} unique pairs: "
-         f"{pairs / wall:.6e} unique pairs/s; launches {launches}")
+    if pairs is None:
+        pairs = n * (n - 1) // 2
+    rate = (f" for {pairs} pairs: {pairs / wall:.6e} pairs/s" if pairs
+            else "")
+    _say(f"[{tag}] CLI wall {wall:.3f} s{rate}; launches {launches}")
     return wall, spans, launches
 
 
@@ -1188,6 +1237,230 @@ def phase_rowblock_nibble(tag: str, bbit: bool, lst: str, sketches,
     return launches
 
 
+# tag, the job's flags, its rectangular counter, and the options its
+# flags build (measure by name)
+PANEL_JOBS = (
+    ("panel-full", [], "gtlt", dict()),
+    ("panel-nibble-bbit", ["--fastcmp", "0.5", "--bbit-sigs"], "int_counts",
+     dict(fd_level=0.5, truncation_method=1)),
+    ("panel-u8-ab-containment", ["--fastcmp", "1", "--containment"],
+     "int_counts", dict(fd_level=1.0, measure="CONTAINMENT")),
+)
+PANEL_EVERY = 10            # every tenth genome is a query
+
+
+def _panel_sketches(sketches, every: int):
+    """The sketches in the panel job's order: references (index not a
+    multiple of `every`), then queries."""
+    import numpy as np
+    from dashing2_tpu_torch.result import SketchingResult
+    n = len(sketches.names)
+    perm = np.concatenate([np.nonzero(np.arange(n) % every)[0],
+                           np.arange(0, n, every)])
+    return SketchingResult(
+        names=[sketches.names[i] for i in perm],
+        cardinalities=np.asarray(sketches.cardinalities)[perm].copy(),
+        signatures=np.asarray(sketches.signatures)[perm].copy(),
+        nq=len(range(0, n, every)))
+
+
+def phase_panel(tag: str, flags, counter: str, kw, refs: str, queries: str,
+                panel, counters):
+    """One `-Q` panel job at full size: rectangles only, every value held
+    to the CPU epilogue at the plain counts; its kernel timed on one
+    4096-row reference block against all the queries."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.enums import Measure
+    from dashing2_tpu_torch.ops import gtlt as G
+    from dashing2_tpu_torch.ops import int_counts as IC
+
+    m, nq = 1024, panel.nq
+    n = len(panel.names)
+    nf = n - nq
+    out = os.path.join(WORK, "northstar", f"out_{tag}.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m)] + flags + [
+        "--binary-output", "--cmpout", out, "-F", refs, "-Q", queries]
+    wall, spans, launches = _run_cli(tag, argv, n, counters, nf * nq)
+    assert os.path.getsize(out) == 4 * nf * nq
+    kw = dict(kw, measure=Measure[kw.get("measure", "SIMILARITY")])
+    opts = Dashing2DistOptions(k=31, sketchsize=m, **kw)
+    block = C._block_size(opts)
+    blocks = -(-nf // block)
+    others = [k for k in counters if k != counter]
+    assert launches[counter] == blocks \
+        and all(launches[k] == 0 for k in others), (launches, blocks)
+    _say(f"[{tag}] {nf} references x {nq} queries: {counter} launched once "
+         f"for each of {blocks} row blocks of {block}, no other kernel")
+    _say_spans(tag, spans, FULL_SPANS + ("cmp/unpack",))
+
+    creps, _ = C._prep(opts, panel)
+    kind, data = C._representation(opts, panel, creps)
+    regs = C._device_regs(data, torch.device("cuda"))
+    if kind.startswith("nibble"):
+        regs = C._unpack_nibbles(regs)
+    rows, cols = regs[:block], regs[nf:]
+    if counter == "gtlt":
+        kernel, plain = G.gtlt_counts, G.gtlt_counts_plain
+        bound_ms, bound_by = _bound(block * nq * 2 * 2 * m, "int32",
+                                    8 * (block + nq) * m + 4 * block * nq)
+    else:
+        kernel, plain = IC.int_counts, IC.int_counts_plain
+        bound_ms, bound_by = _bound(block * nq * 2 * m / 4, "popc",
+                                    (block + nq) * m + 6 * block * nq)
+    kernel(rows, cols)                                # warm-up
+    torch.cuda.synchronize()
+    kernel_ms = _cuda_ms(lambda: kernel(rows, cols), 20)
+    plain(rows, cols)                                 # warm-up
+    plain_ms = _cuda_ms(lambda: plain(rows, cols), 3)
+    err = max(_max_err(g, w) for g, w in zip(kernel(rows, cols),
+                                             plain(rows, cols)))
+    assert err == 0, f"{counter} != plain on the {tag} block: {err}"
+    _say(f"[{tag}] {counter} kernel {kernel_ms:.6f} ms on one {block}x{nq} "
+         f"block (CUDA events, mean of 20 after a warm-up); plain "
+         f"{plain_ms:.6f} ms (mean of 3); counts equal; bound "
+         f"{bound_ms:.6f} ms ({bound_by}); kernel at "
+         f"{100 * bound_ms / kernel_ms:.1f}% of it")
+
+    # every emitted value is the CPU epilogue at the plain counts
+    epi = C._epilogue(kind, opts, creps, n, torch.device("cpu"), panel=True)
+    cards = torch.from_numpy(np.asarray(panel.cardinalities,
+                                        np.float64).astype(np.float32))
+    vals = np.fromfile(out, dtype=np.float32).reshape(nf, nq)
+    assert np.isfinite(vals).all()
+    for i0 in range(0, nf, 1024):
+        i1 = min(i0 + 1024, nf)
+        if counter == "gtlt":
+            gt, lt = (x.cpu() for x in plain(regs[i0:i1], cols))
+            eq = m - gt.to(torch.int32) - lt.to(torch.int32)
+        else:
+            eq, gt, lt = (x.cpu() for x in plain(regs[i0:i1], cols))
+        want = epi(eq, gt, lt, cards[i0:i1, None], cards[None, nf:]).numpy()
+        assert np.array_equal(vals[i0:i1].view(np.uint32),
+                              want.view(np.uint32)), i0
+    del regs, rows, cols
+    _say(f"[{tag}] {kind} {opts.measure.name}: output == CPU epilogue at "
+         f"the plain counts for all {nf * nq} values; min "
+         f"{float(vals.min())!r} max {float(vals.max())!r}; values in "
+         f"[0,1e-9) [1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return dict(launches=launches[counter], err=err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+GRAPH_SPANS = ("compare+emit", "lsh-index-build", "lsh-candidates", "refine",
+               "emit-neighbors", "dedup-cluster", "dedup-emit", "cmp/h2d",
+               "cmp/table", "cmp/pairs", "cmp/pairs-epilogue")
+# the KNN job saves its index; the last job loads it and must give the
+# same bytes
+GRAPH_JOBS = (
+    ("knn-full", ["--topk", "10", "--index-save", "IDX"]),
+    ("thresh-u8-bbit", ["-T", "0.3", "--fastcmp", "1", "--bbit-sigs"]),
+    ("greedy-nibble-bbit", ["--greedy", "0.3", "--fastcmp", "0.5",
+                            "--bbit-sigs"]),
+    ("knn-index-load", ["--topk", "10", "--index-load", "IDX"]),
+)
+
+
+def _cli_opts(argv):
+    """The options the port's CLI builds from `argv` (after "sketch")."""
+    import argparse
+    from dashing2_tpu_torch import cli
+    p = argparse.ArgumentParser()
+    cli._add_shared(p)
+    return cli._build_opts(p.parse_args(argv[1:]))
+
+
+def _copy_sketches(sketches):
+    import numpy as np
+    from dashing2_tpu_torch.result import SketchingResult
+    return SketchingResult(
+        names=list(sketches.names),
+        cardinalities=np.array(sketches.cardinalities, copy=True),
+        signatures=np.array(sketches.signatures, copy=True))
+
+
+def phase_graph(tag: str, flags, lst: str, sketches, counters, outs):
+    """One neighbour-graph or dedup job at full size on the card, held
+    byte for byte to the same function on the CPU over the same
+    sketches (the CPU run saves no index; a job that loads one is held
+    to the run that saved it instead, in main); the card's pair counts
+    held to the CPU's over every pair the job refined."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch import timing
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.cmp import graph as PG
+    from dashing2_tpu_torch.ops.pair_counts import pair_counts
+
+    n, m = NORTH_STAR_N, 1024
+    idx = os.path.join(WORK, "northstar", "knn.idx")
+    flags = [idx if x == "IDX" else x for x in flags]
+    out = os.path.join(WORK, "northstar", f"out_{tag}.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m)] + flags + [
+        "--binary-output", "--cmpout", out, "-F", lst]
+    seen = []
+    real = C.measure_pairs
+
+    def counted(opts, result, creps, ia, ib, device="cuda"):
+        seen.append((np.array(ia, np.int64), np.array(ib, np.int64)))
+        return real(opts, result, creps, ia, ib, device=device)
+    C.measure_pairs = counted
+    try:
+        wall, spans, launches = _run_cli(tag, argv, n, counters, 0)
+    finally:
+        C.measure_pairs = real
+    assert not any(launches.values()), launches
+    with open(out, "rb") as f:
+        got = f.read()
+    outs[tag] = got
+    head = np.frombuffer(got[:16], np.uint64)
+    npairs = sum(len(a) for a, _ in seen)
+    what = ("clusters" if "greedy" in tag else "edges")
+    count = int(head[0] if "greedy" in tag else head[1])
+    _say(f"[{tag}] {count} {what} over {n} items; {npairs} pairs refined "
+         f"in {len(seen)} measure_pairs calls; no hand kernel launched")
+    _say_spans(tag, spans, GRAPH_SPANS)
+
+    # the same function in-process on the CPU, over the same sketches
+    opts = _cli_opts(argv)
+    if not opts.index_load:
+        opts.outfile_path = out + ".cpu"
+        opts.index_save = ""
+        timing.reset_spans()
+        t0 = time.perf_counter()
+        PG.neighbor_graph_main(opts, _copy_sketches(sketches), device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        with open(opts.outfile_path, "rb") as f:
+            assert f.read() == got, f"{tag}: card output != CPU output"
+        _say(f"[{tag}] output bytes == neighbor_graph_main on the CPU "
+             f"({len(got)} bytes; CPU run {cpu_wall:.3f} s, card CLI run "
+             f"{wall:.3f} s incl. sketching)")
+        _say_spans(tag + " cpu", timing.spans(), GRAPH_SPANS)
+
+    # the card's pair counts == the CPU's over every refined pair
+    res = _copy_sketches(sketches)
+    creps, _ = C._prep(opts, res)
+    kind, data = C._representation(opts, res, creps)
+    regs = C._device_regs(data, torch.device("cuda"))
+    if kind.startswith("nibble"):
+        regs = C._unpack_nibbles(regs)
+    if seen:
+        ia = torch.from_numpy(np.concatenate([a for a, _ in seen]))
+        ib = torch.from_numpy(np.concatenate([b for _, b in seen]))
+        on_card = pair_counts(regs, ia.cuda(), ib.cuda())
+        torch.cuda.synchronize()
+        ms = _cuda_ms(lambda: pair_counts(regs, ia.cuda(), ib.cuda()), 5)
+        host = pair_counts(regs.cpu(), ia, ib)
+        for g, w in zip(on_card, host):
+            assert torch.equal(g.cpu(), w), f"{tag}: pair counts differ"
+        _say(f"[{tag}] card pair counts == CPU pair counts over all {npairs} "
+             f"pairs ({kind}); pair_counts on the card {ms:.6f} ms for them "
+             "(CUDA events, mean of 5, index copies included)")
+    return dict(wall=wall, spans=spans, pairs=npairs, count=count)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1217,7 +1490,9 @@ def main() -> int:
     try:
         for gold in ("torch_port_bbit_nibble.json",
                      "torch_port_ab_nibble.json", "torch_port_full.json",
-                     "torch_port_u8_bbit.json", "torch_port_u16_ab.json"):
+                     "torch_port_u8_bbit.json", "torch_port_u16_ab.json",
+                     "torch_port_panel.json", "torch_port_knn.json",
+                     "torch_port_dedup.json"):
             timed(f"golden {gold}", phase_golden, gold)
         t0 = time.perf_counter()
         lst = _corpus("northstar", NS_SEED, NS_ANCESTORS, NS_MUTANTS,
@@ -1236,6 +1511,20 @@ def main() -> int:
         measure_runs = {tag: timed(f"{tag} job", phase_measure, tag, flags,
                                    counter, kw, lst, sketches, counters)
                         for tag, flags, counter, kw in MEASURE_JOBS}
+        refs, queries = _split(lst, PANEL_EVERY)
+        panel = _panel_sketches(sketches, PANEL_EVERY)
+        panel_runs = {tag: timed(f"{tag} job", phase_panel, tag, flags,
+                                 counter, kw, refs, queries, panel, counters)
+                      for tag, flags, counter, kw in PANEL_JOBS}
+        del panel
+        outs = {}
+        for tag, flags in GRAPH_JOBS:
+            timed(f"{tag} job", phase_graph, tag, flags, lst, sketches,
+                  counters, outs)
+        assert outs["knn-index-load"] == outs["knn-full"], \
+            "the loaded index gave another graph"
+        _say("[graph] --index-load run == the --index-save run (and so the "
+             "CPU run), byte for byte")
         del sketches
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
         t0 = time.perf_counter()
@@ -1278,6 +1567,11 @@ def main() -> int:
         run["launches"] += sum(measure_runs[t][key] for t in tags)
     int_rect_run["launches"] += sum(r["int_counts"]
                                     for r in nibble_rows.values())
+    # the panel jobs' rectangles join gtlt_counts and int_counts (their
+    # own block times and bounds are printed above)
+    for run, key in ((rect_run, "gtlt"), (int_rect_run, "int_counts")):
+        run["launches"] += sum(r["launches"] for tag, _, c, _ in PANEL_JOBS
+                               if c == key for r in [panel_runs[tag]])
     kernels = []
     for name, src, line, worst, run in (
             ("tri_eq_counts", "tri_eq.cu", 447, worst_eq, eq_run),

@@ -11,8 +11,13 @@ all-pairs matrix of any measure (similarity, `--mash-distance`,
 `--bbit-sigs` compares their bits for equality) or over `--fastcmp 0.5`,
 `1`, `2` or `4` registers (nibbles, u8, u16, u32), b-bit (`--bbit-sigs`)
 or SetSketch a/b quantised (without it), emitted as binary f32, PHYLIP,
-the symmetric TSV or, with `--asymmetric-all-pairs`, the full square.
-Every other option is rejected with an error naming it. `--device`
+the symmetric TSV or, with `--asymmetric-all-pairs`, the full square;
+with `-Q`, the references-by-queries panel; and the LSH neighbour jobs
+(`--topk`, `--similarity-threshold`, `--greedy` without its `f`,
+`--index-save`/`--index-load`, `--refine-exact` over compressed
+registers), emitted as CSR or text (cmp/graph.py). `--pairlist` sketches
+the unique paths it names and compares them all-pairs, as the reference
+does. Every other option is rejected with an error naming it. `--device`
 (default cuda) picks where the comparison runs; a CUDA request without a
 card exits non-zero and never carries on on the CPU.
 """
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from .config import Dashing2DistOptions
 from .enums import (Alphabet, DataType, KmerSketchResultType, Measure,
@@ -287,9 +292,7 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 # options outside the slice: dest -> the flag a user typed
 _OUTSIDE_SLICE = {
-    "qfile": "-Q/--qfile", "outprefix": "--outprefix",
-    "topk": "--topk", "simthresh": "--similarity-threshold",
-    "greedy": "--greedy", "fastcmp_bytes": "--fastcmp-bytes",
+    "outprefix": "--outprefix", "fastcmp_bytes": "--fastcmp-bytes",
     "fastcmp_shorts": "--fastcmp-shorts", "fastcmp_words": "--fastcmp-words",
     "cssize": "--countsketch-size", "prob": "--prob",
     "multiset": "--multiset", "bed": "--bed", "bigwig": "--bigwig",
@@ -298,13 +301,11 @@ _OUTSIDE_SLICE = {
     "mmer_set": "--set", "countdict": "--countdict", "mmer_seq": "--seq",
     "save_kmers": "--save-kmers",
     "save_kmercounts": "--save-kmercounts", "hpcompress": "--hp-compress",
-    "refine_exact": "--refine-exact", "full": "--full-setsketch",
+    "full": "--full-setsketch",
     "normalize_intervals": "--normalize-intervals", "cache": "--cache",
     "exact_kmer_dist": "--exact-kmer-dist", "filterset": "--filterset",
-    "parse_by_seq": "--parse-by-seq", "nlsh": "--nlsh", "entmin": "--entmin",
-    "by_chrom": "--by-chrom", "maxcand": "--maxcand",
-    "index_save": "--index-save", "index_load": "--index-load",
-    "setsketch_ab": "--setsketch-ab", "pairlist": "--pairlist",
+    "parse_by_seq": "--parse-by-seq", "entmin": "--entmin",
+    "by_chrom": "--by-chrom", "setsketch_ab": "--setsketch-ab",
     "seqs_in_ram": "--seqs-in-ram", "warm_only": "--warm-only",
 }
 
@@ -318,6 +319,10 @@ def _slice_errors(p: argparse.ArgumentParser,
     FullSetSketch sketching)."""
     errs = [flag for dest, flag in _OUTSIDE_SLICE.items()
             if getattr(a, dest) != p.get_default(dest)]
+    if a.greedy is not None and "f" in a.greedy.lower():
+        # the FASTA form emits the sequences, which the port does not
+        # keep (ROADMAP Queue 1 item 6)
+        errs.append("--greedy ...f")
     if errs or not a.cmpout:
         return errs
     opts = _build_opts(a)
@@ -327,14 +332,38 @@ def _slice_errors(p: argparse.ArgumentParser,
     return errs
 
 
-def _collect_inputs(a: argparse.Namespace) -> List[str]:
+def _collect_inputs(a: argparse.Namespace) -> Tuple[List[str], int]:
+    """(input paths, query count): the paths, --pairlist's unique paths,
+    -F's list, then -Q's queries at the tail (dashing2_tpu/cli.py)."""
     groups: List[str] = list(a.paths)
+    if a.pairlist:
+        # The reference collects the unique paths named in the pairlist and
+        # proceeds with the normal comparison flow (options.h:428-449;
+        # sparse pair-restricted output is a TODO there too).
+        if groups:
+            raise ValueError("Provide either a pairlist or paths, not both")
+        seen = {}
+        with open(a.pairlist) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) < 2:
+                    raise ValueError(
+                        "pairlist lines need two space-separated paths")
+                for p in parts[:2]:
+                    seen.setdefault(p, None)
+        groups.extend(seen.keys())
     if a.ffile:
         with open(a.ffile) as f:
             # .strip(), not rstrip("\n"): CRLF list files would leave a
             # trailing "\r" in every path
             groups.extend(line.strip() for line in f if line.strip())
-    return groups
+    nq = 0
+    if a.qfile:
+        with open(a.qfile) as f:
+            qgroups = [line.strip() for line in f if line.strip()]
+        groups.extend(qgroups)
+        nq = len(qgroups)
+    return groups, nq
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -368,7 +397,7 @@ def _main(argv: List[str]) -> int:
     except RuntimeError as e:
         print(f"dashing2-tpu-torch: error: {e}", file=sys.stderr)
         return 2
-    groups = _collect_inputs(a)
+    groups, nq = _collect_inputs(a)
     errs = _slice_errors(ps, a)
     if errs:
         ps.error("not ported yet (see ROADMAP.md): " + ", ".join(errs))
@@ -384,6 +413,7 @@ def _main(argv: List[str]) -> int:
     from .timing import phase
     with phase("sketch", opts.verbosity):
         result = sketch_fastx(opts, groups)
+    result.nq = nq
     if a.outfile:
         from .io import formats
         with phase("write-sketches", opts.verbosity):
@@ -391,16 +421,28 @@ def _main(argv: List[str]) -> int:
                 a.outfile, result.cardinalities, result.signatures,
                 result.names)
     if opts.outfile_path:
-        from .cmp.core import pairwise_matrix
-        from .io.emitters import emit_rectangular
-        # symmetric/PHYLIP emitters never read the lower triangle
-        upper = opts.output_kind in (OutputKind.SYMMETRIC_ALL_PAIRS,
-                                     OutputKind.PHYLIP)
         with phase("compare+emit", opts.verbosity):
-            emit_rectangular(opts, result,
-                             pairwise_matrix(opts, result, upper_only=upper,
-                                             device=device))
+            _do_cmp(opts, result, device)
     return 0
+
+
+def _do_cmp(opts: Dashing2DistOptions, result, device) -> None:
+    """The comparison and its output: neighbour graphs and dedup
+    clusters (cmp/graph.py), else the all-pairs matrix or the panel."""
+    if opts.output_kind in (OutputKind.KNN_GRAPH,
+                            OutputKind.NN_GRAPH_THRESHOLD,
+                            OutputKind.DEDUP):
+        from .cmp.graph import neighbor_graph_main
+        neighbor_graph_main(opts, result, device=device)
+        return
+    from .cmp.core import pairwise_matrix
+    from .io.emitters import emit_rectangular
+    # symmetric/PHYLIP emitters never read the lower triangle
+    upper = (opts.output_kind in (OutputKind.SYMMETRIC_ALL_PAIRS,
+                                  OutputKind.PHYLIP)
+             and result.nqueries() == 0)
+    emit_rectangular(opts, result, pairwise_matrix(
+        opts, result, upper_only=upper, device=device))
 
 
 if __name__ == "__main__":

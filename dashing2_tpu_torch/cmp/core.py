@@ -33,8 +33,15 @@ a slow remote tunnel. That is not ported: the copy here is a plain
 PCIe device-to-host copy, timed in the `cmp/d2h` span so that a later
 change can decide on packing by measurement.
 
-Panels, m >= 65536 and the other representations raise
-NotImplementedError naming their ROADMAP item.
+A panel (result.nq > 0, `-Q`) runs the same counts as rectangles,
+references against queries (one launch per reference row block, no
+self-pairs kernel), and the epilogue of the JAX route of the same n
+(its fused panel engine for FUSED_MIN_N <= n <= SELF_MAX).
+`measure_pairs` serves the neighbour graphs' pair lists: counts on the
+device (ops/pair_counts.py), the numpy route's epilogue.
+
+m >= 65536 and the other representations raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..ops import sketch_kernels as SK
 from ..ops.int_counts import int_counts, int_counts_self
 from ..ops.nibble_comb import tri_comb_counts
 from ..ops.nibble_tri import tri_eq_counts
+from ..ops.pair_counts import pair_counts
 from ..result import SketchingResult
 from ..timing import span
 from . import estimators as E
@@ -321,11 +329,7 @@ def _expand_upper(arr: np.ndarray, start: int, n: int) -> np.ndarray:
     return out
 
 
-def _check_route(opts: Dashing2DistOptions, nq: int) -> None:
-    if nq:
-        raise NotImplementedError(
-            "panel (query/reference) comparisons are not ported "
-            "(ROADMAP Queue 1 item 5)")
+def _check_route(opts: Dashing2DistOptions) -> None:
     if opts.sketchsize >= 1 << 16:
         raise NotImplementedError(
             f"m={opts.sketchsize}: u16 counts need m < 65536; the f32 "
@@ -352,22 +356,30 @@ def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _count_blocks(kind: str, data: np.ndarray, m: int, n: int, block: int,
-                  upper_only: bool, dev: torch.device):
+                  upper_only: bool, dev: torch.device, nq: int = 0):
     """Yield (start, c0, (eq, gt, lt)) per row block [start, start + b) on
-    `dev`, each count (b, n - c0) with c0 = start if upper_only else 0:
-    the eq-count kinds need eq, the others gt and lt, and a count a kind
-    does not need may be None.
+    `dev`, each count (b, n - c0): the eq-count kinds need eq, the others
+    gt and lt, and a count a kind does not need may be None.
 
-    * 2 <= n <= SELF_MAX: one self-pairs launch; an eq matrix is read at
-      [rows, c0:], a gt matrix (lt = gt^T) gives gt at [rows, c0:] and lt
-      at [c0:, rows]^T;
-    * otherwise: one int_counts launch per block, rows against rows
-      [c0, n), the registers staying on `dev` across blocks; packed
-      nibbles are unpacked on `dev` first, once."""
+    * a panel (nq > 0): rows are the references [0, n - nq), columns the
+      queries, c0 = n - nq; one rectangular launch per row block, gt
+      where the reference's register is the greater;
+    * else c0 = start if upper_only else 0, and for 2 <= n <= SELF_MAX
+      one self-pairs launch; an eq matrix is read at [rows, c0:], a gt
+      matrix (lt = gt^T) gives gt at [rows, c0:] and lt at
+      [c0:, rows]^T;
+    * otherwise one rectangular launch per block, rows against rows
+      [c0, n).
+
+    The rectangles are int_counts launches (u32, u64 and the raw bits of
+    equality-compared registers go on to gtlt_counts), the registers
+    staying on `dev` across blocks; packed nibbles are unpacked on `dev`
+    first, once."""
     want_eq = kind in _EQ_KINDS
+    nf = n - nq
     with span("cmp/h2d"):
         regs = _device_regs(data, dev)
-    self_pairs = 2 <= n <= SELF_MAX
+    self_pairs = not nq and 2 <= n <= SELF_MAX
     if self_pairs:
         with span("cmp/kernel"):
             if kind == "nibble-bbit":
@@ -382,9 +394,9 @@ def _count_blocks(kind: str, data: np.ndarray, m: int, n: int, block: int,
         with span("cmp/unpack"):
             regs = _unpack_nibbles(regs)
             synchronize(dev)
-    for start in range(0, n, block):
-        rows = slice(start, min(start + block, n))
-        c0 = start if upper_only else 0
+    for start in range(0, nf, block):
+        rows = slice(start, min(start + block, nf))
+        c0 = nf if nq else start if upper_only else 0
         if not self_pairs:
             with span("cmp/kernel"):
                 eq, gt, lt = int_counts(regs[rows], regs[c0:])
@@ -397,11 +409,13 @@ def _count_blocks(kind: str, data: np.ndarray, m: int, n: int, block: int,
 
 
 def _epilogue(kind: str, opts: Dashing2DistOptions, creps: CompressedReps,
-              n: int, dev: torch.device):
+              n: int, dev: torch.device, panel: bool = False,
+              fused: Optional[bool] = None):
     """The measure of one block's counts, (eq, gt, lt, lh, rh) -> f32 on
     `dev`, lh (b, 1) and rh (1, w) the f32 cardinalities of the block's
     rows and columns, in the epilogue of the JAX route of the same n
-    (fused for FUSED_MIN_N <= n <= SELF_MAX): a gather from measure_table
+    (fused for FUSED_MIN_N <= n <= SELF_MAX; n counts a panel's
+    references and queries): a gather from measure_table
     at eq (eq-count kinds), at c = gt + lt (full) or at the a/b pair
     (POISSON_LLR), else the kind's estimator (the a/b kinds in the
     product form for nibbles, the complement form for the wide widths).
@@ -409,16 +423,21 @@ def _epilogue(kind: str, opts: Dashing2DistOptions, creps: CompressedReps,
     The fused a/b value depends on which count the JAX graph's fused
     multiply-add multiplies (estimators.compressed_ab_measures32). Item i
     of a pair is the row. The nibble route multiplies gt[i, j]; the wide
-    widths' `_tiled_epilogue` multiplies lt[i, j] while it takes the
-    whole matrix at once (n <= _TILED_ROWS) and gt[i, j] in its
-    1024-row scan above that."""
+    widths' self-pairs `_tiled_epilogue` multiplies lt[i, j] while it
+    takes the whole matrix at once (n <= _TILED_ROWS) and gt[i, j] in
+    its 1024-row scan above that; their fused panel engine multiplies
+    the reference's gt[i, j] at every row count (measured against the
+    JAX package, tests/test_torch_panel.py). `fused` overrides the
+    route's choice (measure_pairs runs the numpy route's epilogue at
+    every n)."""
     m, fd, msr, k = opts.sketchsize, opts.fd_level, opts.measure, opts.k
-    fused = FUSED_MIN_N <= n <= SELF_MAX
+    if fused is None:
+        fused = FUSED_MIN_N <= n <= SELF_MAX
     if kind.endswith("ab"):
         bf = max(creps.b, 1.0 + 1e-9)
         table, gbinv = _gb_args(bf, m)
         form = "product" if kind == "nibble-ab" else "complement"
-        row_first = kind == "nibble-ab" or n > _TILED_ROWS
+        row_first = kind == "nibble-ab" or panel or n > _TILED_ROWS
 
         def order(gt, lt):
             return (gt, lt) if row_first else (lt, gt)
@@ -458,43 +477,110 @@ _AB_TABLE_MAX = 1 << 24
 def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
                     block: int = 0, upper_only: bool = False,
                     device="cuda") -> Iterator[Tuple[int, np.ndarray]]:
-    """Yield (first_row_index, (b, n) f32 measure block) covering all rows
-    of an all-pairs job, computed on `device`: the counts
+    """Yield (first_row_index, f32 measure block) covering all rows of an
+    all-pairs job or a panel, computed on `device`: the counts
     (_count_blocks), then per row block the measure on `device` and one
     f32 copy to the host. Value (i, j) is the measure of row item i
     (lh = its cardinality) against column item j (rh).
 
-    The epilogue mirrors the JAX route of the same n: FUSED_MIN_N <= n
-    <= SELF_MAX is its jitted self-pairs route, any other n its numpy
-    row-block route (cmp/estimators.py).
+    A panel (result.nq > 0): rows are the references [0, n - nq),
+    columns the queries; each block is (b, nq). Otherwise each block is
+    (b, n). The epilogue mirrors the JAX route of the same n (for a
+    panel, references and queries together): FUSED_MIN_N <= n <=
+    SELF_MAX is its jitted route (self-pairs, or the fused panel
+    engine), any other n its numpy row-block route
+    (cmp/estimators.py).
 
-    upper_only=True (symmetric/PHYLIP emitters): only the upper trapezoid
-    [:, start:] of each block is computed; the lower-left is zeros, which
-    those emitters never read. upper_only=False (asymmetric output): full
-    rows."""
+    upper_only=True (symmetric/PHYLIP emitters, no queries): only the
+    upper trapezoid [:, start:] of each block is computed; the
+    lower-left is zeros, which those emitters never read.
+    upper_only=False (asymmetric output): full rows."""
     dev = resolve(device)
     if block <= 0:
         block = _block_size(opts)
     n = result.n if result.names else len(result.cardinalities)
+    nq = result.nqueries()
+    upper_only = upper_only and not nq
     with span("cmp/prep"):
         creps, result = _prep(opts, result)
         kind, data = _representation(opts, result, creps)
-    _check_route(opts, result.nqueries())
+    _check_route(opts)
     with span("cmp/table"):
-        epilogue = _epilogue(kind, opts, creps, n, dev)
+        epilogue = _epilogue(kind, opts, creps, n, dev, panel=nq > 0)
         cards = None
         if opts.measure in E.CARD_MEASURES:
             cards = torch.from_numpy(np.asarray(
                 result.cardinalities, np.float64).astype(np.float32)).to(dev)
     for start, c0, counts in _count_blocks(kind, data, opts.sketchsize, n,
-                                           block, upper_only, dev):
+                                           block, upper_only, dev, nq):
         with span("cmp/epilogue"):
             lh = rh = None
             if cards is not None:
-                lh = cards[start:start + block, None]
+                lh = cards[start:min(start + block, n - nq), None]
                 rh = cards[None, c0:]
             vals = epilogue(*counts, lh, rh)
             synchronize(dev)
         with span("cmp/d2h"):
             blk = vals.cpu().numpy()
         yield start, (_expand_upper(blk, start, n) if upper_only else blk)
+
+
+def _pair_operands(opts: Dashing2DistOptions, result: SketchingResult,
+                   creps: CompressedReps, dev: torch.device):
+    """(registers on `dev` as pair_counts takes them, epilogue, f32
+    cardinalities on `dev` or None) for measure_pairs, made once per
+    (result, representation, measure, device) and kept on the result, as
+    the JAX package's `_rep_device_cache` keeps its device operands: the
+    dedup loop calls measure_pairs once per round over the same
+    registers."""
+    kind, data = _representation(opts, result, creps)
+    # the registers' buffer, not the array object: eqfull's view is made
+    # anew on every call
+    key = (kind, data.ctypes.data, data.shape, data.dtype.str, creps.b,
+           opts.fd_level, opts.measure, opts.k, str(dev))
+    cache = getattr(result, "_pair_dev_cache", None)
+    if cache is None or cache[0] != key:
+        with span("cmp/h2d"):
+            regs = _device_regs(data, dev)
+            if kind.startswith("nibble"):
+                regs = _unpack_nibbles(regs)
+        with span("cmp/table"):
+            epi = _epilogue(kind, opts, creps, 0, dev, fused=False)
+        cards = None
+        if opts.measure in E.CARD_MEASURES:
+            cards = torch.from_numpy(np.asarray(
+                result.cardinalities, np.float64).astype(np.float32)).to(dev)
+        # `data` stays referenced so that its buffer is not reused
+        cache = (key, data, regs, epi, cards)
+        result._pair_dev_cache = cache
+    return cache[2:]
+
+
+def measure_pairs(opts: Dashing2DistOptions, result: SketchingResult,
+                  creps: CompressedReps, ia: np.ndarray, ib: np.ndarray,
+                  device="cuda") -> np.ndarray:
+    """compare() for an explicit pair list -> f32 (P,): value p is the
+    measure of item ia[p] (lh) against item ib[p] (rh). Port of
+    dashing2_tpu/cmp/core.py::measure_pairs for the register
+    representations: the counts on `device` (ops/pair_counts.py, the
+    `cmp/pairs` span), then the epilogue of the JAX package's numpy route
+    (unfused, as `_dispatch_measures` computes it with xp=np) on
+    `device`, with the pair's f32 cardinalities. Lists of any length run
+    on `device`; the JAX package's host route for short lists is a TPU
+    dispatch trade-off the port does not copy."""
+    if len(ia) == 0:
+        return np.zeros(0, np.float32)
+    dev = resolve(device)
+    _check_route(opts)
+    regs, epi, cards = _pair_operands(opts, result, creps, dev)
+    ia_t = torch.from_numpy(np.ascontiguousarray(ia, np.int64)).to(dev)
+    ib_t = torch.from_numpy(np.ascontiguousarray(ib, np.int64)).to(dev)
+    with span("cmp/pairs"):
+        eq, gt, lt = pair_counts(regs, ia_t, ib_t)
+        synchronize(dev)
+    with span("cmp/pairs-epilogue"):
+        lh = rh = None
+        if cards is not None:
+            lh, rh = cards[ia_t], cards[ib_t]
+        vals = epi(eq, gt, lt, lh, rh).cpu().numpy()
+    return vals

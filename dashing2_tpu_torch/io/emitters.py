@@ -1,11 +1,10 @@
 """Distance-matrix emitters: PHYLIP / TSV human text and binary f32.
 
-Copy of dashing2_tpu/io/emitters.py::emit_rectangular, cut to the
-all-pairs kinds the port emits (SYMMETRIC_ALL_PAIRS, PHYLIP and
-ASYMMETRIC_ALL_PAIRS). The bytes written are the JAX package's, byte for
-byte. Text values are formatted by the native std::to_chars formatter
-(emit_fmt.cpp), which the port requires: a failed build raises instead
-of falling back.
+Copy of dashing2_tpu/io/emitters.py (emit_rectangular and
+emit_neighbors_human). The bytes written are the JAX package's, byte for
+byte. Text values of the matrices are formatted by the native
+std::to_chars formatter (emit_fmt.cpp), which the port requires: a
+failed build raises instead of falling back.
 
 Reference layouts (src/emitrect.cpp):
 * human PHYLIP (:151): first line = N; rows: name (space-padded to >= 9
@@ -13,9 +12,11 @@ Reference layouts (src/emitrect.cpp):
 * human symmetric (:136-148,353): "#Dashing2 <label> Output",
   "#Dashing2Options: ...", "#Sources\t..." header; rows: padded name,
   (i+1) "\t-" placeholders, then upper-triangle values.
-* human asymmetric: the same header, full rows.
+* human asymmetric and panel: the same header, full rows (a panel's rows
+  are the references, nq values wide).
 * binary (:370-399): raw little-endian f32 — condensed upper triangle for
-  symmetric/PHYLIP, full row-major N x N for asymmetric.
+  symmetric/PHYLIP, full row-major N x N for asymmetric, nf x nq for a
+  panel.
 """
 
 from __future__ import annotations
@@ -54,15 +55,14 @@ def _open_out(path: str) -> IO:
 
 def emit_rectangular(opts: Dashing2DistOptions, result: SketchingResult,
                      blocks: Iterator[Tuple[int, np.ndarray]]) -> None:
-    """Stream all-pairs measure-matrix blocks to the configured output:
-    upper triangles for the symmetric kinds, full rows for
-    ASYMMETRIC_ALL_PAIRS."""
+    """Stream measure-matrix blocks to the configured output: upper
+    triangles for the symmetric kinds, full rows for ASYMMETRIC_ALL_PAIRS
+    and PANEL."""
     kind = opts.output_kind
     if kind not in (OutputKind.SYMMETRIC_ALL_PAIRS, OutputKind.PHYLIP,
-                    OutputKind.ASYMMETRIC_ALL_PAIRS):
-        raise NotImplementedError(
-            f"{kind.name} output is not ported (ROADMAP Queue 1 item 5)")
-    full_rows = kind == OutputKind.ASYMMETRIC_ALL_PAIRS
+                    OutputKind.ASYMMETRIC_ALL_PAIRS, OutputKind.PANEL):
+        raise ValueError(f"{kind.name} is not a matrix output")
+    full_rows = kind in (OutputKind.ASYMMETRIC_ALL_PAIRS, OutputKind.PANEL)
     names = result.names
     n = result.n if names else len(result.cardinalities)
     lib = None
@@ -79,12 +79,16 @@ def emit_rectangular(opts: Dashing2DistOptions, result: SketchingResult,
             if kind == OutputKind.PHYLIP:
                 f.write(f"{n}\n".encode())
             else:
-                label = "Asymmetric" if full_rows else "Symmetric"
-                f.write(f"#Dashing2 {label} pairwise Output\n".encode())
+                label = ("Panel (Query/Refernce)" if kind == OutputKind.PANEL
+                         else "Asymmetric pairwise" if full_rows
+                         else "Symmetric pairwise")
+                f.write(f"#Dashing2 {label} Output\n".encode())
                 f.write(f"#Dashing2Options: {_opts_str(opts)}\n".encode())
                 f.write(b"#Sources")
-                for i in range(len(names)):
-                    nm = names[i] if names[i] else f"E{i}"
+                # emitrect.cpp:143 — names when present, else nqueries()
+                # E{i} placeholders
+                for i in range(len(names) if names else result.nqueries()):
+                    nm = names[i] if i < len(names) and names[i] else f"E{i}"
                     f.write(("\t" + nm).encode())
                 f.write(b"\n")
             for start, mat in blocks:
@@ -126,3 +130,14 @@ def _opts_str(opts: Dashing2DistOptions) -> str:
     return (f"k={opts.k};w={opts.w};space={opts.sspace.name};"
             f"result={opts.kmer_result.name};sketchsize={opts.sketchsize};"
             f"measure={opts.measure.name}")
+
+
+def emit_neighbors_human(f, lists, names) -> None:
+    """emitnn.cpp:19-28: name then tab-separated neighbor:distance."""
+    f.write(b"#Collection\tNeighbor lists -- name:distance, "
+            b"separated by tabs\n")
+    for i, lst in enumerate(lists):
+        parts = [names[i]]
+        for dist, rid in lst:
+            parts.append(f"{names[rid]}:{dist:0.8g}")
+        f.write(("\t".join(parts) + "\n").encode())

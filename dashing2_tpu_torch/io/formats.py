@@ -1,13 +1,17 @@
 """Binary on-disk formats — the compatibility surface (SURVEY §1.1).
 
 Copy of dashing2_tpu/io/formats.py, cut to the writers the slice's
-`sketch -o` calls:
+`sketch -o` calls and the neighbour graphs' CSR:
 
 * Stacked signatures  (-o): u64 nseqs, u64 sketchsize, f64 cards[nseqs],
   RegT sigs[nseqs*sketchsize]  (src/sketch_core.cpp:130-139,
   src/fastxsketch.cpp:236-244; reader python/parse.py).
   Companion <out>.names.txt: "#Name\tCardinality" + per-item lines
   (src/sketch_core.cpp:146-161).
+
+* KNN / threshold graphs (--topk, -T, --binary-output): u64 nids, u64
+  nnz, u64 indptr[nids + 1], u32 indices[nnz], f32 data[nnz]
+  (src/emitnn.cpp).
 
 Binary distance matrices (raw row-major f32, condensed upper triangle
 for symmetric all-pairs) are written by io/emitters.py.
@@ -47,3 +51,31 @@ def write_names_file(path: str, names: Sequence[str],
             if cardinalities is not None:
                 f.write("\t%0.24g" % float(cardinalities[i]))
             f.write("\n")
+
+
+def write_knn_csr_fileobj(f, indptr: np.ndarray, indices: np.ndarray,
+                          data: np.ndarray) -> None:
+    """CSR layout to an open binary file object (shared by the file and
+    stdout emit paths so the two can never diverge)."""
+    nids = len(indptr) - 1
+    nnz = len(indices)
+    f.write(np.array([nids, nnz], dtype=np.uint64).tobytes())
+    f.write(np.ascontiguousarray(indptr, dtype=np.uint64).tobytes())
+    f.write(np.ascontiguousarray(indices, dtype=np.uint32).tobytes())
+    f.write(np.ascontiguousarray(data, dtype=np.float32).tobytes())
+
+
+def write_knn_csr(path: str, indptr: np.ndarray, indices: np.ndarray,
+                  data: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        write_knn_csr_fileobj(f, indptr, indices, data)
+
+
+def read_knn_csr(path: str):
+    with open(path, "rb") as f:
+        nids, nnz = np.fromfile(f, np.uint64, 2)
+        nids, nnz = int(nids), int(nnz)
+        indptr = np.fromfile(f, np.uint64, nids + 1)
+        indices = np.fromfile(f, np.uint32, nnz)
+        data = np.fromfile(f, np.float32, nnz)
+    return indptr, indices, data

@@ -144,8 +144,8 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--topk", "3"], ["--greedy", "0.8"], ["--prob"],
-    ["--cache"], ["-Q", "q.txt"], ["--set"],
+    ["--greedy", "0.8f"], ["--outprefix", "p"], ["--prob"],
+    ["--cache"], ["--warm-only", "8"], ["--set"],
     ["--full-setsketch"],
 ])
 def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
@@ -178,16 +178,22 @@ def test_pairwise_rejects_routes_outside_the_slice(corpus, monkeypatch):
     kw = dict(k=31, sketchsize=256, fd_level=0.5, truncation_method=1)
     monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
     ref = jax_sketch_fastx(JOptions(**kw), paths)
-    # m >= 65536 (u16 counts) and panels stay outside the port
-    bad = [(Dashing2DistOptions(**{**kw, "sketchsize": 1 << 16},
-                                measure=Measure.POISSON_LLR), 0),
-           (Dashing2DistOptions(k=31, sketchsize=256, fd_level=1.0,
-                                measure=Measure.CONTAINMENT), 3)]
-    for opts, nq in bad:
+    # m >= 65536 (u16 counts) stays outside the port, with or without
+    # queries; a panel (nq > 0) of m < 65536 runs, (nf, nq) per block
+    for nq in (0, 3):
         res = from_reference(ref)
         res.nq = nq
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            next(PC.pairwise_matrix(opts, res, device="cpu"))
+            next(PC.pairwise_matrix(Dashing2DistOptions(
+                **{**kw, "sketchsize": 1 << 16},
+                measure=Measure.POISSON_LLR), res, device="cpu"))
+    res = from_reference(ref)
+    res.nq = 3
+    blocks = list(PC.pairwise_matrix(Dashing2DistOptions(
+        k=31, sketchsize=256, fd_level=1.0, measure=Measure.CONTAINMENT),
+        res, device="cpu"))
+    assert sum(b.shape[0] for _, b in blocks) == len(paths) - 3
+    assert all(b.shape[1] == 3 for _, b in blocks)
     # so do equality-compared saved k-mers (--save-kmers)
     kmers = from_reference(ref)
     kmers.kmers = kmers.signatures.view(np.uint64).copy()

@@ -551,3 +551,107 @@ def test_measure_pairwise_matrix_cuda_equals_cpu(card, fd, truncation,
         for (_, g), (_, w) in zip(got, want):
             np.testing.assert_array_equal(g.view(np.uint32),
                                           w.view(np.uint32))
+
+
+# --------------------------------------------------------------------------
+# panels and pair lists
+# --------------------------------------------------------------------------
+
+PANEL_KINDS = {"nibble-bbit": dict(fd_level=0.5, truncation_method=1),
+               "nibble-ab": dict(fd_level=0.5),
+               "u8-ab": dict(fd_level=1.0),
+               "u16-bbit": dict(fd_level=2.0, truncation_method=1),
+               "u32-ab": dict(fd_level=4.0),
+               "full": dict(),
+               "eqfull": dict(truncation_method=1)}
+
+
+def _family_sigs(n: int, m: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    base = rng.exponential(size=(n // 4 + 1, m))
+    sigs = base[rng.integers(0, len(base), n)]
+    return np.where(rng.random((n, m)) < 0.15,
+                    rng.exponential(size=(n, m)), sigs)
+
+
+@pytest.mark.parametrize("msr", ["SIMILARITY", "CONTAINMENT", "POISSON_LLR"])
+@pytest.mark.parametrize("kind", sorted(PANEL_KINDS))
+@pytest.mark.parametrize("nf,nq", [(30, 10), (250, 50)])
+def test_panel_cuda_equals_cpu(card, nf, nq, kind, msr):
+    """A panel on the card: one rectangular launch per reference row
+    block (int_counts for nibbles, u8 and u16; gtlt_counts for u32, u64
+    and eqfull), no self-pairs launch, and the CPU's values bit for
+    bit."""
+    n, m = nf + nq, 200
+    sigs = _family_sigs(n, m, seed=nf + len(kind))
+    cards = np.random.default_rng(nq).uniform(1e3, 1e6, n)
+    opts = Dashing2DistOptions(k=31, sketchsize=m, measure=Measure[msr],
+                               **PANEL_KINDS[kind])
+
+    def run(device):
+        res = SketchingResult(names=[f"s{i}" for i in range(n)],
+                              cardinalities=cards.copy(),
+                              signatures=sigs.copy(), nq=nq)
+        return list(C.pairwise_matrix(opts, res, block=64, device=device))
+    counters = (NT, NC, G.self_launches, G.rect_launches,
+                IC.self_launches, IC.rect_launches)
+    before = [c.launches for c in counters]
+    got = run(card)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    rect = -(-nf // 64)
+    wide = kind in ("u32-ab", "full", "eqfull")
+    assert launched == [0, 0, 0, rect if wide else 0, 0,
+                        0 if wide else rect], launched
+    want = run("cpu")
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        assert g.shape[1] == nq
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+@pytest.mark.parametrize("dt", [np.uint8, np.uint16, np.uint64])
+def test_pair_counts_on_card_equal_plain(card, dt):
+    """ops/pair_counts.py on the card against the same function on CPU
+    tensors, over pairs of an item with itself, repeated pairs and more
+    than one block."""
+    from dashing2_tpu_torch.ops.pair_counts import pair_counts
+    rng = np.random.default_rng(3)
+    n, m = 300, 1024
+    if dt == np.uint64:
+        a = _regs(n, m, seed=4).view(np.int64)
+    else:
+        a = _ints(n, m, dt, seed=4)
+        a = a.view(np.int16) if dt == np.uint16 else a
+    ia = rng.integers(0, n, 20000)
+    ib = rng.integers(0, n, 20000)
+    ib[:50] = ia[:50]
+    ia[50:100], ib[50:100] = ia[100:150], ib[100:150]
+    regs = torch.from_numpy(a)
+    got = pair_counts(regs.to(card), torch.from_numpy(ia).to(card),
+                      torch.from_numpy(ib).to(card))
+    want = pair_counts(regs, torch.from_numpy(ia), torch.from_numpy(ib))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    assert (want[0][:50] == m).all()
+
+
+@pytest.mark.parametrize("msr", ["SIMILARITY", "UNION_SIZE", "POISSON_LLR"])
+@pytest.mark.parametrize("kind", sorted(PANEL_KINDS))
+def test_measure_pairs_cuda_equals_cpu(card, kind, msr):
+    n, m = 200, 256
+    sigs = _family_sigs(n, m, seed=len(kind))
+    cards = np.random.default_rng(2).uniform(1e3, 1e6, n)
+    rng = np.random.default_rng(9)
+    ia, ib = rng.integers(0, n, 10000), rng.integers(0, n, 10000)
+    opts = Dashing2DistOptions(k=31, sketchsize=m, measure=Measure[msr],
+                               **PANEL_KINDS[kind])
+
+    def run(device):
+        res = SketchingResult(names=[f"s{i}" for i in range(n)],
+                              cardinalities=cards.copy(),
+                              signatures=sigs.copy())
+        creps, res = C._prep(opts, res)
+        return C.measure_pairs(opts, res, creps, ia, ib, device=device)
+    got, want = run(card), run("cpu")
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -5,7 +5,11 @@ torch_port_u8_bbit.json and torch_port_u16_ab.json hold the SHA-256 of
 the JAX package's `--fastcmp 0.5 [--bbit-sigs] --binary-output`, default
 full-register (no --fastcmp), `--fastcmp 1 --bbit-sigs` and
 `--fastcmp 2` output over a seeded corpus (n=777, -S 256, -k 31, 4 kb
-genomes; splitmix64 bases, so no numpy version changes them). These tests
+genomes; splitmix64 bases, so no numpy version changes them);
+torch_port_panel.json that of a `-Q` panel (`--fastcmp 1 --containment`,
+every tenth item a query), torch_port_knn.json of `--topk 10` and
+torch_port_dedup.json of `--greedy 0.8 --fastcmp 0.5 --bbit-sigs` over
+the same corpus. These tests
 tie each digest to the JAX package (under the golden's "env", if any) and
 to the port's plain PyTorch path; chip_smoke.py holds the port's CUDA
 path to the same digests on the card. The port also reproduces the JAX
@@ -31,7 +35,10 @@ GOLDENS = {"bbit": "torch_port_bbit_nibble.json",
            "ab": "torch_port_ab_nibble.json",
            "full": "torch_port_full.json",
            "u8-bbit": "torch_port_u8_bbit.json",
-           "u16-ab": "torch_port_u16_ab.json"}
+           "u16-ab": "torch_port_u16_ab.json",
+           "panel": "torch_port_panel.json",
+           "knn": "torch_port_knn.json",
+           "dedup": "torch_port_dedup.json"}
 
 
 @pytest.fixture(scope="module", params=sorted(GOLDENS))
@@ -48,6 +55,11 @@ def workdir(golden, tmp_path_factory):
                          c["n_mutants"], c["length"], tuple(c["divergence"]))
     assert len(paths) == golden["n"]
     (d / "list.txt").write_text("\n".join(paths) + "\n")
+    every = golden.get("queries_every")
+    if every:
+        (d / "refs.txt").write_text("\n".join(
+            p for i, p in enumerate(paths) if i % every) + "\n")
+        (d / "queries.txt").write_text("\n".join(paths[::every]) + "\n")
     return d
 
 

@@ -21,7 +21,9 @@ import dashing2_tpu_torch.cmp.core, dashing2_tpu_torch.sketch.core
 import dashing2_tpu_torch.io.emitters, dashing2_tpu_torch.ops.nibble_tri
 import dashing2_tpu_torch.ops.nibble_comb, dashing2_tpu_torch.cmp.estimators
 import dashing2_tpu_torch.ops.gtlt, dashing2_tpu_torch.ops.cmp_kernels
-import dashing2_tpu_torch.ops.int_counts
+import dashing2_tpu_torch.ops.int_counts, dashing2_tpu_torch.ops.pair_counts
+import dashing2_tpu_torch.cmp.graph, dashing2_tpu_torch.cmp.lsh
+import dashing2_tpu_torch.io.formats
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dashing2_tpu."))
              or m == "dashing2_tpu")
