@@ -8,17 +8,18 @@ card (H100), CUDA's nvcc, g++ and zlib:
 It builds every kernel of the port's main paths from the checkout's
 sources and drives both `--fastcmp 0.5` jobs, the `--fastcmp 1|2|4`
 jobs, the default full-register job (no `--fastcmp`), a job of every
-other measure, the asymmetric output, query panels (`-Q`) and the LSH
-neighbour jobs (`--topk`, `-T`, `--greedy`, `--index-save/-load`)
-through the port's own CLI.
+other measure, the asymmetric output, query panels (`-Q`), the LSH
+neighbour jobs (`--topk`, `-T`, `--greedy`, `--index-save/-load`),
+FullSetSketch sketching (`--full-setsketch`, `--fastcmp-bytes`) and
+`cmp --presketched` through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu and
-   csrc/int_counts.cu (sm_90a) and g++ for the native sketcher and
-   formatter, all started together; build seconds and ptxas'
-   register/spill report;
+   csrc/int_counts.cu (sm_90a) and g++ for the native sketcher, FASTA
+   reader and formatter, all started together; build seconds and
+   ptxas' register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
    1000, 1025, 4097} and m in {30, 62, 64, 96, 98, 100, 126, 128, 130,
@@ -52,7 +53,8 @@ no card, or when the port is not importable:
 5. b-bit main path at full size: N = 10240 genomes, 512 ancestors x 20
    mutants at 0.5-5% divergence, through
    `sketch -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs --binary-output
-   --cmpout out.bin -F list.txt` on the card. Checks the output size,
+   -o ns.sig --cmpout out.bin -F list.txt` on the card (phase 17 reads
+   ns.sig). Checks the output size,
    that the tri_eq launch counter moved during the run, that the
    kernel's full (N, N) count matrix equals the plain version's, and
    that every emitted value is the similarity table at the plain
@@ -133,6 +135,26 @@ no card, or when the port is not importable:
    the spans of both runs. (The reference's `.ssi` layout is held byte
    for byte by the CPU tests; its save and load walk one Python record
    a bucket, 1536 subtables x N of them at m = 1024.)
+14. the JAX package's FullSetSketch golden: `sketch -k 17 -S 128 --full`
+   over tests/make_fixtures.py's six genomes on the card must write the
+   bytes of tests/goldens/full_sim.bin;
+15. FullSetSketch at full size on the N = 10240 corpus: `sketch
+   --full-setsketch -o fss.sig --cmpout fss.bin` (the CSetSketch draws of
+   every item on the card, then one gtlt_self launch, no other kernel);
+   every emitted value equals the table at the plain counts of the
+   written registers; the distinct k-mers of 32 items spread over the
+   corpus go through the same draws on the CPU: the card's registers
+   within CSS_ULP ulp of the CPU's, the passes and the 32 x 32 (gt, lt)
+   counts equal. Prints the pass histogram and the spans (`sketch/read`,
+   `sketch/hash`, `sketch/count`, `sketch/css`);
+16. `--full-setsketch --fastcmp-bytes` (u8 a/b registers, a = 20,
+   b = 1.2): one int_counts_self launch, no other kernel; the card's
+   epilogue equals the CPU's on every (gt, lt), every value the CPU
+   epilogue at the plain counts of the written registers;
+17. `cmp --presketched --full` over fss.sig, and `cmp --presketched
+   --fastcmp 0.5 --bbit-sigs` over phase 5's `-o` output: one launch
+   each (gtlt_self, tri_eq) and the bytes of the sketch job that wrote
+   the file.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall.
@@ -152,8 +174,8 @@ kernels line gives int_counts_self twice: `int_counts_self` with the
 u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
 with the u8 b-bit job's eq-mode times and its library call.
 
-Reductions: the north-star job uses 50 kb genomes; phases 5-8, 10, 12 and
-13 use 20 kb
+Reductions: the north-star job uses 50 kb genomes; phases 5-8, 10, 12,
+13 and 15-17 use 20 kb
 and phase 9 10 kb. The comparison's work depends only on N and m; 20 kb
 genomes still carry about 20k distinct 31-mers and 10 kb genomes about
 10k (both more than m = 1024, so every register fills and the jobs stay
@@ -266,6 +288,7 @@ def phase_build():
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
               "gtlt": G.load_kernel, "int_counts": IC.load_kernel,
               "ophsketch": native.load_oph_lib,
+              "fastx": native.load_fastx_lib,
               "emitfmt": native.load_emit_lib}
 
     def timed(fn):
@@ -606,15 +629,17 @@ def phase_main_bbit(lst: str, sketches, counters):
 
     n, m = NORTH_STAR_N, 1024
     out = os.path.join(WORK, "northstar", "out.bin")
+    sig = os.path.join(WORK, "northstar", "ns.sig")
     argv = ["sketch", "-k", "31", "-S", str(m), "--fastcmp", "0.5",
-            "--bbit-sigs", "--binary-output", "--cmpout", out, "-F", lst]
+            "--bbit-sigs", "--binary-output", "-o", sig, "--cmpout", out,
+            "-F", lst]
     _, spans, launches = _run_cli("main", argv, n, counters)
     assert os.path.getsize(out) == 4 * n * (n - 1) // 2
     assert launches["tri_eq"] >= 1, "the main path never launched tri_eq"
     _say_spans("main", spans, (
-        "sketch", "sketch/native-files", "sketch/finalize", "compare+emit",
-        "cmp/prep", "cmp/table", "cmp/h2d", "cmp/kernel", "cmp/epilogue",
-        "cmp/d2h", "emit/write"))
+        "sketch", "sketch/native-files", "sketch/finalize", "write-sketches",
+        "compare+emit", "cmp/prep", "cmp/table", "cmp/h2d", "cmp/kernel",
+        "cmp/epilogue", "cmp/d2h", "emit/write"))
 
     # the same job's registers, once more, for the kernel-vs-plain check
     opts = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5,
@@ -1461,6 +1486,242 @@ def phase_graph(tag: str, flags, lst: str, sketches, counters, outs):
     return dict(wall=wall, spans=spans, pairs=npairs, count=count)
 
 
+FSS_SPANS = ("sketch", "sketch/read", "sketch/hash", "sketch/count",
+             "sketch/css", "sketch/finalize", "write-sketches",
+             "load-presketched", "compare+emit", "cmp/prep", "cmp/table",
+             "cmp/h2d", "cmp/kernel", "cmp/epilogue", "cmp/d2h",
+             "emit/write")
+# the card's CSetSketch registers against the CPU's (the same torch code;
+# each side's f64 log may be off by an ulp, so a register, x1 - log(u)
+# with x1 itself from a log, may differ by a few): at most this many ulp
+CSS_ULP = 4
+CSS_SAMPLE = 32
+
+
+def _css_capture():
+    """Wrap css_sketch_many so that a CLI run leaves the passes of every
+    item and the distinct hashes of CSS_SAMPLE items spread over the
+    corpus; returns (record, undo)."""
+    import numpy as np
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+    real = SK.css_sketch_many
+    rec = {}
+
+    def wrapped(items, m, device="cpu", **kw):
+        t0 = time.perf_counter()
+        regs, passes = real(items, m, device, **kw)
+        rec["seconds"] = time.perf_counter() - t0
+        pick = np.linspace(0, len(items) - 1, CSS_SAMPLE).astype(int)
+        rec.update(passes=passes, pick=pick,
+                   items=[np.array(items[i]) for i in pick],
+                   distinct=int(sum(len(x) for x in items)))
+        return regs, passes
+    SK.css_sketch_many = wrapped
+
+    def undo():
+        SK.css_sketch_many = real
+    return rec, undo
+
+
+def _ulps(a, b):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    same = (a == b) | (np.isinf(a) & np.isinf(b))
+    d = np.abs(a.view(np.int64) - b.view(np.int64))
+    return np.where(same, 0, d)
+
+
+def phase_fss(lst: str, counters):
+    """`--full-setsketch` at full size: the CSetSketch draws on the card,
+    one gtlt_self launch, every value held to the table at the plain
+    counts; the card's registers of CSS_SAMPLE items held to the CPU's
+    (within CSS_ULP ulp) with equal counts among them."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.config import Dashing2DistOptions
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.ops import gtlt as G
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+
+    n, m, tag = NORTH_STAR_N, 1024, "fss"
+    out = os.path.join(WORK, "northstar", "fss.bin")
+    sig = os.path.join(WORK, "northstar", "fss.sig")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--full-setsketch",
+            "--binary-output", "-o", sig, "--cmpout", out, "-F", lst]
+    rec, undo = _css_capture()
+    try:
+        wall, spans, launches = _run_cli(tag, argv, n, counters)
+    finally:
+        undo()
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    others = [k for k in counters if k != "gtlt_self"]
+    assert launches["gtlt_self"] == 1 \
+        and all(launches[k] == 0 for k in others), launches
+    hist = np.bincount(rec["passes"])
+    _say(f"[{tag}] gtlt_self launched once, no other kernel; CSetSketch "
+         f"passes (count: items) " + ", ".join(
+             f"{p}: {c}" for p, c in enumerate(hist) if c)
+         + f"; {rec['distinct']} distinct k-mers "
+         f"({rec['distinct'] / n:.1f} an item); css_sketch_many "
+         f"{rec['seconds']:.3f} s ({1e3 * rec['seconds'] / n:.4f} ms an "
+         "item, host wall incl. uploads)")
+    _say_spans(tag, spans, FSS_SPANS)
+
+    # every emitted value is the table at the plain counts
+    cards, regs = formats.read_stacked_signatures(sig)
+    assert regs.dtype == np.float64 and regs.shape == (n, m)
+    assert np.isfinite(cards).all() and cards.min() > 0
+    bits = torch.from_numpy(np.ascontiguousarray(
+        C._ordered_bits(Dashing2DistOptions(k=31, sketchsize=m), regs)
+    ).view(np.int64)).cuda()
+    counts = G.gtlt_self_counts_plain(bits).cpu().numpy().astype(np.int32)
+    del bits
+    table = C.sim_table("full", m, 8.0, "cpu", fused=True).numpy()
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: table[counts[i0:i1]
+                                              + counts[:, i0:i1].T])
+    _say(f"[{tag}] output == table[plain gt + lt] for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+
+    # the card's registers of the sample against the CPU's
+    t0 = time.perf_counter()
+    cpu_regs, cpu_passes = SK.css_sketch_many(rec["items"], m, "cpu")
+    cpu_s = time.perf_counter() - t0
+    card_regs = regs[rec["pick"]]
+    want = np.where(np.isfinite(cpu_regs), cpu_regs, 0.0)
+    ulp = _ulps(card_regs, want)
+    assert int(ulp.max()) <= CSS_ULP, int(ulp.max())
+    assert np.array_equal(cpu_passes, rec["passes"][rec["pick"]])
+    cpu_cards = np.array([SK.css_cardinality(r) for r in cpu_regs])
+    card_ulp = _ulps(cards[rec["pick"]], cpu_cards)
+    pair = []
+    for x in (card_regs, want):
+        b = torch.from_numpy(np.ascontiguousarray(C._ordered_bits(
+            Dashing2DistOptions(k=31, sketchsize=m), x)).view(np.int64))
+        pair.append(G.gtlt_self_counts_plain(b).numpy())
+    assert np.array_equal(pair[0], pair[1]), "card and CPU counts differ"
+    _say(f"[{tag}] card css registers == CPU css registers within "
+         f"{CSS_ULP} ulp on {CSS_SAMPLE} items x {m} (ulp histogram "
+         f"{np.bincount(ulp.ravel()).tolist()}; cardinality ulp "
+         f"{np.bincount(card_ulp).tolist()}); their (gt, lt) counts equal "
+         f"exactly ({CSS_SAMPLE}x{CSS_SAMPLE}); CPU css {cpu_s:.3f} s for "
+         f"them ({1e3 * cpu_s / CSS_SAMPLE:.3f} ms an item)")
+    return dict(launches=launches, wall=wall, css_s=rec["seconds"])
+
+
+def phase_fss_bytes(lst: str, counters):
+    """`--full-setsketch --fastcmp-bytes` at full size: the registers
+    quantised to u8 a/b (a = 20, b = 1.2), one int_counts_self launch
+    (gtlt mode), every value held to the CPU epilogue at the plain
+    counts."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.ops import int_counts as IC
+
+    n, m, tag = NORTH_STAR_N, 1024, "fss-u8-ab"
+    out = os.path.join(WORK, "northstar", "fss_u8.bin")
+    sig = os.path.join(WORK, "northstar", "fss_u8.sig")
+    argv = ["sketch", "-k", "31", "-S", str(m), "--full-setsketch",
+            "--fastcmp-bytes", "--binary-output", "-o", sig, "--cmpout",
+            out, "-F", lst]
+    wall, spans, launches = _run_cli(tag, argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    others = [k for k in counters if k != "int_counts_self"]
+    assert launches["int_counts_self"] == 1 \
+        and all(launches[k] == 0 for k in others), launches
+    _say(f"[{tag}] int_counts_self launched once, no other kernel")
+    _say_spans(tag, spans, FSS_SPANS)
+    # the header counts f64-sized registers (m / 8 for u8), so the reader
+    # returns the u8 registers' bytes as f64
+    _, regs = formats.read_stacked_signatures(sig)
+    regs = regs.view(np.uint8)
+    assert regs.shape == (n, m)
+    opts = _cli_opts(argv)
+    creps = C.CompressedReps(data=regs, a=opts.compressed_a,
+                             b=opts.compressed_b, truncation=0)
+    counts = IC.int_counts_self_plain(
+        torch.from_numpy(regs).cuda(), "gtlt").cpu().numpy().astype(np.int64)
+    epi = _job_epilogue(tag, "ab", opts, creps, n)
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: epi(
+        None, counts[i0:i1], counts[:, i0:i1].T))
+    _say(f"[{tag}] u8 values in [{int(regs.min())}, {int(regs.max())}]; "
+         f"output == CPU epilogue at the plain counts for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    return dict(launches=launches, wall=wall)
+
+
+# tag, the cmp job's flags, the stacked file it reads and the sketch
+# job's output its bytes must equal, and the one kernel it launches
+PRESKETCHED_JOBS = (
+    ("cmp-fss", ["--full"], "fss.sig", "fss.bin", "gtlt_self"),
+    ("cmp-nibble-bbit", ["--fastcmp", "0.5", "--bbit-sigs"], "ns.sig",
+     "out.bin", "tri_eq"),
+)
+
+
+def phase_presketched(tag: str, flags, sig: str, want: str, counter: str,
+                      counters):
+    """`cmp --presketched` over a sketch job's `-o` output: the bytes of
+    that job's --cmpout, one launch of its kernel."""
+    d = os.path.join(WORK, "northstar")
+    out = os.path.join(d, f"out_{tag}.bin")
+    argv = ["cmp", "-k", "31", "--presketched"] + flags + [
+        "--binary-output", "--cmpout", out, os.path.join(d, sig)]
+    wall, spans, launches = _run_cli(tag, argv, NORTH_STAR_N, counters)
+    others = [k for k in counters if k != counter]
+    assert launches[counter] == 1 \
+        and all(launches[k] == 0 for k in others), launches
+    with open(out, "rb") as f, open(os.path.join(d, want), "rb") as g:
+        got, ref = f.read(), g.read()
+    assert got == ref, f"{tag}: cmp --presketched != the sketch job's bytes"
+    _say(f"[{tag}] {counter} launched once; output == the sketch job's "
+         f"{want} byte for byte ({len(got)} bytes)")
+    _say_spans(tag, spans, FSS_SPANS)
+    os.remove(out)
+    return dict(launches=launches, wall=wall)
+
+
+def phase_jax_golden(name: str):
+    """The port's CLI on the card with the JAX package's golden config
+    `name` (tests/golden_configs.py), over its fixtures
+    (tests/make_fixtures.py), against the committed file."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from golden_configs import CONFIGS, LENGTH, N_GENOMES
+        from make_fixtures import make
+    finally:
+        sys.path.pop(0)
+    from dashing2_tpu_torch import cli
+    d = os.path.join(WORK, "fixtures")
+    paths = make(d, n_genomes=N_GENOMES, length=LENGTH, seed=42)
+    h = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    args, _ = CONFIGS[name]
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        assert cli.main(list(args) + ["--device", "cuda"]) == 0
+        with open(name, "rb") as f:
+            got = f.read()
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(ROOT, "tests", "goldens", name), "rb") as f:
+        want = f.read()
+    assert got == want, (name, "fixtures sha256 " + h.hexdigest())
+    _say(f"[golden] {name}: the port's bytes on the card == the committed "
+         f"JAX golden ({len(got)} bytes)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1526,6 +1787,13 @@ def main() -> int:
         _say("[graph] --index-load run == the --index-save run (and so the "
              "CPU run), byte for byte")
         del sketches
+        timed("golden full_sim.bin", phase_jax_golden, "full_sim.bin")
+        fss_runs = {"fss": timed("fss job", phase_fss, lst, counters),
+                    "fss-u8-ab": timed("fss-u8-ab job", phase_fss_bytes,
+                                       lst, counters)}
+        for tag, flags, sig, want, counter in PRESKETCHED_JOBS:
+            fss_runs[tag] = timed(f"{tag} job", phase_presketched, tag,
+                                  flags, sig, want, counter, counters)
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
         t0 = time.perf_counter()
         lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,
@@ -1567,6 +1835,11 @@ def main() -> int:
         run["launches"] += sum(measure_runs[t][key] for t in tags)
     int_rect_run["launches"] += sum(r["int_counts"]
                                     for r in nibble_rows.values())
+    # the FullSetSketch and presketched jobs' launches join their kernels'
+    # counts (their times are those of the jobs above at the same shapes)
+    for run, key in ((self_run, "gtlt_self"),
+                     (int_self_run, "int_counts_self"), (eq_run, "tri_eq")):
+        run["launches"] += sum(r["launches"][key] for r in fss_runs.values())
     # the panel jobs' rectangles join gtlt_counts and int_counts (their
     # own block times and bounds are printed above)
     for run, key in ((rect_run, "gtlt"), (int_rect_run, "int_counts")):

@@ -1,25 +1,37 @@
 """dashing2-compatible command-line interface of the PyTorch/CUDA port.
 
 Port of dashing2_tpu/cli.py: `_add_shared` and `_build_opts` are copies,
-so flags keep their reference names and build the same options. Only the
-`sketch` subcommand exists, and it runs only the slices the port covers:
-native sketching of FASTA/FASTQ inputs, then (with --cmpout) the
-all-pairs matrix of any measure (similarity, `--mash-distance`,
-`--containment`, `--symmetric-containment`, `--intersection`,
-`--union-size`) over the full registers (no `--fastcmp`, or
-`--fastcmp 8`; `--f32-registers` compares them rounded to f32, and
-`--bbit-sigs` compares their bits for equality) or over `--fastcmp 0.5`,
-`1`, `2` or `4` registers (nibbles, u8, u16, u32), b-bit (`--bbit-sigs`)
-or SetSketch a/b quantised (without it), emitted as binary f32, PHYLIP,
-the symmetric TSV or, with `--asymmetric-all-pairs`, the full square;
-with `-Q`, the references-by-queries panel; and the LSH neighbour jobs
-(`--topk`, `--similarity-threshold`, `--greedy` without its `f`,
-`--index-save`/`--index-load`, `--refine-exact` over compressed
+so flags keep their reference names and build the same options. Two
+subcommands exist, and they run only the slices the port covers:
+
+* `sketch`: native sketching of FASTA/FASTQ inputs, one-permutation by
+  default, FullSetSketch with `--full-setsketch` (also `-m` > 1, which
+  counts k-mers and ends in FullSetSketch), its registers quantised with
+  `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`; `-o` writes
+  the stacked signatures. With --cmpout, the comparison:
+* `cmp` (alias `dist`): sketch and compare, or with `--presketched`
+  compare stacked signature files (`-o` output, with its .names.txt) and
+  single sketch caches (.opss, .ss, .bmh, .pmh); the output goes to
+  stdout without --cmpout.
+
+The comparison is the all-pairs matrix of any measure (similarity,
+`--mash-distance`, `--containment`, `--symmetric-containment`,
+`--intersection`, `--union-size`) over the full registers (no
+`--fastcmp`, or `--fastcmp 8`; `--f32-registers` compares them rounded
+to f32, and `--bbit-sigs` compares their bits for equality), over
+`--fastcmp 0.5`, `1`, `2` or `4` registers (nibbles, u8, u16, u32), b-bit
+(`--bbit-sigs`) or SetSketch a/b quantised (without it), or over the
+registers a sketch-compressed job quantised; emitted as binary f32,
+PHYLIP, the symmetric TSV or, with `--asymmetric-all-pairs`, the full
+square; with `-Q`, the references-by-queries panel; and the LSH
+neighbour jobs (`--topk`, `--similarity-threshold`, `--greedy` without
+its `f`, `--index-save`/`--index-load`, `--refine-exact` over compressed
 registers), emitted as CSR or text (cmp/graph.py). `--pairlist` sketches
 the unique paths it names and compares them all-pairs, as the reference
 does. Every other option is rejected with an error naming it. `--device`
-(default cuda) picks where the comparison runs; a CUDA request without a
-card exits non-zero and never carries on on the CPU.
+(default cuda) picks where the CSetSketch draws and the comparison run;
+a CUDA request without a card exits non-zero and never carries on on the
+CPU.
 """
 
 from __future__ import annotations
@@ -28,9 +40,12 @@ import argparse
 import sys
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from .config import Dashing2DistOptions
 from .enums import (Alphabet, DataType, KmerSketchResultType, Measure,
                     OutputFormat, OutputKind, SketchSpace)
+from .result import SketchingResult
 
 
 def _add_shared(p: argparse.ArgumentParser) -> None:
@@ -292,8 +307,7 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 # options outside the slice: dest -> the flag a user typed
 _OUTSIDE_SLICE = {
-    "outprefix": "--outprefix", "fastcmp_bytes": "--fastcmp-bytes",
-    "fastcmp_shorts": "--fastcmp-shorts", "fastcmp_words": "--fastcmp-words",
+    "outprefix": "--outprefix",
     "cssize": "--countsketch-size", "prob": "--prob",
     "multiset": "--multiset", "bed": "--bed", "bigwig": "--bigwig",
     "leafcutter": "--leafcutter", "edit_distance": "--edit-distance",
@@ -301,29 +315,27 @@ _OUTSIDE_SLICE = {
     "mmer_set": "--set", "countdict": "--countdict", "mmer_seq": "--seq",
     "save_kmers": "--save-kmers",
     "save_kmercounts": "--save-kmercounts", "hpcompress": "--hp-compress",
-    "full": "--full-setsketch",
     "normalize_intervals": "--normalize-intervals", "cache": "--cache",
     "exact_kmer_dist": "--exact-kmer-dist", "filterset": "--filterset",
     "parse_by_seq": "--parse-by-seq", "entmin": "--entmin",
-    "by_chrom": "--by-chrom", "setsketch_ab": "--setsketch-ab",
+    "by_chrom": "--by-chrom",
     "seqs_in_ram": "--seqs-in-ram", "warm_only": "--warm-only",
 }
 
 
-def _slice_errors(p: argparse.ArgumentParser,
-                  a: argparse.Namespace) -> List[str]:
+def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
+                  compares: bool) -> List[str]:
     """Options this port does not run yet (empty if the job is in the
     slice). The flags are checked before any options are built, so that
     a flag outside the slice is reported as such even where building
-    the options would fail (--fastcmp-bytes and --setsketch-ab need
-    FullSetSketch sketching)."""
+    the options would fail."""
     errs = [flag for dest, flag in _OUTSIDE_SLICE.items()
             if getattr(a, dest) != p.get_default(dest)]
     if a.greedy is not None and "f" in a.greedy.lower():
         # the FASTA form emits the sequences, which the port does not
         # keep (ROADMAP Queue 1 item 6)
         errs.append("--greedy ...f")
-    if errs or not a.cmpout:
+    if errs or not compares:
         return errs
     opts = _build_opts(a)
     if opts.fd_level not in (0.5, 1.0, 2.0, 4.0, 8.0):
@@ -385,11 +397,16 @@ def _main(argv: List[str]) -> int:
     sub = top.add_subparsers(dest="command", required=True)
     ps = sub.add_parser("sketch", help="sketch inputs (and optionally "
                                        "compare them all-pairs)")
-    _add_shared(ps)
-    ps.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the comparison runs (default cuda); cpu "
-                         "runs the kernels' plain PyTorch versions")
+    pc = sub.add_parser("cmp", aliases=["dist"], help="compare inputs")
+    for p in (ps, pc):
+        _add_shared(p)
+        p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                       help="where the CSetSketch draws and the comparison "
+                            "run (default cuda); cpu runs the kernels' "
+                            "plain PyTorch versions")
+    pc.add_argument("--presketched", action="store_true")
     a = top.parse_args(argv)
+    parser = ps if a.command == "sketch" else pc
 
     from .device import resolve
     try:
@@ -398,32 +415,91 @@ def _main(argv: List[str]) -> int:
         print(f"dashing2-tpu-torch: error: {e}", file=sys.stderr)
         return 2
     groups, nq = _collect_inputs(a)
-    errs = _slice_errors(ps, a)
+    compares = a.command != "sketch" or bool(a.cmpout)
+    errs = _slice_errors(parser, a, compares)
     if errs:
-        ps.error("not ported yet (see ROADMAP.md): " + ", ".join(errs))
+        parser.error("not ported yet (see ROADMAP.md): " + ", ".join(errs))
     opts = _build_opts(a)
-    if not groups:
-        ps.error("no input files")
     if opts.verbosity >= 1:
         from . import __version__
         print(f"#dashing2-tpu-torch v{__version__}; invocation: "
               "dashing2-tpu-torch " + " ".join(argv), file=sys.stderr)
+    if a.command != "sketch" and not opts.outfile_path:
+        opts.outfile_path = "/dev/stdout"
 
-    from .sketch.core import sketch_fastx
+    if not groups:
+        parser.error("no input files")
     from .timing import phase
-    with phase("sketch", opts.verbosity):
-        result = sketch_fastx(opts, groups)
-    result.nq = nq
-    if a.outfile:
-        from .io import formats
-        with phase("write-sketches", opts.verbosity):
-            formats.write_stacked_signatures(
-                a.outfile, result.cardinalities, result.signatures,
-                result.names)
-    if opts.outfile_path:
+    if getattr(a, "presketched", False):
+        with phase("load-presketched", opts.verbosity):
+            result = _load_presketched(opts, groups, nq_files=nq)
+    else:
+        from .sketch.core import sketch_fastx
+        with phase("sketch", opts.verbosity):
+            result = sketch_fastx(opts, groups, device=device)
+        result.nq = nq
+        if a.outfile:
+            from .io import formats
+            with phase("write-sketches", opts.verbosity):
+                formats.write_stacked_signatures(
+                    a.outfile, result.cardinalities, result.signatures,
+                    result.names)
+    if compares:
         with phase("compare+emit", opts.verbosity):
             _do_cmp(opts, result, device)
     return 0
+
+
+def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
+                      nq_files: int = 0) -> SketchingResult:
+    """Load pre-computed sketches: stacked signature files (with their
+    .names.txt) or single sketch caches, whose suffix also fixes the
+    sketch space and result type (cmp_main.cpp:24-198,305-352): .opss is
+    a one-permutation cache, .ss a FullSetSketch one, .bmh and .pmh
+    BagMinHash and ProbMinHash ones. `nq_files` trailing paths are query
+    files (PANEL): nq becomes the number of ITEMS they contain (a
+    stacked file holds many). Exact k-mer sets and minimizer sequences
+    (.kmerset*, .mmerseq*) are not ported."""
+    from .io import formats
+    result = SketchingResult()
+    cards_all, sig_rows = [], []
+    items_per_path = []
+    for path in groups:
+        if path.endswith((".opss", ".ss", ".bmh", ".pmh")):
+            if path.endswith(".bmh"):
+                opts.sspace = SketchSpace.SPACE_MULTISET
+            elif path.endswith(".pmh"):
+                opts.sspace = SketchSpace.SPACE_PSET
+            opts.kmer_result = (KmerSketchResultType.ONE_PERM
+                                if path.endswith(".opss")
+                                else KmerSketchResultType.FULL_SETSKETCH)
+            card, regs = formats.read_sketch_cache(path)
+            result.names.append(path)
+            cards_all.append(np.array([card]))
+            sig_rows.append(regs[None, :])
+            items_per_path.append(1)
+        elif path.endswith((".kmerset64", ".kmerset128", ".mmerseq64",
+                            ".mmerseq128")):
+            raise NotImplementedError(
+                f"{path}: exact k-mer sets and minimizer sequences are not "
+                "ported (ROADMAP Queue 1 item 8)")
+        else:
+            cards, sigs = formats.read_stacked_signatures(path)
+            try:
+                names, _ = formats.read_names_file(path + ".names.txt")
+            except OSError:
+                names = [f"{path}:{i}" for i in range(len(cards))]
+            result.names.extend(names)
+            cards_all.append(cards)
+            sig_rows.append(sigs)
+            items_per_path.append(len(cards))
+    result.cardinalities = np.concatenate(cards_all)
+    result.signatures = np.vstack(sig_rows)
+    if result.signatures.shape[1] != opts.sketchsize:
+        opts.sketchsize = result.signatures.shape[1]
+    if nq_files:
+        result.nq = int(sum(items_per_path[-nq_files:]))
+    return result
 
 
 def _do_cmp(opts: Dashing2DistOptions, result, device) -> None:

@@ -7,8 +7,10 @@ it), the default full-register route (no `--fastcmp`), and the
 equality-compared full registers (`--bbit-sigs` without `--fastcmp`):
 
 * `make_compressed` (nibbles packed two per byte; u8, u16 and u32
-  registers one per element; none at fd >= 8), `_prep`, `_ordered_bits`,
-  `_representation` and `_gb_args` are numpy copies;
+  registers one per element; none at fd >= 8; the registers a
+  sketch-compressed FullSetSketch job quantised, u8 to u64, as they
+  are), `_prep`, `_ordered_bits`, `_representation` and `_gb_args` are
+  numpy copies;
 * the counts run on the device (`_count_blocks`). For 2 <= n <= SELF_MAX
   one self-pairs launch gives an (n, n) u16 matrix: eq counts
   (ops/nibble_tri.py for b-bit nibbles, ops/int_counts.py in "eq" mode
@@ -125,15 +127,24 @@ def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
       (_BBIT_SHIFT: the top 6 bits for u8, 16 for u16, 32 for u32).
 
     At fd >= 8 (no --fastcmp) nothing is compressed: the full registers
-    are compared (`_representation`)."""
+    are compared (`_representation`). Registers sketched into a/b
+    quantised values (--setsketch-ab, --fastcmp-bytes/-shorts/-words,
+    opts.sketch_compressed_set) pass through with the given a and b, as
+    u8/u16/u32 values (`--fastcmp 0.5` as unpacked u8)."""
     fd = opts.fd_level
     if fd >= 8.0 and not opts.sketch_compressed_set:
         return CompressedReps(data=None)
-    if opts.sketch_compressed_set \
-            or opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
+    if opts.sketch_compressed_set:
+        # signatures were sketched directly into quantized registers
+        # (--setsketch-ab, --fastcmp-bytes/-shorts/-words): u8 at
+        # --fastcmp 0.5 too, one register per byte, never packed
+        return CompressedReps(data=sigs, a=opts.compressed_a,
+                              b=opts.compressed_b,
+                              truncation=opts.truncation_method)
+    if opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
         raise NotImplementedError(
-            "sketch-compressed (--setsketch-ab) and edit-distance registers "
-            "are not ported (ROADMAP Queue 1 item 6)")
+            "edit-distance registers are not ported (ROADMAP Queue 1 "
+            "item 6)")
     if fd not in _QLUT:
         raise ValueError(f"no register width for --fastcmp {fd:g}")
     if opts.truncation_method <= 0:

@@ -305,23 +305,34 @@ def compressed_ab_measures32(gtc: torch.Tensor, ltc: torch.Tensor, m: int,
     gb_bit_table(b, m) and f32(1 / (1 - 1/b)), as cmp/core.py::_gb_args
     builds them."""
     _check_measure(measure)
-    if fd_level >= 8.0:
-        raise NotImplementedError(
-            "full-width a/b registers are not ported (ROADMAP Queue 1 "
-            "item 6)")
-    if table is None:
-        table = gb_bit_table(b, m)
-        gbinv = np.float32(1.0 / (1.0 - 1.0 / np.float64(b)))
-    u, B = ab_tables(m, table, gbinv, gb_form, fused)
     dev = gtc.device
-    b32 = torch.from_numpy(B).to(dev)
-    if fused:
-        u32 = torch.from_numpy(u).to(dev)
-        ab = fma32(u32[gtc.long()], _const(float(gbinv), dev),
-                   b32[ltc.long()])
-    else:
-        ab = b32[gtc.long()] + b32[ltc.long()]
     zero, one, two = (_const(x, dev) for x in (0.0, 1.0, 2.0))
+    if fd_level >= 8.0:
+        # u64 registers (--setsketch-ab without --fastcmp): no g_b; the
+        # integer counts are summed before one f32 scale, ab = f32(c) *
+        # f32(1/m), c = gt + lt. Where 1 - ab is ab's one use (the
+        # jitted SIMILARITY graph), XLA contracts it into fma(-c,
+        # f32(1/m), 1), computed exactly in f64 and rounded once, as
+        # full_setsketch_measures32 does
+        c = gtc.to(torch.int32) + ltc.to(torch.int32)
+        recip = float(np.float32(1.0 / m))
+        if fused and measure == Measure.SIMILARITY:
+            return torch.maximum(
+                (1.0 - c.to(torch.float64) * recip).to(torch.float32),
+                zero)
+        ab = c.to(torch.float32) * _const(recip, dev)
+    else:
+        if table is None:
+            table = gb_bit_table(b, m)
+            gbinv = np.float32(1.0 / (1.0 - 1.0 / np.float64(b)))
+        u, B = ab_tables(m, table, gbinv, gb_form, fused)
+        b32 = torch.from_numpy(B).to(dev)
+        if fused:
+            u32 = torch.from_numpy(u).to(dev)
+            ab = fma32(u32[gtc.long()], _const(float(gbinv), dev),
+                       b32[ltc.long()])
+        else:
+            ab = b32[gtc.long()] + b32[ltc.long()]
     ret = torch.maximum(one - ab, zero)
     if measure == Measure.SIMILARITY:
         return ret

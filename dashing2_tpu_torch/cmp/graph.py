@@ -58,11 +58,15 @@ def _exact_sets_not_ported(what: str) -> NotImplementedError:
 
 def _index_source(opts: Dashing2DistOptions, result: SketchingResult,
                   creps: C.CompressedReps) -> LSHIndex:
-    """What the LSH index is built over (index_build.cpp:70-99): the full
-    signatures of a one-permutation sketch. The exact modes' bottom-k
-    indexes are not ported."""
+    """What the LSH index is built over (index_build.cpp:70-99): the
+    quantised registers of a sketch-compressed set (--setsketch-ab,
+    --fastcmp-bytes/-shorts/-words), else the full signatures. The exact
+    modes' bottom-k indexes are not ported."""
     if opts.kmer_result >= KmerSketchResultType.FULL_MMER_SET:
         raise _exact_sets_not_ported("a bottom-k index (--set, --seq)")
+    if (creps.data is not None and not creps.nibble_packed
+            and opts.sketch_compressed_set):
+        return LSHIndex.build(creps.data, opts.nLSH)
     return LSHIndex.build(result.signatures, opts.nLSH)
 
 

@@ -1,13 +1,15 @@
 """Binary on-disk formats — the compatibility surface (SURVEY §1.1).
 
-Copy of dashing2_tpu/io/formats.py, cut to the writers the slice's
-`sketch -o` calls and the neighbour graphs' CSR:
+Copy of dashing2_tpu/io/formats.py, cut to the formats of `sketch -o`,
+`cmp --presketched` and the neighbour graphs' CSR:
 
 * Stacked signatures  (-o): u64 nseqs, u64 sketchsize, f64 cards[nseqs],
   RegT sigs[nseqs*sketchsize]  (src/sketch_core.cpp:130-139,
   src/fastxsketch.cpp:236-244; reader python/parse.py).
   Companion <out>.names.txt: "#Name\tCardinality" + per-item lines
   (src/sketch_core.cpp:146-161).
+* Single sketch cache (.opss, .ss, .bmh, .pmh): f64 cardinality, then
+  registers (src/fastxsketch.cpp:461-489).
 
 * KNN / threshold graphs (--topk, -T, --binary-output): u64 nids, u64
   nnz, u64 indptr[nids + 1], u32 indices[nnz], f32 data[nnz]
@@ -19,7 +21,7 @@ for symmetric all-pairs) are written by io/emitters.py.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -42,6 +44,22 @@ def write_stacked_signatures(path: str, cardinalities: np.ndarray,
         write_names_file(path + ".names.txt", names, cards)
 
 
+def read_stacked_signatures(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (cardinalities (n,), signatures (n, m)). The register
+    dtype is inferred from the stored-width/sketchsize ratio like the
+    reference's parse.py:71-73 — full-width (ratio 1) registers are
+    returned as f64 (RegT), narrower widths as the matching uint."""
+    dat = np.memmap(path, np.uint8, mode="r")
+    nseqs, sketchsize = (int(x) for x in dat[:16].view(np.uint64))
+    cards = np.array(dat[16:16 + 8 * nseqs].view(np.float64))
+    sigs = np.array(dat[16 + 8 * nseqs:].view(np.float64)).reshape(nseqs, -1)
+    sigmul = sketchsize // sigs.shape[1]
+    if sigmul != 1:
+        sigs = sigs.view({2: np.uint32, 4: np.uint16,
+                          8: np.uint8}[sigmul])
+    return cards, sigs
+
+
 def write_names_file(path: str, names: Sequence[str],
                      cardinalities: np.ndarray | None) -> None:
     with open(path, "w") as f:
@@ -51,6 +69,26 @@ def write_names_file(path: str, names: Sequence[str],
             if cardinalities is not None:
                 f.write("\t%0.24g" % float(cardinalities[i]))
             f.write("\n")
+
+
+def read_names_file(path: str) -> Tuple[List[str], np.ndarray]:
+    names: List[str] = []
+    cards: List[float] = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            parts = line.rstrip("\n").split("\t")
+            names.append(parts[0])
+            cards.append(float(parts[1]) if len(parts) > 1 else -1.0)
+    return names, np.asarray(cards)
+
+
+def read_sketch_cache(path: str) -> Tuple[float, np.ndarray]:
+    """(cardinality, f64 registers) of a single sketch cache."""
+    dat = np.fromfile(path, dtype=np.uint8)
+    card = float(dat[:8].view(np.float64)[0])
+    return card, dat[8:].view(np.float64)
 
 
 def write_knn_csr_fileobj(f, indptr: np.ndarray, indices: np.ndarray,

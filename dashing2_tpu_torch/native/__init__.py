@@ -2,14 +2,15 @@
 build directory.
 
 Port of dashing2_tpu/native/__init__.py (`_load_lib`, `load_oph_lib`,
-`load_emit_lib`). The C++ sources in this directory, oph_sketch.cpp,
-fastx_reader.h and emit_fmt.cpp, are copies of the JAX package's files
-of the same names in its native/ directory, line for line (one comment
-of fastx_reader.h cites the upstream source by name instead of by a
-local path); the port builds only these copies and reads no file of the
-JAX package. Unlike
-the JAX loader, a failed build raises: the port has no Python fallback
-for anything on its main path.
+`load_fastx_lib`, `load_emit_lib`). The C++ sources in this directory,
+oph_sketch.cpp, fastx_reader.h, fastx_reader.cpp and emit_fmt.cpp, are
+copies of the JAX package's files of the same names in its native/
+directory, line for line (one comment each of fastx_reader.h and
+fastx_reader.cpp cites the upstream source by name instead of by a local
+path); the port builds only these copies and reads no file of the JAX
+package. Unlike the JAX loader, a failed build raises: the port has no
+Python fallback for anything on its main path (the Python FASTA parser
+serves only .xz and .bz2 inputs, as in the JAX package).
 
 `build_shared` is the one build routine. It keys each shared library on
 a hash of its sources, the local headers they include, and the command
@@ -134,7 +135,8 @@ def nvcc_command(src: str) -> Callable[[str], List[str]]:
 
 def load_oph_lib() -> ctypes.CDLL:
     """The native threaded OPH sketcher (the port's copy of oph_sketch.cpp),
-    with the file-driver entry `oph_sketch_files` the slice calls.
+    with the file-driver entry `oph_sketch_files` and the k-mer hash
+    entry `hash_rows_native` of the counting route.
     Built with -march=native, so the build is scoped by the host's CPU
     feature flags (a library tuned for another microarchitecture loads
     fine and then dies of SIGILL)."""
@@ -158,6 +160,35 @@ def load_oph_lib() -> ctypes.CDLL:
             c.POINTER(c.c_uint64),
             c.POINTER(c.c_uint64), c.c_int64, c.c_int64,
             c.POINTER(c.c_uint64), c.POINTER(c.c_uint32)]
+        lib.hash_rows_native.restype = c.c_int64
+        lib.hash_rows_native.argtypes = [
+            c.POINTER(c.c_ubyte), c.c_int64, c.c_int64,
+            c.c_int32, c.c_int32, c.c_int32, c.c_int32,
+            c.c_uint64, c.c_int32, c.c_uint64, c.c_uint64,
+            c.c_int32, c.c_int32, c.c_int32,
+            c.POINTER(c.c_int32), c.c_int32,
+            c.POINTER(c.c_uint64),
+            c.POINTER(c.c_uint64), c.c_int64, c.c_int64,
+            c.POINTER(c.c_uint64)]
+        lib._sigs_set = True
+    return lib
+
+
+def load_fastx_lib() -> ctypes.CDLL:
+    """The native FASTA/FASTQ reader (the port's copy of
+    fastx_reader.cpp: zlib-aware, LUT encoding)."""
+    src = os.path.join(_HERE, "fastx_reader.cpp")
+    lib = build_shared("fastx", [src], _gxx(src, ["-lz"], []))
+    if not getattr(lib, "_sigs_set", False):
+        lib.fxr_open.restype = ctypes.c_void_p
+        lib.fxr_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.fxr_next.restype = ctypes.c_long
+        lib.fxr_next.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte))]
+        lib.fxr_close.restype = None
+        lib.fxr_close.argtypes = [ctypes.c_void_p]
         lib._sigs_set = True
     return lib
 

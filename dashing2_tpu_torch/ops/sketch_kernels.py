@@ -1,19 +1,29 @@
-"""Host (numpy) one-permutation sketch finalization.
+"""Sketch finalization: one-permutation (host numpy) and CSetSketch
+(FullSetSketch, torch on the card).
 
 Copy of the host functions of dashing2_tpu/ops/sketch_kernels.py:
-`oph_to_sigs`, `oph_cardinality`, `_densify_draw_table` and
-`oph_densify_rows`. The register update itself runs in the JAX package's
-C++ engine (oph_sketch.cpp); a device sketch kernel is ROADMAP Queue 1
-item 7.
+`oph_to_sigs`, `oph_cardinality`, `_densify_draw_table`,
+`oph_densify_rows` and `css_cardinality`. The one-permutation register
+update itself runs in the port's copy of the JAX package's C++ engine
+(oph_sketch.cpp); a device sketch kernel is ROADMAP Queue 1 item 7.
+
+The CSetSketch pass (`_css_pass`, jitted XLA in the JAX package, not
+Pallas) is torch here: on a CUDA tensor it runs on the card, on a CPU
+tensor the same code runs on the CPU. `css_sketch_many` batches items
+(each keeps its own threshold, cap and top-k); a fused CUDA kernel for
+the pass is ROADMAP Queue 2 follow-up work.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from .. import hashing as H
+from . import hashes as DH
 
 U64MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -110,3 +120,164 @@ def oph_densify_rows(sigs: np.ndarray, kmers: np.ndarray | None = None,
             # ORIGINAL registers), so in-place kmer assignment is safe
             kmers[rows[r_idx], i_idx] = kmers[rows[r_idx], src]
     return ne
+
+
+# ----------------------------------------------------------------------
+# CSetSketch
+# ----------------------------------------------------------------------
+
+_GOLD = 0x9E3779B97F4A7C15  # 2^64 / golden ratio, register-stride salt
+
+
+def _css_x1(hashed: torch.Tensor, m: int):
+    """Per-item first order statistic and its RNG value.
+
+    rv = CEHasher(h ^ CSS_XOR) (setsketch.h:375); x1 = -log(rv * 2^-64)/m
+    (the reference's ev_1). rv == 0 -> x1 = +inf (item never updates).
+    The division is a multiplication by the f64 reciprocal of m, as XLA
+    compiles the JAX function's division by its static m.
+    """
+    rv = DH.css_item_hash(hashed)
+    u = DH.u64_to_unit_float(rv)
+    x1 = torch.where(rv == 0, torch.inf,
+                     -torch.log(torch.clamp(u, min=1e-300)) * (1.0 / m))
+    return x1, rv
+
+
+def _css_pass(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
+              threshold: torch.Tensor, m: int):
+    """One filtered CSetSketch pass over B items at once. sx1, srv:
+    (B, K) x1 and rv of each item's hashes in ascending x1 (stable: the
+    lower index first among equal x1, as lax.top_k orders -x1); k (B,)
+    the rows each item takes (its cap, <= K); threshold (B,) f64.
+    Returns (registers (B, m) f64, tcut (B,) f64).
+
+    Per item, as the JAX `_css_pass` computes it: of its k smallest x1,
+    the rows with x1 <= threshold are kept; tcut is the smallest x1 of
+    the k that is not kept (+inf if all k are kept; rows beyond k do not
+    count, as in the JAX function); each kept row d draws
+    e[d, j] = x1[d] - log(u(wanghash(rv[d] ^ j * GOLD))) for every
+    register j, except e[d, idx0] = x1[d] with idx0 = wyhash(rv[d]) mod
+    m; a register is the least e of the kept rows (+inf if none). The
+    result is exact iff max(registers) <= tcut (css_sketch_many checks)."""
+    K = sx1.shape[1]
+    sel = torch.arange(K, device=sx1.device)[None, :] < k[:, None]
+    keep = sel & (sx1 <= threshold[:, None])
+    tcut = torch.where(keep | ~sel, torch.inf, sx1).amin(1)
+    _, draw = DH.wyhash64_step(srv)
+    idx0 = DH.u64_mod(draw, m)
+    j = torch.arange(m, dtype=torch.int64, device=sx1.device) \
+        * DH.s64(_GOLD)
+    e = srv[:, :, None] ^ j
+    DH.wanghash_(e)
+    u = DH.u64_to_unit_float(e)
+    del e
+    # e = x1 - log(u), in place as -log(u) + x1 (the same IEEE
+    # subtraction)
+    e = u.clamp_(min=1e-300).log_().neg_().add_(sx1[:, :, None])
+    e.scatter_(2, idx0[:, :, None], sx1[:, :, None])
+    e.masked_fill_(~keep[:, :, None], torch.inf)
+    return e.amin(1), tcut
+
+
+# one pass's (items, rows, registers) f64 elements; a few such tensors
+# are alive at once
+CSS_BATCH_ELEMENTS = 1 << 27
+
+
+def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cpu",
+                    budget: int = CSS_BATCH_ELEMENTS):
+    """CSetSketch registers ((n, m) f64 numpy, +inf where never updated)
+    of each item's distinct hashes, and the passes each item took ((n,)
+    int32): the JAX host loop `css_sketch` (without return_ids), which
+    per item takes n = its hash count, cap = min(n, max(4096, 6m)),
+    threshold t = (log(m) + 8) / n, then runs the filtered pass until
+    max(registers) <= tcut, with t *= 4 and cap = min(n, 4 cap) between
+    passes (64 passes at most). Here the items run in batches on
+    `device`, each item keeping its own t, cap and top-k; a pass re-runs
+    only the items it left unconverged. A pass draws at most `budget`
+    f64 values (one item at least). An empty item's registers are +inf
+    after no pass."""
+    dev = torch.device(device)
+    n_items = len(items)
+    regs = np.full((n_items, m), np.inf)
+    passes = np.zeros(n_items, np.int32)
+    cap = max(4096, 6 * m)
+    sizes = np.array([len(x) for x in items], np.int64)
+    order = [i for i in np.argsort(sizes, kind="stable") if sizes[i]]
+    # items of similar size share a batch, which the first pass's rows
+    # (at most cap an item) keep within the budget
+    first = np.minimum(sizes[order], cap)
+    for grp in _budget_groups(np.arange(len(order)), first, m, budget):
+        batch = [order[i] for i in grp]
+        _css_batch([items[i] for i in batch], m, cap, dev, budget,
+                   regs, passes, np.asarray(batch))
+    return regs, passes
+
+
+def _css_batch(items: List[np.ndarray], m: int, cap: int, dev, budget: int,
+               regs: np.ndarray, passes: np.ndarray, idx: Sequence[int]):
+    """css_sketch_many over one batch, writing the registers and passes
+    of item i of the batch to row idx[i] of `regs` and `passes`."""
+    n = np.array([len(x) for x in items], np.int64)
+    width = int(n.max())
+    h = np.zeros((len(items), width), np.uint64)
+    for r, x in enumerate(items):
+        h[r, :len(x)] = x
+    hashed = torch.from_numpy(h.view(np.int64)).to(dev)
+    valid = torch.arange(width, device=dev)[None, :] \
+        < torch.from_numpy(n).to(dev)[:, None]
+    x1, rv = _css_x1(hashed, m)
+    x1 = torch.where(valid, x1, torch.inf)
+    sx1, perm = torch.sort(x1, dim=1, stable=True)
+    srv = torch.gather(rv, 1, perm)
+    del hashed, valid, x1, rv, perm
+    kcap = np.minimum(n, cap)
+    t = (np.log(m) + 8.0) / np.maximum(n, 1)
+    todo = np.arange(len(items))
+    for _ in range(64):
+        # the pass's rows: the most any unconverged item takes, in
+        # groups that keep each pass within the budget
+        got_r, got_c = [], []
+        for grp in _budget_groups(todo, kcap, m, budget):
+            K = int(kcap[grp].max())
+            sel = torch.from_numpy(grp).to(dev)
+            r, c = _css_pass(sx1[sel, :K], srv[sel, :K],
+                             torch.from_numpy(kcap[grp]).to(dev),
+                             torch.from_numpy(t[grp]).to(dev), m)
+            got_r.append(r.cpu().numpy())
+            got_c.append(c.cpu().numpy())
+        r, c = np.concatenate(got_r), np.concatenate(got_c)
+        passes[idx[todo]] += 1
+        done = r.max(1) <= c
+        regs[idx[todo[done]]] = r[done]
+        todo = todo[~done]
+        if not len(todo):
+            return
+        t[todo] *= 4.0
+        kcap[todo] = np.minimum(n[todo], kcap[todo] * 4)
+    raise RuntimeError("css_sketch failed to converge")
+
+
+def _budget_groups(todo: np.ndarray, kcap: np.ndarray, m: int, budget: int):
+    """Split `todo` (ascending rows) into groups whose (items x rows x m)
+    pass stays within `budget`, one item at least."""
+    s = 0
+    while s < len(todo):
+        b, top = 1, int(kcap[todo[s]])
+        while s + b < len(todo):
+            wider = max(top, int(kcap[todo[s + b]]))
+            if (b + 1) * wider * m > budget:
+                break
+            b, top = b + 1, wider
+        yield todo[s:s + b]
+        s += b
+
+
+def css_cardinality(regs: np.ndarray) -> np.ndarray:
+    """CSetSketch::cardinality (setsketch.h:553-561): m / sum(regs)."""
+    regs = np.asarray(regs, dtype=np.float64)
+    m = regs.shape[-1]
+    s = regs.sum(axis=-1)
+    with np.errstate(divide="ignore"):
+        return np.where(s > 0, m / s, np.inf)

@@ -1,9 +1,11 @@
 """SketchingResult: the container flowing from sketching to comparison.
 
 Port of dashing2_tpu/result.py::SketchingResult, cut to the members the
-one-permutation slice fills: names, cardinalities, f64 signatures and
-(optionally) k-mer ids. The system has no weights; the sketches are its
-state, and `from_reference` carries them over from the JAX package.
+port fills: names, cardinalities, signatures (f64 one-permutation or
+FullSetSketch registers, or the u8/u16/u32 registers a sketch-compressed
+FullSetSketch job quantised) and (optionally) k-mer ids. The system has
+no weights; the sketches are its state, and `from_reference` carries
+them over from the JAX package.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ def _copy(a) -> Optional[np.ndarray]:
 
 def from_reference(ref) -> SketchingResult:
     """Copy a dashing2_tpu.result.SketchingResult (or anything with its
-    attribute names) into the port's container. Arrays are copied, so the
-    port's in-place densification never touches the reference's data.
+    attribute names) into the port's container: one-permutation or
+    FullSetSketch signatures of any register dtype, with their
+    cardinalities. Arrays are copied, so the port's in-place
+    densification never touches the reference's data.
     The ordered-register cache that the reference's full-register
     comparison leaves on its result (`_ordered_cache`: (regt32, bits)) is
     carried too, so both packages compare the same register bits."""

@@ -1,35 +1,44 @@
 """Sketch orchestration: FASTA/FASTQ files -> SketchingResult.
 
-Port of the native file-driver route of dashing2_tpu/sketch/core.py:
-`_native_oph_supported`, `_native_mode`, `_hash_kwargs`,
-`_finalize_one_perm` and `_try_native_files`, behind a `sketch_fastx`
-entry. The JAX package's C++ engine (oph_sketch.cpp `oph_sketch_files`)
-reads, encodes, hashes and bucket-mins whole path groups on host cores;
-its registers are bit-identical to the JAX package's device engines.
+Port of two routes of dashing2_tpu/sketch/core.py behind a
+`sketch_fastx` entry:
 
-Every configuration the file driver does not cover raises
-NotImplementedError instead of taking another route: --entmin,
---parse-by-seq/--by-chrom, non-ONE_PERM results, --count-threshold > 1,
-.xz/.bz2 inputs, filtersets, --cache, and the k-mer artifacts
-(--save-kmers/--save-kmercounts). A device sketch kernel is ROADMAP
-Queue 1 item 7.
+* the native file driver (`_native_oph_supported`, `_native_mode`,
+  `_hash_kwargs`, `_finalize_one_perm`, `_try_native_files`) for
+  one-permutation jobs: the C++ engine (oph_sketch.cpp
+  `oph_sketch_files`) reads, encodes, hashes and bucket-mins whole path
+  groups on host cores;
+* the generic route's counting stream for the jobs the file driver
+  declines, FullSetSketch (--full-setsketch, with --setsketch-ab or
+  --fastcmp-bytes/-shorts/-words quantised on the host) and
+  --count-threshold > 1: `_load_items` reads each group (the native
+  reader, or the Python parser for .xz/.bz2), `_native_hash_codes_list`
+  hashes it (oph_sketch.cpp `hash_rows_native`), np.unique counts it
+  (in a pool with -p > 1), and ops/sketch_kernels.py::css_sketch_many
+  draws the CSetSketch registers on the card.
+
+Every other configuration raises NotImplementedError naming the
+ROADMAP Queue 1 item that ports it (`_unsupported`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Sequence
 
 import numpy as np
 
 from .. import hashing as H
 from ..config import Dashing2Options
+from ..device import resolve
 from ..enums import Alphabet, KmerSketchResultType, SketchSpace
-from ..io import mmvec
+from ..io import fastx, mmvec
 from ..ops import kmers as K
 from ..ops import sketch_kernels as SK
 from ..result import SketchingResult
-from ..timing import span
+from ..timing import add_span, span
 
 DOWNSAMPLE_SALT = 0x6F22B7A19E5F3D71
 U64MAX = SK.U64MAX
@@ -111,50 +120,77 @@ def _finalize_one_perm(opts: Dashing2Options, res: SketchingResult,
     return res
 
 
+# configurations neither route covers: the reason, and the ROADMAP Queue 1
+# item that ports it
 def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
-    """Reasons the file driver cannot sketch this job (empty if it can)."""
+    """Reasons the port cannot sketch this job (empty if it can)."""
     why = []
     if opts.parse_by_seq or opts.by_chrom:
-        why.append("--parse-by-seq/--by-chrom")
-    if opts.sspace != SketchSpace.SPACE_SET \
-            or opts.kmer_result != KmerSketchResultType.ONE_PERM:
-        why.append("sketches other than one-permutation SetSketch")
-    if opts.count_threshold > 1:
-        why.append("--count-threshold")
+        why.append("--parse-by-seq/--by-chrom (item 7)")
+    if opts.sspace != SketchSpace.SPACE_SET:
+        why.append("-B/-P and other sketch spaces (item 6)")
+    if opts.kmer_result not in (KmerSketchResultType.ONE_PERM,
+                                KmerSketchResultType.FULL_SETSKETCH):
+        why.append("--set/--countdict/--seq (item 8)")
     if opts.entmin:
-        why.append("--entmin")
+        why.append("--entmin (item 7)")
     if opts.filterset_path:
-        why.append("--filterset")
+        why.append("--filterset (item 7)")
     if opts.cache_sketches:
-        why.append("--cache")
+        why.append("--cache (item 6)")
     if opts.save_kmers or opts.save_kmercounts:
-        why.append("--save-kmers/--save-kmercounts")
-    if any(p.endswith((".xz", ".bz2")) for g in groups for p in g.split()):
-        why.append(".xz/.bz2 inputs")
+        why.append("--save-kmers/--save-kmercounts (item 6)")
+    if opts.cssize > 0:
+        why.append("--countsketch-size (item 8)")
+    if why:
+        return why
+    if not _native_oph_supported(_hash_kwargs(opts, 1 << 15)):
+        why.append(f"k={opts.k} with this alphabet (item 7)")
+    if not _counting_route(opts) and any(
+            p.endswith((".xz", ".bz2")) for g in groups for p in g.split()):
+        # the JAX package sketches them on its chunked device engines
+        why.append(".xz/.bz2 inputs of a one-permutation job (item 7)")
     return why
 
 
-def sketch_fastx(opts: Dashing2Options, groups: Sequence[str]
-                 ) -> SketchingResult:
-    """Sketch FASTA/FASTQ inputs with the native file driver. `groups`:
-    one item per entry; an entry may contain several space-separated
-    paths sketched jointly (d2.h:52-71)."""
+def _counting_route(opts: Dashing2Options) -> bool:
+    """The jobs the JAX file driver declines and its generic route counts
+    (dashing2_tpu/sketch/core.py:923-927, 1066-1072): FullSetSketch, and
+    --count-threshold > 1, which ends in FullSetSketch too."""
+    return (opts.kmer_result == KmerSketchResultType.FULL_SETSKETCH
+            or opts.count_threshold > 1)
+
+
+def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
+                 device="cuda") -> SketchingResult:
+    """Sketch FASTA/FASTQ inputs. `groups`: one item per entry; an entry
+    may contain several space-separated paths sketched jointly
+    (d2.h:52-71). One-permutation jobs run the native file driver;
+    FullSetSketch and --count-threshold > 1 the counting route, whose
+    CSetSketch draws run on `device` (a CUDA request without a card
+    raises; nothing falls back)."""
     why = _unsupported(opts, groups)
-    hkw = _hash_kwargs(opts, 1 << 15)
-    if not why and not _native_oph_supported(hkw):
-        why.append(f"k={opts.k} with this alphabet")
     if why:
         raise NotImplementedError(
-            "the port sketches only what the native file driver covers; "
-            "not ported: " + ", ".join(why) + " (ROADMAP Queue 1 item 7)")
+            "not ported: " + ", ".join(why) + " (ROADMAP Queue 1)")
+    if not any(g.split() for g in groups):
+        raise ValueError("no input files")
+    if _counting_route(opts):
+        return _sketch_counted(opts, groups, device)
+    return _sketch_files(opts, groups)
+
+
+def _sketch_files(opts: Dashing2Options, groups: Sequence[str]
+                  ) -> SketchingResult:
+    """The native file driver (`_try_native_files`): read, encode, hash
+    and bucket-min whole path groups in C++."""
+    hkw = _hash_kwargs(opts, 1 << 15)
     paths: List[str] = []
     item_of: List[int] = []
     for i, g in enumerate(groups):
         for p in g.split():
             paths.append(p)
             item_of.append(i)
-    if not paths:
-        raise ValueError("no input files")
     from ..native import load_oph_lib
     lib = load_oph_lib()
 
@@ -193,3 +229,163 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str]
     res = SketchingResult(names=list(groups))
     with span("sketch/finalize"):
         return _finalize_one_perm(opts, res, regs, n, m)
+
+
+# ----------------------------------------------------------------------
+# the counting route: hash, count, then FullSetSketch
+# ----------------------------------------------------------------------
+
+def _load_items(opts: Dashing2Options, groups: Sequence[str]
+                ) -> Iterator[List[np.ndarray]]:
+    """Each group's records, alphabet-encoded, read when the group is
+    reached (the JAX `_load_items` and `_iter_items_lazy`, without
+    --parse-by-seq and the edit-distance space, which the port does not
+    run)."""
+    for group in groups:
+        codes = []
+        with span("sketch/read"):
+            for path in group.split():
+                for _, c in fastx.read_encoded(path, opts.alphabet):
+                    codes.append(c)
+        yield codes
+
+
+def _native_hash_codes_list(lib, codes_list, hkw: dict) -> np.ndarray:
+    """Compact valid scrambled k-mer hashes for a list of RECORD code
+    arrays, computed on host by the native engine (hash_rows_native).
+    Records are padded into bucketed power-of-two rows (one record per
+    row — per-record semantics identical to the chunked device path)."""
+    span_len = hkw.get("span") or hkw["k"]
+    ds = hkw["downsample_threshold"] < (1 << 64) - 1
+    mode, base, bits, offsets, roll_table, canon = _native_mode(hkw)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    off_p, noff = i32p(), 0
+    if offsets is not None:
+        offsets = np.ascontiguousarray(offsets, np.int32)
+        off_p, noff = offsets.ctypes.data_as(i32p), len(offsets)
+    roll_p = u64p()
+    if roll_table is not None:
+        roll_table = np.ascontiguousarray(roll_table, np.uint64)
+        roll_p = roll_table.ctypes.data_as(u64p)
+    buckets: dict = {}
+    for c in codes_list:
+        if len(c) < span_len:
+            continue
+        L = 256
+        while L < len(c):
+            L <<= 1
+        buckets.setdefault(L, []).append(c)
+    parts: List[np.ndarray] = []
+    for L, recs in sorted(buckets.items()):
+        rcap = max(1, (32 << 20) // L)
+        for s in range(0, len(recs), rcap):
+            grp = recs[s:s + rcap]
+            rows = np.full((len(grp), L), K.INVALID, np.uint8)
+            for r, c in enumerate(grp):
+                rows[r, :len(c)] = c
+            npos = L - span_len + 1
+            out = np.empty(len(grp) * npos, np.uint64)
+            cnt = lib.hash_rows_native(
+                rows.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+                len(grp), L, hkw["k"], hkw["w"], int(canon),
+                int(hkw["seed_is_zero"]), hkw["xormask"], int(ds),
+                hkw["downsample_threshold"] & 0xFFFFFFFFFFFFFFFF,
+                DOWNSAMPLE_SALT, mode, base, bits, off_p, noff,
+                roll_p, u64p(), 0, span_len,
+                out.ctypes.data_as(u64p))
+            parts.append(out[:cnt].copy())
+    if not parts:
+        return np.zeros(0, np.uint64)
+    return np.concatenate(parts)
+
+
+def _count_one(opts: Dashing2Options, hv: np.ndarray) -> np.ndarray:
+    """The distinct hashes, those seen fewer than --count-threshold times
+    dropped."""
+    t0 = time.perf_counter()
+    u, c = np.unique(hv, return_counts=True)
+    if opts.count_threshold > 1:
+        u = u[c >= opts.count_threshold]
+    add_span("sketch/count", time.perf_counter() - t0)
+    return u.astype(np.uint64)
+
+
+def _count_stream(opts: Dashing2Options, groups: Sequence[str]
+                  ) -> List[np.ndarray]:
+    """Each item's distinct hashes: native hashing item by item, counting
+    in a pool of -p threads when -p > 1 (numpy releases the GIL in its
+    sort), with at most 2p items in flight."""
+    from ..native import load_oph_lib
+    lib = load_oph_lib()
+    hkw = _hash_kwargs(opts, 1 << 15)
+    n = len(groups)
+    pool = None
+    if opts.nthreads > 1 and n > 1:
+        pool = ThreadPoolExecutor(max_workers=opts.nthreads)
+    results: List = [None] * n
+    pending: List[tuple] = []
+    try:
+        for i, codes in enumerate(_load_items(opts, groups)):
+            with span("sketch/hash"):
+                hv = _native_hash_codes_list(lib, codes, hkw)
+            if pool is None:
+                results[i] = _count_one(opts, hv)
+                continue
+            pending.append((i, pool.submit(_count_one, opts, hv)))
+            while len(pending) > 2 * opts.nthreads:
+                j, fut = pending.pop(0)
+                results[j] = fut.result()
+        for j, fut in pending:
+            results[j] = fut.result()
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    return results
+
+
+def _sketch_counted(opts: Dashing2Options, groups: Sequence[str],
+                    device) -> SketchingResult:
+    """The JAX generic route's counting stream and FullSetSketch
+    finalization (dashing2_tpu/sketch/core.py:1287-1498): each item's
+    distinct hashes, CSetSketch registers (+inf written as 0) and
+    m / sum(registers), an empty item's cardinality 0; with
+    --setsketch-ab or --fastcmp-bytes/-shorts/-words the registers are
+    quantised on the host, with the harmonic-mean cardinality."""
+    n, m = len(groups), opts.sketchsize
+    uniq = _count_stream(opts, groups)
+    dev = resolve(device)
+    with span("sketch/css"):
+        regs, _ = SK.css_sketch_many(uniq, m, dev)
+    res = SketchingResult(names=list(groups))
+    with span("sketch/finalize"):
+        sigs = mmvec.alloc((n, m), np.float64, opts.sig_ram_limit)
+        cards = np.empty(n, dtype=np.float64)
+        for i, u in enumerate(uniq):
+            sigs[i] = np.where(np.isfinite(regs[i]), regs[i], 0.0)
+            cards[i] = SK.css_cardinality(regs[i]) if len(u) else 0.0
+        if not opts.sketch_compressed_set:
+            res.signatures = sigs
+            res.cardinalities = cards
+            return res
+        # --setsketch-ab / --fastcmp-{bytes,shorts,words}: quantize to the
+        # fixed (a, b) registers directly. Quantizing the exact CSetSketch
+        # registers is identical to sketching into quantized registers
+        # (CSetSketch::to_setsketch, setsketch.h:325-333).
+        from ..cmp.core import _QLUT
+        a_, b_ = opts.compressed_a, opts.compressed_b
+        q = _QLUT[opts.fd_level]
+        logbinv = 1.0 / np.log1p(b_ - 1.0)
+        with np.errstate(divide="ignore"):
+            kq = np.clip(np.floor(1.0 - np.log(np.maximum(sigs, 1e-300)
+                                               / a_) * logbinv),
+                         0, int(q) + 1)
+        kq = np.where(sigs <= 0, 0, kq)
+        dt = {0.5: np.uint8, 1.0: np.uint8, 2.0: np.uint16,
+              4.0: np.uint32, 8.0: np.uint64}[opts.fd_level]
+        res.signatures = kq.astype(dt)
+        # harmonic-mean cardinality over quantized registers
+        # (SetSketch::cardinality, setsketch.h:773-777)
+        num = m * (1.0 - 1.0 / b_) * logbinv / a_
+        res.cardinalities = num / np.power(b_, -kq).sum(axis=1)
+    return res

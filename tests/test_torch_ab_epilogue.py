@@ -155,8 +155,14 @@ def test_other_measures_are_not_ported():
     with pytest.raises(ValueError, match="invalid"):
         PE.compressed_ab_measures32(c, c, 4, 1.07, 0.5,
                                     Measure.M_EDIT_DISTANCE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PE.compressed_ab_measures32(c, c, 4, 1.07, 8.0, Measure.SIMILARITY)
+    with pytest.raises(ValueError, match="invalid"):
+        PE.compressed_ab_measures32(c, c, 4, 1.07, 8.0,
+                                    Measure.M_EDIT_DISTANCE)
+    # the u64 registers' form (fd >= 8, tests/test_torch_fss.py holds it
+    # against the JAX routes): 1 - (gt + lt) / m, at least 0
+    got = PE.compressed_ab_measures32(c, c, 4, 1.07, 8.0, Measure.SIMILARITY,
+                                      fused=False)
+    np.testing.assert_array_equal(got.numpy(), [1.0, 0.5, 0.0, 0.0, 0.0])
 
 
 WIDE = (1.0, 2.0, 4.0)

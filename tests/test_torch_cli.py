@@ -146,7 +146,7 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 @pytest.mark.parametrize("extra", [
     ["--greedy", "0.8f"], ["--outprefix", "p"], ["--prob"],
     ["--cache"], ["--warm-only", "8"], ["--set"],
-    ["--full-setsketch"],
+    ["--multiset"],
 ])
 def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
     lst, _ = corpus
@@ -158,12 +158,12 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["sketch", "-S", "256", "--fastcmp-bytes"],         # a, b given: u8
-    ["sketch", "-S", "256", "--setsketch-ab", "20,1.2"],
+    ["sketch", "-S", "256", "--bed"],
+    ["sketch", "-S", "256", "--parse-by-seq"],
     ["sketch", "-S", "256", "--bbit-sigs", "--save-kmers"],  # eq k-mers
-    ["cmp", "-S", "256", "--fastcmp", "0.5", "--bbit-sigs"],
+    ["cmp", "-S", "256", "--countdict"],
     ["sketch", "-S", "256", "--fastcmp", "1", "--containment",
-     "--multiset"],
+     "-c", "1000", "--prob"],
 ])
 def test_cli_rejects_other_comparisons(corpus, argv, tmp_path):
     lst, _ = corpus

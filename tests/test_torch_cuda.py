@@ -655,3 +655,100 @@ def test_measure_pairs_cuda_equals_cpu(card, kind, msr):
         return C.measure_pairs(opts, res, creps, ia, ib, device=device)
     got, want = run(card), run("cpu")
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_hash_chain_on_card_equals_cpu(card):
+    """ops/hashes.py on CUDA int64 tensors gives the CPU's bits, u64
+    values >= 2^63 and rounding ties of the unit float included."""
+    from dashing2_tpu_torch.ops import hashes as DH
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 1 << 64, 1 << 16, dtype=np.uint64)
+    x[:6] = [0, 1 << 63, (1 << 64) - 1, (1 << 63) + (1 << 10),
+             (1 << 53) + 1, (1 << 63) + (3 << 10)]
+    t = torch.from_numpy(x.view(np.int64))
+    for fn in (DH.wanghash, DH.css_item_hash, DH.u64_to_unit_float,
+               lambda v: DH.wyhash64_step(v)[1],
+               lambda v: DH.u64_mod(v, 1000), lambda v: DH.u64_mod(v, 1024),
+               lambda v: DH.wanghash_(v.clone())):
+        got = fn(t.to(card)).cpu()
+        want = fn(t)
+        assert torch.equal(got.view(torch.int64) if got.is_floating_point()
+                           else got, want.view(torch.int64)
+                           if want.is_floating_point() else want)
+
+
+@pytest.mark.parametrize("m,n", [(1024, 20000), (256, 3000), (100, 500),
+                                 (64, 7)])
+def test_css_on_card_matches_cpu(card, m, n):
+    """The CSetSketch draws on the card against the same torch code on
+    the CPU: the passes equal, the registers within 4 ulp (each side's
+    f64 log may be an ulp off), the order of the registers across items
+    (the gt/lt counts) equal."""
+    from dashing2_tpu_torch.ops import gtlt as G
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+    from dashing2_tpu_torch.ops.cmp_kernels import f64_to_ordered_u64
+    rng = np.random.default_rng(m + n)
+    shared = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    items = [np.unique(np.concatenate([
+        shared[:n - 50 * i], rng.integers(0, 1 << 64, 50 * i,
+                                          dtype=np.uint64)]))
+        for i in range(6)] + [np.zeros(0, np.uint64)]
+    got, gp = SK.css_sketch_many(items, m, card, budget=1 << 24)
+    want, wp = SK.css_sketch_many(items, m, "cpu")
+    np.testing.assert_array_equal(gp, wp)
+    assert np.isinf(got[-1]).all() and gp[-1] == 0
+    d = np.abs(got[:-1].view(np.int64) - want[:-1].view(np.int64))
+    assert d.max() <= 4, np.bincount(d.ravel())
+    counts = [G.gtlt_self_counts_plain(torch.from_numpy(
+        f64_to_ordered_u64(r[:-1]).view(np.int64))) for r in (got, want)]
+    assert torch.equal(counts[0], counts[1])
+
+
+def test_fss_cli_on_card_equals_cpu(card, tmp_path):
+    """`sketch --full-setsketch` and `--fastcmp-bytes` through the CLI
+    on the card write the CPU run's bytes; `cmp --presketched --full`
+    over the card's -o output gives the sketch job's bytes."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import write_corpus
+    paths = write_corpus(str(tmp_path / "fa"), seed=5, n_ancestors=7,
+                         n_mutants=10, length=3000)
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    for tag, flags in (("fss", ["--full-setsketch"]),
+                       ("u8", ["--full-setsketch", "--fastcmp-bytes"])):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"{tag}-{dev}.bin"
+            argv = ["sketch", "-k", "31", "-S", "256"] + flags + [
+                "--binary-output", "--cmpout", str(out), "-o",
+                str(tmp_path / f"{tag}-{dev}.sig"), "-F", str(lst),
+                "--device", dev]
+            assert cli.main(argv) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1]
+    out = tmp_path / "c.bin"
+    assert cli.main(["cmp", "--presketched", "--full", "--binary-output",
+                     "--cmpout", str(out),
+                     str(tmp_path / "fss-cuda.sig")]) == 0
+    assert out.read_bytes() == (tmp_path / "fss-cuda.bin").read_bytes()
+
+
+@pytest.mark.parametrize("msr", ["SIMILARITY", "CONTAINMENT", "UNION_SIZE",
+                                 "POISSON_LLR"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_u64_ab_epilogue_on_card_equals_cpu(card, msr, fused):
+    """The u64 a/b estimator (fd 8) on the card gives the CPU's bits over
+    every (gt, lt) with gt + lt <= m."""
+    m = 100
+    c = torch.arange(m + 1, dtype=torch.int32)
+    gt, lt = torch.meshgrid(c, c, indexing="ij")
+    lt = torch.minimum(lt, m - gt)
+    lh = torch.linspace(1.0, 1e6, m + 1, dtype=torch.float32)[:, None]
+    rh = torch.linspace(5.0, 2e5, m + 1, dtype=torch.float32)[None, :]
+    args = (m, 1.06, 8.0, Measure[msr])
+    kw = dict(fused=fused, gb_form="complement")
+    on_cpu = E.compressed_ab_measures32(gt, lt, *args, lh=lh, rh=rh, **kw)
+    on_card = E.compressed_ab_measures32(gt.to(card), lt.to(card), *args,
+                                         lh=lh.to(card), rh=rh.to(card),
+                                         **kw).cpu()
+    assert torch.equal(on_cpu.view(torch.int32), on_card.view(torch.int32))

@@ -15,8 +15,11 @@ to the port's plain PyTorch path; chip_smoke.py holds the port's CUDA
 path to the same digests on the card. The port also reproduces the JAX
 package's own goldens of these modes (n=6, which the JAX package computes
 on its numpy route): the a/b tests/goldens/fastcmp_nibble.bin, the u8
-b-bit fastcmp_bbit.bin, and the full-register oph_sim.bin and
-oph_phylip.txt.
+b-bit fastcmp_bbit.bin, the full-register oph_sim.bin and
+oph_phylip.txt, the `--mash-dist` mash_dist.txt, the `-o` stacked
+signatures sigs.bin with sigs.bin.names.txt, and the FullSetSketch
+full_sim.bin (`--full`). multiset.bin, prob.bin and exact_set.bin stay
+outside the port, rejected by flag name.
 """
 
 import hashlib
@@ -117,3 +120,39 @@ def test_port_reproduces_jax_fastcmp_bbit_golden(tmp_path):
 @pytest.mark.parametrize("name", ["oph_sim.bin", "oph_phylip.txt"])
 def test_port_reproduces_jax_full_register_goldens(name, tmp_path):
     _reproduce_jax_golden(name, tmp_path)
+
+
+def test_port_reproduces_jax_mash_dist_golden(tmp_path):
+    """`--mash-dist` (POISSON_LLR) TSV at n=6, the numpy route."""
+    _reproduce_jax_golden("mash_dist.txt", tmp_path)
+
+
+def test_port_reproduces_jax_full_setsketch_golden(tmp_path):
+    """`--full` at n=6: FullSetSketch registers, compared as full
+    registers on the numpy route."""
+    _reproduce_jax_golden("full_sim.bin", tmp_path)
+
+
+def test_port_reproduces_jax_stacked_signatures_golden(tmp_path):
+    """`-o sigs.bin --cmpout /dev/null`: the stacked signatures and their
+    names file byte for byte."""
+    _reproduce_jax_golden("sigs.bin", tmp_path)
+    with open(os.path.join(HERE, "goldens", "sigs.bin.names.txt"),
+              "rb") as f:
+        want = f.read()
+    with open(tmp_path / "sigs.bin.names.txt", "rb") as f:
+        assert f.read() == want
+
+
+@pytest.mark.parametrize("name", ["multiset.bin", "prob.bin",
+                                  "exact_set.bin"])
+def test_goldens_outside_the_port_are_rejected_by_flag(name, tmp_path):
+    sys.path.insert(0, HERE)
+    try:
+        from golden_configs import CONFIGS
+    finally:
+        sys.path.remove(HERE)
+    args, _ = CONFIGS[name]
+    with pytest.raises(SystemExit) as e:
+        cli.main(list(args) + ["--device", "cpu"])
+    assert e.value.code == 2

@@ -23,7 +23,8 @@ import dashing2_tpu_torch.ops.nibble_comb, dashing2_tpu_torch.cmp.estimators
 import dashing2_tpu_torch.ops.gtlt, dashing2_tpu_torch.ops.cmp_kernels
 import dashing2_tpu_torch.ops.int_counts, dashing2_tpu_torch.ops.pair_counts
 import dashing2_tpu_torch.cmp.graph, dashing2_tpu_torch.cmp.lsh
-import dashing2_tpu_torch.io.formats
+import dashing2_tpu_torch.io.formats, dashing2_tpu_torch.io.fastx
+import dashing2_tpu_torch.ops.hashes, dashing2_tpu_torch.ops.sketch_kernels
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dashing2_tpu."))
              or m == "dashing2_tpu")
@@ -151,11 +152,11 @@ def test_path_check_sees_a_path_into_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["oph_sketch.cpp", "fastx_reader.h",
-                                  "emit_fmt.cpp"])
+                                  "emit_fmt.cpp", "fastx_reader.cpp"])
 def test_native_sources_are_copies_of_the_jax_package(name):
     """Line for line the JAX package's file; only a `//` comment line may
-    be worded otherwise (fastx_reader.h cites the upstream source by name
-    where the JAX file gives a local path)."""
+    be worded otherwise (fastx_reader.h and fastx_reader.cpp cite the
+    upstream source by name where the JAX files give a local path)."""
     with open(os.path.join(ROOT, "dashing2_tpu_torch", "native", name)) as f:
         port = f.read().splitlines()
     with open(os.path.join(ROOT, "dashing2_tpu", "native", name)) as f:

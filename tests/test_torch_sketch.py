@@ -13,7 +13,8 @@ import pytest
 from dashing2_tpu.config import Dashing2Options as JOptions
 from dashing2_tpu.sketch.core import sketch_fastx as jax_sketch_fastx
 from dashing2_tpu_torch.config import Dashing2Options
-from dashing2_tpu_torch.enums import Alphabet, KmerSketchResultType
+from dashing2_tpu_torch.enums import (Alphabet, KmerSketchResultType,
+                                     SketchSpace)
 from dashing2_tpu_torch.io.corpus import write_corpus
 from dashing2_tpu_torch.sketch.core import sketch_fastx
 
@@ -55,8 +56,9 @@ def test_sketch_matches_jax(groups, cfg, native_files, monkeypatch):
 @pytest.mark.parametrize("opts", [
     dict(entmin=True), dict(parse_by_seq=True), dict(cache_sketches=True),
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SET),
-    dict(count_threshold=2.0), dict(save_kmers=True),
-    dict(filterset_path="some.fs"),
+    dict(sspace=SketchSpace.SPACE_MULTISET,
+         kmer_result=KmerSketchResultType.FULL_SETSKETCH),
+    dict(save_kmers=True), dict(filterset_path="some.fs"),
 ])
 def test_configs_outside_the_file_driver_raise(groups, opts):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -67,3 +69,26 @@ def test_xz_inputs_raise(groups):
     with pytest.raises(NotImplementedError, match="xz"):
         sketch_fastx(Dashing2Options(k=21, sketchsize=64),
                      groups + ["x.fa.xz"])
+
+
+def test_counting_route_reads_compressed_inputs(groups, tmp_path):
+    """FullSetSketch jobs read .gz inputs with the native reader and
+    .xz/.bz2 with the Python parser: the registers of plain inputs."""
+    import bz2
+    import gzip
+    import lzma
+    opts = Dashing2Options(k=21, sketchsize=64,
+                           kmer_result=KmerSketchResultType.FULL_SETSKETCH)
+    plain = [g.split()[0] for g in groups[:3]]
+    packed = []
+    for p, (suffix, opener) in zip(plain, ((".gz", gzip.open),
+                                           (".xz", lzma.open),
+                                           (".bz2", bz2.open))):
+        out = str(tmp_path / (p.rsplit("/", 1)[-1] + suffix))
+        with open(p, "rb") as f, opener(out, "wb") as g:
+            g.write(f.read())
+        packed.append(out)
+    want = sketch_fastx(opts, plain, device="cpu")
+    got = sketch_fastx(opts, packed, device="cpu")
+    np.testing.assert_array_equal(got.signatures, want.signatures)
+    np.testing.assert_array_equal(got.cardinalities, want.cardinalities)
