@@ -10,8 +10,9 @@ sources and drives both `--fastcmp 0.5` jobs, the `--fastcmp 1|2|4`
 jobs, the default full-register job (no `--fastcmp`), a job of every
 other measure, the asymmetric output, query panels (`-Q`), the LSH
 neighbour jobs (`--topk`, `-T`, `--greedy`, `--index-save/-load`),
-FullSetSketch sketching (`--full-setsketch`, `--fastcmp-bytes`) and
-`cmp --presketched` through the port's own CLI.
+FullSetSketch sketching (`--full-setsketch`, `--fastcmp-bytes`),
+`cmp --presketched`, and exact k-mer sets and count dictionaries
+(`--set`, `--countdict`) through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
@@ -154,7 +155,26 @@ no card, or when the port is not importable:
 17. `cmp --presketched --full` over fss.sig, and `cmp --presketched
    --fastcmp 0.5 --bbit-sigs` over phase 5's `-o` output: one launch
    each (gtlt_self, tri_eq) and the bytes of the sketch job that wrote
-   the file.
+   the file;
+18. exact k-mer sets at full size: `sketch --set --cmpout set.bin` on
+   the N = 10240 corpus, its intersections joined on the card
+   (cmp/wcompare.py, no hand kernel: none is launched). The
+   cardinalities equal the set sizes; 4096 sampled values (every pair
+   of 8 families, the rest random pairs among 512 genomes) equal
+   `exact_measures` at the intersections of the port's torch engine on
+   CPU tensors, and the card's pair lookup gives the same counts.
+   Prints the join's budget, sub-blocks and entries, and the spans;
+19. `--countdict --containment --asymmetric-all-pairs` over the first
+   2048 genomes: the whole square byte-equal to the same job with
+   `--device cpu`;
+20. a `--set -Q` panel over the first 2048 genomes, every tenth a
+   query: byte-equal to `--device cpu`;
+21. `--set --topk 10 --index-save` at N = 10240, then the same job with
+   `--index-load`: equal bytes over the same candidate pairs; the card's
+   pair counts equal the CPU's on 2048 of them. Prints the candidate
+   count and the `cmp/exact-pairs` span;
+22. `--countdict --greedy 0.3` over the first 2048 genomes: byte-equal
+   to `--device cpu`.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall.
@@ -175,7 +195,7 @@ u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
 with the u8 b-bit job's eq-mode times and its library call.
 
 Reductions: the north-star job uses 50 kb genomes; phases 5-8, 10, 12,
-13 and 15-17 use 20 kb
+13 and 15-22 use 20 kb
 and phase 9 10 kb. The comparison's work depends only on N and m; 20 kb
 genomes still carry about 20k distinct 31-mers and 10 kb genomes about
 10k (both more than m = 1024, so every register fills and the jobs stay
@@ -1689,6 +1709,231 @@ def phase_presketched(tag: str, flags, sig: str, want: str, counter: str,
     return dict(launches=launches, wall=wall)
 
 
+EXACT_SPANS = ("sketch", "sketch/read", "sketch/hash", "sketch/count",
+               "compare+emit", "cmp/exact-h2d", "cmp/exact-join", "cmp/d2h",
+               "cmp/exact-measures", "cmp/exact-pairs", "emit/write",
+               "lsh-index-build", "lsh-candidates", "refine",
+               "dedup-cluster", "dedup-emit")
+
+
+def _say_exact_spans(tag: str, spans) -> None:
+    _say_spans(tag, spans, [k for k in EXACT_SPANS if k in spans])
+# the jobs held byte for byte to a --device cpu run take the first
+# EXACT_SUBSET genomes of the N = 10240 corpus (the CPU join of all of
+# them would take minutes); the sampled all-pairs check takes
+# EXACT_SAMPLE pairs: every pair of EXACT_FAMILIES families of 20, the
+# rest random pairs among 512 random genomes
+EXACT_SUBSET, EXACT_SAMPLE, EXACT_FAMILIES = 2048, 4096, 8
+
+
+def _capture_exact():
+    """Keep the result of every sketch_fastx call and every ExactJoin the
+    port makes until `undo` is called."""
+    from dashing2_tpu_torch.cmp import wcompare as W
+    from dashing2_tpu_torch.sketch import core as SC
+    rec = {"results": [], "joins": []}
+    real_sketch, real_join = SC.sketch_fastx, W.ExactJoin
+
+    def sketch(*args, **kw):
+        rec["results"].append(real_sketch(*args, **kw))
+        return rec["results"][-1]
+
+    class Join(real_join):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            rec["joins"].append(self)
+
+    SC.sketch_fastx, W.ExactJoin = sketch, Join
+
+    def undo():
+        SC.sketch_fastx, W.ExactJoin = real_sketch, real_join
+    return rec, undo
+
+
+def _hold_pairs(tag: str, res, ia, ib):
+    """The card's pair lookup over the exact sets of `res` against the
+    port's torch engine on CPU tensors, over the pairs' items only; returns
+    the intersection sizes."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import wcompare as W
+    from dashing2_tpu_torch.result import SketchingResult
+    t0 = time.perf_counter()
+    card = W.exact_intersections_pairs(res, ia, ib, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    items = np.unique(np.concatenate([ia, ib]))
+    sub = SketchingResult(
+        names=[res.names[i] for i in items],
+        kmer_sets=[res.kmer_sets[i] for i in items],
+        kmer_set_counts=(None if res.kmer_set_counts is None else
+                         [res.kmer_set_counts[i] for i in items]))
+    t0 = time.perf_counter()
+    cpu = W.exact_intersections_pairs(sub, np.searchsorted(items, ia),
+                                      np.searchsorted(items, ib),
+                                      device="cpu")
+    cpu_s = time.perf_counter() - t0
+    assert np.array_equal(card, cpu), f"{tag}: card pair counts != CPU's"
+    padded = W.padded_sets(res, torch.device("cuda"))
+    route = "padded lookup" if padded is not None else "posting join"
+    _say(f"[{tag}] card pair counts == CPU pair counts over {len(ia)} "
+         f"pairs ({route}; "
+         f"card {card_s:.3f} s incl. the padded table's first build, CPU "
+         f"{cpu_s:.3f} s over {len(items)} items)")
+    return cpu
+
+
+def phase_exact_set(lst: str, counters):
+    """`sketch --set` all-pairs at full size: no hand kernel launched, the
+    intersections joined on the card; the cardinalities equal the set
+    sizes; EXACT_SAMPLE emitted values equal `exact_measures` at the CPU
+    engine's intersections."""
+    import numpy as np
+    from dashing2_tpu_torch.cmp import estimators as E
+    from dashing2_tpu_torch.enums import Measure
+
+    n, tag = NORTH_STAR_N, "set"
+    out = os.path.join(WORK, "northstar", "set.bin")
+    argv = ["sketch", "-k", "31", "--set", "--binary-output", "--cmpout",
+            out, "-F", lst]
+    rec, undo = _capture_exact()
+    try:
+        wall, spans, launches = _run_cli(tag, argv, n, counters)
+    finally:
+        undo()
+    assert not any(launches.values()), launches
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    res, join = rec["results"][0], rec["joins"][0]
+    sizes = np.array([len(s) for s in res.kmer_sets])
+    assert np.array_equal(res.cardinalities, sizes.astype(np.float64))
+    _say(f"[{tag}] no hand kernel launched; {int(sizes.sum())} keys "
+         f"({sizes.mean():.1f} an item, {int(sizes.max())} at most); the "
+         f"cardinalities == the set sizes; join budget {join.budget} "
+         f"entries, {join.subblocks} sub-blocks, {join.entries} entries "
+         "expanded")
+    _say_exact_spans(tag, spans)
+
+    rng = np.random.default_rng(NS_SEED)
+    pairs = []
+    for f in rng.choice(n // NS_MUTANTS, EXACT_FAMILIES, replace=False):
+        a, b = np.triu_indices(NS_MUTANTS, k=1)
+        pairs.append(np.stack([a, b], 1) + f * NS_MUTANTS)
+    pool = rng.choice(n, min(n, 512), replace=False)
+    need = EXACT_SAMPLE - sum(map(len, pairs))
+    ab = rng.choice(pool, size=(2 * need, 2))
+    ab = np.sort(ab[ab[:, 0] != ab[:, 1]][:need], axis=1)
+    pairs.append(ab)
+    ia, ib = np.concatenate(pairs).T
+    assert len(ia) == EXACT_SAMPLE
+    isz = _hold_pairs(tag, res, ia, ib)
+    want = E.exact_measures(isz, res.cardinalities[ia],
+                            res.cardinalities[ib], Measure.SIMILARITY,
+                            31).astype(np.float32)
+    vals = np.fromfile(out, dtype=np.float32)
+    got = vals[ia * n - ia * (ia + 1) // 2 + ib - ia - 1]
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.isfinite(vals).all() and vals.min() >= 0 and vals.max() <= 1
+    _say(f"[{tag}] {EXACT_SAMPLE} sampled values == exact_measures at the "
+         f"CPU engine's intersections (family pairs' similarity counts in "
+         f"[0,1e-9) [1e-9,.1) [.1,.5) [.5,.9) [.9,1]: "
+         f"{_histogram(want[:EXACT_SAMPLE - need])}); all values in "
+         f"[0, 1]: {_histogram(vals)}")
+    return dict(launches=launches, wall=wall)
+
+
+def _subset_lists(lst: str):
+    """(the first EXACT_SUBSET genomes' list, its references, its queries:
+    every tenth) in a directory of their own."""
+    with open(lst) as f:
+        paths = [ln.strip() for ln in f if ln.strip()][:EXACT_SUBSET]
+    d = os.path.join(os.path.dirname(lst), "subset")
+    os.makedirs(d, exist_ok=True)
+    sub = os.path.join(d, "list.txt")
+    with open(sub, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return (sub,) + _split(sub, PANEL_EVERY)
+
+
+# tag and flags of the exact jobs over the first EXACT_SUBSET genomes,
+# each held byte for byte to the same job with --device cpu
+EXACT_CPU_JOBS = (
+    ("countdict-containment-asym", ["--countdict", "--containment",
+                                    "--asymmetric-all-pairs", "-F", "SUB"]),
+    ("set-panel", ["--set", "-F", "REFS", "-Q", "QUERIES"]),
+    ("countdict-greedy", ["--countdict", "--greedy", "0.3", "-F", "SUB"]),
+)
+
+
+def phase_exact_vs_cpu(tag: str, flags, lists, counters):
+    sub, refs, queries = lists
+    names = {"SUB": sub, "REFS": refs, "QUERIES": queries}
+    flags = [names.get(x, x) for x in flags]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(os.path.dirname(sub), f"{tag}-{dev}.bin")
+        argv = ["sketch", "-k", "31", "--binary-output", "--cmpout", out,
+                "--device", dev] + flags
+        wall, spans, launches = _run_cli(f"{tag} {dev}", argv, EXACT_SUBSET,
+                                         counters, 0)
+        assert not any(launches.values()), launches
+        _say_exact_spans(f"{tag} {dev}", spans)
+        with open(out, "rb") as f:
+            outs.append(f.read())
+        os.remove(out)
+    assert outs[0] == outs[1], f"{tag}: card bytes != CPU bytes"
+    _say(f"[{tag}] card output == --device cpu output byte for byte "
+         f"({len(outs[0])} bytes); no hand kernel launched")
+
+
+def phase_exact_knn(lst: str, counters):
+    """`--set --topk 10 --index-save`, then `--index-load` of that index,
+    at N = 10240: equal bytes; the card's pair counts held to the CPU's
+    over EXACT_SAMPLE / 2 of the refined pairs."""
+    import numpy as np
+    from dashing2_tpu_torch.cmp import core as C
+
+    n = NORTH_STAR_N
+    d = os.path.join(WORK, "northstar")
+    idx = os.path.join(d, "set.idx")
+    outs, seen = [], []
+    real = C.measure_pairs
+
+    def counted(opts, result, creps, ia, ib, device="cuda"):
+        seen.append((np.array(ia, np.int64), np.array(ib, np.int64)))
+        return real(opts, result, creps, ia, ib, device=device)
+    for tag, extra in (("set-knn-save", ["--index-save", idx]),
+                       ("set-knn-load", ["--index-load", idx])):
+        out = os.path.join(d, f"{tag}.bin")
+        argv = ["sketch", "-k", "31", "--set", "--topk", "10",
+                "--binary-output", "--cmpout", out, "-F", lst] + extra
+        rec, undo = _capture_exact()
+        C.measure_pairs = counted
+        try:
+            wall, spans, launches = _run_cli(tag, argv, n, counters, 0)
+        finally:
+            C.measure_pairs = real
+            undo()
+        assert not any(launches.values()), launches
+        with open(out, "rb") as f:
+            outs.append(f.read())
+        npairs = sum(len(a) for a, _ in seen[-1:])
+        edges = int(np.frombuffer(outs[-1][:16], np.uint64)[1])
+        _say(f"[{tag}] {npairs} candidate pairs, all refined in one "
+             f"measure_pairs call; {edges} edges over {n} items; index "
+             f"{os.path.getsize(idx)} bytes; cmp/exact-pairs "
+             f"{spans.get('cmp/exact-pairs', 0.0):.6f} s")
+        _say_exact_spans(tag, spans)
+    assert len(seen) == 2 and all(np.array_equal(x, y) for x, y in
+                                  zip(seen[0], seen[1]))
+    assert outs[0] == outs[1], "the loaded index gave another graph"
+    _say("[set-knn] --index-load run == the --index-save run, byte for "
+         "byte, over the same candidate pairs")
+    ia, ib = seen[0]
+    pick = np.random.default_rng(NS_SEED).choice(
+        len(ia), min(EXACT_SAMPLE // 2, len(ia)), replace=False)
+    _hold_pairs("set-knn", rec["results"][0], ia[pick], ib[pick])
+
+
 def phase_jax_golden(name: str):
     """The port's CLI on the card with the JAX package's golden config
     `name` (tests/golden_configs.py), over its fixtures
@@ -1794,6 +2039,16 @@ def main() -> int:
         for tag, flags, sig, want, counter in PRESKETCHED_JOBS:
             fss_runs[tag] = timed(f"{tag} job", phase_presketched, tag,
                                   flags, sig, want, counter, counters)
+        t0 = time.perf_counter()
+        timed("set job", phase_exact_set, lst, counters)
+        lists = _subset_lists(lst)
+        for tag, flags in EXACT_CPU_JOBS[:2]:
+            timed(f"{tag} job", phase_exact_vs_cpu, tag, flags, lists,
+                  counters)
+        timed("set-knn jobs", phase_exact_knn, lst, counters)
+        timed(f"{EXACT_CPU_JOBS[2][0]} job", phase_exact_vs_cpu,
+              *EXACT_CPU_JOBS[2], lists, counters)
+        _say(f"[wall] exact-set phases: {time.perf_counter() - t0:.3f} s")
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
         t0 = time.perf_counter()
         lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,

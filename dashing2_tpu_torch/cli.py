@@ -7,12 +7,16 @@ subcommands exist, and they run only the slices the port covers:
 * `sketch`: native sketching of FASTA/FASTQ inputs, one-permutation by
   default, FullSetSketch with `--full-setsketch` (also `-m` > 1, which
   counts k-mers and ends in FullSetSketch), its registers quantised with
-  `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`; `-o` writes
-  the stacked signatures. With --cmpout, the comparison:
+  `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`, or the exact
+  k-mer sets (`--set`) and count dictionaries (`--countdict`); `-o`
+  writes the stacked signatures (nothing for exact sets). `-c` changes
+  none of these. With --cmpout, the comparison:
 * `cmp` (alias `dist`): sketch and compare, or with `--presketched`
-  compare stacked signature files (`-o` output, with its .names.txt) and
-  single sketch caches (.opss, .ss, .bmh, .pmh); the output goes to
-  stdout without --cmpout.
+  compare stacked signature files (`-o` output, with its .names.txt),
+  single sketch caches (.opss, .ss, .bmh, .pmh) and exact k-mer set
+  caches (.kmerset64, and .mmerseq64 with its <stem>kmercounts.f64
+  counts as a count dictionary); the output goes to stdout without
+  --cmpout.
 
 The comparison is the all-pairs matrix of any measure (similarity,
 `--mash-distance`, `--containment`, `--symmetric-containment`,
@@ -21,15 +25,17 @@ The comparison is the all-pairs matrix of any measure (similarity,
 to f32, and `--bbit-sigs` compares their bits for equality), over
 `--fastcmp 0.5`, `1`, `2` or `4` registers (nibbles, u8, u16, u32), b-bit
 (`--bbit-sigs`) or SetSketch a/b quantised (without it), or over the
-registers a sketch-compressed job quantised; emitted as binary f32,
+registers a sketch-compressed job quantised, or over exact sets (their
+intersections joined on the card); emitted as binary f32,
 PHYLIP, the symmetric TSV or, with `--asymmetric-all-pairs`, the full
 square; with `-Q`, the references-by-queries panel; and the LSH
 neighbour jobs (`--topk`, `--similarity-threshold`, `--greedy` without
-its `f`, `--index-save`/`--index-load`, `--refine-exact` over compressed
-registers), emitted as CSR or text (cmp/graph.py). `--pairlist` sketches
-the unique paths it names and compares them all-pairs, as the reference
-does. Every other option is rejected with an error naming it. `--device`
-(default cuda) picks where the CSetSketch draws and the comparison run;
+its `f`, `--index-save`/`--index-load`, `--refine-exact`; over exact
+sets a bottom-k index), emitted as CSR or text (cmp/graph.py).
+`--pairlist` sketches the unique paths it names and compares them
+all-pairs, as the reference does. Every other option is rejected with an error naming it. `--device`
+(default cuda) picks where the CSetSketch draws, the exact-set joins
+and the comparison run;
 a CUDA request without a card exits non-zero and never carries on on the
 CPU.
 """
@@ -307,12 +313,10 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 # options outside the slice: dest -> the flag a user typed
 _OUTSIDE_SLICE = {
-    "outprefix": "--outprefix",
-    "cssize": "--countsketch-size", "prob": "--prob",
+    "outprefix": "--outprefix", "prob": "--prob",
     "multiset": "--multiset", "bed": "--bed", "bigwig": "--bigwig",
     "leafcutter": "--leafcutter", "edit_distance": "--edit-distance",
-    "compute_edit": "--compute-edit-distance",
-    "mmer_set": "--set", "countdict": "--countdict", "mmer_seq": "--seq",
+    "compute_edit": "--compute-edit-distance", "mmer_seq": "--seq",
     "save_kmers": "--save-kmers",
     "save_kmercounts": "--save-kmercounts", "hpcompress": "--hp-compress",
     "normalize_intervals": "--normalize-intervals", "cache": "--cache",
@@ -438,7 +442,7 @@ def _main(argv: List[str]) -> int:
         with phase("sketch", opts.verbosity):
             result = sketch_fastx(opts, groups, device=device)
         result.nq = nq
-        if a.outfile:
+        if a.outfile and result.signatures is not None:
             from .io import formats
             with phase("write-sketches", opts.verbosity):
                 formats.write_stacked_signatures(
@@ -458,11 +462,19 @@ def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
     a one-permutation cache, .ss a FullSetSketch one, .bmh and .pmh
     BagMinHash and ProbMinHash ones. `nq_files` trailing paths are query
     files (PANEL): nq becomes the number of ITEMS they contain (a
-    stacked file holds many). Exact k-mer sets and minimizer sequences
-    (.kmerset*, .mmerseq*) are not ported."""
+    stacked file holds many). A .kmerset64 file is an exact k-mer set: an
+    f64 cardinality (0 or less: the key count) then u64 keys, sorted on
+    load; a .mmerseq64 file with a sibling <stem>kmercounts.f64 of as
+    many f64 counts is a count dictionary, its repeated keys summed
+    (cmp_main.cpp:107,335-351). u128 keys (.kmerset128, .mmerseq128),
+    minimizer sequences (.mmerseq64 without counts) and sets larger than
+    --sig-ram-limit, which the JAX package streams from the file, are
+    not ported."""
+    import os
     from .io import formats
     result = SketchingResult()
     cards_all, sig_rows = [], []
+    kmer_sets, kmer_counts = [], []
     items_per_path = []
     for path in groups:
         if path.endswith((".opss", ".ss", ".bmh", ".pmh")):
@@ -478,10 +490,44 @@ def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
             cards_all.append(np.array([card]))
             sig_rows.append(regs[None, :])
             items_per_path.append(1)
-        elif path.endswith((".kmerset64", ".kmerset128", ".mmerseq64",
-                            ".mmerseq128")):
+        elif path.endswith(".kmerset64"):
+            if os.path.getsize(path) > opts.sig_ram_limit:
+                raise NotImplementedError(
+                    f"{path}: exact sets larger than --sig-ram-limit are "
+                    "streamed from their files in the JAX package, which "
+                    "is not ported (ROADMAP Queue 1 item 8)")
+            opts.kmer_result = KmerSketchResultType.FULL_MMER_SET
+            card = float(np.fromfile(path, np.float64, count=1)[0])
+            kmers = np.fromfile(path, dtype=np.uint64, offset=8)
+            result.names.append(path)
+            kmer_sets.append(np.sort(kmers))
+            cards_all.append(np.array([card if card > 0
+                                       else float(len(kmers))]))
+            items_per_path.append(1)
+        elif path.endswith(".mmerseq64") and os.path.isfile(
+                path[:path.rfind(".")] + "kmercounts.f64"):
+            tokens = np.fromfile(path, dtype=np.uint64)
+            counts = np.fromfile(path[:path.rfind(".")] + "kmercounts.f64",
+                                 dtype=np.float64)
+            if len(counts) != len(tokens):
+                raise NotImplementedError(
+                    f"{path}: a minimizer sequence (its counts file does "
+                    "not match it); sequences are not ported (ROADMAP "
+                    "Queue 1 item 8)")
+            # dict keys must be unique and sorted for the joins; a
+            # positional stream may repeat a token
+            u, inv = np.unique(tokens, return_inverse=True)
+            csum = np.zeros(len(u), np.float64)
+            np.add.at(csum, inv, counts)
+            opts.kmer_result = KmerSketchResultType.FULL_MMER_COUNTDICT
+            result.names.append(path)
+            kmer_sets.append(u)
+            kmer_counts.append(csum)
+            cards_all.append(np.array([float(csum.sum())]))
+            items_per_path.append(1)
+        elif path.endswith((".kmerset128", ".mmerseq64", ".mmerseq128")):
             raise NotImplementedError(
-                f"{path}: exact k-mer sets and minimizer sequences are not "
+                f"{path}: u128 exact sets and minimizer sequences are not "
                 "ported (ROADMAP Queue 1 item 8)")
         else:
             cards, sigs = formats.read_stacked_signatures(path)
@@ -494,9 +540,15 @@ def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
             sig_rows.append(sigs)
             items_per_path.append(len(cards))
     result.cardinalities = np.concatenate(cards_all)
-    result.signatures = np.vstack(sig_rows)
-    if result.signatures.shape[1] != opts.sketchsize:
-        opts.sketchsize = result.signatures.shape[1]
+    if sig_rows:
+        result.signatures = np.vstack(sig_rows)
+        if result.signatures.shape[1] != opts.sketchsize:
+            opts.sketchsize = result.signatures.shape[1]
+    if kmer_sets:
+        result.kmer_sets = kmer_sets
+        if kmer_counts and len(kmer_counts) == len(kmer_sets):
+            result.kmer_set_counts = kmer_counts
+        opts.exact_kmer_dist = True
     if nq_files:
         result.nq = int(sum(items_per_path[-nq_files:]))
     return result

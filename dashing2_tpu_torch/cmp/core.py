@@ -42,6 +42,13 @@ self-pairs kernel), and the epilogue of the JAX route of the same n
 `measure_pairs` serves the neighbour graphs' pair lists: counts on the
 device (ops/pair_counts.py), the numpy route's epilogue.
 
+Exact k-mer sets and count dictionaries (`--set`, `--countdict`) take
+the JAX generic row-block route: per row block, the intersection sizes
+joined on the device (cmp/wcompare.py, one column table a job), copied
+out as int64, then the host numpy f64 `exact_measures`, cast to f32;
+pair lists likewise, on the padded pair merge. `_prep` and
+`_representation` never see them.
+
 m >= 65536 and the other representations raise NotImplementedError
 naming their ROADMAP item.
 """
@@ -67,6 +74,7 @@ from ..ops.pair_counts import pair_counts
 from ..result import SketchingResult
 from ..timing import span
 from . import estimators as E
+from . import wcompare as W
 
 # the JAX package's DASHING2_TPU_SELF_MAX default: the largest item count
 # whose whole (n, n) count matrix the self-pairs route holds at once
@@ -512,6 +520,9 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
     n = result.n if result.names else len(result.cardinalities)
     nq = result.nqueries()
     upper_only = upper_only and not nq
+    if _exact_sets(opts):
+        yield from _exact_blocks(opts, result, block, upper_only, dev, n, nq)
+        return
     with span("cmp/prep"):
         creps, result = _prep(opts, result)
         kind, data = _representation(opts, result, creps)
@@ -534,6 +545,48 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
         with span("cmp/d2h"):
             blk = vals.cpu().numpy()
         yield start, (_expand_upper(blk, start, n) if upper_only else blk)
+
+
+def _exact_sets(opts: Dashing2DistOptions) -> bool:
+    """Exact k-mer sets or count dictionaries (--set, --countdict, and
+    `cmp --presketched` over .kmerset64 files), compared exactly."""
+    return opts.kmer_result in (KmerSketchResultType.FULL_MMER_SET,
+                                KmerSketchResultType.FULL_MMER_COUNTDICT)
+
+
+def _exact_blocks(opts: Dashing2DistOptions, result: SketchingResult,
+                  block: int, upper_only: bool, dev: torch.device, n: int,
+                  nq: int) -> Iterator[Tuple[int, np.ndarray]]:
+    """pairwise_matrix over exact sets: the JAX generic row-block loop
+    over `_measure_block`'s exact branch (dashing2_tpu/cmp/core.py
+    l.608-635, 2475-2510). Per row block the intersection sizes are
+    joined on `dev` against one column table kept there for the job
+    (all items, or a panel's queries; with upper_only only the pairs
+    above the diagonal, and only the block's trapezoid is copied out),
+    and measured in f64 on the host, then cast to f32, value for value
+    as the JAX package computes the whole block."""
+    nf = n - nq
+    cols = np.arange(nf, n) if nq else np.arange(n)
+    cards = np.asarray(result.cardinalities, np.float64)
+    sets = W.device_sets(result, dev)
+    with span("cmp/exact-join"):
+        join = W.ExactJoin(sets, cols)
+        synchronize(dev)
+    for start in range(0, nf, block):
+        rows = np.arange(start, min(start + block, nf))
+        c0 = start if upper_only else 0
+        with span("cmp/exact-join"):
+            isz = join.block(rows, upper=upper_only)[:, c0:]
+            synchronize(dev)
+        with span("cmp/d2h"):
+            isz = isz.cpu().numpy()
+        with span("cmp/exact-measures"):
+            vals = E.exact_measures(
+                isz.astype(np.float64), cards[rows][:, None],
+                cards[cols[c0:]][None, :], opts.measure, opts.k
+            ).astype(np.float32)
+        yield start, (_expand_upper(vals, start, n) if upper_only else vals)
+    result._exact_join_stats = (join.budget, join.subblocks, join.entries)
 
 
 def _pair_operands(opts: Dashing2DistOptions, result: SketchingResult,
@@ -576,12 +629,21 @@ def measure_pairs(opts: Dashing2DistOptions, result: SketchingResult,
     representations: the counts on `device` (ops/pair_counts.py, the
     `cmp/pairs` span), then the epilogue of the JAX package's numpy route
     (unfused, as `_dispatch_measures` computes it with xp=np) on
-    `device`, with the pair's f32 cardinalities. Lists of any length run
-    on `device`; the JAX package's host route for short lists is a TPU
-    dispatch trade-off the port does not copy."""
+    `device`, with the pair's f32 cardinalities. Exact sets: the
+    intersection sizes on `device` (cmp/wcompare.py, the
+    `cmp/exact-pairs` span), then the host f64 `exact_measures`. Lists of
+    any length run on `device`; the JAX package's host route for short
+    lists is a TPU dispatch trade-off the port does not copy."""
     if len(ia) == 0:
         return np.zeros(0, np.float32)
     dev = resolve(device)
+    if _exact_sets(opts):
+        # exact sets: dashing2_tpu/cmp/core.py l.2130-2133
+        with span("cmp/exact-pairs"):
+            isz = W.exact_intersections_pairs(result, ia, ib, dev)
+        cards = np.asarray(result.cardinalities, np.float64)
+        return E.exact_measures(isz, cards[ia], cards[ib], opts.measure,
+                                opts.k).astype(np.float32)
     _check_route(opts)
     regs, epi, cards = _pair_operands(opts, result, creps, dev)
     ia_t = torch.from_numpy(np.ascontiguousarray(ia, np.int64)).to(dev)

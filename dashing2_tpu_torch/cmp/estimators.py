@@ -10,7 +10,10 @@ Port of dashing2_tpu/cmp/estimators.py's f32 estimators, every measure:
 * `full_setsketch_measures32` for full 64-bit registers (gt and lt
   counts, the default mode);
 * `equality_measures32` for full registers compared for equality (eq
-  counts, `--bbit-sigs` without `--fastcmp`).
+  counts, `--bbit-sigs` without `--fastcmp`);
+* `exact_measures` for exact k-mer sets and count dictionaries (`--set`,
+  `--countdict`): numpy f64 on the host, from the exact intersection
+  sizes, as the JAX package computes it on every route.
 
 Each follows one JAX route by its `fused` flag: fused=True the jitted
 self-pairs route (64 <= n <= SELF_MAX), where XLA rewrites a division by
@@ -468,3 +471,39 @@ def equality_measures32(eqc: torch.Tensor, m: int, measure: Measure,
     else:
         ret = sim * ucard / torch.minimum(lh, rh)
     return _finite(ret)
+
+
+def sim2dist(x: np.ndarray, k: int) -> np.ndarray:
+    """Mash/Poisson distance transform in f64 (cmp_core.cpp:361):
+    -log(2x / (1+x)) / k, +inf at x == 0."""
+    pm = -1.0 / max(1, k)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(x > 0, np.log(2.0 * x / (1.0 + x)) * pm, np.inf)
+
+
+def exact_measures(isz: np.ndarray, lhcard: np.ndarray, rhcard: np.ndarray,
+                   measure: Measure, k: int) -> np.ndarray:
+    """f64 measures from exact intersection sizes and the pair's f64
+    cardinalities (cmp_core.cpp:519-526 CORRECT_RES), NaN and inf as FINF;
+    the caller casts to f32. A copy of the JAX package's numpy function
+    (an empty item, cardinality 0, gives 0/0 and so FINF)."""
+    lh = np.asarray(lhcard)
+    rh = np.asarray(rhcard)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if measure == Measure.SYMMETRIC_CONTAINMENT:
+            ret = isz / np.minimum(lh, rh)
+        elif measure in (Measure.POISSON_LLR, Measure.SIMILARITY):
+            ret = isz / (lh + rh - isz)
+            if measure == Measure.POISSON_LLR:
+                ret = sim2dist(ret, k)
+        elif measure == Measure.CONTAINMENT:
+            ret = isz / lh
+        elif measure == Measure.UNION_SIZE:
+            ret = lh + rh - isz
+        else:
+            ret = isz
+    out = np.asarray(ret, dtype=np.float64)
+    bad = ~np.isfinite(out)
+    if bad.any():
+        out = np.where(bad, FINF, out)
+    return out

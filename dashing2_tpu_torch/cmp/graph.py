@@ -4,12 +4,13 @@ Copy of dashing2_tpu/cmp/graph.py for one process: the same LSH
 candidates (cmp/lsh.py), the same per-item selection and greedy walk,
 and the same bytes out. The pair measures run on the caller's device
 through cmp/core.py::measure_pairs (counts on the card for a CUDA job).
-Left out: the JAX package's multi-host branches (ROADMAP Queue 1 item
-9), its EXACT_KNN environment switch (`build_exact_lists` is a plain
-function here), the exact-set indexes and refinement (`--set`, `--seq`,
-`--refine-exact` without compressed registers; item 8) and the
-`--greedy ...f` FASTA output, which needs the sequences kept in RAM
-(item 6).
+Exact k-mer sets and count dictionaries (`--set`, `--countdict`) index
+their bottom-k hashes and refine on exact intersections
+(cmp/wcompare.py, on the caller's device). Left out: the JAX package's
+multi-host branches (ROADMAP Queue 1 item 9), its EXACT_KNN environment
+switch (`build_exact_lists` is a plain function here), the `--seq`
+minimizer-stream index (item 8) and the `--greedy ...f` FASTA output,
+which needs the sequences kept in RAM (item 6).
 
 Reference: src/index_build.cpp (build_index / build_exact_graph),
 src/refine.cpp (refine_results), src/dedup_core.cpp (greedy CD-HIT-style
@@ -50,20 +51,28 @@ INFLATE_FACTOR = 3.5  # index_build.cpp:57
 DEDUP_CHUNK = 256
 
 
-def _exact_sets_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs exact k-mer sets, which are not ported (ROADMAP "
-        "Queue 1 item 8)")
-
-
 def _index_source(opts: Dashing2DistOptions, result: SketchingResult,
                   creps: C.CompressedReps) -> LSHIndex:
     """What the LSH index is built over (index_build.cpp:70-99): the
     quantised registers of a sketch-compressed set (--setsketch-ab,
-    --fastcmp-bytes/-shorts/-words), else the full signatures. The exact
-    modes' bottom-k indexes are not ported."""
+    --fastcmp-bytes/-shorts/-words), else the full signatures; exact
+    sets index their bottom-k hashes (-S of them): a set's first -S, and
+    a count dictionary's -S with the smallest hash // count
+    (fastxsketch.cpp:24-47,451-459), in u64 integer division on the host
+    and a stable sort."""
     if opts.kmer_result >= KmerSketchResultType.FULL_MMER_SET:
-        raise _exact_sets_not_ported("a bottom-k index (--set, --seq)")
+        k = max(opts.sketchsize, 1)
+        counts = result.kmer_set_counts
+        if (opts.kmer_result == KmerSketchResultType.FULL_MMER_COUNTDICT
+                and counts is not None):
+            bk = []
+            for s, c in zip(result.kmer_sets, counts):
+                c = np.maximum(np.asarray(c, np.float64), 1.0)
+                ratio = s // c.astype(np.uint64)
+                bk.append(s[np.argsort(ratio, kind="stable")[:k]])
+        else:
+            bk = [s[:k] for s in result.kmer_sets]
+        return LSHIndex.build(np.zeros((0, 0)), opts.nLSH, bottomk=bk)
     if (creps.data is not None and not creps.nibble_packed
             and opts.sketch_compressed_set):
         return LSHIndex.build(creps.data, opts.nLSH)
@@ -75,13 +84,12 @@ def _refine_lists(opts: Dashing2DistOptions, result: SketchingResult,
                   device="cuda") -> List[List[Tuple[float, int]]]:
     """Batched refinement + per-item selection (refine.cpp semantics).
     Returns per-item [(emitted_value, neighbor_id)] sorted best-first."""
-    if opts.refine_exact and not opts.exact_kmer_dist:
-        if opts.kmer_result <= KmerSketchResultType.FULL_SETSKETCH and \
-                creps.data is not None:
-            creps = C.CompressedReps(data=None)  # drop compression
-        else:
-            raise _exact_sets_not_ported("--refine-exact over full "
-                                         "registers")
+    if opts.refine_exact and not opts.exact_kmer_dist \
+            and opts.kmer_result <= KmerSketchResultType.FULL_SETSKETCH \
+            and creps.data is not None:
+        creps = C.CompressedReps(data=None)  # drop compression
+    # otherwise the JAX package sets exact_kmer_dist, which exact sets
+    # already have and no measure of full registers reads
     n = result.n
     vals = (C.measure_pairs(opts, result, creps, ia, ib, device=device)
             if len(ia) else np.zeros(0, np.float32))

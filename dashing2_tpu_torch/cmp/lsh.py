@@ -3,10 +3,12 @@
 Copy of dashing2_tpu/cmp/lsh.py (numpy, with the port's own hashing.py):
 `LSHIndex.build`, `candidate_pairs`, `intra_candidates`, `save`/`load`
 (the native gzip format) and `save_ssi`/`load_ssi` (the reference's gz
-layout), byte for byte and candidate for candidate the JAX package's.
-Left out: the bottom-k mode over exact k-mer sets (`--set`, `--seq`;
-ROADMAP Queue 1 item 8), which raises; the multi-host column shards
-(Queue 1 item 9); and the incremental insert/query interface, which no
+layout), byte for byte and candidate for candidate the JAX package's,
+in register mode and in the bottom-k mode over exact k-mer sets
+(`--set`, `--countdict`: items sharing a bottom-k hash are candidates).
+Left out: the u128 keys of `--long-kmers` exact sets and the `--seq`
+minimizer streams (ROADMAP Queue 1 item 8), the multi-host column shards
+(Queue 1 item 9), and the incremental insert/query interface, which no
 job calls.
 
 Reference: src/ssi.h:40-539. Structure kept: nLSH tables, table i groups
@@ -28,7 +30,7 @@ counterpart of query_candidates' early-stop walk (ssi.h:394-448).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -131,7 +133,8 @@ def cap_per_item(ia: np.ndarray, ib: np.ndarray, counts: np.ndarray,
 @dataclasses.dataclass
 class LSHIndex:
     """Precomputed keys (dense form, for all-pairs candidate generation),
-    or, for an index read by load_ssi, the reference file's bucket maps
+    or each item's bottom-k hashes (`bottomk`, exact-set mode), or, for an
+    index read by load_ssi, the reference file's bucket maps
     (`buckets`)."""
 
     m: int
@@ -141,11 +144,23 @@ class LSHIndex:
     keys: List[np.ndarray]          # per table: (N, nsub) u64
     # load_ssi buckets: per (table, subtable) dict key -> list of ids
     buckets: List[List[Dict[int, List[int]]]] = None  # type: ignore
+    # bottom-k mode: per item, its u64 hashes (None in register mode)
+    bottomk: Optional[List[np.ndarray]] = None
+
+    @property
+    def bottomk_mode(self) -> bool:
+        return self.bottomk is not None
 
     @classmethod
-    def build(cls, registers: np.ndarray, nLSH: int) -> "LSHIndex":
+    def build(cls, registers: np.ndarray, nLSH: int,
+              bottomk: Optional[Sequence[np.ndarray]] = None
+              ) -> "LSHIndex":
         """registers: (N, m) register matrix (f64 sigs or compressed
-        ints)."""
+        ints); or `bottomk`, each item's u64 bottom-k hashes, for the
+        exact-set index (ssi.h's bottom-k mode)."""
+        if bottomk is not None:
+            return cls(m=0, nperhashes=[], nperrows=[], group_indices=[],
+                       keys=[], bottomk=list(bottomk))
         regs64 = registers_as_u64(registers)
         m = regs64.shape[1]
         nperhashes, nperrows = lsh_table_shapes(nLSH, m)
@@ -171,6 +186,8 @@ class LSHIndex:
             # stores no key matrices) — candidates walk them directly
             return self._candidate_pairs_from_buckets(max_per_item,
                                                       bucket_cap)
+        if self.bottomk_mode:
+            return self._candidate_pairs_bottomk(max_per_item, bucket_cap)
         pair_chunks = []
         N = self.keys[0].shape[0] if self.keys else 0
         # per-item saturation: once an item has gathered enough raw
@@ -226,6 +243,30 @@ class LSHIndex:
         ib = uniq % N
         return cap_per_item(ia, ib, counts, max_per_item)
 
+    def _candidate_pairs_bottomk(self, max_per_item: int, bucket_cap: int):
+        """Exact-mode candidates: items sharing bottom-k hashes
+        (ssi.h:213-254), one lexsort over the concatenated (hash, owner)
+        stream and a run-length bucket expansion."""
+        N = len(self.bottomk)
+        sizes = np.array([len(h) for h in self.bottomk], np.int64)
+        z = np.zeros(0, np.int64)
+        if sizes.sum() == 0:
+            return z, z, z
+        keys = np.concatenate([np.asarray(h, np.uint64)
+                               for h in self.bottomk])
+        owner = np.repeat(np.arange(N, dtype=np.int64), sizes)
+        order = np.lexsort((owner, keys))
+        sk, so = keys[order], owner[order]
+        starts = np.nonzero(np.concatenate([[True], sk[1:] != sk[:-1]]))[0]
+        lens = np.diff(np.concatenate([starts, [len(sk)]]))
+        allp = _expand_runs(so, starts, lens, bucket_cap)
+        allp = allp[allp[:, 0] != allp[:, 1]]
+        if not len(allp):
+            return z, z, z
+        codes, counts = np.unique(allp[:, 0] * N + allp[:, 1],
+                                  return_counts=True)
+        return cap_per_item(codes // N, codes % N, counts, max_per_item)
+
     def intra_candidates(self, items: np.ndarray, bucket_cap: int = 64
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """Candidate pairs WITHIN an item subset: (lo, hi) position pairs
@@ -271,14 +312,24 @@ class LSHIndex:
 
     def save(self, path: str) -> None:
         """Write the index to a gzip file: shape params, per-table group
-        indices, and the dense key matrices."""
+        indices, and the dense key matrices; in bottom-k mode the item
+        count, each item's hash count, then its hashes."""
         import gzip
         import struct
         with gzip.open(path, "wb") as f:
             f.write(self._MAGIC)
             nt = len(self.keys)
             N = self.keys[0].shape[0] if nt else 0
-            f.write(struct.pack("<qqqq", self.m, nt, N, 0))
+            if self.bottomk_mode:
+                N = len(self.bottomk)
+            f.write(struct.pack("<qqqq", self.m, nt, N,
+                                int(self.bottomk_mode)))
+            if self.bottomk_mode:
+                sizes = np.array([len(h) for h in self.bottomk], np.int64)
+                f.write(sizes.tobytes())
+                for h in self.bottomk:
+                    f.write(np.ascontiguousarray(h, np.uint64).tobytes())
+                return
             for t in range(nt):
                 g, ns = self.nperhashes[t], self.nperrows[t]
                 f.write(struct.pack("<qq", g, ns))
@@ -308,6 +359,18 @@ class LSHIndex:
         kd = np.dtype(f"<u{key_bits // 8}")
         idd = np.dtype(f"<u{id_bits // 8}")
         with gzip.open(path, "wb") as f:
+            if self.bottomk_mode:
+                # one subtable of one map: every item's bottom-k hashes
+                n = len(self.bottomk)
+                f.write(struct.pack("<QQQQ", n, 1, 1, 1))
+                f.write(bytes([1, 0]))
+                sizes = np.array([len(h) for h in self.bottomk])
+                keys = np.concatenate(
+                    [np.asarray(h, np.uint64) for h in self.bottomk]
+                    if n else [np.zeros(0, np.uint64)]).astype(kd)
+                owner = np.repeat(np.arange(n), sizes)
+                self._write_ssi_map(f, keys, owner, kd, idd)
+                return
             nt = len(self.keys)
             n = self.keys[0].shape[0] if nt else 0
             f.write(struct.pack("<QQ", n, nt))
@@ -374,13 +437,10 @@ class LSHIndex:
                         mp[key] = ids.tolist()
                     tmaps.append(mp)
                 buckets.append(tmaps)
-        if ibk:
-            raise NotImplementedError(
-                f"{path}: a bottom-k (exact k-mer set) index; exact sets are "
-                "not ported (ROADMAP Queue 1 item 8)")
+        # a bottom-k index's candidates come from its one map, too
         idx = cls(m=0, nperhashes=list(rpr),
                   nperrows=list(map_counts), group_indices=[],
-                  keys=[], buckets=buckets)
+                  keys=[], buckets=buckets, bottomk=[] if ibk else None)
         idx._loaded_total = total_ids
         return idx
 
@@ -428,9 +488,11 @@ class LSHIndex:
                 raise ValueError(f"{path}: not a dashing2-tpu LSH index")
             m, nt, N, bk = struct.unpack("<qqqq", f.read(32))
             if bk:
-                raise NotImplementedError(
-                    f"{path}: a bottom-k (exact k-mer set) index; exact "
-                    "sets are not ported (ROADMAP Queue 1 item 8)")
+                sizes = np.frombuffer(f.read(8 * N), np.int64)
+                bottomk = [np.frombuffer(f.read(8 * int(s)), np.uint64
+                                         ).copy() for s in sizes]
+                return cls(m=m, nperhashes=[], nperrows=[],
+                           group_indices=[], keys=[], bottomk=bottomk)
             nperhashes, nperrows, gidx, keys = [], [], [], []
             for _ in range(nt):
                 g, ns = struct.unpack("<qq", f.read(16))

@@ -185,7 +185,7 @@ def _css_pass(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
 CSS_BATCH_ELEMENTS = 1 << 27
 
 
-def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cpu",
+def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cuda",
                     budget: int = CSS_BATCH_ELEMENTS):
     """CSetSketch registers ((n, m) f64 numpy, +inf where never updated)
     of each item's distinct hashes, and the passes each item took ((n,)

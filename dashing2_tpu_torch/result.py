@@ -3,9 +3,11 @@
 Port of dashing2_tpu/result.py::SketchingResult, cut to the members the
 port fills: names, cardinalities, signatures (f64 one-permutation or
 FullSetSketch registers, or the u8/u16/u32 registers a sketch-compressed
-FullSetSketch job quantised) and (optionally) k-mer ids. The system has
-no weights; the sketches are its state, and `from_reference` carries
-them over from the JAX package.
+FullSetSketch job quantised), (optionally) k-mer ids, and the exact k-mer
+sets of `--set`/`--countdict` jobs (each item's distinct u64 hashes,
+sorted, with their f64 counts for a count dictionary). The system has no
+weights; the sketches are its state, and `from_reference` carries them
+over from the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ class SketchingResult:
     cardinalities: Optional[np.ndarray] = None        # (N,) f64
     signatures: Optional[np.ndarray] = None           # (N, m) f64
     kmers: Optional[np.ndarray] = None                # (N, m) u64
+    kmer_sets: Optional[List[np.ndarray]] = None      # N sorted u64 sets
+    kmer_set_counts: Optional[List[np.ndarray]] = None  # N f64 counts
     nq: int = 0  # number of query items (PANEL); stored at the tail
 
     @property
@@ -36,12 +40,17 @@ def _copy(a) -> Optional[np.ndarray]:
     return None if a is None else np.array(a, copy=True)
 
 
+def _copy_list(arrs) -> Optional[List[np.ndarray]]:
+    return None if arrs is None else [_copy(a) for a in arrs]
+
+
 def from_reference(ref) -> SketchingResult:
     """Copy a dashing2_tpu.result.SketchingResult (or anything with its
     attribute names) into the port's container: one-permutation or
-    FullSetSketch signatures of any register dtype, with their
-    cardinalities. Arrays are copied, so the port's in-place
-    densification never touches the reference's data.
+    FullSetSketch signatures of any register dtype, or exact k-mer sets
+    and their counts, with their cardinalities. Arrays are copied, so
+    the port's in-place densification never touches the reference's
+    data.
     The ordered-register cache that the reference's full-register
     comparison leaves on its result (`_ordered_cache`: (regt32, bits)) is
     carried too, so both packages compare the same register bits."""
@@ -49,6 +58,8 @@ def from_reference(ref) -> SketchingResult:
                           cardinalities=_copy(ref.cardinalities),
                           signatures=_copy(ref.signatures),
                           kmers=_copy(ref.kmers),
+                          kmer_sets=_copy_list(ref.kmer_sets),
+                          kmer_set_counts=_copy_list(ref.kmer_set_counts),
                           nq=int(ref.nq))
     cache = getattr(ref, "_ordered_cache", None)
     if cache is not None:

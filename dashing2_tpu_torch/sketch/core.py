@@ -10,12 +10,14 @@ Port of two routes of dashing2_tpu/sketch/core.py behind a
   groups on host cores;
 * the generic route's counting stream for the jobs the file driver
   declines, FullSetSketch (--full-setsketch, with --setsketch-ab or
-  --fastcmp-bytes/-shorts/-words quantised on the host) and
-  --count-threshold > 1: `_load_items` reads each group (the native
+  --fastcmp-bytes/-shorts/-words quantised on the host),
+  --count-threshold > 1, and the exact k-mer sets (--set) and count
+  dictionaries (--countdict): `_load_items` reads each group (the native
   reader, or the Python parser for .xz/.bz2), `_native_hash_codes_list`
   hashes it (oph_sketch.cpp `hash_rows_native`), np.unique counts it
-  (in a pool with -p > 1), and ops/sketch_kernels.py::css_sketch_many
-  draws the CSetSketch registers on the card.
+  (in a pool with -p > 1); then ops/sketch_kernels.py::css_sketch_many
+  draws the CSetSketch registers on the card, or the distinct hashes
+  (and their counts) are the result.
 
 Every other configuration raises NotImplementedError naming the
 ROADMAP Queue 1 item that ports it (`_unsupported`).
@@ -26,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -125,13 +127,18 @@ def _finalize_one_perm(opts: Dashing2Options, res: SketchingResult,
 def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
     """Reasons the port cannot sketch this job (empty if it can)."""
     why = []
+    hkw = _hash_kwargs(opts, 1 << 15)
     if opts.parse_by_seq or opts.by_chrom:
         why.append("--parse-by-seq/--by-chrom (item 7)")
     if opts.sspace != SketchSpace.SPACE_SET:
-        why.append("-B/-P and other sketch spaces (item 6)")
-    if opts.kmer_result not in (KmerSketchResultType.ONE_PERM,
-                                KmerSketchResultType.FULL_SETSKETCH):
-        why.append("--set/--countdict/--seq (item 8)")
+        # -c (--countsketch-size) changes only these spaces' counts
+        why.append("-B/-P (with or without -c) and other sketch spaces "
+                   "(item 6)")
+    if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
+        why.append("--seq (item 8)")
+    if _exact_sets(opts) and hkw["use128"] and not hkw["rolling"] \
+            and not hkw["spacing_offsets"]:
+        why.append("--long-kmers exact sets, u128 keys (item 8)")
     if opts.entmin:
         why.append("--entmin (item 7)")
     if opts.filterset_path:
@@ -140,11 +147,9 @@ def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
         why.append("--cache (item 6)")
     if opts.save_kmers or opts.save_kmercounts:
         why.append("--save-kmers/--save-kmercounts (item 6)")
-    if opts.cssize > 0:
-        why.append("--countsketch-size (item 8)")
     if why:
         return why
-    if not _native_oph_supported(_hash_kwargs(opts, 1 << 15)):
+    if not _native_oph_supported(hkw):
         why.append(f"k={opts.k} with this alphabet (item 7)")
     if not _counting_route(opts) and any(
             p.endswith((".xz", ".bz2")) for g in groups for p in g.split()):
@@ -153,12 +158,19 @@ def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
     return why
 
 
+def _exact_sets(opts: Dashing2Options) -> bool:
+    """--set or --countdict: the result is each item's distinct hashes."""
+    return opts.kmer_result in (KmerSketchResultType.FULL_MMER_SET,
+                                KmerSketchResultType.FULL_MMER_COUNTDICT)
+
+
 def _counting_route(opts: Dashing2Options) -> bool:
     """The jobs the JAX file driver declines and its generic route counts
-    (dashing2_tpu/sketch/core.py:923-927, 1066-1072): FullSetSketch, and
-    --count-threshold > 1, which ends in FullSetSketch too."""
+    (dashing2_tpu/sketch/core.py:923-927, 1066-1072): FullSetSketch,
+    --count-threshold > 1, which ends in FullSetSketch too, and the exact
+    k-mer sets and count dictionaries."""
     return (opts.kmer_result == KmerSketchResultType.FULL_SETSKETCH
-            or opts.count_threshold > 1)
+            or opts.count_threshold > 1 or _exact_sets(opts))
 
 
 def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
@@ -168,13 +180,16 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
     (d2.h:52-71). One-permutation jobs run the native file driver;
     FullSetSketch and --count-threshold > 1 the counting route, whose
     CSetSketch draws run on `device` (a CUDA request without a card
-    raises; nothing falls back)."""
+    raises; nothing falls back). --set and --countdict count on the
+    host and touch no device."""
     why = _unsupported(opts, groups)
     if why:
         raise NotImplementedError(
             "not ported: " + ", ".join(why) + " (ROADMAP Queue 1)")
     if not any(g.split() for g in groups):
         raise ValueError("no input files")
+    if _exact_sets(opts):
+        return _sketch_exact(opts, groups)
     if _counting_route(opts):
         return _sketch_counted(opts, groups, device)
     return _sketch_files(opts, groups)
@@ -300,22 +315,24 @@ def _native_hash_codes_list(lib, codes_list, hkw: dict) -> np.ndarray:
     return np.concatenate(parts)
 
 
-def _count_one(opts: Dashing2Options, hv: np.ndarray) -> np.ndarray:
-    """The distinct hashes, those seen fewer than --count-threshold times
-    dropped."""
+def _count_one(opts: Dashing2Options, hv: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct hashes (sorted u64) and their counts (f64), those seen
+    fewer than --count-threshold times dropped."""
     t0 = time.perf_counter()
     u, c = np.unique(hv, return_counts=True)
     if opts.count_threshold > 1:
-        u = u[c >= opts.count_threshold]
+        keep = c >= opts.count_threshold
+        u, c = u[keep], c[keep]
     add_span("sketch/count", time.perf_counter() - t0)
-    return u.astype(np.uint64)
+    return u.astype(np.uint64), c.astype(np.float64)
 
 
 def _count_stream(opts: Dashing2Options, groups: Sequence[str]
-                  ) -> List[np.ndarray]:
-    """Each item's distinct hashes: native hashing item by item, counting
-    in a pool of -p threads when -p > 1 (numpy releases the GIL in its
-    sort), with at most 2p items in flight."""
+                  ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Each item's distinct hashes and their counts: native hashing item
+    by item, counting in a pool of -p threads when -p > 1 (numpy releases
+    the GIL in its sort), with at most 2p items in flight."""
     from ..native import load_oph_lib
     lib = load_oph_lib()
     hkw = _hash_kwargs(opts, 1 << 15)
@@ -353,7 +370,7 @@ def _sketch_counted(opts: Dashing2Options, groups: Sequence[str],
     --setsketch-ab or --fastcmp-bytes/-shorts/-words the registers are
     quantised on the host, with the harmonic-mean cardinality."""
     n, m = len(groups), opts.sketchsize
-    uniq = _count_stream(opts, groups)
+    uniq = [u for u, _ in _count_stream(opts, groups)]
     dev = resolve(device)
     with span("sketch/css"):
         regs, _ = SK.css_sketch_many(uniq, m, dev)
@@ -388,4 +405,24 @@ def _sketch_counted(opts: Dashing2Options, groups: Sequence[str],
         # (SetSketch::cardinality, setsketch.h:773-777)
         num = m * (1.0 - 1.0 / b_) * logbinv / a_
         res.cardinalities = num / np.power(b_, -kq).sum(axis=1)
+    return res
+
+
+def _sketch_exact(opts: Dashing2Options, groups: Sequence[str]
+                  ) -> SketchingResult:
+    """The JAX generic route's exact finalization
+    (dashing2_tpu/sketch/core.py:1445-1455): --set keeps each item's
+    distinct sorted hashes, with their number as the cardinality;
+    --countdict also keeps their counts, with their sum as the
+    cardinality. An item shorter than k has an empty set."""
+    counted = _count_stream(opts, groups)
+    res = SketchingResult(names=list(groups))
+    res.kmer_sets = [u for u, _ in counted]
+    if opts.kmer_result == KmerSketchResultType.FULL_MMER_COUNTDICT:
+        res.kmer_set_counts = [c for _, c in counted]
+        res.cardinalities = np.array([c.sum() for _, c in counted],
+                                     np.float64)
+    else:
+        res.cardinalities = np.array([len(u) for u, _ in counted],
+                                     np.float64)
     return res

@@ -145,7 +145,7 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--greedy", "0.8f"], ["--outprefix", "p"], ["--prob"],
-    ["--cache"], ["--warm-only", "8"], ["--set"],
+    ["--cache"], ["--warm-only", "8"], ["--seq"],
     ["--multiset"],
 ])
 def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
@@ -161,7 +161,7 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
     ["sketch", "-S", "256", "--bed"],
     ["sketch", "-S", "256", "--parse-by-seq"],
     ["sketch", "-S", "256", "--bbit-sigs", "--save-kmers"],  # eq k-mers
-    ["cmp", "-S", "256", "--countdict"],
+    ["cmp", "-S", "256", "--seq"],
     ["sketch", "-S", "256", "--fastcmp", "1", "--containment",
      "-c", "1000", "--prob"],
 ])

@@ -752,3 +752,89 @@ def test_u64_ab_epilogue_on_card_equals_cpu(card, msr, fused):
                                          lh=lh.to(card), rh=rh.to(card),
                                          **kw).cpu()
     assert torch.equal(on_cpu.view(torch.int32), on_card.view(torch.int32))
+
+
+def _exact_result(n: int, seed: int, weighted: bool, big: int = 0):
+    """Seeded exact sets sharing keys by family: u64::max in items 0, 3
+    and 6, items 4 and 7 empty, item 1 `big` keys larger."""
+    rng = np.random.default_rng(seed)
+    top = np.uint64(0xFFFFFFFFFFFFFFFF)
+    pool = rng.integers(0, 1 << 63, size=8000, dtype=np.uint64) * 2 + 1
+    sets, counts = [], []
+    for i in range(n):
+        fam = (i // 5) % 12
+        s = np.unique(rng.choice(pool[fam * 250:fam * 250 + 500],
+                                 size=int(rng.integers(50, 400))))
+        if i in (0, 3, 6):
+            s = np.append(s, top)
+        if i in (4, 7):
+            s = s[:0]
+        if big and i == 1:
+            s = np.unique(np.concatenate([s, pool[:big]]))
+        sets.append(s)
+        counts.append(rng.integers(1, 60, size=len(s)).astype(np.float64))
+    return SketchingResult(names=[str(i) for i in range(n)], kmer_sets=sets,
+                           kmer_set_counts=counts if weighted else None)
+
+
+@pytest.mark.parametrize("budget", [1 << 26, 4099])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_exact_join_on_card_equals_cpu(card, weighted, budget):
+    """cmp/wcompare.py's posting join on CUDA tensors: the CPU's integers
+    for every row block, whole and upper triangle, in one or many
+    sub-blocks."""
+    from dashing2_tpu_torch.cmp import wcompare as W
+    res = _exact_result(300, seed=7, weighted=weighted)
+    cols = np.arange(300)
+    joins = [W.ExactJoin(W.device_sets(res, torch.device(d)), cols,
+                         budget=budget) for d in ("cuda", "cpu")]
+    for start in (0, 128, 256):
+        rows = np.arange(start, min(start + 128, 300))
+        for upper in (False, True):
+            got, want = (j.block(rows, upper=upper).cpu() for j in joins)
+            assert torch.equal(got, want)
+    assert joins[0].subblocks == joins[1].subblocks
+
+
+@pytest.mark.parametrize("route", ["lookup", "posting"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_exact_pairs_on_card_equal_cpu(card, weighted, route):
+    from dashing2_tpu_torch.cmp import wcompare as W
+    res = _exact_result(200, seed=8, weighted=weighted,
+                        big=6000 if route == "posting" else 0)
+    assert (W.padded_sets(res, card) is None) == (route == "posting")
+    rng = np.random.default_rng(9)
+    ia = np.concatenate([[0, 0, 4], rng.integers(0, 200, 5000)])
+    ib = np.concatenate([[3, 1, 7], rng.integers(0, 200, 5000)])
+    got = W.exact_intersections_pairs(res, ia, ib, device="cuda",
+                                      budget=1 << 20)
+    want = W.exact_intersections_pairs(res, ia, ib, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert want[0] > 0 and want[2] == 0
+
+
+def test_exact_cli_on_card_equals_cpu(card, tmp_path):
+    """`--set` and `--countdict` all-pairs, panel and neighbour jobs
+    through the CLI on the card write the CPU run's bytes."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import write_corpus
+    paths = write_corpus(str(tmp_path / "fa"), seed=6, n_ancestors=7,
+                         n_mutants=10, length=3000)
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    qs = tmp_path / "q.txt"
+    qs.write_text("\n".join(paths[::10]) + "\n")
+    for tag, flags in (("set", ["--set"]),
+                       ("cd-asym", ["--countdict", "--containment",
+                                    "--asymmetric-all-pairs"]),
+                       ("panel", ["--set", "-Q", str(qs)]),
+                       ("knn", ["--set", "--topk", "5"]),
+                       ("greedy", ["--countdict", "--greedy", "0.3"])):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"{tag}-{dev}.bin"
+            assert cli.main(["sketch", "-k", "31", "--binary-output",
+                             "--cmpout", str(out), "-F", str(lst),
+                             "--device", dev] + flags) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1], tag

@@ -175,7 +175,7 @@ def test_css_registers_equal_jax(case, monkeypatch):
     m, make = CSS_CASES[case]
     hashed = make()
     want, jax_passes = _passes_of_jax(monkeypatch, hashed, m)
-    got, passes = SK.css_sketch_many([hashed], m)
+    got, passes = SK.css_sketch_many([hashed], m, "cpu")
     got = got[0]
     assert passes[0] == jax_passes
     if case.startswith("several"):
@@ -203,8 +203,8 @@ def test_css_registers_equal_jax(case, monkeypatch):
         np.testing.assert_array_equal(got, full.min(axis=0))
     if case.startswith("duplicates"):
         uniq = np.unique(hashed)
-        np.testing.assert_array_equal(SK.css_sketch_many([uniq], m)[0][0],
-                                      got)
+        np.testing.assert_array_equal(
+            SK.css_sketch_many([uniq], m, "cpu")[0][0], got)
 
 
 def test_css_batches_keep_each_items_own_passes(monkeypatch):
@@ -215,28 +215,28 @@ def test_css_batches_keep_each_items_own_passes(monkeypatch):
     m = 64
     items = [_rand(300, 1), _several_passes_input(400, m),
              np.zeros(0, np.uint64), _rand(5, 2), _rand(2000, 4)]
-    regs, passes = SK.css_sketch_many(items, m)
-    small, small_p = SK.css_sketch_many(items, m, budget=1)
+    regs, passes = SK.css_sketch_many(items, m, "cpu")
+    small, small_p = SK.css_sketch_many(items, m, "cpu", budget=1)
     np.testing.assert_array_equal(regs, small)
     np.testing.assert_array_equal(passes, small_p)
     assert passes.tolist()[2] == 0 and np.isinf(regs[2]).all()
     assert passes[1] >= 2 and passes[0] == passes[3] == passes[4] == 1
     for i in (0, 1, 3, 4):
-        one, p = SK.css_sketch_many([items[i]], m)
+        one, p = SK.css_sketch_many([items[i]], m, "cpu")
         np.testing.assert_array_equal(one[0], regs[i])
         assert p[0] == passes[i]
         want, jp = _passes_of_jax(monkeypatch, items[i], m)
         assert jp == passes[i]
         assert _ulps(regs[i], want).max() <= CSS_ULP
     tiny = [_rand(3, s) for s in range(3000)]
-    got, p = SK.css_sketch_many(tiny, m)
+    got, p = SK.css_sketch_many(tiny, m, "cpu")
     assert (p == 1).all()
     np.testing.assert_array_equal(got[17], SK.css_sketch_many(
-        [tiny[17]], m)[0][0])
+        [tiny[17]], m, "cpu")[0][0])
     # equal registers across items are equal in both packages: the same
     # k-mer wins, by the same arithmetic
     a, b = _rand(3000, 8), _rand(3000, 8)[:2000]
-    got = SK.css_sketch_many([a, b], m)[0]
+    got = SK.css_sketch_many([a, b], m, "cpu")[0]
     want = [_passes_of_jax(monkeypatch, x, m)[0] for x in (a, b)]
     np.testing.assert_array_equal(got[0] == got[1], want[0] == want[1])
     np.testing.assert_array_equal(got[0] > got[1], want[0] > want[1])
@@ -262,7 +262,7 @@ def test_counting_route_equals_jax(joint_groups, threshold):
     jopts = JOptions(**kw)
     hkw = JCORE._hash_kwargs(jopts, 1 << 15)
     lib, plib = JN.load_oph_lib(), load_oph_lib()
-    for g, u in zip(joint_groups, got):
+    for g, (u, cnt) in zip(joint_groups, got):
         codes = [c for path in g.split()
                  for _, c in jfastx.read_encoded(path, jopts.alphabet)]
         hv = JCORE._native_hash_codes_list(lib, codes, hkw)
@@ -270,11 +270,12 @@ def test_counting_route_equals_jax(joint_groups, threshold):
             plib, codes, PCORE._hash_kwargs(opts, 1 << 15)), hv)
         w, c = np.unique(hv, return_counts=True)
         if threshold > 1:
-            w = w[c >= threshold]
+            w, c = w[c >= threshold], c[c >= threshold]
         np.testing.assert_array_equal(u, w)
+        np.testing.assert_array_equal(cnt, c.astype(np.float64))
     if threshold > 1:
-        assert 0 < sum(map(len, got)) < sum(
-            len(np.unique(x)) for x in PCORE._count_stream(
+        assert 0 < sum(len(u) for u, _ in got) < sum(
+            len(np.unique(x)) for x, _ in PCORE._count_stream(
                 Dashing2Options(**dict(kw, count_threshold=0.0)),
                 joint_groups))
     # the whole route: registers and cardinalities against the JAX route

@@ -17,9 +17,9 @@ package's own goldens of these modes (n=6, which the JAX package computes
 on its numpy route): the a/b tests/goldens/fastcmp_nibble.bin, the u8
 b-bit fastcmp_bbit.bin, the full-register oph_sim.bin and
 oph_phylip.txt, the `--mash-dist` mash_dist.txt, the `-o` stacked
-signatures sigs.bin with sigs.bin.names.txt, and the FullSetSketch
-full_sim.bin (`--full`). multiset.bin, prob.bin and exact_set.bin stay
-outside the port, rejected by flag name.
+signatures sigs.bin with sigs.bin.names.txt, the FullSetSketch
+full_sim.bin (`--full`) and the exact k-mer set exact_set.bin (`--set`).
+multiset.bin and prob.bin stay outside the port, rejected by flag name.
 """
 
 import hashlib
@@ -144,8 +144,13 @@ def test_port_reproduces_jax_stacked_signatures_golden(tmp_path):
         assert f.read() == want
 
 
-@pytest.mark.parametrize("name", ["multiset.bin", "prob.bin",
-                                  "exact_set.bin"])
+def test_port_reproduces_jax_exact_set_golden(tmp_path):
+    """`--set` at n=6: exact k-mer sets, their intersections joined in
+    torch."""
+    _reproduce_jax_golden("exact_set.bin", tmp_path)
+
+
+@pytest.mark.parametrize("name", ["multiset.bin", "prob.bin"])
 def test_goldens_outside_the_port_are_rejected_by_flag(name, tmp_path):
     sys.path.insert(0, HERE)
     try:

@@ -26,18 +26,21 @@ import dashing2_tpu.cli as jax_cli
 from dashing2_tpu.cmp import core as JC
 from dashing2_tpu.cmp import graph as JG
 from dashing2_tpu.config import Dashing2DistOptions as JOptions
+from dashing2_tpu.enums import KmerSketchResultType as JKres
 from dashing2_tpu.enums import OutputKind as JKind
 from dashing2_tpu.sketch.core import sketch_fastx as jax_sketch_fastx
 from dashing2_tpu_torch import cli
 from dashing2_tpu_torch.cmp import core as PC
 from dashing2_tpu_torch.cmp import graph as PG
 from dashing2_tpu_torch.config import Dashing2DistOptions
-from dashing2_tpu_torch.enums import OutputKind
+from dashing2_tpu_torch.enums import KmerSketchResultType, OutputKind
 from dashing2_tpu_torch.io import formats
 from dashing2_tpu_torch.io.corpus import write_corpus
 from dashing2_tpu_torch.result import from_reference
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the compressed registers of an exact-set job: none
+C_EMPTY = PC.CompressedReps(data=None)
 SKETCH = ["sketch", "-k", "31", "-S", "256"]
 JOBS = {
     "topk-full": ["--topk", "5"],
@@ -49,6 +52,14 @@ JOBS = {
     "greedy-e-nibble-ab": ["--greedy", "0.3e", "--fastcmp", "0.5"],
     "refine-exact-nibble-ab": ["--topk", "5", "--fastcmp", "0.5",
                                "--refine-exact"],
+    "refine-exact-full": ["--topk", "5", "--refine-exact"],
+    "topk-set": ["--topk", "5", "--set"],
+    "topk-countdict-S16": ["--topk", "5", "--countdict", "-S", "16"],
+    "thresh-set-containment": ["-T", "0.3", "--set", "--containment"],
+    "thresh-countdict-mash": ["-T", "0.03", "--countdict",
+                              "--mash-distance"],
+    "greedy-set": ["--greedy", "0.3", "--set"],
+    "greedy-e-countdict": ["--greedy", "0.3e", "--countdict"],
 }
 FORMATS = {"binary": ["--binary-output"], "human": []}
 
@@ -95,8 +106,20 @@ def test_cli_graph_bytes_equal_jax(corpus, job, fmt, tmp_path):
 
 @pytest.mark.parametrize("suffix", ["idx", "ssi"])
 def test_cli_index_save_and_load_equal_jax(corpus, suffix, tmp_path):
+    _index_save_and_load(corpus, suffix, [], tmp_path)
+
+
+@pytest.mark.parametrize("suffix", ["idx", "ssi"])
+@pytest.mark.parametrize("kres", ["--set", "--countdict"])
+def test_cli_exact_index_save_and_load_equal_jax(corpus, kres, suffix,
+                                                 tmp_path):
+    """The bottom-k index of exact sets and count dictionaries."""
+    _index_save_and_load(corpus, suffix, [kres], tmp_path)
+
+
+def _index_save_and_load(corpus, suffix, flags, tmp_path):
     lst, _ = corpus
-    argv = SKETCH + ["--topk", "5", "--binary-output", "-F", lst]
+    argv = SKETCH + ["--topk", "5", "--binary-output", "-F", lst] + flags
     pidx, jidx = str(tmp_path / f"p.{suffix}"), str(tmp_path / f"j.{suffix}")
     built, want = _both(argv, tmp_path, ["--index-save", pidx],
                         ["--index-save", jidx])
@@ -110,13 +133,19 @@ def test_cli_index_save_and_load_equal_jax(corpus, suffix, tmp_path):
         assert loaded == built
 
 
-def test_refine_exact_over_full_registers_is_not_ported(corpus, tmp_path):
-    """--refine-exact without compressed registers would refine on exact
-    k-mer sets (ROADMAP Queue 1 item 8)."""
+@pytest.mark.parametrize("exact", [["--set"], ["--countdict"]])
+def test_refine_exact_over_full_registers_and_exact_sets(corpus, exact,
+                                                         tmp_path):
+    """--refine-exact over full registers or exact sets changes no
+    measure: the bytes of the job without it, and the JAX package's."""
     lst, _ = corpus
-    assert cli.main(SKETCH + ["--topk", "5", "--refine-exact", "-F", lst,
-                              "--cmpout", str(tmp_path / "o"),
-                              "--device", "cpu"]) == 1
+    for extra in ([], exact):
+        argv = SKETCH + ["--topk", "5", "--binary-output", "-F", lst] + extra
+        got, want = _both(argv + ["--refine-exact"], tmp_path)
+        assert got == want
+        plain = str(tmp_path / "plain.out")
+        assert cli.main(argv + ["--cmpout", plain, "--device", "cpu"]) == 0
+        assert got == _read(plain)
 
 
 def _reproduce_jax_golden(name, tmp_path):
@@ -183,3 +212,43 @@ def test_dedup_core_round_size_equal_jax(sketched, exhaustive, monkeypatch):
     got = PG.dedup_core(popts, pres, pcreps, chunk=17, device="cpu")
     assert got == JG.dedup_core(jopts, jres, jcreps)
     assert 1 < len(got[0]) < pres.n
+
+
+@pytest.fixture(scope="module")
+def exact_sketched(corpus):
+    """The corpus' count dictionaries from the JAX package."""
+    _, paths = corpus
+    return jax_sketch_fastx(JOptions(
+        k=31, kmer_result=JKres.FULL_MMER_COUNTDICT), paths)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_exact_set_lists_and_dedup_equal_jax(exact_sketched, weighted,
+                                            monkeypatch):
+    """build_exact_lists (every pair refined on the exact joins) and
+    dedup_core with another round size, over exact sets and count
+    dictionaries carried from the JAX package."""
+    kres = ("FULL_MMER_COUNTDICT" if weighted else "FULL_MMER_SET")
+    ref = copy.deepcopy(exact_sketched)
+    if not weighted:
+        ref.kmer_set_counts = None
+        ref.cardinalities = np.array([len(s) for s in ref.kmer_sets],
+                                     np.float64)
+    kw = dict(k=31, num_neighbors=4)
+    popts = Dashing2DistOptions(kmer_result=KmerSketchResultType[kres],
+                                output_kind=OutputKind.KNN_GRAPH, **kw)
+    jopts = JOptions(kmer_result=JKres[kres], output_kind=JKind.KNN_GRAPH,
+                     **kw)
+    pres = from_reference(ref)
+    got = PG.build_exact_lists(popts, pres, C_EMPTY, device="cpu")
+    assert got == JG.build_exact_lists(jopts, ref, JC.CompressedReps(None))
+    assert sum(map(len, got)) > len(got)
+    kw = dict(k=31, min_similarity=0.3)
+    popts = Dashing2DistOptions(kmer_result=KmerSketchResultType[kres],
+                                output_kind=OutputKind.DEDUP, **kw)
+    jopts = JOptions(kmer_result=JKres[kres], output_kind=JKind.DEDUP, **kw)
+    monkeypatch.setenv("DASHING2_TPU_DEDUP_CHUNK", "17")
+    got = PG.dedup_core(popts, pres, C_EMPTY, chunk=17, device="cpu")
+    assert got == JG.dedup_core(jopts, ref, JC.CompressedReps(None))
+    assert 1 < len(got[0]) < pres.n
+

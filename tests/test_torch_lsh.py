@@ -6,11 +6,11 @@ give its candidate pairs (with their shared-bucket counts, per-item cap
 and saturation) and intra-round candidates. `save` and `save_ssi` must
 write the JAX package's bytes (compared after gzip, whose header carries
 a time stamp), and each file must load back into an index that gives the
-same candidates in both packages.
+same candidates in both packages. The same holds for the bottom-k index
+over exact k-mer sets (`--set`, `--countdict`).
 """
 
 import gzip
-import struct
 
 import numpy as np
 import pytest
@@ -96,20 +96,53 @@ def test_saved_index_bytes_equal_jax_and_round_trip(indexes, suffix,
     _same(loaded[0].candidate_pairs(max_per_item=35), want)
 
 
-def test_bottom_k_indexes_are_not_ported(tmp_path):
-    """An exact-set (bottom-k) index file raises, naming its ROADMAP
-    item, in both formats."""
-    p = str(tmp_path / "bk.idx")
-    with gzip.open(p, "wb") as f:
-        f.write(b"D2TPULSH" + struct.pack("<qqqq", 0, 0, 2, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        PL.LSHIndex.load(p)
-    s = str(tmp_path / "bk.ssi")
-    with gzip.open(s, "wb") as f:
-        f.write(struct.pack("<QQQQ", 2, 1, 1, 1) + bytes([1, 0])
-                + struct.pack("<Q", 0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        PL.LSHIndex.load_ssi(s)
+def _bottomk_lists(n: int, k: int, seed: int):
+    """Each item's first k u64 hashes (sorted), items of a family
+    sharing most of them, one item empty and u64::max in a few."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 1 << 62, size=600, dtype=np.uint64) * 4
+    pool[0] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    out = []
+    for i in range(n):
+        fam = i % 12
+        s = np.unique(rng.choice(pool[fam * 40:fam * 40 + 80], size=60))
+        out.append(s[:k] if i != 7 else s[:0])
+    return out
+
+
+@pytest.mark.parametrize("cap", [0, 3, 35])
+def test_bottom_k_candidates_equal_jax(cap):
+    bk = _bottomk_lists(300, 16, seed=cap)
+    got = PL.LSHIndex.build(np.zeros((0, 0)), 2, bottomk=bk)
+    want = JL.LSHIndex.build(np.zeros((0, 0)), 2, bottomk=bk)
+    assert got.bottomk_mode and want.bottomk_mode
+    pairs = got.candidate_pairs(max_per_item=cap)
+    _same(pairs, want.candidate_pairs(max_per_item=cap))
+    assert len(pairs[0]) > 100 and (pairs[0] < pairs[1]).all()
+
+
+@pytest.mark.parametrize("suffix", ["idx", "ssi"])
+def test_bottom_k_indexes_bytes_equal_jax_and_round_trip(suffix, tmp_path):
+    """An exact-set (bottom-k) index writes the JAX package's bytes in
+    both formats and loads back into the same candidates in both
+    packages (a loaded .ssi from its one map of 32-bit keys)."""
+    bk = _bottomk_lists(200, 12, seed=9)
+    pidx = PL.LSHIndex.build(np.zeros((0, 0)), 2, bottomk=bk)
+    jidx = JL.LSHIndex.build(np.zeros((0, 0)), 2, bottomk=bk)
+    p, j = str(tmp_path / f"port.{suffix}"), str(tmp_path / f"jax.{suffix}")
+    if suffix == "ssi":
+        pidx.save_ssi(p)
+        jidx.save_ssi(j)
+        loaded = PL.LSHIndex.load_ssi(p), JL.LSHIndex.load_ssi(j)
+    else:
+        pidx.save(p)
+        jidx.save(j)
+        loaded = PL.LSHIndex.load(p), JL.LSHIndex.load(j)
+        _same(loaded[0].bottomk, bk)
+    assert _raw(p) == _raw(j)
+    assert loaded[0].bottomk_mode
+    _same(loaded[0].candidate_pairs(max_per_item=35),
+          loaded[1].candidate_pairs(max_per_item=35))
 
 
 @pytest.mark.parametrize("n", [50, 9999, 10001, 2_000_000])

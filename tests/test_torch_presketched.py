@@ -8,8 +8,16 @@
   items of the query files (as tests/test_subcommands.py:456-480).
 * Over the single sketch caches the JAX package writes with `--cache`
   (.opss, .ss, .bmh, .pmh): the JAX CLI's bytes.
-* Exact k-mer sets and minimizer sequences (.kmerset*, .mmerseq*) raise,
-  naming ROADMAP Queue 1 item 8.
+* Over the exact k-mer set caches the JAX package writes with `--cache`
+  for `--set` and `--countdict` (.kmerset64: an f64 cardinality, then the
+  keys), and over seeded .mmerseq64 token files with their
+  <stem>kmercounts.f64 counts (count dictionaries): the JAX CLI's bytes
+  for all-pairs, panel and neighbour jobs; counts that are not whole
+  numbers are refused by name.
+* u128 exact sets and minimizer sequences (.kmerset128, .mmerseq128,
+  .mmerseq64 without counts), and sets larger than --sig-ram-limit
+  (which the JAX package streams from the file), raise, naming ROADMAP
+  Queue 1 item 8.
 * `cmp` over FASTA inputs without --cmpout writes to stdout: the JAX
   CLI's bytes.
 Tolerance zero throughout.
@@ -126,9 +134,91 @@ def test_presketched_caches_written_by_jax(corpus, suffix, tmp_path,
     assert _read(got) == _read(want)
 
 
-@pytest.mark.parametrize("suffix", [".kmerset64", ".kmerset128",
-                                    ".mmerseq64", ".mmerseq128"])
+# the flags of the JAX sketch job that writes .kmerset64 caches, and of
+# the cmp jobs over them
+EXACT_CACHES = {"set": ["--set"], "countdict": ["--countdict"]}
+EXACT_JOBS = {"similarity": [], "mash-phylip": ["--mash-distance",
+                                                "--phylip"],
+              "containment-asym": ["--containment", "--asymmetric-all-pairs"],
+              "topk": ["--topk", "3"], "greedy": ["--greedy", "0.3"]}
+
+
+@pytest.mark.parametrize("job", sorted(EXACT_JOBS))
+@pytest.mark.parametrize("cache", sorted(EXACT_CACHES))
+def test_presketched_kmerset64_written_by_jax(corpus, cache, job, tmp_path,
+                                              monkeypatch):
+    _, paths = corpus
+    d = tmp_path / "cache"
+    d.mkdir()
+    assert jax_cli.main(["sketch", "-k", "31", "--cache", "--outprefix",
+                         str(d)] + EXACT_CACHES[cache] + paths) == 0
+    caches = sorted(glob.glob(str(d / "*.kmerset64")))
+    assert len(caches) == len(paths)
+    fmt = [] if "--phylip" in EXACT_JOBS[job] else ["--binary-output"]
+    argv = (["cmp", "-k", "31", "--presketched"] + EXACT_JOBS[job] + fmt
+            + caches)
+    got, want = str(tmp_path / "p.out"), str(tmp_path / "j.out")
+    assert cli.main(argv + ["--cmpout", got, "--device", "cpu"]) == 0
+    assert jax_cli.main(argv + ["--cmpout", want]) == 0
+    assert _read(got) == _read(want)
+    if job == "similarity":
+        n = len(paths)
+        assert len(_read(got)) == 4 * n * (n - 1) // 2
+
+
+def _mmerseq_dicts(d, n: int, whole: bool = True):
+    """n seeded token streams (repeats included) with their counts."""
+    rng = np.random.default_rng(n)
+    files = []
+    for i in range(n):
+        tokens = rng.integers(0, 400 + 50 * (i % 3), size=300
+                              ).astype(np.uint64) << np.uint64(40)
+        p = d / f"m{i:02d}.mmerseq64"
+        tokens.tofile(p)
+        counts = rng.integers(1, 9, size=300).astype(np.float64)
+        if not whole:
+            counts[5] += 0.5
+        counts.tofile(d / f"m{i:02d}kmercounts.f64")
+        files.append(str(p))
+    return files
+
+
+@pytest.mark.parametrize("flags", [[], ["--union-size"],
+                                   ["--greedy", "0.2"]])
+def test_presketched_mmerseq64_count_dictionaries(flags, tmp_path):
+    files = _mmerseq_dicts(tmp_path, 12)
+    argv = ["cmp", "-k", "31", "--presketched", "--binary-output"] + flags
+    got, want = str(tmp_path / "p.bin"), str(tmp_path / "j.bin")
+    assert cli.main(argv + files + ["--cmpout", got, "--device", "cpu"]) == 0
+    assert jax_cli.main(argv + files + ["--cmpout", want]) == 0
+    assert _read(got) == _read(want)
+
+
+def test_presketched_counts_that_are_not_whole_numbers_raise(tmp_path,
+                                                             capsys):
+    files = _mmerseq_dicts(tmp_path, 3, whole=False)
+    rc = cli.main(["cmp", "--presketched", "--cmpout",
+                   str(tmp_path / "o.bin"), "--device", "cpu"] + files)
+    assert rc == 1
+    assert "whole numbers" in capsys.readouterr().err
+
+
+def test_presketched_kmerset64_above_the_ram_limit_raises(tmp_path, capsys):
+    path = tmp_path / "x.kmerset64"
+    np.zeros(4, np.uint64).tofile(path)
+    rc = cli.main(["cmp", "--presketched", "--sig-ram-limit", "16",
+                   "--cmpout", str(tmp_path / "o.bin"), str(path), str(path),
+                   "--device", "cpu"])
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert "ROADMAP Queue 1 item 8" in err and "sig-ram-limit" in err
+
+
+@pytest.mark.parametrize("suffix", [".kmerset128", ".mmerseq64",
+                                    ".mmerseq128"])
 def test_presketched_exact_inputs_raise(suffix, tmp_path, capsys):
+    """u128 keys, and minimizer sequences (a .mmerseq64 file without its
+    counts)."""
     path = tmp_path / f"x{suffix}"
     np.zeros(4, np.uint64).tofile(path)
     rc = cli.main(["cmp", "--presketched", "--cmpout",
@@ -141,7 +231,9 @@ def test_presketched_exact_inputs_raise(suffix, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--full-setsketch"],
-                                   ["--fastcmp", "0.5", "--bbit-sigs"]])
+                                   ["--fastcmp", "0.5", "--bbit-sigs"],
+                                   ["--countdict", "--mash-distance"],
+                                   ["--set"]])
 def test_cmp_fasta_to_stdout(corpus, flags, tmp_path, capsysbinary):
     lst, paths = corpus
     argv = ["-k", "31", "-S", "256", "--binary-output", "-F", lst] + flags
