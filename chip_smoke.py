@@ -11,14 +11,16 @@ jobs, the default full-register job (no `--fastcmp`), a job of every
 other measure, the asymmetric output, query panels (`-Q`), the LSH
 neighbour jobs (`--topk`, `-T`, `--greedy`, `--index-save/-load`),
 FullSetSketch sketching (`--full-setsketch`, `--fastcmp-bytes`),
-`cmp --presketched`, and exact k-mer sets and count dictionaries
-(`--set`, `--countdict`) through the port's own CLI.
+`cmp --presketched`, exact k-mer sets and count dictionaries
+(`--set`, `--countdict`), and the weighted sketches (`-B`, `-P`, `-c`)
+through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu and
-   csrc/int_counts.cu (sm_90a) and g++ for the native sketcher, FASTA
+2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu,
+   csrc/int_counts.cu and csrc/weighted_draws.cu (sm_90a) and g++ for
+   the native sketcher, FASTA
    reader and formatter, all started together; build seconds and
    ptxas' register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
@@ -44,7 +46,12 @@ no card, or when the port is not importable:
    all-zero and all-max rows, equal registers and top-bit values; the
    b-bit tables of every width (fused and numpy forms) and the a/b
    complement epilogue over every (gt, lt) built on the card must equal
-   the CPU's bit for bit;
+   the CPU's bit for bit; and `weighted_draws` against
+   `weighted_draws_plain` (keys, winners, values) bit for bit, ICWS and
+   ProbMinHash, m in {64, 1000, 1024}, streams of 0, 1, 2047, 2048,
+   2049, 5000 and 20000 positions with counts up to 10^6 and repeats
+   planted inside and across the 2048-position rows; both timed on 64
+   items x 20000 positions at m = 1024;
 4. golden digests: the port's CLI on the card over the seeded n=777
    corpus must reproduce the SHA-256s in
    tests/goldens/torch_port_{bbit,ab}_nibble.json, torch_port_full.json,
@@ -143,13 +150,15 @@ no card, or when the port is not importable:
    --full-setsketch -o fss.sig --cmpout fss.bin` (the CSetSketch draws of
    every item on the card, then one gtlt_self launch, no other kernel);
    every emitted value equals the table at the plain counts of the
-   written registers; the distinct k-mers of 32 items spread over the
+   written registers; the distinct k-mers of 8 items spread over the
    corpus go through the same draws on the CPU: the card's registers
-   within CSS_ULP ulp of the CPU's, the passes and the 32 x 32 (gt, lt)
-   counts equal. Prints the pass histogram and the spans (`sketch/read`,
+   and cardinalities equal the CPU's bit for bit (the port's own f64 log,
+   ops/fixedmath.py), and so do the passes and the 32 x 32 (gt, lt)
+   counts. Prints the pass histogram and the spans (`sketch/read`,
    `sketch/hash`, `sketch/count`, `sketch/css`);
 16. `--full-setsketch --fastcmp-bytes` (u8 a/b registers, a = 20,
-   b = 1.2): one int_counts_self launch, no other kernel; the card's
+   b = 1.2) over the first 1024 genomes: one int_counts_self launch, no
+   other kernel; the card's
    epilogue equals the CPU's on every (gt, lt), every value the CPU
    epilogue at the plain counts of the written registers;
 17. `cmp --presketched --full` over fss.sig, and `cmp --presketched
@@ -165,16 +174,28 @@ no card, or when the port is not importable:
    CPU tensors, and the card's pair lookup gives the same counts.
    Prints the join's budget, sub-blocks and entries, and the spans;
 19. `--countdict --containment --asymmetric-all-pairs` over the first
-   2048 genomes: the whole square byte-equal to the same job with
+   1024 genomes: the whole square byte-equal to the same job with
    `--device cpu`;
-20. a `--set -Q` panel over the first 2048 genomes, every tenth a
+20. a `--set -Q` panel over the first 1024 genomes, every tenth a
    query: byte-equal to `--device cpu`;
 21. `--set --topk 10 --index-save` at N = 10240, then the same job with
    `--index-load`: equal bytes over the same candidate pairs; the card's
    pair counts equal the CPU's on 2048 of them. Prints the candidate
    count and the `cmp/exact-pairs` span;
-22. `--countdict --greedy 0.3` over the first 2048 genomes: byte-equal
-   to `--device cpu`.
+22. `--countdict --greedy 0.3` over the first 1024 genomes: byte-equal
+   to `--device cpu`;
+23. `sketch -B -o wmh.sig` all pairs at N = 10240 (run before phases
+   18-22): the draws on weighted_draws.cu, one gtlt_self launch over the
+   registers' bits; the registers of 32 items spread over the corpus
+   equal the plain version's on the card bit for bit and their
+   cardinalities their total counts; the card's gtlt_self counts equal
+   the plain version's and every emitted value is the equality table at
+   them. Prints the draws' seconds and rate and the spans;
+24. `-P -c 1048576` over the first 8 genomes at -S 256: byte-equal to
+   `--device cpu`;
+25. `-P --topk 10` at N = 10240: the draws on the card, no other kernel;
+   the bytes equal `neighbor_graph_main` on the CPU over the same
+   sketches.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall.
@@ -195,13 +216,17 @@ u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
 with the u8 b-bit job's eq-mode times and its library call.
 
 Reductions: the north-star job uses 50 kb genomes; phases 5-8, 10, 12,
-13 and 15-22 use 20 kb
-and phase 9 10 kb. The comparison's work depends only on N and m; 20 kb
-genomes still carry about 20k distinct 31-mers and 10 kb genomes about
-10k (both more than m = 1024, so every register fills and the jobs stay
-out of the OPH small-input regime). The cuts only shorten sketching and
-the generated FASTA: about 205 MB for phases 5-8 (written once, read by
-all of them) and 205 MB for phase 9, against 520 MB and 1 GB at 50 kb.
+13, 15-22 and 23-25 use 20 kb and phase 9 10 kb. Phase 16 takes the
+first 1024 genomes, as phases 19, 20 and 22 do, and phase 15 checks 8
+items on the CPU (the port's own f64 log made the CSetSketch draws
+slower; the time went to the weighted phases, and the whole stays well
+inside the run's limit on a slower host). The comparison's work depends
+only on N and m; 20 kb genomes still carry about 20k distinct 31-mers
+and 10 kb genomes about 10k (both more than m = 1024, so every register
+fills and the jobs stay out of the OPH small-input regime). The cuts
+only shorten sketching and the generated FASTA: about 205 MB for phases
+5-8 (written once, read by all of them) and 205 MB for phase 9, against
+520 MB and 1 GB at 50 kb.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -229,9 +254,11 @@ NIBBLE_MS = (30, 62, 64, 96, 98, 100, 126, 128, 130, 256, 1024)
 # peak rates of one H100 SXM at 700 W: int8 tensor operations (dense,
 # from NVIDIA's H100 datasheet) and, for the integer kernels, the
 # SM's 64 INT32 lanes and 16 popcount lanes a clock x 132 SMs x 1.98 GHz
-# boost (Hopper's SM layout); device memory 3.35 TB/s
+# boost (Hopper's SM layout), and its 128 FP32 lanes (an f32 operation or
+# fused multiply-add each: the datasheet's 67 TFLOP/s counts an fma as
+# two); device memory 3.35 TB/s
 RATES = {"int8": 1.979e15, "int32": 132 * 64 * 1.98e9,
-         "popc": 132 * 16 * 1.98e9}
+         "popc": 132 * 16 * 1.98e9, "f32": 132 * 128 * 1.98e9}
 HBM = 3.35e12
 
 
@@ -305,8 +332,10 @@ def phase_build():
     from dashing2_tpu_torch.ops import int_counts as IC
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
+    from dashing2_tpu_torch.ops import weighted_draws as WD
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
               "gtlt": G.load_kernel, "int_counts": IC.load_kernel,
+              "weighted_draws": WD.load_kernel,
               "ophsketch": native.load_oph_lib,
               "fastx": native.load_fastx_lib,
               "emitfmt": native.load_emit_lib}
@@ -321,7 +350,8 @@ def phase_build():
         secs = {name: f.result() for name, f in futs.items()}
     _say(f"[build] all {len(builds)} in {time.perf_counter() - t0:.3f} s, in "
          "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
-    for name in ("tri_eq", "tri_comb", "gtlt", "int_counts"):
+    for name in ("tri_eq", "tri_comb", "gtlt", "int_counts",
+                 "weighted_draws"):
         for ln in native.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 _say(f"[build] ptxas {name}: {ln.strip()}")
@@ -1511,11 +1541,10 @@ FSS_SPANS = ("sketch", "sketch/read", "sketch/hash", "sketch/count",
              "load-presketched", "compare+emit", "cmp/prep", "cmp/table",
              "cmp/h2d", "cmp/kernel", "cmp/epilogue", "cmp/d2h",
              "emit/write")
-# the card's CSetSketch registers against the CPU's (the same torch code;
-# each side's f64 log may be off by an ulp, so a register, x1 - log(u)
-# with x1 itself from a log, may differ by a few): at most this many ulp
-CSS_ULP = 4
-CSS_SAMPLE = 32
+# the card's CSetSketch registers against the CPU's, of this many items:
+# the same torch code, its f64 log the port's own (ops/fixedmath.py), so
+# bit for bit
+CSS_SAMPLE = 8
 
 
 def _css_capture():
@@ -1555,7 +1584,7 @@ def phase_fss(lst: str, counters):
     """`--full-setsketch` at full size: the CSetSketch draws on the card,
     one gtlt_self launch, every value held to the table at the plain
     counts; the card's registers of CSS_SAMPLE items held to the CPU's
-    (within CSS_ULP ulp) with equal counts among them."""
+    bit for bit, with equal counts among them."""
     import numpy as np
     import torch
     from dashing2_tpu_torch.cmp import core as C
@@ -1612,38 +1641,38 @@ def phase_fss(lst: str, counters):
     cpu_s = time.perf_counter() - t0
     card_regs = regs[rec["pick"]]
     want = np.where(np.isfinite(cpu_regs), cpu_regs, 0.0)
-    ulp = _ulps(card_regs, want)
-    assert int(ulp.max()) <= CSS_ULP, int(ulp.max())
+    assert np.array_equal(card_regs.view(np.int64), want.view(np.int64)), \
+        f"card css registers != CPU's " \
+        f"({int(_ulps(card_regs, want).max())} ulp)"
     assert np.array_equal(cpu_passes, rec["passes"][rec["pick"]])
     cpu_cards = np.array([SK.css_cardinality(r) for r in cpu_regs])
-    card_ulp = _ulps(cards[rec["pick"]], cpu_cards)
+    assert np.array_equal(cards[rec["pick"]], cpu_cards)
     pair = []
     for x in (card_regs, want):
         b = torch.from_numpy(np.ascontiguousarray(C._ordered_bits(
             Dashing2DistOptions(k=31, sketchsize=m), x)).view(np.int64))
         pair.append(G.gtlt_self_counts_plain(b).numpy())
     assert np.array_equal(pair[0], pair[1]), "card and CPU counts differ"
-    _say(f"[{tag}] card css registers == CPU css registers within "
-         f"{CSS_ULP} ulp on {CSS_SAMPLE} items x {m} (ulp histogram "
-         f"{np.bincount(ulp.ravel()).tolist()}; cardinality ulp "
-         f"{np.bincount(card_ulp).tolist()}); their (gt, lt) counts equal "
-         f"exactly ({CSS_SAMPLE}x{CSS_SAMPLE}); CPU css {cpu_s:.3f} s for "
+    _say(f"[{tag}] card css registers == CPU css registers bit for bit "
+         f"on {CSS_SAMPLE} items x {m}, and their cardinalities; their "
+         f"(gt, lt) counts equal exactly ({CSS_SAMPLE}x{CSS_SAMPLE}); "
+         f"CPU css {cpu_s:.3f} s for "
          f"them ({1e3 * cpu_s / CSS_SAMPLE:.3f} ms an item)")
     return dict(launches=launches, wall=wall, css_s=rec["seconds"])
 
 
 def phase_fss_bytes(lst: str, counters):
-    """`--full-setsketch --fastcmp-bytes` at full size: the registers
-    quantised to u8 a/b (a = 20, b = 1.2), one int_counts_self launch
-    (gtlt mode), every value held to the CPU epilogue at the plain
-    counts."""
+    """`--full-setsketch --fastcmp-bytes` over the first EXACT_SUBSET
+    genomes (`lst`): the registers quantised to u8 a/b (a = 20, b = 1.2),
+    one int_counts_self launch (gtlt mode), every value held to the CPU
+    epilogue at the plain counts."""
     import numpy as np
     import torch
     from dashing2_tpu_torch.cmp import core as C
     from dashing2_tpu_torch.io import formats
     from dashing2_tpu_torch.ops import int_counts as IC
 
-    n, m, tag = NORTH_STAR_N, 1024, "fss-u8-ab"
+    n, m, tag = EXACT_SUBSET, 1024, "fss-u8-ab"
     out = os.path.join(WORK, "northstar", "fss_u8.bin")
     sig = os.path.join(WORK, "northstar", "fss_u8.sig")
     argv = ["sketch", "-k", "31", "-S", str(m), "--full-setsketch",
@@ -1723,7 +1752,7 @@ def _say_exact_spans(tag: str, spans) -> None:
 # them would take minutes); the sampled all-pairs check takes
 # EXACT_SAMPLE pairs: every pair of EXACT_FAMILIES families of 20, the
 # rest random pairs among 512 random genomes
-EXACT_SUBSET, EXACT_SAMPLE, EXACT_FAMILIES = 2048, 4096, 8
+EXACT_SUBSET, EXACT_SAMPLE, EXACT_FAMILIES = 1024, 4096, 8
 
 
 def _capture_exact():
@@ -1934,6 +1963,302 @@ def phase_exact_knn(lst: str, counters):
     _hold_pairs("set-knn", rec["results"][0], ia[pick], ib[pick])
 
 
+# ----------------------------------------------------------------------
+# weighted sketches (-B, -P): csrc/weighted_draws.cu
+# ----------------------------------------------------------------------
+
+# register counts and stream lengths of the draw kernel's check: no
+# position, one, the edges of the 2048-position rows, and a genome's
+# distinct 31-mers
+WEIGHTED_MS = (64, 1000, 1024)
+WEIGHTED_LENS = (0, 1, 2047, 2048, 2049, 5000, 20000)
+# one draw's operations, counted from the sequence in
+# csrc/weighted_draws.cu: a wanghash chain of 64-bit integer operations
+# is about 34 int32 lane operations (13 u64 operations, two lanes each,
+# the two multiplies three), a keyed u64 two more; an f32 log is 28 f32
+# operations (each fused multiply-add one), a u64 -> f64 -> f32
+# conversion 3. ICWS: 5 chains, 5 conversions, 4 logs and 13 more f32
+# operations (clamps, adds, division, floor, fma); ProbMinHash: 1 chain,
+# 1 conversion, 1 log and 2 more
+WEIGHTED_OPS = {"icws": (5 * 36, 5 * 3 + 4 * 28 + 13),
+                "pmh": (36, 3 + 28 + 2)}
+# the timed launch: WEIGHTED_TIME_ITEMS genomes' worth of 20000 distinct
+# 31-mers at m = 1024 (512 blocks, enough to fill the card; a launch of
+# the N = 10240 job holds about 800 items)
+WEIGHTED_TIME_ITEMS = 64
+WEIGHTED_SAMPLE = 32
+
+
+def _weighted_streams(rng, lens):
+    """Each stream's distinct u64 hashes and counts (most 1-3, one in 50
+    up to 10^6), with planted repeats: position 5 at 7 (one row) and
+    position 100 at 2100 and 4196 (three rows), so that equal keys meet
+    inside a row and across rows."""
+    import numpy as np
+    out = []
+    for n in lens:
+        h = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        c = np.where(rng.random(n) < 0.02,
+                     rng.integers(1, 10 ** 6 + 1, n),
+                     rng.integers(1, 4, n)).astype(np.float64)
+        for a, b in ((5, 7), (100, 2100), (100, 4196)):
+            if b < n:
+                h[b], c[b] = h[a], c[a]
+        out.append((h, c))
+    return out
+
+
+def _weighted_tensors(kind: str, streams, dev):
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.sketch import weighted as PW
+    lnws = PW._lnw_many(kind, [h for h, _ in streams],
+                        [c for _, c in streams])
+    off = np.zeros(len(streams) + 1, np.int64)
+    np.cumsum([len(h) for h, _ in streams], out=off[1:])
+    h = np.concatenate([h for h, _ in streams]).view(np.int64)
+    w = np.concatenate(lnws).astype(np.float32)
+    return (torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev),
+            torch.from_numpy(off).to(dev))
+
+
+def phase_weighted_vs_plain():
+    """weighted_draws against weighted_draws_plain on the card, bit for
+    bit (keys, winners, values), both kinds, every m of WEIGHTED_MS over
+    the planted streams; then both timed at the main path's shape."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.ops import weighted_draws as WD
+    rng = np.random.default_rng(NS_SEED)
+    streams = _weighted_streams(rng, WEIGHTED_LENS)
+    cases = 0
+    for kind in WD.KINDS:
+        args = _weighted_tensors(kind, streams, "cuda")
+        for m in WEIGHTED_MS:
+            got = WD.weighted_draws(kind, *args, m)
+            torch.cuda.synchronize()
+            want = WD.weighted_draws_plain(kind, *args, m)
+            for g, w, what in zip(got, want, ("key", "winner", "value")):
+                g, w = g.cpu(), w.cpu()
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                assert torch.equal(g, w), (kind, m, what)
+            cases += 1
+    _say(f"[weighted] weighted_draws == weighted_draws_plain bit for bit "
+         f"(keys, winners, values) at {cases} shapes: both kinds, m in "
+         f"{WEIGHTED_MS}, stream lengths {WEIGHTED_LENS} with planted "
+         "repeats inside and across 2048-position rows")
+    # times at the main path's shape
+    runs = {}
+    big = _weighted_streams(rng, (20000,) * WEIGHTED_TIME_ITEMS)
+    m = 1024
+    for kind in WD.KINDS:
+        args = _weighted_tensors(kind, big, "cuda")
+        WD.weighted_draws(kind, *args, m)
+        torch.cuda.synchronize()
+        ms = _cuda_ms(lambda: WD.weighted_draws(kind, *args, m), 3)
+        plain_ms = _cuda_ms(lambda: WD.weighted_draws_plain(kind, *args, m),
+                            1)
+        draws = 20000 * WEIGHTED_TIME_ITEMS * m
+        n_int, n_f32 = WEIGHTED_OPS[kind]
+        nbytes = 12 * 20000 * WEIGHTED_TIME_ITEMS \
+            + 12 * WEIGHTED_TIME_ITEMS * m
+        t_int = draws * n_int / RATES["int32"] * 1e3
+        t_f32 = draws * n_f32 / RATES["f32"] * 1e3
+        t_bytes = nbytes / HBM * 1e3
+        bound_ms = max(t_int, t_f32, t_bytes)
+        runs[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes" if t_bytes >= max(t_int, t_f32)
+                          else "operations", err=0)
+        _say(f"[weighted] {kind} {WEIGHTED_TIME_ITEMS} items x 20000 "
+             f"positions x m {m} ({draws} draws): kernel {ms:.3f} ms "
+             f"(CUDA events, mean of 3; {draws / ms / 1e6:.3f} G draws/s), "
+             f"plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
+             f"(int32 {t_int:.3f} ms, f32 {t_f32:.3f} ms, bytes "
+             f"{t_bytes:.4f} ms: {100 * bound_ms / ms:.1f}% reached)")
+    return runs
+
+
+def _capture_weighted(fn_name: str):
+    """Wrap sketch/weighted.py's `fn_name` (bagminhash_many or
+    probminhash_many) so that a CLI run leaves WEIGHTED_SAMPLE items'
+    (hashes, counts) spread over the corpus, and the draw seconds;
+    returns (record, undo)."""
+    import numpy as np
+    from dashing2_tpu_torch.sketch import weighted as PW
+    real = getattr(PW, fn_name)
+    rec = {}
+
+    def wrapped(uniq, counts, m, device="cuda"):
+        t0 = time.perf_counter()
+        out = real(uniq, counts, m, device)
+        rec["seconds"] = time.perf_counter() - t0
+        pick = np.linspace(0, len(uniq) - 1, WEIGHTED_SAMPLE).astype(int)
+        rec.update(pick=pick, items=[(np.array(uniq[i]), np.array(counts[i]))
+                                     for i in pick],
+                   positions=int(sum(len(u) for u in uniq)))
+        return out
+    setattr(PW, fn_name, wrapped)
+
+    def undo():
+        setattr(PW, fn_name, real)
+    return rec, undo
+
+
+WEIGHTED_SPANS = ("sketch", "sketch/read", "sketch/hash", "sketch/count",
+                  "sketch/weighted", "sketch/h2d", "sketch/draws",
+                  "write-sketches", "compare+emit", "cmp/prep", "cmp/h2d",
+                  "cmp/kernel", "cmp/epilogue", "cmp/d2h", "emit/write")
+
+
+def phase_wmh(lst: str, counters):
+    """`sketch -B -o wmh.sig` all pairs at N = 10240: the draws on
+    weighted_draws.cu, one gtlt_self launch over the registers' bits; the
+    registers of WEIGHTED_SAMPLE items held to the plain version on the
+    card bit for bit, the cardinalities to the total counts, every
+    emitted value to the equality table at the card's counts."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.enums import Measure
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.ops import gtlt as G
+    from dashing2_tpu_torch.ops import weighted_draws as WD
+
+    n, m, tag = NORTH_STAR_N, 1024, "wmh"
+    out = os.path.join(WORK, "northstar", "wmh.bin")
+    sig = os.path.join(WORK, "northstar", "wmh.sig")
+    argv = ["sketch", "-k", "31", "-S", str(m), "-B", "--binary-output",
+            "-o", sig, "--cmpout", out, "-F", lst]
+    rec, undo = _capture_weighted("bagminhash_many")
+    try:
+        wall, spans, launches = _run_cli(tag, argv, n, counters)
+    finally:
+        undo()
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    others = [k for k in counters if k not in ("gtlt_self", "weighted_draws")]
+    assert launches["gtlt_self"] == 1 and launches["weighted_draws"] >= 1 \
+        and all(launches[k] == 0 for k in others), launches
+    draws = rec["positions"] * m
+    _say(f"[{tag}] weighted_draws launched {launches['weighted_draws']} "
+         f"times, gtlt_self once, no other kernel; {rec['positions']} "
+         f"distinct k-mers ({rec['positions'] / n:.1f} an item), {draws} "
+         f"draws; bagminhash_many {rec['seconds']:.3f} s "
+         f"({draws / rec['seconds'] / 1e9:.3f} G draws/s, host wall incl. "
+         "uploads)")
+    _say_spans(tag, spans, WEIGHTED_SPANS)
+
+    cards, regs = formats.read_stacked_signatures(sig)
+    assert regs.dtype == np.float64 and regs.shape == (n, m)
+    assert ((regs > 0) & (regs < 1)).all()
+    # the sample's registers: the plain version on the card
+    streams = rec["items"]
+    args = _weighted_tensors("icws", streams, "cuda")
+    t0 = time.perf_counter()
+    _, _, val = WD.weighted_draws_plain("icws", *args, m)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    want = val.cpu().numpy().astype(np.float64)
+    assert np.array_equal(regs[rec["pick"]].view(np.int64),
+                          want.view(np.int64)), "registers != plain"
+    assert np.array_equal(cards[rec["pick"]],
+                          [c.sum() for _, c in streams])
+    _say(f"[{tag}] registers of {WEIGHTED_SAMPLE} items == the plain "
+         f"version on the card bit for bit ({plain_s:.3f} s for them); "
+         "their cardinalities == their total counts")
+    # every value: the equality table at the card's eq counts
+    bits = torch.from_numpy(np.ascontiguousarray(regs).view(np.int64)).cuda()
+    gt = G.gtlt_self_counts(bits)
+    plain = G.gtlt_self_counts_plain(bits)
+    torch.cuda.synchronize()
+    assert torch.equal(gt, plain), "gtlt_self != plain"
+    g = gt.cpu().numpy().astype(np.int32)
+    del bits, gt, plain
+    table = C.measure_table("eqfull", m, 8.0, Measure.SIMILARITY,
+                            fused=True).numpy()
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: table[
+        m - g[i0:i1] - g[:, i0:i1].T])
+    _say(f"[{tag}] output == equality table[m - gt - lt] at the card's "
+         f"counts (== plain) for all {n * (n - 1) // 2} pairs; similarity "
+         f"counts in [0,1e-9) [.1,.5) ...: {_histogram(vals)}")
+    return dict(launches=launches["weighted_draws"], wall=wall,
+                seconds=rec["seconds"], draws=draws)
+
+
+def phase_pmh_countsketch(lst: str, counters):
+    """`-P -c 1048576` over the first 8 genomes at -S 256 on the card,
+    byte-equal to the same job with --device cpu."""
+    d = os.path.join(WORK, "northstar")
+    with open(lst) as f:
+        paths = [ln.strip() for ln in f if ln.strip()][:8]
+    sub = os.path.join(d, "first8.txt")
+    with open(sub, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    tag = "pmh-c"
+    argv = ["sketch", "-k", "31", "-S", "256", "-P", "-c", "1048576",
+            "--binary-output", "-F", sub]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(d, f"pmh_c_{dev}.bin")
+        wall, spans, launches = _run_cli(f"{tag} {dev}", argv + [
+            "--cmpout", out, "--device", dev], len(paths), counters)
+        with open(out, "rb") as f:
+            outs.append(f.read())
+        if dev == "cuda":
+            card = launches
+            _say_spans(tag, spans, WEIGHTED_SPANS)
+    assert card["weighted_draws"] >= 1 and card["gtlt_self"] == 1, card
+    assert outs[0] == outs[1] and len(outs[0]) == 4 * 8 * 7 // 2
+    _say(f"[{tag}] card bytes == --device cpu bytes ({len(outs[0])} bytes)")
+    return dict(launches=card["weighted_draws"])
+
+
+def phase_pmh_knn(lst: str, counters):
+    """`-P --topk 10` at N = 10240: the draws on the card (the neighbour
+    job's pair counts run plain PyTorch on the card, no hand kernel);
+    the output bytes == neighbor_graph_main on the CPU over the same
+    sketches."""
+    from dashing2_tpu_torch import timing
+    from dashing2_tpu_torch.cmp import graph as PG
+    from dashing2_tpu_torch.sketch import core as SC
+    n, m, tag = NORTH_STAR_N, 1024, "pmh-knn"
+    out = os.path.join(WORK, "northstar", "pmh_knn.bin")
+    argv = ["sketch", "-k", "31", "-S", str(m), "-P", "--topk", "10",
+            "--binary-output", "--cmpout", out, "-F", lst]
+    real = SC.sketch_fastx
+    kept = []
+
+    def keep(opts, groups, device="cuda"):
+        res = real(opts, groups, device=device)
+        kept.append(_copy_sketches(res))
+        return res
+    SC.sketch_fastx = keep
+    try:
+        wall, spans, launches = _run_cli(tag, argv, n, counters, 0)
+    finally:
+        SC.sketch_fastx = real
+    others = [k for k in counters if k != "weighted_draws"]
+    assert launches["weighted_draws"] >= 1 \
+        and all(launches[k] == 0 for k in others), launches
+    with open(out, "rb") as f:
+        got = f.read()
+    _say_spans(tag, spans, WEIGHTED_SPANS + GRAPH_SPANS[1:])
+    opts = _cli_opts(argv)
+    opts.outfile_path = out + ".cpu"
+    timing.reset_spans()
+    t0 = time.perf_counter()
+    PG.neighbor_graph_main(opts, kept[0], device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    with open(opts.outfile_path, "rb") as f:
+        assert f.read() == got, f"{tag}: card output != CPU output"
+    _say(f"[{tag}] weighted_draws launched {launches['weighted_draws']} "
+         f"times, no other kernel; output bytes == neighbor_graph_main on "
+         f"the CPU ({len(got)} bytes; CPU graph {cpu_wall:.3f} s)")
+    return dict(launches=launches["weighted_draws"], wall=wall)
+
+
 def phase_jax_golden(name: str):
     """The port's CLI on the card with the JAX package's golden config
     `name` (tests/golden_configs.py), over its fixtures
@@ -1973,13 +2298,22 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 2
     import dashing2_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from dashing2_tpu_torch.ops import fixedmath as FM
     from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import int_counts as IC
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
+    from dashing2_tpu_torch.ops import weighted_draws as WD
+    # one process on this machine: the plain versions' CPU runs (phases
+    # 15 and 24) may use every core, in chunks that torch spreads over
+    # its threads (the port's defaults keep CPU ops on one thread, for
+    # processes that share the cores)
+    FM._CPU_CHUNK = 1 << 18
+    WD._PLAIN_CHUNK["cpu"] = 1 << 21
     counters = {"tri_eq": NT, "tri_comb": NC, "gtlt_self": G.self_launches,
                 "gtlt": G.rect_launches, "int_counts_self": IC.self_launches,
-                "int_counts": IC.rect_launches}
+                "int_counts": IC.rect_launches,
+                "weighted_draws": WD.launches}
     t_start = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -1993,6 +2327,7 @@ def main() -> int:
     worst_self, worst_rect = timed("gtlt kernels", phase_gtlt_vs_plain)
     worst_int_self, worst_int_rect = timed("int_counts kernels",
                                            phase_int_vs_plain)
+    weighted_runs = timed("weighted_draws kernel", phase_weighted_vs_plain)
     try:
         for gold in ("torch_port_bbit_nibble.json",
                      "torch_port_ab_nibble.json", "torch_port_full.json",
@@ -2033,15 +2368,22 @@ def main() -> int:
              "CPU run), byte for byte")
         del sketches
         timed("golden full_sim.bin", phase_jax_golden, "full_sim.bin")
+        lists = _subset_lists(lst)
         fss_runs = {"fss": timed("fss job", phase_fss, lst, counters),
                     "fss-u8-ab": timed("fss-u8-ab job", phase_fss_bytes,
-                                       lst, counters)}
+                                       lists[0], counters)}
         for tag, flags, sig, want, counter in PRESKETCHED_JOBS:
             fss_runs[tag] = timed(f"{tag} job", phase_presketched, tag,
                                   flags, sig, want, counter, counters)
         t0 = time.perf_counter()
+        w_jobs = {"wmh": timed("wmh job", phase_wmh, lst, counters),
+                  "pmh-c": timed("pmh-c jobs", phase_pmh_countsketch, lst,
+                                 counters),
+                  "pmh-knn": timed("pmh-knn job", phase_pmh_knn, lst,
+                                   counters)}
+        _say(f"[wall] weighted phases: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
         timed("set job", phase_exact_set, lst, counters)
-        lists = _subset_lists(lst)
         for tag, flags in EXACT_CPU_JOBS[:2]:
             timed(f"{tag} job", phase_exact_vs_cpu, tag, flags, lists,
                   counters)
@@ -2125,6 +2467,22 @@ def main() -> int:
             "bound_by": run["bound_by"],
             "library_ms": run["library_ms"],
         })
+    # the weighted draws: the -B job's kind (ICWS) timed, launches of the
+    # three weighted jobs
+    wrun = weighted_runs["icws"]
+    kernels.append({
+        "name": "weighted_draws",
+        "route": "cuda",
+        "source": "dashing2_tpu_torch/csrc/weighted_draws.cu",
+        "replaces": "dashing2_tpu/sketch/weighted.py:115",
+        "launches": sum(r["launches"] for r in w_jobs.values()),
+        "max_abs_err": wrun["err"],
+        "ms": wrun["ms"],
+        "plain_ms": wrun["plain_ms"],
+        "bound_ms": wrun["bound_ms"],
+        "bound_by": wrun["bound_by"],
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

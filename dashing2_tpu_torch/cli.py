@@ -7,10 +7,12 @@ subcommands exist, and they run only the slices the port covers:
 * `sketch`: native sketching of FASTA/FASTQ inputs, one-permutation by
   default, FullSetSketch with `--full-setsketch` (also `-m` > 1, which
   counts k-mers and ends in FullSetSketch), its registers quantised with
-  `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`, or the exact
-  k-mer sets (`--set`) and count dictionaries (`--countdict`); `-o`
-  writes the stacked signatures (nothing for exact sets). `-c` changes
-  none of these. With --cmpout, the comparison:
+  `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`, the
+  weighted sketches `-B` (`--multiset`) and `-P` (`--prob`), whose
+  counts `-c` turns into a CountSketch's, or the exact k-mer sets
+  (`--set`) and count dictionaries (`--countdict`); `-o` writes the
+  stacked signatures (nothing for exact sets). With --cmpout, the
+  comparison:
 * `cmp` (alias `dist`): sketch and compare, or with `--presketched`
   compare stacked signature files (`-o` output, with its .names.txt),
   single sketch caches (.opss, .ss, .bmh, .pmh) and exact k-mer set
@@ -25,17 +27,19 @@ The comparison is the all-pairs matrix of any measure (similarity,
 to f32, and `--bbit-sigs` compares their bits for equality), over
 `--fastcmp 0.5`, `1`, `2` or `4` registers (nibbles, u8, u16, u32), b-bit
 (`--bbit-sigs`) or SetSketch a/b quantised (without it), or over the
-registers a sketch-compressed job quantised, or over exact sets (their
-intersections joined on the card); emitted as binary f32,
+registers a sketch-compressed job quantised, over the weighted
+registers (compared for equality, or quantised by `--fastcmp`), or over
+exact sets (their intersections joined on the card); emitted as binary f32,
 PHYLIP, the symmetric TSV or, with `--asymmetric-all-pairs`, the full
 square; with `-Q`, the references-by-queries panel; and the LSH
 neighbour jobs (`--topk`, `--similarity-threshold`, `--greedy` without
 its `f`, `--index-save`/`--index-load`, `--refine-exact`; over exact
 sets a bottom-k index), emitted as CSR or text (cmp/graph.py).
 `--pairlist` sketches the unique paths it names and compares them
-all-pairs, as the reference does. Every other option is rejected with an error naming it. `--device`
-(default cuda) picks where the CSetSketch draws, the exact-set joins
-and the comparison run;
+all-pairs, as the reference does. Every other option is rejected with
+an error naming it. `--device` (default cuda) picks where the
+CSetSketch and weighted draws, the
+exact-set joins and the comparison run;
 a CUDA request without a card exits non-zero and never carries on on the
 CPU.
 """
@@ -313,8 +317,7 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 # options outside the slice: dest -> the flag a user typed
 _OUTSIDE_SLICE = {
-    "outprefix": "--outprefix", "prob": "--prob",
-    "multiset": "--multiset", "bed": "--bed", "bigwig": "--bigwig",
+    "outprefix": "--outprefix", "bed": "--bed", "bigwig": "--bigwig",
     "leafcutter": "--leafcutter", "edit_distance": "--edit-distance",
     "compute_edit": "--compute-edit-distance", "mmer_seq": "--seq",
     "save_kmers": "--save-kmers",
@@ -405,7 +408,7 @@ def _main(argv: List[str]) -> int:
     for p in (ps, pc):
         _add_shared(p)
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                       help="where the CSetSketch draws and the comparison "
+                       help="where the sketch draws and the comparison "
                             "run (default cuda); cpu runs the kernels' "
                             "plain PyTorch versions")
     pc.add_argument("--presketched", action="store_true")

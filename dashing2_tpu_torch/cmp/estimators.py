@@ -6,7 +6,8 @@ Port of dashing2_tpu/cmp/estimators.py's f32 estimators, every measure:
 * `compressed_ab_measures32` for SetSketch a/b-quantised registers (gt
   and lt counts; nibbles in the product form, u8/u16/u32 in the
   complement form), with the host constants it needs
-  (`optimal_parameters`, `gb_bit_table`, `ab_tables`) and `fma32`;
+  (`optimal_parameters`, `gb_bit_table`, `ab_tables`), with
+  ops/fixedmath.py's `fma32`;
 * `full_setsketch_measures32` for full 64-bit registers (gt and lt
   counts, the default mode);
 * `equality_measures32` for full registers compared for equality (eq
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..enums import Measure
+from ..ops.fixedmath import fma32
 
 # the largest f32: NaN and inf values are emitted as it (cmp_core.cpp:573)
 FINF = float(np.finfo(np.float32).max)
@@ -192,28 +194,6 @@ def _pow_b_neg32(counts: np.ndarray, table: np.ndarray) -> np.ndarray:
         bit = ((c >> k) & 1).astype(bool)
         r = r * np.where(bit, row[k], one)
     return r
-
-
-def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
-          ) -> torch.Tensor:
-    """f32 fused multiply-add fma(a, b, c) of f32 values, correctly
-    rounded, in eager torch on any device. The product of two f32 values
-    is exact in f64; TwoSum gives the f64 sum and its rounding error;
-    rounding that sum to odd (moving an inexact sum with an even last bit
-    one f64 ulp towards the exact value) before the cast to f32 makes the
-    one f32 rounding that of the exact a*b + c (53 >= 24 + 2 bits), with
-    no double rounding. Every step is one IEEE f64 operation, so the
-    bits do not depend on the device."""
-    a, b, c = (x.to(torch.float64) for x in (a, b, c))
-    p = a * b
-    s = p + c
-    z = s - p
-    err = (p - (s - z)) + (c - z)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
 
 
 def _one_minus_pow_b32(counts: np.ndarray, table: np.ndarray,

@@ -24,6 +24,7 @@ import torch
 
 from .. import hashing as H
 from . import hashes as DH
+from .fixedmath import log64
 
 U64MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -140,7 +141,7 @@ def _css_x1(hashed: torch.Tensor, m: int):
     rv = DH.css_item_hash(hashed)
     u = DH.u64_to_unit_float(rv)
     x1 = torch.where(rv == 0, torch.inf,
-                     -torch.log(torch.clamp(u, min=1e-300)) * (1.0 / m))
+                     -log64(torch.clamp(u, min=1e-300)) * (1.0 / m))
     return x1, rv
 
 
@@ -172,9 +173,9 @@ def _css_pass(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
     DH.wanghash_(e)
     u = DH.u64_to_unit_float(e)
     del e
-    # e = x1 - log(u), in place as -log(u) + x1 (the same IEEE
-    # subtraction)
-    e = u.clamp_(min=1e-300).log_().neg_().add_(sx1[:, :, None])
+    # e = x1 - log(u), as -log(u) + x1 (the same IEEE subtraction)
+    e = log64(u.clamp_(min=1e-300)).neg_().add_(sx1[:, :, None])
+    del u
     e.scatter_(2, idx0[:, :, None], sx1[:, :, None])
     e.masked_fill_(~keep[:, :, None], torch.inf)
     return e.amin(1), tcut

@@ -11,13 +11,16 @@ Port of two routes of dashing2_tpu/sketch/core.py behind a
 * the generic route's counting stream for the jobs the file driver
   declines, FullSetSketch (--full-setsketch, with --setsketch-ab or
   --fastcmp-bytes/-shorts/-words quantised on the host),
-  --count-threshold > 1, and the exact k-mer sets (--set) and count
-  dictionaries (--countdict): `_load_items` reads each group (the native
-  reader, or the Python parser for .xz/.bz2), `_native_hash_codes_list`
-  hashes it (oph_sketch.cpp `hash_rows_native`), np.unique counts it
-  (in a pool with -p > 1); then ops/sketch_kernels.py::css_sketch_many
-  draws the CSetSketch registers on the card, or the distinct hashes
-  (and their counts) are the result.
+  --count-threshold > 1, the weighted sketches (-B, -P) and the exact
+  k-mer sets (--set) and count dictionaries (--countdict): `_load_items`
+  reads each group (the native reader, or the Python parser for
+  .xz/.bz2), `_native_hash_codes_list` hashes it (oph_sketch.cpp
+  `hash_rows_native`), np.unique counts it (a CountSketch with -c in
+  the weighted spaces; in a pool with -p > 1); then
+  ops/sketch_kernels.py::css_sketch_many draws the CSetSketch
+  registers on the card, sketch/weighted.py the weighted ones
+  (csrc/weighted_draws.cu), or the distinct hashes (and their counts)
+  are the result.
 
 Every other configuration raises NotImplementedError naming the
 ROADMAP Queue 1 item that ports it (`_unsupported`).
@@ -122,6 +125,10 @@ def _finalize_one_perm(opts: Dashing2Options, res: SketchingResult,
     return res
 
 
+# the weighted sketch spaces: -B (BagMinHash) and -P (ProbMinHash)
+_WEIGHTED = (SketchSpace.SPACE_MULTISET, SketchSpace.SPACE_PSET)
+
+
 # configurations neither route covers: the reason, and the ROADMAP Queue 1
 # item that ports it
 def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
@@ -130,10 +137,8 @@ def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
     hkw = _hash_kwargs(opts, 1 << 15)
     if opts.parse_by_seq or opts.by_chrom:
         why.append("--parse-by-seq/--by-chrom (item 7)")
-    if opts.sspace != SketchSpace.SPACE_SET:
-        # -c (--countsketch-size) changes only these spaces' counts
-        why.append("-B/-P (with or without -c) and other sketch spaces "
-                   "(item 6)")
+    if opts.sspace not in (SketchSpace.SPACE_SET,) + _WEIGHTED:
+        why.append("the edit-distance sketch space (item 6)")
     if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
         why.append("--seq (item 8)")
     if _exact_sets(opts) and hkw["use128"] and not hkw["rolling"] \
@@ -167,10 +172,11 @@ def _exact_sets(opts: Dashing2Options) -> bool:
 def _counting_route(opts: Dashing2Options) -> bool:
     """The jobs the JAX file driver declines and its generic route counts
     (dashing2_tpu/sketch/core.py:923-927, 1066-1072): FullSetSketch,
-    --count-threshold > 1, which ends in FullSetSketch too, and the exact
-    k-mer sets and count dictionaries."""
+    --count-threshold > 1, which ends in FullSetSketch too, the weighted
+    sketches and the exact k-mer sets and count dictionaries."""
     return (opts.kmer_result == KmerSketchResultType.FULL_SETSKETCH
-            or opts.count_threshold > 1 or _exact_sets(opts))
+            or opts.count_threshold > 1 or _exact_sets(opts)
+            or opts.sspace in _WEIGHTED)
 
 
 def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
@@ -178,10 +184,10 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
     """Sketch FASTA/FASTQ inputs. `groups`: one item per entry; an entry
     may contain several space-separated paths sketched jointly
     (d2.h:52-71). One-permutation jobs run the native file driver;
-    FullSetSketch and --count-threshold > 1 the counting route, whose
-    CSetSketch draws run on `device` (a CUDA request without a card
-    raises; nothing falls back). --set and --countdict count on the
-    host and touch no device."""
+    FullSetSketch, --count-threshold > 1 and -B/-P the counting route,
+    whose CSetSketch or weighted draws run on `device` (a CUDA request
+    without a card raises; nothing falls back). --set and --countdict
+    count on the host and touch no device."""
     why = _unsupported(opts, groups)
     if why:
         raise NotImplementedError(
@@ -190,6 +196,8 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
         raise ValueError("no input files")
     if _exact_sets(opts):
         return _sketch_exact(opts, groups)
+    if opts.sspace in _WEIGHTED:
+        return _sketch_weighted(opts, groups, device)
     if _counting_route(opts):
         return _sketch_counted(opts, groups, device)
     return _sketch_files(opts, groups)
@@ -318,9 +326,21 @@ def _native_hash_codes_list(lib, codes_list, hkw: dict) -> np.ndarray:
 def _count_one(opts: Dashing2Options, hv: np.ndarray
                ) -> Tuple[np.ndarray, np.ndarray]:
     """The distinct hashes (sorted u64) and their counts (f64), those seen
-    fewer than --count-threshold times dropped."""
+    fewer than --count-threshold times dropped. With -c (--countsketch-size)
+    in a weighted space, a CountSketch's (enums.h:44-57, counter.h) instead:
+    bucket h % c gains +1 where h is odd and -1 where it is even; the
+    items are the non-zero buckets' indices, their weights |bucket| (the
+    JAX CPU route's host CountSketch; its sums of +-1 are exact in f64 in
+    any order)."""
     t0 = time.perf_counter()
-    u, c = np.unique(hv, return_counts=True)
+    if opts.cssize > 0 and opts.sspace in _WEIGHTED:
+        idx = (hv % np.uint64(opts.cssize)).astype(np.int64)
+        sign = np.where((hv & np.uint64(1)).astype(bool), 1.0, -1.0)
+        buckets = np.bincount(idx, weights=sign, minlength=opts.cssize)
+        nz = np.nonzero(buckets)[0]
+        u, c = nz.astype(np.uint64), np.abs(buckets[nz])
+    else:
+        u, c = np.unique(hv, return_counts=True)
     if opts.count_threshold > 1:
         keep = c >= opts.count_threshold
         u, c = u[keep], c[keep]
@@ -425,4 +445,25 @@ def _sketch_exact(opts: Dashing2Options, groups: Sequence[str]
     else:
         res.cardinalities = np.array([len(u) for u, _ in counted],
                                      np.float64)
+    return res
+
+
+def _sketch_weighted(opts: Dashing2Options, groups: Sequence[str],
+                     device) -> SketchingResult:
+    """The JAX generic route's weighted finalization
+    (dashing2_tpu/sketch/core.py:1457-1464): -B BagMinHash (ICWS) or -P
+    ProbMinHash registers of each item's distinct hashes (or CountSketch
+    buckets) and their counts, drawn on `device` (csrc/weighted_draws.cu
+    on the card), with the total weight as the cardinality."""
+    from .weighted import bagminhash_many, probminhash_many
+    fn = (bagminhash_many if opts.sspace == SketchSpace.SPACE_MULTISET
+          else probminhash_many)
+    counted = _count_stream(opts, groups)
+    dev = resolve(device)
+    with span("sketch/weighted"):
+        sigs, cards = fn([u for u, _ in counted], [c for _, c in counted],
+                         opts.sketchsize, dev)
+    res = SketchingResult(names=list(groups))
+    res.signatures = sigs
+    res.cardinalities = cards
     return res

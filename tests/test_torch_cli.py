@@ -144,9 +144,9 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--greedy", "0.8f"], ["--outprefix", "p"], ["--prob"],
+    ["--greedy", "0.8f"], ["--outprefix", "p"], ["--leafcutter"],
     ["--cache"], ["--warm-only", "8"], ["--seq"],
-    ["--multiset"],
+    ["--edit-distance"],
 ])
 def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
     lst, _ = corpus
@@ -163,7 +163,7 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
     ["sketch", "-S", "256", "--bbit-sigs", "--save-kmers"],  # eq k-mers
     ["cmp", "-S", "256", "--seq"],
     ["sketch", "-S", "256", "--fastcmp", "1", "--containment",
-     "-c", "1000", "--prob"],
+     "-c", "1000", "--prob", "--save-kmers"],
 ])
 def test_cli_rejects_other_comparisons(corpus, argv, tmp_path):
     lst, _ = corpus

@@ -681,9 +681,9 @@ def test_hash_chain_on_card_equals_cpu(card):
                                  (64, 7)])
 def test_css_on_card_matches_cpu(card, m, n):
     """The CSetSketch draws on the card against the same torch code on
-    the CPU: the passes equal, the registers within 4 ulp (each side's
-    f64 log may be an ulp off), the order of the registers across items
-    (the gt/lt counts) equal."""
+    the CPU: the passes equal, the registers bit for bit (the port's own
+    f64 log on both), and so the order of the registers across items
+    (the gt/lt counts)."""
     from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import sketch_kernels as SK
     from dashing2_tpu_torch.ops.cmp_kernels import f64_to_ordered_u64
@@ -697,8 +697,7 @@ def test_css_on_card_matches_cpu(card, m, n):
     want, wp = SK.css_sketch_many(items, m, "cpu")
     np.testing.assert_array_equal(gp, wp)
     assert np.isinf(got[-1]).all() and gp[-1] == 0
-    d = np.abs(got[:-1].view(np.int64) - want[:-1].view(np.int64))
-    assert d.max() <= 4, np.bincount(d.ravel())
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
     counts = [G.gtlt_self_counts_plain(torch.from_numpy(
         f64_to_ordered_u64(r[:-1]).view(np.int64))) for r in (got, want)]
     assert torch.equal(counts[0], counts[1])
@@ -836,5 +835,84 @@ def test_exact_cli_on_card_equals_cpu(card, tmp_path):
             assert cli.main(["sketch", "-k", "31", "--binary-output",
                              "--cmpout", str(out), "-F", str(lst),
                              "--device", dev] + flags) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1], tag
+
+
+def test_fixed_math_on_card_equals_cpu(card):
+    """ops/fixedmath.py's log32, exp32 and log64 on CUDA tensors give the
+    CPU's bits."""
+    from dashing2_tpu_torch.ops import fixedmath as FM
+    rng = np.random.default_rng(23)
+    x32 = np.concatenate([rng.random(1 << 18), np.exp(rng.uniform(
+        -69, 88, 1 << 18))]).astype(np.float32)
+    x32[:5] = [0.0, 1.0, np.inf, 1e-30, -1.0]
+    x64 = np.concatenate([rng.random(1 << 18) + 1e-300, np.exp(
+        rng.uniform(-700, 700, 1 << 18))])
+    for fn, x in ((FM.log32, x32), (FM.exp32, -np.abs(x32) * 0.25),
+                  (FM.exp32, np.log1p(np.abs(x32))), (FM.log64, x64)):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        got, want = fn(t.to(card)).cpu(), fn(t)
+        bits = torch.int32 if got.dtype == torch.float32 else torch.int64
+        assert torch.equal(got.view(bits), want.view(bits)), fn.__name__
+
+
+def _weighted_operands(lens, seed, kind):
+    from dashing2_tpu_torch.sketch import weighted as PW
+    rng = np.random.default_rng(seed)
+    hs = [rng.integers(0, 1 << 64, n, dtype=np.uint64) for n in lens]
+    cs = [rng.integers(1, 10 ** 6 + 1, n).astype(np.float64) for n in lens]
+    for h, c in zip(hs, cs):
+        for a, b in ((3, 9), (50, 2100)):
+            if b < len(h):
+                h[b], c[b] = h[a], c[a]
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    lnw = np.concatenate(PW._lnw_many(kind, hs, cs)).astype(np.float32)
+    return (torch.from_numpy(np.concatenate(hs).view(np.int64)),
+            torch.from_numpy(lnw), torch.from_numpy(off))
+
+
+@pytest.mark.parametrize("m", [1, 64, 100, 129, 1000, 1024])
+@pytest.mark.parametrize("kind", ["icws", "pmh"])
+def test_weighted_draws_match_plain(card, kind, m):
+    """weighted_draws.cu against its plain version: keys, winners and
+    values bit for bit, over empty, one-position and row-edge streams
+    with repeats inside and across 2048-position rows."""
+    from dashing2_tpu_torch.ops import weighted_draws as WD
+    args = [t.to(card) for t in _weighted_operands(
+        [0, 1, 7, 2047, 2048, 2049, 4200], m, kind)]
+    before = WD.launches.launches
+    got = WD.weighted_draws(kind, *args, m)
+    assert WD.launches.launches == before + 1
+    want = WD.weighted_draws_plain(kind, *args, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    cpu = WD.weighted_draws(kind, *[t.cpu() for t in args], m)
+    assert torch.equal(cpu[2].view(torch.int32), got[2].cpu().view(
+        torch.int32))
+
+
+def test_weighted_cli_on_card_equals_cpu(card, tmp_path):
+    """`sketch -B`, `-P -c 4096` and `-P --topk 3` through the CLI on the
+    card write the CPU run's bytes."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import write_corpus
+    paths = write_corpus(str(tmp_path / "fa"), seed=9, n_ancestors=3,
+                         n_mutants=4, length=3000)
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    for tag, flags in (("B", ["-B"]), ("P-c", ["-P", "-c", "4096"]),
+                       ("P-knn", ["-P", "--topk", "3"])):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"{tag}-{dev}.bin"
+            assert cli.main(["sketch", "-k", "21", "-S", "128"] + flags + [
+                "--binary-output", "--cmpout", str(out), "-F", str(lst),
+                "--device", dev]) == 0
             outs.append(out.read_bytes())
         assert outs[0] == outs[1], tag

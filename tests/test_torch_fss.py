@@ -9,8 +9,9 @@
   the brute-force minimum, duplicated input, an empty item, an input
   built to need several passes, m not a power of two, a 20k-item set at
   m = 1024. The passes equal the JAX loop's; the registers are within
-  CSS_ULP ulp (XLA's CPU f64 log differs from torch's, which equals
-  numpy's, by an ulp in about 0.3% of values; the histogram is printed),
+  CSS_ULP ulp (XLA's CPU f64 log, the C library's, differs from the
+  port's own, ops/fixedmath.py::log64, by an ulp in about 6% of
+  values; the histogram is printed),
   the cardinalities within CARD_ULP ulp, and the order of registers
   across items (their gt/lt counts) equal exactly.
 * The counting route's hashes and counts equal the JAX route's, with
@@ -55,11 +56,12 @@ from dashing2_tpu_torch.io.corpus import write_corpus
 from dashing2_tpu_torch.native import load_oph_lib
 from dashing2_tpu_torch.ops import hashes as DH
 from dashing2_tpu_torch.ops import sketch_kernels as SK
+from dashing2_tpu_torch.ops.fixedmath import log64
 from dashing2_tpu_torch.result import from_reference
 from dashing2_tpu_torch.sketch import core as PCORE
 
 # registers: x1 - log(u), x1 itself from a log; each of XLA's two logs may
-# be an ulp from torch's
+# be an ulp from the port's
 CSS_ULP = 4
 # m / sum(registers)
 CARD_ULP = 4
@@ -188,17 +190,19 @@ def test_css_registers_equal_jax(case, monkeypatch):
         <= CARD_ULP
     if case == "brute-m64":
         # the brute-force minimum over every item's draws, the JAX
-        # test's construction
+        # test's construction, with the port's f64 log
+        def log(v):
+            return log64(torch.from_numpy(v)).numpy()
         rv = PH.css_item_hash(hashed)
         u1 = rv.astype(np.float64) * 2.0 ** -64
-        x1 = -np.log(u1) * (1.0 / m)
+        x1 = -log(u1) * (1.0 / m)
         _, draw = PH.wyhash64_step(rv)
         idx0 = (draw % np.uint64(m)).astype(np.int64)
         j = np.arange(m, dtype=np.uint64) * np.uint64(SK._GOLD)
         full = np.empty((len(hashed), m))
         for d in range(len(hashed)):
             u = PH.wanghash(rv[d] ^ j).astype(np.float64) * 2.0 ** -64
-            full[d] = x1[d] - np.log(u)
+            full[d] = x1[d] - log(u)
             full[d, idx0[d]] = x1[d]
         np.testing.assert_array_equal(got, full.min(axis=0))
     if case.startswith("duplicates"):
@@ -487,14 +491,17 @@ def test_pairwise_blocks_from_jax_sketches_equal_jax(corpus, fd,
 
 
 def test_xla_f64_log_differs_by_an_ulp():
-    """Why the registers carry an ulp bound: XLA's CPU f64 log and
-    torch's differ by an ulp on a small share of values (torch's equals
-    numpy's); never by more."""
-    u = np.random.default_rng(1).random(1 << 20) * 0.999 + 1e-12
+    """Why the registers carry an ulp bound: XLA's CPU f64 log (the C
+    library's) and the port's own (ops/fixedmath.py::log64, which the
+    CSetSketch draws take because torch's CPU log is not the same
+    function in every process) differ by an ulp on a small share of
+    values; never by more. Normal inputs: the draws clamp at 1e-300."""
+    rng = np.random.default_rng(1)
+    u = np.concatenate([rng.random(1 << 20) * 0.999 + 1e-12,
+                        np.exp(rng.uniform(-690, 700, 1 << 18))])
     xla = np.asarray(jax.jit(jnp.log)(jnp.asarray(u)))
-    port = torch.log(torch.from_numpy(u)).numpy()
-    np.testing.assert_array_equal(port, np.log(u))
+    port = log64(torch.from_numpy(u)).numpy()
     ulp = _ulps(port, xla)
-    print(f"XLA f64 log vs torch: {100 * (ulp > 0).mean():.2f}% of "
+    print(f"XLA f64 log vs the port's: {100 * (ulp > 0).mean():.2f}% of "
           f"{len(u)} values differ; ulp histogram {np.bincount(ulp).tolist()}")
     assert ulp.max() <= 1

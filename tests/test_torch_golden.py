@@ -18,8 +18,10 @@ on its numpy route): the a/b tests/goldens/fastcmp_nibble.bin, the u8
 b-bit fastcmp_bbit.bin, the full-register oph_sim.bin and
 oph_phylip.txt, the `--mash-dist` mash_dist.txt, the `-o` stacked
 signatures sigs.bin with sigs.bin.names.txt, the FullSetSketch
-full_sim.bin (`--full`) and the exact k-mer set exact_set.bin (`--set`).
-multiset.bin and prob.bin stay outside the port, rejected by flag name.
+full_sim.bin (`--full`), the exact k-mer set exact_set.bin (`--set`),
+and the weighted sketches multiset.bin (`--multiset`) and prob.bin
+(`--prob`). A golden configuration with a flag the port does not run is
+rejected by that flag's name.
 """
 
 import hashlib
@@ -151,7 +153,16 @@ def test_port_reproduces_jax_exact_set_golden(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["multiset.bin", "prob.bin"])
-def test_goldens_outside_the_port_are_rejected_by_flag(name, tmp_path):
+def test_port_reproduces_jax_weighted_goldens(name, tmp_path):
+    """`--multiset` and `--prob` at n=6: the weighted registers (the port's
+    f32 log and exp are XLA's), compared for equality on the numpy
+    route."""
+    _reproduce_jax_golden(name, tmp_path)
+
+
+@pytest.mark.parametrize("name, flag", [("multiset.bin", "--edit-distance"),
+                                        ("prob.bin", "--leafcutter")])
+def test_goldens_outside_the_port_are_rejected_by_flag(name, flag, tmp_path):
     sys.path.insert(0, HERE)
     try:
         from golden_configs import CONFIGS
@@ -159,5 +170,5 @@ def test_goldens_outside_the_port_are_rejected_by_flag(name, tmp_path):
         sys.path.remove(HERE)
     args, _ = CONFIGS[name]
     with pytest.raises(SystemExit) as e:
-        cli.main(list(args) + ["--device", "cpu"])
+        cli.main(list(args) + [flag, "--device", "cpu"])
     assert e.value.code == 2
