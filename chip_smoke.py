@@ -12,8 +12,10 @@ other measure, the asymmetric output, query panels (`-Q`), the LSH
 neighbour jobs (`--topk`, `-T`, `--greedy`, `--index-save/-load`),
 FullSetSketch sketching (`--full-setsketch`, `--fastcmp-bytes`),
 `cmp --presketched`, exact k-mer sets and count dictionaries
-(`--set`, `--countdict`), and the weighted sketches (`-B`, `-P`, `-c`)
-through the port's own CLI.
+(`--set`, `--countdict`), the weighted sketches (`-B`, `-P`, `-c`), the
+k-mer database (`-s`, `-N`) and `contain`, the interval inputs
+(`--bed`, `--bigwig`, `--leafcutter`) and `wsketch` through the port's
+own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
@@ -50,8 +52,13 @@ no card, or when the port is not importable:
    `weighted_draws_plain` (keys, winners, values) bit for bit, ICWS and
    ProbMinHash, m in {64, 1000, 1024}, streams of 0, 1, 2047, 2048,
    2049, 5000 and 20000 positions with counts up to 10^6 and repeats
-   planted inside and across the 2048-position rows; both timed on 64
-   items x 20000 positions at m = 1024;
+   planted inside and across the 2048-position rows, and streams whose
+   weights hold zeros and negative values (masked), one of them all
+   masked (key +inf, winner 0, value 0), one of 70000 positions; over
+   the masked streams sketch/weighted.py's split path (pieces of 32768
+   positions, merged on the host) equals the plain version over the
+   whole streams (registers and winners); both timed on 64 items x
+   20000 positions at m = 1024;
 4. golden digests: the port's CLI on the card over the seeded n=777
    corpus must reproduce the SHA-256s in
    tests/goldens/torch_port_{bbit,ab}_nibble.json, torch_port_full.json,
@@ -195,10 +202,50 @@ no card, or when the port is not importable:
    `--device cpu`;
 25. `-P --topk 10` at N = 10240: the draws on the card, no other kernel;
    the bytes equal `neighbor_graph_main` on the CPU over the same
-   sketches.
+   sketches;
+26. `sketch -S 1024 -s -N -o db` over the N = 10240 corpus (no kernel):
+   db.kmer64 holds 10240 x 1024 keys, db.kmercounts.f64 their counts;
+   then `contain db.kmer64` over 64 queries of 50 corpus genomes each,
+   1% of their bases mutated (about 1 Mbp a query), binary and text,
+   the lookup on the card; the binary bytes equal `--device cpu`'s, and
+   each query covers more than half of its genomes' keys;
+27. `sketch --bed` over 32 peak files (10,000-20,000 intervals of
+   200-1,000 bp over 24 chromosomes, 60% of each file's peaks from its
+   family's set of four): the one-permutation default (host), then
+   `--full-setsketch` (the CSetSketch draws), `-B --normalize-intervals`
+   and `-P` (weighted_draws.cu), all pairs (one gtlt_self launch each);
+   each also over the first 4 files with `--device cpu`, equal bytes
+   (the weighted jobs over those files cut to their first 4 intervals);
+   the weighted jobs also write `-o`, and the registers, winners and
+   cardinalities of the two shortest files (millions of positions,
+   drawn by the job in pieces of 32768 positions) equal the kernel's
+   over their whole, unsplit streams (the plain version draws about 17
+   ms a 2048-position row on an NVIDIA H100 80GB HBM3 at 700 W, too
+   slow there; phase 3 holds the kernel to it over whole masked streams
+   longer than a piece);
+28. `sketch --bigwig -P` and `-B --by-chrom` over 8 tracks of 2
+   chromosomes of 10 Mbp and an unplaced contig of 175,055 bp, half
+   covered by spans of 10-200 bp (a tenth of the values negative, a
+   twentieth 0); each also over the first 2 tracks cut to 4 kb with
+   `--device cpu`, equal bytes; with `-o`, the written registers,
+   winners and cardinalities of the captured items equal a reference
+   over their whole streams: in the `--by-chrom` job contigs (about
+   83,000 positions, three pieces, masked positions among them) the
+   plain version's, the two shortest chromosomes or tracks the
+   kernel's;
+29. `sketch --leafcutter -B` over one perind table of 100 samples x
+   20,000 junctions; its first 25 junctions also with `--device cpu`,
+   equal bytes; with `-o`, the written registers, winners and
+   cardinalities of the first samples (96 rows of 2048 positions in
+   all) equal the plain version's on the card;
+30. `wsketch -B`, `-P` and `-q` (`--u32 --f32`, u64 indptr) over a
+   10,000-row count matrix of 1,000-3,000 non-zeros a row; the first 32
+   rows (4 for -B) also with `--device cpu`: their rows of every output
+   file equal.
 
 Each main path runs with every launch counter set to 0 just before its
-CLI call and read just after it. Each phase prints its wall.
+CLI call and read just after it. Each phase prints its wall, and phases
+26-30 their jobs' spans.
 
 Beside each kernel's time the script reckons its bound (the least time
 the card could take for the same work, from this run's shapes: the
@@ -226,7 +273,9 @@ and 10 kb genomes about 10k (both more than m = 1024, so every register
 fills and the jobs stay out of the OPH small-input regime). The cuts
 only shorten sketching and the generated FASTA: about 205 MB for phases
 5-8 (written once, read by all of them) and 205 MB for phase 9, against
-520 MB and 1 GB at 50 kb.
+520 MB and 1 GB at 50 kb. Phases 26-30 run at full size on the card;
+their `--device cpu` checks run on cuts (named in each phase), because
+the plain draws take 100-400 ns each on the CPU.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -1987,6 +2036,9 @@ WEIGHTED_OPS = {"icws": (5 * 36, 5 * 3 + 4 * 28 + 13),
 # the N = 10240 job holds about 800 items)
 WEIGHTED_TIME_ITEMS = 64
 WEIGHTED_SAMPLE = 32
+# the long masked stream: three pieces of the split path (PIECE = 32768
+# positions), the last one partial
+MASKED_LONG = 70000
 
 
 def _weighted_streams(rng, lens):
@@ -2005,6 +2057,28 @@ def _weighted_streams(rng, lens):
             if b < n:
                 h[b], c[b] = h[a], c[a]
         out.append((h, c))
+    return out
+
+
+def _masked_streams(rng):
+    """Streams whose weights hold zeros and negative values (a weight of
+    0 or less is masked: its log-weight is -inf), one whose every weight
+    is 0 or less, over three 2048-position rows, one whose first two
+    rows are masked, and one of MASKED_LONG positions, longer than a
+    piece of the split path (sketch/weighted.py's PIECE)."""
+    import numpy as np
+    out = []
+    for n, masked in ((1, False), (2049, False), (5000, False),
+                      (5000, True), (20000, False), (MASKED_LONG, False)):
+        h = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        c = rng.integers(1, 10 ** 6 + 1, n).astype(np.float64)
+        u = rng.random(n)
+        c[u < 0.2] = 0.0
+        c[u > 0.9] *= -1.0
+        if masked:
+            c = -np.abs(c)
+        out.append((h, c))
+    out[4][1][:4096] = 0.0
     return out
 
 
@@ -2029,25 +2103,51 @@ def phase_weighted_vs_plain():
     import numpy as np
     import torch
     from dashing2_tpu_torch.ops import weighted_draws as WD
+    from dashing2_tpu_torch.sketch import weighted as PW
     rng = np.random.default_rng(NS_SEED)
     streams = _weighted_streams(rng, WEIGHTED_LENS)
+    masked = _masked_streams(rng)
     cases = 0
-    for kind in WD.KINDS:
-        args = _weighted_tensors(kind, streams, "cuda")
-        for m in WEIGHTED_MS:
-            got = WD.weighted_draws(kind, *args, m)
-            torch.cuda.synchronize()
-            want = WD.weighted_draws_plain(kind, *args, m)
-            for g, w, what in zip(got, want, ("key", "winner", "value")):
-                g, w = g.cpu(), w.cpu()
-                if g.dtype == torch.float32:
-                    g, w = g.view(torch.int32), w.view(torch.int32)
-                assert torch.equal(g, w), (kind, m, what)
-            cases += 1
+    for tag, items in (("counts", streams), ("masked", masked)):
+        for kind in WD.KINDS:
+            args = _weighted_tensors(kind, items, "cuda")
+            for m in WEIGHTED_MS:
+                got = WD.weighted_draws(kind, *args, m)
+                torch.cuda.synchronize()
+                want = WD.weighted_draws_plain(kind, *args, m)
+                for g, w, what in zip(got, want, ("key", "winner", "value")):
+                    g, w = g.cpu(), w.cpu()
+                    if g.dtype == torch.float32:
+                        g, w = g.view(torch.int32), w.view(torch.int32)
+                    assert torch.equal(g, w), (tag, kind, m, what)
+                if tag == "masked":
+                    # the all-masked item: key +inf, winner 0, value 0
+                    key, win, val = (t[3].cpu() for t in got)
+                    assert torch.isinf(key).all() and not win.any() \
+                        and not val.any()
+                    # the split path (pieces of PIECE positions, merged
+                    # on the host) == the plain version over the whole,
+                    # unsplit streams
+                    hs = [h for h, _ in items]
+                    sigs, ids = PW._sketch_many_streams(
+                        kind, hs, PW._lnw_many(kind, hs,
+                                               [c for _, c in items]),
+                        m, "cuda")
+                    plain = want[2].cpu().numpy().astype(np.float64)
+                    assert np.array_equal(sigs.view(np.int64),
+                                          plain.view(np.int64)), \
+                        (kind, m, "split registers")
+                    assert np.array_equal(ids, want[1].cpu().numpy()), \
+                        (kind, m, "split winners")
+                cases += 1
     _say(f"[weighted] weighted_draws == weighted_draws_plain bit for bit "
          f"(keys, winners, values) at {cases} shapes: both kinds, m in "
          f"{WEIGHTED_MS}, stream lengths {WEIGHTED_LENS} with planted "
-         "repeats inside and across 2048-position rows")
+         "repeats inside and across 2048-position rows, and streams with "
+         "weights of 0 and below (masked), one all masked, one of "
+         f"{MASKED_LONG} positions; over the masked streams the split "
+         f"path (pieces of {PW.PIECE} positions merged on the host) == "
+         "the plain version over the whole streams (registers, winners)")
     # times at the main path's shape
     runs = {}
     big = _weighted_streams(rng, (20000,) * WEIGHTED_TIME_ITEMS)
@@ -2259,6 +2359,635 @@ def phase_pmh_knn(lst: str, counters):
     return dict(launches=launches["weighted_draws"], wall=wall)
 
 
+# ----------------------------------------------------------------------
+# interval inputs (--bed, --bigwig, --leafcutter), wsketch, -s + contain
+# ----------------------------------------------------------------------
+
+INTERVAL_SEED = 13
+INTERVAL_M = 1024
+# BED: peak files of a transcription factor's ChIP-seq size, sharing
+# intervals by family, over 24 chromosomes
+BED_FILES, BED_FAMILIES, BED_SHARED = 32, 4, 0.6
+BED_INTERVALS = (10000, 20000)
+BED_WIDTH = (200, 1000)
+BED_CHROMS = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
+BED_CHROM_LEN = 50_000_000
+# the --device cpu checks: the first BED_CPU_FILES files whole for the
+# set-space jobs, cut to their first BED_CPU_INTERVALS intervals for the
+# weighted ones (the plain ICWS draws run at a few hundred ns on the CPU)
+BED_CPU_FILES, BED_CPU_INTERVALS = 4, 4
+# the items of each weighted interval job held to a reference over their
+# whole streams (_capture_interval_draws): as many as fit this many
+# 2048-position rows of the plain version, and the shortest
+# INTERVAL_LONG of those longer than that
+INTERVAL_PLAIN_ROWS, INTERVAL_LONG = 96, 2
+BED_JOBS = (("bed-oph", []), ("bed-fss", ["--full-setsketch"]),
+            ("bed-bmh-norm", ["-B", "--normalize-intervals"]),
+            ("bed-pmh", ["-P"]))
+# BigWig: tracks of 2 chromosomes of 10 Mbp and one unplaced contig (of
+# the length of GRCh38's chr1_KI270706v1_random), about half covered by
+# spans of 10-200 bp, in two families; the CPU check over the first
+# BW_CPU_TRACKS tracks cut to their first BW_CPU_LEN bases
+BW_TRACKS, BW_SPAN = 8, (10, 200)
+BW_CHROMS = (("chr1", 10_000_000), ("chr2", 10_000_000),
+             ("chr1_KI270706v1_random", 175_055))
+BW_CPU_TRACKS, BW_CPU_LEN = 2, 4_000
+BW_JOBS = (("bw-pmh", ["-P"]), ("bw-bmh-by-chrom", ["-B", "--by-chrom"]))
+# LeafCutter: one perind table; the CPU check over its first LF_CPU_LINES
+# junctions
+LF_SAMPLES, LF_JUNCTIONS, LF_CPU_LINES = 100, 20000, 25
+# wsketch: a single-cell count matrix (u32 gene ids of a 30000-gene
+# vocabulary, f32 counts, u64 indptr); the CPU check over its first rows
+# (32 rows, 4 for -B: the plain draws take 100-700 ns each on the CPU)
+WS_ROWS, WS_NNZ, WS_GENES = 10000, (1000, 3000), 30000
+WS_JOBS = (("ws-bmh", ["-B"], 4), ("ws-pmh", ["-P"], 32),
+           ("ws-set", ["-q"], 32))
+# contain: queries of CONTAIN_GENOMES corpus genomes, each mutated at
+# CONTAIN_RATE, screened against the corpus' -s database
+CONTAIN_QUERIES, CONTAIN_GENOMES, CONTAIN_RATE = 64, 50, 0.01
+INTERVAL_SPANS = ("sketch", "sketch/read", "sketch/intervals",
+                  "sketch/css", "sketch/weighted", "sketch/h2d",
+                  "sketch/draws", "compare+emit", "cmp/kernel")
+WS_SPANS = ("sketch/css", "sketch/weighted", "sketch/h2d", "sketch/draws",
+            "wsketch/write")
+CONTAIN_SPANS = ("contain/db", "contain/hash", "contain/lookup",
+                 "contain/emit")
+
+
+def _write_bigwig(path: str, chroms, per_block: int = 1024) -> None:
+    """A BigWig of bedGraph blocks of `per_block` items: `chroms` maps a
+    name to (starts, ends, values) arrays. The layout of
+    tests/test_subcommands.py's `_write_bigwig_multi` (header, a flat
+    chrom B+ tree, zlib blocks after a u64 block count, one R-tree leaf
+    node), with several blocks a chromosome and numpy item packing."""
+    import struct
+    import zlib
+    import numpy as np
+    names = list(chroms)
+    key_size = max(len(n.encode()) for n in names)
+    tree = struct.pack("<IIIIQQ", 0x78CA8C91, len(names), key_size, 8,
+                       len(names), 0) + struct.pack("<BBH", 1, 0, len(names))
+    for cid, n in enumerate(names):
+        tree += n.encode().ljust(key_size, b"\0") + struct.pack(
+            "<II", cid, int(chroms[n][1][-1]) if len(chroms[n][1]) else 0)
+    data_off = 64 + len(tree)
+    rec = np.dtype([("s", "<u4"), ("e", "<u4"), ("v", "<f4")])
+    data, leaves = [], []
+    off = data_off + 8
+    for cid, n in enumerate(names):
+        s, e, v = chroms[n]
+        for b in range(0, len(s), per_block):
+            items = np.empty(min(per_block, len(s) - b), rec)
+            items["s"], items["e"] = s[b:b + per_block], e[b:b + per_block]
+            items["v"] = v[b:b + per_block]
+            comp = zlib.compress(struct.pack(
+                "<IIIIIBBH", cid, int(items["s"][0]), int(items["e"][-1]),
+                0, 0, 1, 0, len(items)) + items.tobytes())
+            leaves.append((cid, int(items["s"][0]), int(items["e"][-1]),
+                           off, len(comp)))
+            data.append(comp)
+            off += len(comp)
+    index_off = off
+    rtree = struct.pack("<IIQIIIIQIi", 0x2468ACE0, 256, len(leaves), 0,
+                        leaves[0][1], len(names) - 1, leaves[-1][2],
+                        index_off, 512, 0)
+    rtree += struct.pack("<BBH", 1, 0, len(leaves))
+    for cid, s0, e0, o, size in leaves:
+        rtree += struct.pack("<IIIIQQ", cid, s0, cid, e0, o, size)
+    hdr = struct.pack("<IHHQQQHHQQIQ", 0x888FFC26, 4, 0, 64, data_off,
+                      index_off, 0, 0, 0, 0, 1 << 15, 0)
+    with open(path, "wb") as f:
+        f.write(hdr + tree + struct.pack("<Q", len(data)))
+        for comp in data:
+            f.write(comp)
+        f.write(rtree)
+
+
+def _write_list(path: str, paths) -> str:
+    with open(path, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return path
+
+
+def _bed_files(d: str):
+    """BED_FILES peak files: each takes BED_SHARED of its peaks from its
+    family's peak set and draws the rest, sorted by chromosome and start;
+    returns the list file and the paths."""
+    import numpy as np
+    rng = np.random.default_rng(INTERVAL_SEED)
+    os.makedirs(d, exist_ok=True)
+    fams = []
+    for _ in range(BED_FAMILIES):
+        n = BED_INTERVALS[1]
+        fams.append((rng.integers(0, len(BED_CHROMS), n),
+                     rng.integers(0, BED_CHROM_LEN - BED_WIDTH[1], n),
+                     rng.integers(BED_WIDTH[0], BED_WIDTH[1] + 1, n)))
+    paths = []
+    for i in range(BED_FILES):
+        c, s, w = fams[i % BED_FAMILIES]
+        n = int(rng.integers(BED_INTERVALS[0], BED_INTERVALS[1] + 1))
+        k = int(BED_SHARED * n)
+        pick = rng.choice(len(c), k, replace=False)
+        c = np.concatenate([c[pick], rng.integers(0, len(BED_CHROMS), n - k)])
+        s = np.concatenate([s[pick], rng.integers(
+            0, BED_CHROM_LEN - BED_WIDTH[1], n - k)])
+        w = np.concatenate([w[pick], rng.integers(
+            BED_WIDTH[0], BED_WIDTH[1] + 1, n - k)])
+        order = np.lexsort((s, c))
+        p = os.path.join(d, f"peaks{i:02d}.bed")
+        with open(p, "w") as f:
+            f.write("".join(f"{BED_CHROMS[a]}\t{b}\t{b + e}\tpeak{j}\t0\n"
+                            for j, (a, b, e) in enumerate(zip(
+                                c[order], s[order], w[order]))))
+        paths.append(p)
+    return _write_list(os.path.join(d, "list.txt"), paths), paths
+
+
+def _cut_files(d: str, paths, lines: int):
+    """Copies of `paths` cut to their first `lines` lines."""
+    os.makedirs(d, exist_ok=True)
+    out = []
+    for p in paths:
+        q = os.path.join(d, os.path.basename(p))
+        with open(p) as f, open(q, "w") as g:
+            for _, ln in zip(range(lines), f):
+                g.write(ln)
+        out.append(q)
+    return _write_list(os.path.join(d, "list.txt"), out)
+
+
+def _same_bytes(paths) -> int:
+    """The files' shared size; asserts they hold the same bytes."""
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    assert all(b == blobs[0] for b in blobs[1:]), paths
+    return len(blobs[0])
+
+
+def _capture_interval_draws():
+    """Wrap sketch/intervals.py's `_draw_batch` and sketch/weighted.py's
+    `_sketch_many_streams` so that a weighted interval job leaves the
+    items to hold afterwards, each as (row, distinct items, weight sums,
+    winners): items of the job taken in order while their streams fit
+    INTERVAL_PLAIN_ROWS rows of ROW_L positions in all ("short"), and
+    the INTERVAL_LONG shortest of those longer than that alone ("long").
+    Returns (record, undo)."""
+    import numpy as np
+    from dashing2_tpu_torch.ops.weighted_draws import ROW_L
+    from dashing2_tpu_torch.sketch import intervals as SI
+    from dashing2_tpu_torch.sketch import weighted as PW
+    real_batch, real_streams = SI._draw_batch, PW._sketch_many_streams
+    rec = dict(short=[], long=[], rows=0, kind=None)
+    wins = []
+
+    def streams(kind, *args, **kw):
+        sigs, ids = real_streams(kind, *args, **kw)
+        rec["kind"] = kind
+        wins.append(ids)
+        return sigs, ids
+
+    def batch(opts, items, sigs, cards, dev):
+        real_batch(opts, items, sigs, cards, dev)
+        if not wins:
+            return
+        ids = wins.pop()
+        for j, (row, p) in enumerate(items):
+            rows = -(-len(p[1]) // ROW_L)
+            held = (row, p[1], p[2], ids[j])
+            if rows > INTERVAL_PLAIN_ROWS:
+                rec["long"] = sorted(rec["long"] + [held],
+                                     key=lambda x: len(x[1]))[:INTERVAL_LONG]
+            elif rec["rows"] + rows <= INTERVAL_PLAIN_ROWS:
+                rec["rows"] += rows
+                rec["short"].append(held)
+    SI._draw_batch, PW._sketch_many_streams = batch, streams
+
+    def undo():
+        SI._draw_batch, PW._sketch_many_streams = real_batch, real_streams
+    return rec, undo
+
+
+def _hold_interval_draws(tag: str, rec, sig: str, n: int, m: int):
+    """The registers, winners and cardinalities of the items `rec` holds
+    (_capture_interval_draws) against their whole, unsplit streams on
+    the card: the short items' against weighted_draws_plain, the long
+    items' against the kernel (held to the plain version over whole
+    masked streams longer than a piece in phase 3; the plain version
+    draws about 17 ms a 2048-position row at m = 1024 on an NVIDIA H100
+    80GB HBM3 at 700 W, too slow for streams of millions of positions). The registers and cardinalities
+    are those the job wrote to `sig` (-o). Returns whether a short item
+    was split into pieces and held masked positions."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.ops import weighted_draws as WD
+    from dashing2_tpu_torch.sketch import weighted as PW
+    cards, regs = formats.read_stacked_signatures(sig)
+    assert regs.dtype == np.float64 and regs.shape == (n, m), regs.shape
+    kind, split_masked = rec["kind"], False
+    for what, held, fn in (("plain version", rec["short"],
+                            WD.weighted_draws_plain),
+                           ("kernel", rec["long"], WD.weighted_draws)):
+        if not held:
+            continue
+        t0 = time.perf_counter()
+        args = _weighted_tensors(kind, [(u, w) for _, u, w, _ in held],
+                                 "cuda")
+        _, win, val = fn(kind, *args, m)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del args
+        win = win.cpu().numpy()
+        val = val.cpu().numpy().astype(np.float64)
+        for i, (row, u, w, ids) in enumerate(held):
+            assert np.array_equal(regs[row].view(np.int64),
+                                  val[i].view(np.int64)), (tag, row, what)
+            assert np.array_equal(ids, win[i]), (tag, row, what, "winners")
+            assert cards[row] == w.sum(), (tag, row, "cardinality")
+        sizes = [len(u) for _, u, _, _ in held]
+        masked = [int((w <= 0).sum()) for _, _, w, _ in held]
+        split = [s > PW.PIECE for s in sizes]
+        if fn is WD.weighted_draws_plain:
+            split_masked = any(a and b for a, b in zip(split, masked))
+        _say(f"[{tag}] {len(held)} items of {min(sizes)}-{max(sizes)} "
+             f"positions ({sum(split)} split into pieces of {PW.PIECE} by "
+             f"the job, {sum(masked)} masked positions): registers, "
+             f"winners and cardinalities == the {what} over their whole "
+             f"streams on the card ({secs:.3f} s)")
+    return split_masked
+
+
+def _interval_job(tag: str, argv, n: int, counters, weighted: bool):
+    """One all-pairs interval job on the card: its launches (the draws
+    on weighted_draws.cu for -B/-P, one gtlt_self over the f64 rows, no
+    other kernel) and output size; for -B/-P also `-o`, and the
+    registers of captured items held (_hold_interval_draws). Returns
+    (wall, launches, whether a held item was split and masked)."""
+    import numpy as np
+    out = argv[argv.index("--cmpout") + 1]
+    split_masked = False
+    if weighted:
+        sig = out + ".sig"
+        argv = argv + ["-o", sig]
+        rec, undo = _capture_interval_draws()
+    try:
+        wall, spans, launches = _run_cli(tag, argv, n, counters)
+    finally:
+        if weighted:
+            undo()
+    want = {"gtlt_self": 1}
+    if weighted:
+        assert launches["weighted_draws"] >= 1, launches
+        want["weighted_draws"] = launches["weighted_draws"]
+    assert all(launches[k] == want.get(k, 0) for k in counters), launches
+    vals = np.fromfile(out, np.float32)
+    assert len(vals) == n * (n - 1) // 2 and np.isfinite(vals).all()
+    assert ((vals >= 0) & (vals <= 1)).all()
+    _say(f"[{tag}] {n} items, one gtlt_self launch"
+         + (f", {launches['weighted_draws']} weighted_draws launches"
+            if weighted else "") + f"; similarity in [0,1e-9) [.1,.5) ...: "
+         f"{_histogram(vals)}")
+    _say_spans(tag, spans, INTERVAL_SPANS)
+    if weighted:
+        split_masked = _hold_interval_draws(tag, rec, sig, n, INTERVAL_M)
+    return wall, launches, split_masked
+
+
+def _vs_cpu(tag: str, argv, out: str, n: int, counters):
+    """The job (`argv` without --cmpout) on the card and with --device
+    cpu: equal bytes of the comparison."""
+    files = []
+    for dev in ("cuda", "cpu"):
+        files.append(f"{out}.{dev}")
+        _run_cli(f"{tag} {dev}", argv + ["--cmpout", files[-1], "--device",
+                                         dev], n, counters)
+    size = _same_bytes(files)
+    _say(f"[{tag}] card bytes == --device cpu bytes ({size} bytes)")
+
+
+def phase_bed(counters):
+    """BED_FILES peak files through `sketch --bed` on the card: the
+    one-permutation default (host), --full-setsketch (CSetSketch draws),
+    -B --normalize-intervals and -P (weighted_draws.cu), all pairs;
+    each also over the first BED_CPU_FILES files with --device cpu."""
+    d = os.path.join(WORK, "bed")
+    t0 = time.perf_counter()
+    lst, paths = _bed_files(d)
+    sizes = [os.path.getsize(p) for p in paths]
+    _say(f"[bed] {BED_FILES} files, {sum(sizes) / 1e6:.1f} MB of BED, "
+         f"written in {time.perf_counter() - t0:.3f} s")
+    sub = _write_list(os.path.join(d, "first.txt"), paths[:BED_CPU_FILES])
+    cut = _cut_files(os.path.join(d, "cut"), paths[:BED_CPU_FILES],
+                     BED_CPU_INTERVALS)
+    runs = {}
+    for tag, flags in BED_JOBS:
+        weighted = "-B" in flags or "-P" in flags
+        base = ["sketch", "--bed", "-S", str(INTERVAL_M), "-p", "8"] \
+            + flags + ["--binary-output"]
+        wall, launches, _ = _interval_job(tag, base + [
+            "--cmpout", os.path.join(d, tag + ".bin"), "-F", lst],
+            BED_FILES, counters, weighted)
+        runs[tag] = dict(wall=wall, launches=launches)
+        _vs_cpu(tag + " first files", base + ["-F", cut if weighted
+                                              else sub],
+                os.path.join(d, tag + ".first.bin"), BED_CPU_FILES,
+                counters)
+    return runs
+
+
+def _bw_tracks(d: str, length: int, tracks: int):
+    """BW_TRACKS tracks (the first `tracks`) of the BW_CHROMS cut to
+    `length` bases: in each family the same spans, with other values;
+    one value in 10 negative, one in 20 zero."""
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(INTERVAL_SEED + 1)
+    layouts = []
+    for _ in range(2):
+        lay = {}
+        for c, clen in BW_CHROMS:
+            n = clen // sum(BW_SPAN)
+            span = rng.integers(BW_SPAN[0], BW_SPAN[1] + 1, n)
+            gap = rng.integers(BW_SPAN[0], BW_SPAN[1] + 1, n)
+            s = np.cumsum(span + gap) - span
+            keep = s + span <= clen
+            lay[c] = (s[keep], (s + span)[keep])
+        layouts.append(lay)
+    paths = []
+    for t in range(BW_TRACKS):
+        chroms = {}
+        for c, (s, e) in layouts[t % 2].items():
+            v = rng.gamma(2.0, 3.0, len(s)).astype(np.float32)
+            u = rng.random(len(s))
+            v[u < 0.1] *= -1
+            v[u > 0.95] = 0
+            keep = e <= length
+            chroms[c] = (s[keep].astype(np.uint32), e[keep].astype(np.uint32),
+                         v[keep])
+        if t < tracks:
+            p = os.path.join(d, f"track{t}.bw")
+            _write_bigwig(p, chroms)
+            paths.append(p)
+    return _write_list(os.path.join(d, "list.txt"), paths), paths
+
+
+def phase_bigwig(counters):
+    """BW_TRACKS BigWig tracks through `sketch --bigwig -P` and `-B
+    --by-chrom` on the card (weighted_draws.cu), all pairs, the
+    registers of captured items held over their whole streams (in the
+    --by-chrom job an unplaced contig's stream, split into pieces and
+    with masked positions, held to the plain version); each job also
+    over the first BW_CPU_TRACKS tracks cut to BW_CPU_LEN bases with
+    --device cpu."""
+    d = os.path.join(WORK, "bigwig")
+    t0 = time.perf_counter()
+    lst, paths = _bw_tracks(d, max(c for _, c in BW_CHROMS), BW_TRACKS)
+    cut, _ = _bw_tracks(os.path.join(d, "cut"), BW_CPU_LEN, BW_CPU_TRACKS)
+    _say(f"[bigwig] {BW_TRACKS} tracks, "
+         f"{sum(os.path.getsize(p) for p in paths) / 1e6:.1f} MB, written "
+         f"in {time.perf_counter() - t0:.3f} s")
+    runs = {}
+    for tag, flags in BW_JOBS:
+        by_chrom = "--by-chrom" in flags
+        n = BW_TRACKS * (len(BW_CHROMS) if by_chrom else 1)
+        base = ["sketch", "--bigwig", "-S", str(INTERVAL_M), "-p", "8"] \
+            + flags + ["--binary-output"]
+        wall, launches, split_masked = _interval_job(tag, base + [
+            "--cmpout", os.path.join(d, tag + ".bin"), "-F", lst], n,
+            counters, True)
+        assert split_masked or not by_chrom, \
+            f"{tag}: no split item with masked positions held to plain"
+        runs[tag] = dict(wall=wall, launches=launches)
+        _vs_cpu(tag + " cut tracks", base + ["-F", cut],
+                os.path.join(d, tag + ".cut.bin"),
+                BW_CPU_TRACKS * (n // BW_TRACKS), counters)
+    return runs
+
+
+def _leafcutter_table(path: str, lines: int) -> None:
+    """A perind counts table: LF_SAMPLES samples x the first `lines` of
+    LF_JUNCTIONS junctions ("chrom:start:end:cluster"), tokens
+    "num/denom" with about a third of the numerators 0."""
+    import numpy as np
+    rng = np.random.default_rng(INTERVAL_SEED + 2)
+    chrom = rng.integers(1, 23, LF_JUNCTIONS)
+    start = rng.integers(0, 50_000_000, LF_JUNCTIONS)
+    width = rng.integers(100, 20000, LF_JUNCTIONS)
+    num = np.where(rng.random((LF_JUNCTIONS, LF_SAMPLES)) < 0.33, 0,
+                   rng.geometric(0.05, (LF_JUNCTIONS, LF_SAMPLES)))
+    den = num + rng.integers(0, 50, (LF_JUNCTIONS, LF_SAMPLES))
+    den[den == 0] = 1
+    with open(path, "w") as f:
+        f.write("chrom " + " ".join(f"sample{i}" for i in range(LF_SAMPLES))
+                + "\n")
+        for j in range(lines):
+            f.write(f"chr{chrom[j]}:{start[j]}:{start[j] + width[j]}:"
+                    f"clu_{j // 3}_+ " + " ".join(
+                        f"{a}/{b}" for a, b in zip(num[j], den[j])) + "\n")
+
+
+def phase_leafcutter(counters):
+    """One perind table of LF_SAMPLES samples x LF_JUNCTIONS junctions
+    through `sketch --leafcutter -B` on the card; its first LF_CPU_LINES
+    junctions also with --device cpu."""
+    d = os.path.join(WORK, "leafcutter")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    table = os.path.join(d, "run_perind.counts")
+    _leafcutter_table(table, LF_JUNCTIONS)
+    cut = os.path.join(d, "cut_perind.counts")
+    _leafcutter_table(cut, LF_CPU_LINES)
+    _say(f"[leafcutter] {LF_SAMPLES} samples x {LF_JUNCTIONS} junctions, "
+         f"{os.path.getsize(table) / 1e6:.1f} MB, written in "
+         f"{time.perf_counter() - t0:.3f} s")
+    base = ["sketch", "--leafcutter", "-B", "-S", str(INTERVAL_M),
+            "--binary-output"]
+    wall, launches, _ = _interval_job("lf-bmh", base + [
+        "--cmpout", os.path.join(d, "lf.bin"), table], LF_SAMPLES, counters,
+        True)
+    _vs_cpu("lf-bmh cut table", base + [cut], os.path.join(d, "cut.bin"),
+            LF_SAMPLES, counters)
+    return {"lf-bmh": dict(wall=wall, launches=launches)}
+
+
+def _count_matrix():
+    """The count matrix: (u32 gene ids, f32 counts, u64 indptr). A row
+    holds the distinct genes of WS_NNZ draws, 40% of them from its cell
+    type's program (20 types), sorted, with counts 1 + geometric."""
+    import numpy as np
+    rng = np.random.default_rng(INTERVAL_SEED + 3)
+    progs = [rng.choice(WS_GENES, 4000, replace=False) for _ in range(20)]
+    nnz = rng.integers(WS_NNZ[0], WS_NNZ[1] + 1, WS_ROWS)
+    genes = []
+    for r in range(WS_ROWS):
+        own = int(0.4 * nnz[r])
+        genes.append(np.unique(np.concatenate([
+            progs[r % 20][rng.integers(0, 4000, own)],
+            rng.integers(0, WS_GENES, int(nnz[r]) - own)])).astype(np.uint32))
+    indptr = np.zeros(WS_ROWS + 1, np.uint64)
+    np.cumsum([len(g) for g in genes], out=indptr[1:])
+    ids = np.concatenate(genes)
+    return ids, (1 + rng.geometric(0.4, len(ids))).astype(np.float32), indptr
+
+
+def _csr(d: str, matrix, rows: int):
+    """The matrix's first `rows` rows as wsketch inputs; their paths."""
+    ids, w, indptr = matrix
+    end = int(indptr[rows])
+    os.makedirs(d, exist_ok=True)
+    out = []
+    for name, arr in (("ids.u32", ids[:end]), ("w.f32", w[:end]),
+                      ("indptr.u64", indptr[:rows + 1])):
+        p = os.path.join(d, name)
+        arr.tofile(p)
+        out.append(p)
+    return out
+
+
+def phase_wsketch(counters):
+    """A WS_ROWS-row count matrix through `wsketch -B`, `-P` and `-q` on
+    the card (--u32 --f32, u64 indptr): -B/-P on weighted_draws.cu, -q
+    the CSetSketch draws in torch; the first rows of each (WS_JOBS) also
+    with --device cpu, their rows of every output file equal."""
+    import numpy as np
+    d = os.path.join(WORK, "wsketch")
+    t0 = time.perf_counter()
+    matrix = _count_matrix()
+    full = _csr(d, matrix, WS_ROWS)
+    _say(f"[wsketch] {WS_ROWS} rows, "
+         f"{os.path.getsize(full[0]) // 4} non-zeros, written in "
+         f"{time.perf_counter() - t0:.3f} s")
+    runs = {}
+    m = INTERVAL_M
+    for tag, flags, cpu_rows in WS_JOBS:
+        pref = os.path.join(d, tag)
+        argv = ["wsketch", "-S", str(m), "--u32", "--f32"] + flags
+        wall, spans, launches = _run_cli(tag, argv + ["-o", pref] + full,
+                                         WS_ROWS, counters, 0)
+        want = launches["weighted_draws"] if tag != "ws-set" else 0
+        assert (want >= 1) == (tag != "ws-set") and all(
+            launches[k] == (want if k == "weighted_draws" else 0)
+            for k in counters), launches
+        _say_spans(tag, spans, WS_SPANS)
+        sub = _csr(os.path.join(d, f"first{cpu_rows}"), matrix, cpu_rows)
+        cpref = os.path.join(d, tag + "-cpu")
+        _run_cli(f"{tag} first {cpu_rows} rows cpu", argv + [
+            "-o", cpref, "--device", "cpu"] + sub, cpu_rows, counters, 0)
+        regs = np.fromfile(f"{pref}.sampled.regs.stacked.{WS_ROWS}.{m}.f64",
+                           np.uint8)
+        cregs = np.fromfile(f"{cpref}.sampled.regs.stacked.{cpu_rows}.{m}"
+                            ".f64", np.uint8)
+        cards = regs[16:16 + 8 * WS_ROWS].view(np.float64)
+        sigs = regs[16 + 8 * WS_ROWS:].view(np.float64).reshape(WS_ROWS, m)
+        assert np.array_equal(cregs[16:16 + 8 * cpu_rows].view(np.float64),
+                              cards[:cpu_rows])
+        assert np.array_equal(cregs[16 + 8 * cpu_rows:].view(np.int64),
+                              sigs[:cpu_rows].view(np.int64).reshape(-1))
+        for suffix in ("indices", "hashes"):
+            a = np.fromfile(f"{pref}.sampled.{suffix}.stacked.{WS_ROWS}.{m}"
+                            ".i64", np.uint64).reshape(WS_ROWS, m)
+            b = np.fromfile(f"{cpref}.sampled.{suffix}.stacked.{cpu_rows}."
+                            f"{m}.i64", np.uint64).reshape(cpu_rows, m)
+            assert np.array_equal(a[:cpu_rows], b), suffix
+        with open(f"{pref}.sampled.info.txt") as f, \
+                open(f"{cpref}.sampled.info.txt") as g:
+            assert f.read().splitlines()[:cpu_rows] == g.read().splitlines()
+        assert (sigs != 0).any(axis=1).all() and (cards > 0).all()
+        _say(f"[{tag}] {WS_ROWS} rows on the card; the first {cpu_rows} "
+             "rows' registers, winners, hashes and weights == --device cpu")
+        runs[tag] = dict(wall=wall, launches=launches)
+    return runs
+
+
+def _contain_queries(lst: str, d: str):
+    """CONTAIN_QUERIES query files of CONTAIN_GENOMES corpus genomes
+    each (one record a genome), every base replaced with probability
+    CONTAIN_RATE; returns the list file and each query's genomes."""
+    import numpy as np
+    rng = np.random.default_rng(INTERVAL_SEED + 4)
+    with open(lst) as f:
+        paths = [ln.strip() for ln in f if ln.strip()]
+    os.makedirs(d, exist_ok=True)
+    out, picks = [], []
+    for q in range(CONTAIN_QUERIES):
+        pick = np.sort(rng.choice(len(paths), CONTAIN_GENOMES,
+                                  replace=False))
+        recs = []
+        for g in pick:
+            with open(paths[g], "rb") as f:
+                seq = np.frombuffer(b"".join(f.read().split(b"\n")[1:]),
+                                    np.uint8).copy()
+            hit = rng.random(len(seq)) < CONTAIN_RATE
+            seq[hit] = np.frombuffer(b"ACGT", np.uint8)[
+                rng.integers(0, 4, int(hit.sum()))]
+            recs.append(b">g%d\n" % g + seq.tobytes() + b"\n")
+        p = os.path.join(d, f"query{q:02d}.fa")
+        with open(p, "wb") as f:
+            f.write(b"".join(recs))
+        out.append(p)
+        picks.append(pick)
+    return _write_list(os.path.join(d, "queries.txt"), out), picks
+
+
+def phase_contain(lst: str, counters):
+    """`sketch -S 1024 -s -N -o db` over the N = 10240 corpus, then
+    `contain db.kmer64` over CONTAIN_QUERIES mutated queries, binary and
+    text, the lookup on the card, and both again with --device cpu:
+    equal bytes. Each query covers most of its genomes' database keys."""
+    import numpy as np
+    from dashing2_tpu_torch.io import formats
+    d = os.path.join(WORK, "northstar", "contain")
+    os.makedirs(d, exist_ok=True)
+    n, m = NORTH_STAR_N, INTERVAL_M
+    db = os.path.join(d, "db")
+    wall, spans, launches = _run_cli(
+        "save-kmers", ["sketch", "-k", "31", "-S", str(m), "-s", "-N", "-o",
+                       db, "-F", lst], n, counters, 0)
+    assert not any(launches.values()), launches
+    assert os.path.getsize(db + ".kmer64") == 24 + 8 * n * m
+    assert os.path.getsize(db + ".kmercounts.f64") == 8 * n * m
+    kdb = formats.read_kmer_db(db + ".kmer64")
+    counts = np.fromfile(db + ".kmercounts.f64", np.float64)
+    assert kdb.k == 31 and kdb.kmers.shape == (n, m) and (counts >= 1).all()
+    _say(f"[save-kmers] {n * m} database keys "
+         f"({len(np.unique(kdb.kmers))} distinct), counts of registers "
+         f"{counts.min():.0f}-{counts.max():.0f}; CLI wall {wall:.3f} s")
+    t0 = time.perf_counter()
+    qlst, picks = _contain_queries(lst, os.path.join(d, "q"))
+    _say(f"[contain] {CONTAIN_QUERIES} queries of {CONTAIN_GENOMES} genomes "
+         f"({CONTAIN_RATE:.0%} mutated) written in "
+         f"{time.perf_counter() - t0:.3f} s")
+    runs = {}
+    for form, flags, devs in (("binary", ["--binary-output"],
+                               ("cuda", "cpu")), ("text", [], ("cuda",))):
+        outs = []
+        for dev in devs:
+            out = os.path.join(d, f"contain.{form}.{dev}")
+            w, spans, launches = _run_cli(
+                f"contain {form} {dev}", ["contain"] + flags + [
+                    "--cmpout", out, "-F", qlst, db + ".kmer64", "--device",
+                    dev], CONTAIN_QUERIES, counters, 0)
+            assert not any(launches.values()), launches
+            _say_spans(f"contain {form} {dev}", spans, CONTAIN_SPANS)
+            outs.append(out)
+            runs[f"{form} {dev}"] = w
+        size = _same_bytes(outs)
+        _say(f"[contain {form}] {size} bytes"
+             + (" == --device cpu bytes" if len(outs) > 1 else ""))
+    res = formats.read_contain(os.path.join(d, "contain.binary.cuda"))
+    cov = res["coverage_matrix"]
+    assert cov.shape == (CONTAIN_QUERIES, n)
+    own = np.array([cov[q, picks[q]].min() for q in range(CONTAIN_QUERIES)])
+    other = np.array([np.delete(cov[q], picks[q]).mean()
+                      for q in range(CONTAIN_QUERIES)])
+    assert (own > 0.5).all(), own.min()
+    _say(f"[contain] coverage of a query's own genomes: min {own.min():.4f}, "
+         f"mean {own.mean():.4f}; of the others: mean {other.mean():.4f}")
+    return runs
+
+
 def phase_jax_golden(name: str):
     """The port's CLI on the card with the JAX package's golden config
     `name` (tests/golden_configs.py), over its fixtures
@@ -2383,6 +3112,16 @@ def main() -> int:
                                    counters)}
         _say(f"[wall] weighted phases: {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
+        i_jobs = {"contain": timed("save-kmers and contain jobs",
+                                   phase_contain, lst, counters)}
+        i_jobs["bed"] = timed("bed jobs", phase_bed, counters)
+        i_jobs["bigwig"] = timed("bigwig jobs", phase_bigwig, counters)
+        i_jobs["leafcutter"] = timed("leafcutter job", phase_leafcutter,
+                                     counters)
+        i_jobs["wsketch"] = timed("wsketch jobs", phase_wsketch, counters)
+        _say("[wall] interval, wsketch and contain phases: "
+             f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
         timed("set job", phase_exact_set, lst, counters)
         for tag, flags in EXACT_CPU_JOBS[:2]:
             timed(f"{tag} job", phase_exact_vs_cpu, tag, flags, lists,
@@ -2437,6 +3176,11 @@ def main() -> int:
     for run, key in ((self_run, "gtlt_self"),
                      (int_self_run, "int_counts_self"), (eq_run, "tri_eq")):
         run["launches"] += sum(r["launches"][key] for r in fss_runs.values())
+    # the interval jobs' gtlt_self launches join its count (their
+    # weighted draws join weighted_draws below)
+    i_runs = [r for key in ("bed", "bigwig", "leafcutter")
+              for r in i_jobs[key].values()]
+    self_run["launches"] += sum(r["launches"]["gtlt_self"] for r in i_runs)
     # the panel jobs' rectangles join gtlt_counts and int_counts (their
     # own block times and bounds are printed above)
     for run, key in ((rect_run, "gtlt"), (int_rect_run, "int_counts")):
@@ -2468,14 +3212,16 @@ def main() -> int:
             "library_ms": run["library_ms"],
         })
     # the weighted draws: the -B job's kind (ICWS) timed, launches of the
-    # three weighted jobs
+    # three weighted jobs and of the interval and wsketch jobs
     wrun = weighted_runs["icws"]
     kernels.append({
         "name": "weighted_draws",
         "route": "cuda",
         "source": "dashing2_tpu_torch/csrc/weighted_draws.cu",
         "replaces": "dashing2_tpu/sketch/weighted.py:115",
-        "launches": sum(r["launches"] for r in w_jobs.values()),
+        "launches": sum(r["launches"] for r in w_jobs.values())
+        + sum(r["launches"]["weighted_draws"] for r in i_runs
+              + list(i_jobs["wsketch"].values())),
         "max_abs_err": wrun["err"],
         "ms": wrun["ms"],
         "plain_ms": wrun["plain_ms"],

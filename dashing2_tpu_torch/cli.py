@@ -1,7 +1,7 @@
 """dashing2-compatible command-line interface of the PyTorch/CUDA port.
 
 Port of dashing2_tpu/cli.py: `_add_shared` and `_build_opts` are copies,
-so flags keep their reference names and build the same options. Two
+so flags keep their reference names and build the same options. Four
 subcommands exist, and they run only the slices the port covers:
 
 * `sketch`: native sketching of FASTA/FASTQ inputs, one-permutation by
@@ -10,9 +10,13 @@ subcommands exist, and they run only the slices the port covers:
   `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`, the
   weighted sketches `-B` (`--multiset`) and `-P` (`--prob`), whose
   counts `-c` turns into a CountSketch's, or the exact k-mer sets
-  (`--set`) and count dictionaries (`--countdict`); `-o` writes the
-  stacked signatures (nothing for exact sets). With --cmpout, the
-  comparison:
+  (`--set`) and count dictionaries (`--countdict`); or of interval
+  inputs, `--bed`, `--bigwig` (with `--by-chrom`, one item a
+  chromosome) and `--leafcutter`, in set space, FullSetSketch or -B/-P
+  (`--normalize-intervals`). `-o` writes the stacked signatures
+  (nothing for exact sets), with `-s` the k-mer database
+  `<-o>.kmer64` and with `-N` its counts `<-o>.kmercounts.f64` (FASTA
+  one-permutation jobs). With --cmpout, the comparison:
 * `cmp` (alias `dist`): sketch and compare, or with `--presketched`
   compare stacked signature files (`-o` output, with its .names.txt),
   single sketch caches (.opss, .ss, .bmh, .pmh) and exact k-mer set
@@ -36,12 +40,17 @@ neighbour jobs (`--topk`, `--similarity-threshold`, `--greedy` without
 its `f`, `--index-save`/`--index-load`, `--refine-exact`; over exact
 sets a bottom-k index), emitted as CSR or text (cmp/graph.py).
 `--pairlist` sketches the unique paths it names and compares them
-all-pairs, as the reference does. Every other option is rejected with
-an error naming it. `--device` (default cuda) picks where the
-CSetSketch and weighted draws, the
-exact-set joins and the comparison run;
-a CUDA request without a card exits non-zero and never carries on on the
-CPU.
+all-pairs, as the reference does.
+
+* `wsketch`: pre-aggregated weighted sets (flat or CSR binary vectors),
+  sketch/wsketch.py;
+* `contain`: coverage of queries against a `.kmer64` database,
+  cmp/contain.py.
+
+Every other option is rejected with an error naming it. `--device`
+(default cuda) picks where the CSetSketch and weighted draws, the
+exact-set joins, the contain lookup and the comparison run; a CUDA
+request without a card exits non-zero and never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -317,12 +326,9 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 # options outside the slice: dest -> the flag a user typed
 _OUTSIDE_SLICE = {
-    "outprefix": "--outprefix", "bed": "--bed", "bigwig": "--bigwig",
-    "leafcutter": "--leafcutter", "edit_distance": "--edit-distance",
+    "outprefix": "--outprefix", "edit_distance": "--edit-distance",
     "compute_edit": "--compute-edit-distance", "mmer_seq": "--seq",
-    "save_kmers": "--save-kmers",
-    "save_kmercounts": "--save-kmercounts", "hpcompress": "--hp-compress",
-    "normalize_intervals": "--normalize-intervals", "cache": "--cache",
+    "hpcompress": "--hp-compress", "cache": "--cache",
     "exact_kmer_dist": "--exact-kmer-dist", "filterset": "--filterset",
     "parse_by_seq": "--parse-by-seq", "entmin": "--entmin",
     "by_chrom": "--by-chrom",
@@ -335,9 +341,17 @@ def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
     """Options this port does not run yet (empty if the job is in the
     slice). The flags are checked before any options are built, so that
     a flag outside the slice is reported as such even where building
-    the options would fail."""
+    the options would fail. --by-chrom runs for BigWig inputs, and
+    --edit-distance reaches the BED sketcher, which refuses it as the
+    JAX package's does."""
+    allowed = set()
+    if a.bigwig:
+        allowed.add("by_chrom")
+    if a.bed:
+        allowed.add("edit_distance")
     errs = [flag for dest, flag in _OUTSIDE_SLICE.items()
-            if getattr(a, dest) != p.get_default(dest)]
+            if dest not in allowed
+            and getattr(a, dest) != p.get_default(dest)]
     if a.greedy is not None and "f" in a.greedy.lower():
         # the FASTA form emits the sequences, which the port does not
         # keep (ROADMAP Queue 1 item 6)
@@ -412,8 +426,35 @@ def _main(argv: List[str]) -> int:
                             "run (default cuda); cpu runs the kernels' "
                             "plain PyTorch versions")
     pc.add_argument("--presketched", action="store_true")
+    pw = sub.add_parser("wsketch", help="sketch pre-aggregated weighted "
+                                        "sets")
+    pw.add_argument("wargs", nargs="*")
+    pw.add_argument("-S", "--sketchsize", type=int, default=1024)
+    pw.add_argument("-o", "--outfile", default="")
+    pw.add_argument("-P", "--prob", action="store_true",
+                    help="ProbMinHash (the default; kept for "
+                         "compatibility with earlier versions)")
+    pw.add_argument("-B", "--bagminhash", action="store_true",
+                    help="BagMinHash instead of the default ProbMinHash "
+                         "(reference -B)")
+    pw.add_argument("-q", "--set", dest="setsketch", action="store_true",
+                    help="set semantics: FullSetSketch over the ids, "
+                         "weights ignored (reference -q)")
+    pw.add_argument("--u32", action="store_true",
+                    help="ids are 32-bit (reference -u)")
+    pw.add_argument("--f32", action="store_true",
+                    help="weights are 32-bit floats (reference -f)")
+    pw.add_argument("--indptr32", action="store_true",
+                    help="indptr is u32 (the reference's -P)")
+    pcon = sub.add_parser("contain", help="screen queries against a "
+                                          "k-mer db")
+    _add_shared(pcon)
+    for p in (pw, pcon):
+        p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                       help="where the draws (wsketch) or the lookup "
+                            "(contain) run (default cuda); cpu runs the "
+                            "plain PyTorch versions")
     a = top.parse_args(argv)
-    parser = ps if a.command == "sketch" else pc
 
     from .device import resolve
     try:
@@ -421,6 +462,13 @@ def _main(argv: List[str]) -> int:
     except RuntimeError as e:
         print(f"dashing2-tpu-torch: error: {e}", file=sys.stderr)
         return 2
+    if a.command == "wsketch":
+        from .sketch.wsketch import wsketch_main
+        return wsketch_main(a)
+    if a.command == "contain":
+        from .cmp.contain import contain_main
+        return contain_main(a)
+    parser = ps if a.command == "sketch" else pc
     groups, nq = _collect_inputs(a)
     compares = a.command != "sketch" or bool(a.cmpout)
     errs = _slice_errors(parser, a, compares)
@@ -441,20 +489,47 @@ def _main(argv: List[str]) -> int:
         with phase("load-presketched", opts.verbosity):
             result = _load_presketched(opts, groups, nq_files=nq)
     else:
-        from .sketch.core import sketch_fastx
         with phase("sketch", opts.verbosity):
-            result = sketch_fastx(opts, groups, device=device)
+            result = _do_sketch(opts, groups, device)
         result.nq = nq
         if a.outfile and result.signatures is not None:
-            from .io import formats
             with phase("write-sketches", opts.verbosity):
-                formats.write_stacked_signatures(
-                    a.outfile, result.cardinalities, result.signatures,
-                    result.names)
+                _write_outputs(opts, a.outfile, result)
     if compares:
         with phase("compare+emit", opts.verbosity):
             _do_cmp(opts, result, device)
     return 0
+
+
+def _do_sketch(opts: Dashing2DistOptions, groups: List[str], device
+               ) -> SketchingResult:
+    """FASTA/FASTQ inputs (sketch/core.py), or BED, BigWig and LeafCutter
+    inputs (sketch/intervals.py)."""
+    if opts.dtype == DataType.FASTX:
+        from .sketch.core import sketch_fastx
+        return sketch_fastx(opts, groups, device=device)
+    from .sketch import intervals
+    fn = {DataType.BED: intervals.sketch_bed,
+          DataType.BIGWIG: intervals.sketch_bigwig,
+          DataType.LEAFCUTTER: intervals.sketch_leafcutter}[opts.dtype]
+    return fn(opts, groups, device=device)
+
+
+def _write_outputs(opts: Dashing2DistOptions, outfile: str,
+                   result: SketchingResult) -> None:
+    """-o: the stacked signatures (and names), with -s the k-mer
+    database <-o>.kmer64 and with -N the registers' counts
+    <-o>.kmercounts.f64, which only one-permutation FASTA jobs have."""
+    from .io import formats
+    formats.write_stacked_signatures(outfile, result.cardinalities,
+                                     result.signatures, result.names)
+    if result.kmers is not None:
+        formats.write_kmer_db(outfile + ".kmer64", result.kmers, opts.k,
+                              opts.w, opts.alphabet, opts.canonicalize,
+                              opts.seedseed)
+    if result.kmercounts is not None:
+        result.kmercounts.astype(np.float64).tofile(
+            outfile + ".kmercounts.f64")
 
 
 def _load_presketched(opts: Dashing2DistOptions, groups: List[str],

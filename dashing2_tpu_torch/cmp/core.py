@@ -260,7 +260,8 @@ def _representation(opts: Dashing2DistOptions, result: SketchingResult,
     """(kind, data) for the count engines: packed nibbles ('nibble-bbit',
     'nibble-ab'), u8/u16/u32 registers ('bbit', 'ab'), the full
     registers' ordered bits ('full': u64, or u32 with regt32), or the raw
-    u64 bits of registers compared for equality ('eqfull')."""
+    u64 bits of registers compared for equality ('eqfull'; with -s the
+    saved k-mer ids instead)."""
     if creps.data is not None:
         kind = "bbit" if creps.truncation > 0 else "ab"
         return ("nibble-" + kind if creps.nibble_packed else kind), \
@@ -269,9 +270,10 @@ def _representation(opts: Dashing2DistOptions, result: SketchingResult,
         return "full", _ordered_cached(opts, result)
     sigs = result.signatures
     if result.kmers is not None and result.kmers.size == sigs.size:
-        raise NotImplementedError(
-            "equality-compared saved k-mers (--save-kmers) are not ported "
-            "(ROADMAP Queue 1 item 6)")
+        # -s: the saved k-mer ids (densified with the registers) are
+        # what compares equal, as in the JAX package
+        return "eqfull", np.ascontiguousarray(
+            result.kmers, np.uint64).reshape(sigs.shape)
     return "eqfull", sigs.view(np.uint64).reshape(sigs.shape)
 
 

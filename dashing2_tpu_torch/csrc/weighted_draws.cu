@@ -15,6 +15,15 @@
 // (ops/fixedmath.py: XLA's CPU sequences), so the keys, winners and values
 // equal the plain version's bit for bit, and the JAX package's.
 //
+// Mask: a position whose f32 log-weight is not finite (a weight of 0 or
+// less) has key +inf in the JAX engine (`live = isfinite(lnw)`), and so
+// never wins. Here an ICWS draw of such a position is skipped (key +inf);
+// a ProbMinHash one stages exp(-w) = +inf, so its key -log(u) * inf is
+// +inf (NaN where u rounds to 1, which orders after +inf): no row merges
+// either key (f32 `<` against +inf), so the keys, winners and values
+// that come out are the JAX engine's. A register no live position wins
+// keeps key +inf, winner 0 and value 0.
+//
 // Schedule: one block per (tile of TPB registers, item), one thread per
 // register. The block walks its item's stream in chunks of CH positions
 // staged in shared memory (ProbMinHash stages exp(-w), which depends on
@@ -169,13 +178,18 @@ draws_kernel(const uint64_t* __restrict__ hashes,
         for (int i = threadIdx.x; i < cnt; i += TPB) {
             sh[i] = hashes[start + base + i];
             const float w = lnw[start + base + i];
-            sw[i] = (KIND == 0) ? w : exp32(-w);
+            sw[i] = (KIND == 0) ? w
+                    : (isfinite(w) ? exp32(-w) : bitsf(0x7F800000u));
         }
         __syncthreads();
         if (!active) continue;
         for (int i = 0; i < cnt; ++i) {
-            float t;
-            const float k = draw<KIND>(sh[i], sw[i], jt, t);
+            const float w = sw[i];
+            float t = 0.0f;
+            // the same position for every thread: no divergence
+            const float k = (KIND == 1 || isfinite(w))
+                                ? draw<KIND>(sh[i], w, jt, t)
+                                : bitsf(0x7F800000u);
             const uint32_t kb = __float_as_uint(k);
             const uint32_t ord = (kb >> 31) ? ~kb : (kb | 0x80000000u);
             const int64_t p = base + i;
@@ -200,7 +214,8 @@ draws_kernel(const uint64_t* __restrict__ hashes,
     const int64_t o = (int64_t)item * m + reg;
     key_out[o] = best;
     if (best == bitsf(0x7F800000u)) {
-        // no row won (an empty item): winner 0, value 0
+        // no row won (an empty item, or every position masked):
+        // winner 0, value 0
         win_out[o] = 0;
         val_out[o] = 0.0f;
         return;

@@ -1,7 +1,8 @@
 """Binary on-disk formats — the compatibility surface (SURVEY §1.1).
 
-Copy of dashing2_tpu/io/formats.py, cut to the formats of `sketch -o`,
-`cmp --presketched` and the neighbour graphs' CSR:
+Copy of dashing2_tpu/io/formats.py, cut to the formats of `sketch -o`
+(with -s/-N), `cmp --presketched`, `contain` and the neighbour graphs'
+CSR:
 
 * Stacked signatures  (-o): u64 nseqs, u64 sketchsize, f64 cards[nseqs],
   RegT sigs[nseqs*sketchsize]  (src/sketch_core.cpp:130-139,
@@ -10,6 +11,11 @@ Copy of dashing2_tpu/io/formats.py, cut to the formats of `sketch -o`,
   (src/sketch_core.cpp:146-161).
 * Single sketch cache (.opss, .ss, .bmh, .pmh): f64 cardinality, then
   registers (src/fastxsketch.cpp:461-489).
+* K-mer database (--save-kmers, .kmer64): u32 dtype|canon<<8, u32
+  sketchsize, u32 k, u32 w, u64 seed, then u64 kmers
+  (src/fastxsketch.cpp:245-264).
+* Contain output: u64 nref, u64 nq, f32 coverage[nq*nref],
+  f32 meandepth[nq*nref] (src/contain_main.cpp:246-250).
 
 * KNN / threshold graphs (--topk, -T, --binary-output): u64 nids, u64
   nnz, u64 indptr[nids + 1], u32 indices[nnz], f32 data[nnz]
@@ -21,9 +27,12 @@ for symmetric all-pairs) are written by io/emitters.py.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from ..enums import Alphabet
 
 
 def write_stacked_signatures(path: str, cardinalities: np.ndarray,
@@ -117,3 +126,63 @@ def read_knn_csr(path: str):
         indices = np.fromfile(f, np.uint32, nnz)
         data = np.fromfile(f, np.float32, nnz)
     return indptr, indices, data
+
+
+# ----------------------------------------------------------------------
+# K-mer database
+# ----------------------------------------------------------------------
+
+def write_kmer_db(path: str, kmers: np.ndarray, k: int, w: int,
+                  alphabet: Alphabet, canon: bool, seed: int) -> None:
+    """kmers: (nseqs, sketchsize) u64."""
+    kmers = np.ascontiguousarray(kmers, dtype=np.uint64)
+    with open(path, "wb") as f:
+        hdr = np.array([int(alphabet) | (int(canon) << 8),
+                        kmers.shape[1], k, w], dtype=np.uint32)
+        hdr.tofile(f)
+        np.array([seed], dtype=np.uint64).tofile(f)
+        kmers.tofile(f)
+
+
+@dataclass
+class KmerDB:
+    k: int
+    w: int
+    canon: bool
+    alphabet: Alphabet
+    sketchsize: int
+    seed: int
+    kmers: np.ndarray  # (nseqs, sketchsize)
+
+
+def read_kmer_db(path: str) -> KmerDB:
+    dat = np.memmap(path, np.uint8, mode="r")
+    d, s, k, w = (int(x) for x in dat[:16].view(np.uint32))
+    seed = int(dat[16:24].view(np.uint64)[0])
+    kmers = np.array(dat[24:].view(np.uint64)).reshape(-1, s)
+    return KmerDB(k=k, w=w, canon=bool((d >> 8) & 1),
+                  alphabet=Alphabet(d & 0xFF), sketchsize=s, seed=seed,
+                  kmers=kmers)
+
+
+# ----------------------------------------------------------------------
+# Contain output
+# ----------------------------------------------------------------------
+
+def write_contain(path: str, coverage: np.ndarray, meandepth: np.ndarray
+                  ) -> None:
+    """coverage/meandepth: (nqueries, nref) f32."""
+    nq, nref = coverage.shape
+    with open(path, "wb") as f:
+        np.array([nref, nq], dtype=np.uint64).tofile(f)
+        np.ascontiguousarray(coverage, dtype=np.float32).tofile(f)
+        np.ascontiguousarray(meandepth, dtype=np.float32).tofile(f)
+
+
+def read_contain(path: str):
+    with open(path, "rb") as f:
+        nref, nq = (int(x) for x in np.fromfile(f, np.uint64, 2))
+        cov = np.fromfile(f, np.float32, nref * nq).reshape(nq, nref)
+        dep = np.fromfile(f, np.float32, nref * nq).reshape(nq, nref)
+    return {"nref": nref, "nqueries": nq, "coverage_matrix": cov,
+            "depth_matrix": dep}

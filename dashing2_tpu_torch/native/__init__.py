@@ -135,8 +135,9 @@ def nvcc_command(src: str) -> Callable[[str], List[str]]:
 
 def load_oph_lib() -> ctypes.CDLL:
     """The native threaded OPH sketcher (the port's copy of oph_sketch.cpp),
-    with the file-driver entry `oph_sketch_files` and the k-mer hash
-    entry `hash_rows_native` of the counting route.
+    with the file-driver entry `oph_sketch_files`, the k-mer hash entry
+    `hash_rows_native` of the counting route and `oph_update_hashed`, the
+    one-permutation update over pre-hashed items (set-space intervals).
     Built with -march=native, so the build is scoped by the host's CPU
     feature flags (a library tuned for another microarchitecture loads
     fine and then dies of SIGILL)."""
@@ -147,6 +148,10 @@ def load_oph_lib() -> ctypes.CDLL:
                        tag_extra=_cpu_fingerprint())
     if not getattr(lib, "_sigs_set", False):
         c = ctypes
+        lib.oph_update_hashed.restype = None
+        lib.oph_update_hashed.argtypes = [
+            c.POINTER(c.c_uint64), c.c_int64, c.c_uint64, c.c_int64,
+            c.POINTER(c.c_uint64), c.POINTER(c.c_uint32)]
         lib.oph_sketch_files.restype = c.c_int64
         lib.oph_sketch_files.argtypes = [
             c.POINTER(c.c_char_p), c.POINTER(c.c_int32),

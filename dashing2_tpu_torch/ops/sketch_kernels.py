@@ -146,12 +146,14 @@ def _css_x1(hashed: torch.Tensor, m: int):
 
 
 def _css_pass(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
-              threshold: torch.Tensor, m: int):
+              threshold: torch.Tensor, m: int, return_ids: bool = False):
     """One filtered CSetSketch pass over B items at once. sx1, srv:
     (B, K) x1 and rv of each item's hashes in ascending x1 (stable: the
     lower index first among equal x1, as lax.top_k orders -x1); k (B,)
     the rows each item takes (its cap, <= K); threshold (B,) f64.
-    Returns (registers (B, m) f64, tcut (B,) f64).
+    Returns (registers (B, m) f64, tcut (B,) f64), and with return_ids
+    the row of each register's winner ((B, m) int64, the first of equal
+    minima, as the JAX pass's argmin takes it).
 
     Per item, as the JAX `_css_pass` computes it: of its k smallest x1,
     the rows with x1 <= threshold are kept; tcut is the smallest x1 of
@@ -178,6 +180,8 @@ def _css_pass(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
     del u
     e.scatter_(2, idx0[:, :, None], sx1[:, :, None])
     e.masked_fill_(~keep[:, :, None], torch.inf)
+    if return_ids:
+        return e.amin(1), tcut, e.argmin(1)
     return e.amin(1), tcut
 
 
@@ -187,10 +191,13 @@ CSS_BATCH_ELEMENTS = 1 << 27
 
 
 def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cuda",
-                    budget: int = CSS_BATCH_ELEMENTS):
+                    budget: int = CSS_BATCH_ELEMENTS,
+                    return_ids: bool = False):
     """CSetSketch registers ((n, m) f64 numpy, +inf where never updated)
     of each item's distinct hashes, and the passes each item took ((n,)
-    int32): the JAX host loop `css_sketch` (without return_ids), which
+    int32); with return_ids also each register's winner ((n, m) int64,
+    the index of the winning hash in the item's input order; 0 for an
+    empty item). The JAX host loop `css_sketch`, which
     per item takes n = its hash count, cap = min(n, max(4096, 6m)),
     threshold t = (log(m) + 8) / n, then runs the filtered pass until
     max(registers) <= tcut, with t *= 4 and cap = min(n, 4 cap) between
@@ -203,6 +210,7 @@ def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cuda",
     n_items = len(items)
     regs = np.full((n_items, m), np.inf)
     passes = np.zeros(n_items, np.int32)
+    ids = np.zeros((n_items, m), np.int64) if return_ids else None
     cap = max(4096, 6 * m)
     sizes = np.array([len(x) for x in items], np.int64)
     order = [i for i in np.argsort(sizes, kind="stable") if sizes[i]]
@@ -212,14 +220,18 @@ def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cuda",
     for grp in _budget_groups(np.arange(len(order)), first, m, budget):
         batch = [order[i] for i in grp]
         _css_batch([items[i] for i in batch], m, cap, dev, budget,
-                   regs, passes, np.asarray(batch))
+                   regs, passes, np.asarray(batch), ids)
+    if return_ids:
+        return regs, passes, ids
     return regs, passes
 
 
 def _css_batch(items: List[np.ndarray], m: int, cap: int, dev, budget: int,
-               regs: np.ndarray, passes: np.ndarray, idx: Sequence[int]):
+               regs: np.ndarray, passes: np.ndarray, idx: Sequence[int],
+               ids=None):
     """css_sketch_many over one batch, writing the registers and passes
-    of item i of the batch to row idx[i] of `regs` and `passes`."""
+    of item i of the batch to row idx[i] of `regs` and `passes` (and its
+    winners, mapped back through the sort's permutation, to `ids`)."""
     n = np.array([len(x) for x in items], np.int64)
     width = int(n.max())
     h = np.zeros((len(items), width), np.uint64)
@@ -232,26 +244,35 @@ def _css_batch(items: List[np.ndarray], m: int, cap: int, dev, budget: int,
     x1 = torch.where(valid, x1, torch.inf)
     sx1, perm = torch.sort(x1, dim=1, stable=True)
     srv = torch.gather(rv, 1, perm)
-    del hashed, valid, x1, rv, perm
+    del hashed, valid, x1, rv
+    if ids is None:
+        del perm
     kcap = np.minimum(n, cap)
     t = (np.log(m) + 8.0) / np.maximum(n, 1)
     todo = np.arange(len(items))
     for _ in range(64):
         # the pass's rows: the most any unconverged item takes, in
         # groups that keep each pass within the budget
-        got_r, got_c = [], []
+        got_r, got_c, got_w = [], [], []
         for grp in _budget_groups(todo, kcap, m, budget):
             K = int(kcap[grp].max())
             sel = torch.from_numpy(grp).to(dev)
-            r, c = _css_pass(sx1[sel, :K], srv[sel, :K],
-                             torch.from_numpy(kcap[grp]).to(dev),
-                             torch.from_numpy(t[grp]).to(dev), m)
-            got_r.append(r.cpu().numpy())
-            got_c.append(c.cpu().numpy())
+            out = _css_pass(sx1[sel, :K], srv[sel, :K],
+                            torch.from_numpy(kcap[grp]).to(dev),
+                            torch.from_numpy(t[grp]).to(dev), m,
+                            return_ids=ids is not None)
+            got_r.append(out[0].cpu().numpy())
+            got_c.append(out[1].cpu().numpy())
+            if ids is not None:
+                # sorted row -> the hash's index in the item's input
+                got_w.append(torch.gather(perm[sel], 1, out[2])
+                             .cpu().numpy())
         r, c = np.concatenate(got_r), np.concatenate(got_c)
         passes[idx[todo]] += 1
         done = r.max(1) <= c
         regs[idx[todo[done]]] = r[done]
+        if ids is not None:
+            ids[idx[todo[done]]] = np.concatenate(got_w)[done]
         todo = todo[~done]
         if not len(todo):
             return

@@ -22,13 +22,16 @@ max(f32(u * 2^-64), 1e-30) (u64 -> f64 -> f32, rounded twice),
   by h alone;
 
 with `log` and `exp` the port's fixed f32 sequences (ops/fixedmath.py),
-which are XLA's CPU `jnp.log`/`jnp.exp` bit for bit. A register keeps
-the least key. As in the JAX engine, the stream is cut into rows of
+which are XLA's CPU `jnp.log`/`jnp.exp` bit for bit. A position whose
+log-weight is not finite (a weight of 0 or less, -inf) is masked as in
+the JAX engine (`live = isfinite(lnw)`): it draws with w = 0 and its key
+is +inf, so it never wins. A register keeps the least key. As in the JAX engine, the stream is cut into rows of
 ROW_L = 2048 positions: inside a row the least order-preserving key bits
 win, ties going to the first position (so -0.0 beats +0.0 there); rows
 merge in order by f32 `<`, so an earlier row keeps an equal key (also
 +0.0 against -0.0). The sample value is an f32 in [0, 1); an empty item
-has key +inf, winner 0 and value 0.
+has key +inf, winner 0 and value 0, and so has an item whose every
+position is masked.
 """
 
 from __future__ import annotations
@@ -95,8 +98,13 @@ def _icws_rt(kind: str, h: torch.Tensor, lnw32: torch.Tensor,
              j: torch.Tensor):
     """The draw math on broadcast operands: h int64 (u64 bits), lnw32 f32
     log-weight, j int64 register term (register * GOLD). Returns (key
-    f32, t f32 or None): the key and, for ICWS, the t its sample value
-    is keyed by."""
+    f32, t f32 or None): the key (+inf where lnw32 is not finite) and,
+    for ICWS, the t its sample value is keyed by."""
+    live = torch.isfinite(lnw32)
+    lnw32 = torch.where(live, lnw32, torch.zeros_like(lnw32))
+    inf = torch.tensor(float("inf"), dtype=torch.float32,
+                       device=lnw32.device)
+
     def keyed(salt):
         return DH.wanghash(h ^ (j + DH.s64(salt)))
 
@@ -109,9 +117,9 @@ def _icws_rt(kind: str, h: torch.Tensor, lnw32: torch.Tensor,
         beta = _unit32(keyed(_S5))
         t = torch.floor(lnw32 / r + beta)
         key = fma32(-r, t - beta, lnc) - r
-        return key, t
+        return torch.where(live, key, inf), t
     u = unit(_S1)
-    return -log32(u) * exp32(-lnw32), None
+    return torch.where(live, -log32(u) * exp32(-lnw32), inf), None
 
 
 def _ordered(key: torch.Tensor) -> torch.Tensor:
@@ -181,8 +189,9 @@ def weighted_draws_plain(kind: str, hashes: torch.Tensor,
             better = rk < key[i]
             key[i] = torch.where(better, rk, key[i])
             pos[i] = torch.where(better, rowbest & 0xFFFFFFFF, pos[i])
-    # a register no row won (an empty item) keeps key +inf, winner 0
-    # and value 0, as the JAX engine's host merge leaves it
+    # a register no row won (an empty item, or one whose positions are
+    # all masked) keeps key +inf, winner 0 and value 0, as the JAX
+    # engine's host merge leaves it
     won = key != float("inf")
     if not bool(won.any()):
         return key, pos.to(torch.int32), torch.zeros_like(key)

@@ -3,7 +3,8 @@
 Port of dashing2_tpu/result.py::SketchingResult, cut to the members the
 port fills: names, cardinalities, signatures (f64 one-permutation or
 FullSetSketch registers, or the u8/u16/u32 registers a sketch-compressed
-FullSetSketch job quantised), (optionally) k-mer ids, and the exact k-mer
+FullSetSketch job quantised), (optionally) k-mer ids and their counts
+(-s/-N of one-permutation jobs), and the exact k-mer
 sets of `--set`/`--countdict` jobs (each item's distinct u64 hashes,
 sorted, with their f64 counts for a count dictionary). The system has no
 weights; the sketches are its state, and `from_reference` carries them
@@ -24,6 +25,7 @@ class SketchingResult:
     cardinalities: Optional[np.ndarray] = None        # (N,) f64
     signatures: Optional[np.ndarray] = None           # (N, m) f64
     kmers: Optional[np.ndarray] = None                # (N, m) u64
+    kmercounts: Optional[np.ndarray] = None           # (N, m) f32
     kmer_sets: Optional[List[np.ndarray]] = None      # N sorted u64 sets
     kmer_set_counts: Optional[List[np.ndarray]] = None  # N f64 counts
     nq: int = 0  # number of query items (PANEL); stored at the tail

@@ -7,7 +7,8 @@ Port of two routes of dashing2_tpu/sketch/core.py behind a
   `_hash_kwargs`, `_finalize_one_perm`, `_try_native_files`) for
   one-permutation jobs: the C++ engine (oph_sketch.cpp
   `oph_sketch_files`) reads, encodes, hashes and bucket-mins whole path
-  groups on host cores;
+  groups on host cores (with -s/-N the registers' k-mer ids and
+  multiplicities too, which only these jobs have);
 * the generic route's counting stream for the jobs the file driver
   declines, FullSetSketch (--full-setsketch, with --setsketch-ab or
   --fastcmp-bytes/-shorts/-words quantised on the host),
@@ -29,9 +30,10 @@ ROADMAP Queue 1 item that ports it (`_unsupported`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Sequence, Tuple
+from typing import Callable, Iterable, Iterator, List, Sequence, Tuple, TypeVar
 
 import numpy as np
 
@@ -46,6 +48,7 @@ from ..result import SketchingResult
 from ..timing import add_span, span
 
 DOWNSAMPLE_SALT = 0x6F22B7A19E5F3D71
+T = TypeVar("T")
 U64MAX = SK.U64MAX
 
 
@@ -113,15 +116,23 @@ def _hash_kwargs(opts: Dashing2Options, chunk_len: int) -> dict:
 
 
 def _finalize_one_perm(opts: Dashing2Options, res: SketchingResult,
-                       regs, n: int, m: int) -> SketchingResult:
+                       regs, counts, n: int, m: int) -> SketchingResult:
     """ONE_PERM finalization: cardinalities and -log signatures (in row
     blocks into a RAM-or-memmap matrix so peak temp memory stays bounded
-    for huge N, mm::vector semantics)."""
+    for huge N, mm::vector semantics); with -s the registers' k-mer ids
+    (the inverse of the register hash, 0 for an empty register), with -N
+    their multiplicities."""
     res.cardinalities = SK.oph_cardinality(regs)
     sigs = mmvec.alloc((n, m), np.float64, opts.sig_ram_limit)
     for s in range(0, n, 4096):
         sigs[s:s + 4096] = SK.oph_to_sigs(regs[s:s + 4096])
     res.signatures = sigs
+    if opts.save_kmers:
+        ids64 = H.oph_hash_inverse(regs)
+        ids64[regs == U64MAX] = 0
+        res.kmers = ids64
+    if opts.save_kmercounts:
+        res.kmercounts = counts.astype(np.float32)
     return res
 
 
@@ -150,8 +161,6 @@ def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
         why.append("--filterset (item 7)")
     if opts.cache_sketches:
         why.append("--cache (item 6)")
-    if opts.save_kmers or opts.save_kmercounts:
-        why.append("--save-kmers/--save-kmercounts (item 6)")
     if why:
         return why
     if not _native_oph_supported(hkw):
@@ -219,6 +228,9 @@ def _sketch_files(opts: Dashing2Options, groups: Sequence[str]
 
     n, m = len(groups), opts.sketchsize
     regs = mmvec.alloc((n, m), np.uint64, opts.sig_ram_limit, fill=U64MAX)
+    want_counts = bool(opts.save_kmercounts)
+    counts = (mmvec.alloc((n, m), np.uint32, opts.sig_ram_limit, fill=0)
+              if want_counts else None)
     ds = hkw["downsample_threshold"] < (1 << 64) - 1
     oph_xor = int(H.mt19937_64_first(H.OPH_DEFAULT_SEED)) ^ H.CEIXOR_OPH
     mode, base, bits, offsets, roll_table, canon = _native_mode(hkw)
@@ -246,12 +258,13 @@ def _sketch_files(opts: Dashing2Options, groups: Sequence[str]
             int(ds), hkw["downsample_threshold"] & 0xFFFFFFFFFFFFFFFF,
             DOWNSAMPLE_SALT, m, nthreads,
             mode, base, bits, off_p, noff, roll_p, u64p(), 0,
-            span_len, regs.ctypes.data_as(u64p), u32p())
+            span_len, regs.ctypes.data_as(u64p),
+            counts.ctypes.data_as(u32p) if want_counts else u32p())
     if rc < 0:
         raise OSError(f"failed to read {paths[-int(rc) - 1]}")
     res = SketchingResult(names=list(groups))
     with span("sketch/finalize"):
-        return _finalize_one_perm(opts, res, regs, n, m)
+        return _finalize_one_perm(opts, res, regs, counts, n, m)
 
 
 # ----------------------------------------------------------------------
@@ -348,37 +361,41 @@ def _count_one(opts: Dashing2Options, hv: np.ndarray
     return u.astype(np.uint64), c.astype(np.float64)
 
 
+def in_order(calls: Iterable[Callable[[], T]], nthreads: int,
+             n: int) -> Iterator[T]:
+    """The results of `n` zero-argument calls, in order: run in a pool of
+    `nthreads` threads when nthreads > 1 and n > 1 (numpy releases the GIL
+    in its sorts), with at most 2 * nthreads calls in flight; the next
+    call is taken from `calls` (which may do work of its own, in this
+    thread) only when one is free."""
+    if nthreads <= 1 or n <= 1:
+        for call in calls:
+            yield call()
+        return
+    pending: List = []
+    with ThreadPoolExecutor(max_workers=nthreads) as pool:
+        for call in calls:
+            pending.append(pool.submit(call))
+            while len(pending) > 2 * nthreads:
+                yield pending.pop(0).result()
+        for fut in pending:
+            yield fut.result()
+
+
 def _count_stream(opts: Dashing2Options, groups: Sequence[str]
                   ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Each item's distinct hashes and their counts: native hashing item
-    by item, counting in a pool of -p threads when -p > 1 (numpy releases
-    the GIL in its sort), with at most 2p items in flight."""
+    by item, counting in a pool of -p threads when -p > 1."""
     from ..native import load_oph_lib
     lib = load_oph_lib()
     hkw = _hash_kwargs(opts, 1 << 15)
-    n = len(groups)
-    pool = None
-    if opts.nthreads > 1 and n > 1:
-        pool = ThreadPoolExecutor(max_workers=opts.nthreads)
-    results: List = [None] * n
-    pending: List[tuple] = []
-    try:
-        for i, codes in enumerate(_load_items(opts, groups)):
+
+    def calls():
+        for codes in _load_items(opts, groups):
             with span("sketch/hash"):
                 hv = _native_hash_codes_list(lib, codes, hkw)
-            if pool is None:
-                results[i] = _count_one(opts, hv)
-                continue
-            pending.append((i, pool.submit(_count_one, opts, hv)))
-            while len(pending) > 2 * opts.nthreads:
-                j, fut = pending.pop(0)
-                results[j] = fut.result()
-        for j, fut in pending:
-            results[j] = fut.result()
-    finally:
-        if pool is not None:
-            pool.shutdown()
-    return results
+            yield functools.partial(_count_one, opts, hv)
+    return list(in_order(calls(), opts.nthreads, len(groups)))
 
 
 def _sketch_counted(opts: Dashing2Options, groups: Sequence[str],

@@ -21,17 +21,20 @@ import numpy as np
 import torch
 
 from ..ops.weighted_draws import (_GOLD, _S1, _S2, _S3, _S4, _S5,  # noqa: F401
-                                  _SVAL, _icws_rt, weighted_draws)
+                                  _SVAL, ROW_L, _icws_rt, weighted_draws)
 from ..timing import span
 
 # stream positions one launch draws for (a few bytes each on the card)
 BATCH_POSITIONS = 1 << 24
+# positions of a piece of a long stream: 16 rows of ROW_L
+PIECE = 16 * ROW_L
 
 
 def _lnw_many(kind: str, uniq: Sequence[np.ndarray],
               counts: Sequence[np.ndarray]) -> List[np.ndarray]:
     out = []
-    with np.errstate(divide="ignore"):
+    # a weight of 0 or less (interval values, wsketch weights) is masked
+    with np.errstate(divide="ignore", invalid="ignore"):
         for c in counts:
             c = c.astype(np.float64)
             if kind == "pmh":
@@ -53,36 +56,72 @@ def _batches(sizes: np.ndarray, budget: int):
         s = e
 
 
+def _pieces(sizes: np.ndarray):
+    """(stream, start, length) arrays of the pieces of PIECE positions
+    the streams are cut into, streams in order (an empty stream is one
+    empty piece)."""
+    count = np.maximum(1, -(-sizes // PIECE))
+    item = np.repeat(np.arange(len(sizes)), count)
+    first = np.cumsum(count) - count
+    start = (np.arange(len(item)) - first[item]) * PIECE
+    return item, start, np.minimum(PIECE, sizes[item] - start)
+
+
 def _sketch_many_streams(kind: str, streams: Sequence[np.ndarray],
                          lnws: Sequence[np.ndarray], m: int, device,
                          budget: int = BATCH_POSITIONS
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """Each item's registers (f64 (n, m)) and winners (int64 (n, m),
     positions in the item's stream) from its (hash, log-weight) stream,
-    items batched into launches on `device`. Every log-weight is finite
-    (the JAX engine would give a non-finite one an infinite key)."""
+    items batched into launches on `device`. A position whose log-weight
+    is not finite (a weight of 0 or less) never wins; a register no
+    position wins is 0 with winner 0, as in the JAX engine.
+
+    A stream longer than PIECE positions is drawn as pieces of PIECE
+    positions (whole 2048-position rows), each an item of the launch, so
+    that a launch of a few long streams (interval files) still fills the
+    card; the pieces then merge in order by f32 `<`, an earlier piece
+    keeping an equal key: the JAX engine's row rule, so the registers
+    are those of the whole stream."""
     n = len(streams)
     sigs = np.zeros((n, m), np.float64)
     ids = np.zeros((n, m), np.int64)
     dev = torch.device(device)
-    if not all(np.isfinite(w).all() for w in lnws):
-        # the weights are counts and CountSketch buckets, never 0
-        raise ValueError("non-finite log-weights in a weighted stream")
     sizes = np.array([len(h) for h in streams], np.int64)
-    for s, e in _batches(sizes, budget):
+    item, start, plen = _pieces(sizes)
+    split = np.flatnonzero(sizes > PIECE)
+    row = np.full(n, -1, np.int64)
+    row[split] = np.arange(len(split))
+    key_s = np.full((len(split), m), np.inf, np.float32)
+    val_s = np.zeros((len(split), m), np.float32)
+    win_s = np.zeros((len(split), m), np.int64)
+    for s, e in _batches(plen, budget):
         off = np.zeros(e - s + 1, np.int64)
-        np.cumsum(sizes[s:e], out=off[1:])
-        h = np.concatenate(streams[s:e]).astype(np.uint64, copy=False)
-        w = np.concatenate(lnws[s:e]).astype(np.float32)
+        np.cumsum(plen[s:e], out=off[1:])
+        cut = [slice(a, a + b) for a, b in zip(start[s:e], plen[s:e])]
+        h = np.concatenate([streams[i][c] for i, c in zip(item[s:e], cut)]
+                           ).astype(np.uint64, copy=False)
+        w = np.concatenate([lnws[i][c] for i, c in zip(item[s:e], cut)]
+                           ).astype(np.float32)
         with span("sketch/h2d"):
             th = torch.from_numpy(h.view(np.int64)).to(dev)
             tw = torch.from_numpy(w).to(dev)
             to = torch.from_numpy(off).to(dev)
         with span("sketch/draws"):
-            _, win, val = weighted_draws(kind, th, tw, to, m)
-            val, win = val.cpu().numpy(), win.cpu().numpy()
-        sigs[s:e] = val.astype(np.float64)
-        ids[s:e] = win
+            key, win, val = weighted_draws(kind, th, tw, to, m)
+            key, win, val = key.cpu().numpy(), win.cpu().numpy(), \
+                val.cpu().numpy()
+        whole = row[item[s:e]] < 0
+        sigs[item[s:e][whole]] = val[whole].astype(np.float64)
+        ids[item[s:e][whole]] = win[whole]
+        for p in np.flatnonzero(~whole):
+            r = row[item[s + p]]
+            better = key[p] < key_s[r]
+            key_s[r] = np.where(better, key[p], key_s[r])
+            val_s[r] = np.where(better, val[p], val_s[r])
+            win_s[r] = np.where(better, win[p] + start[s + p], win_s[r])
+    sigs[split] = val_s.astype(np.float64)
+    ids[split] = win_s
     return sigs, ids
 
 

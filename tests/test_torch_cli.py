@@ -144,7 +144,8 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--greedy", "0.8f"], ["--outprefix", "p"], ["--leafcutter"],
+    ["--greedy", "0.8f"], ["--outprefix", "p"],
+    ["--leafcutter", "--by-chrom"],
     ["--cache"], ["--warm-only", "8"], ["--seq"],
     ["--edit-distance"],
 ])
@@ -158,12 +159,12 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["sketch", "-S", "256", "--bed"],
+    ["sketch", "-S", "256", "--bed", "--by-chrom"],   # BigWig only
     ["sketch", "-S", "256", "--parse-by-seq"],
-    ["sketch", "-S", "256", "--bbit-sigs", "--save-kmers"],  # eq k-mers
+    ["sketch", "-S", "256", "--bbit-sigs", "--save-kmers", "--entmin"],
     ["cmp", "-S", "256", "--seq"],
     ["sketch", "-S", "256", "--fastcmp", "1", "--containment",
-     "-c", "1000", "--prob", "--save-kmers"],
+     "-c", "1000", "--prob", "--save-kmers", "--hp-compress"],
 ])
 def test_cli_rejects_other_comparisons(corpus, argv, tmp_path):
     lst, _ = corpus
@@ -194,13 +195,28 @@ def test_pairwise_rejects_routes_outside_the_slice(corpus, monkeypatch):
         res, device="cpu"))
     assert sum(b.shape[0] for _, b in blocks) == len(paths) - 3
     assert all(b.shape[1] == 3 for _, b in blocks)
-    # so do equality-compared saved k-mers (--save-kmers)
+    # so do equality-compared saved k-mers (--save-kmers): the k-mer ids,
+    # densified with the registers, are what compares equal, as in the
+    # JAX package (ids from a small alphabet, so that the counts differ
+    # from the registers')
+    ids = np.random.default_rng(3).integers(
+        0, 4, ref.signatures.shape).astype(np.uint64)
     kmers = from_reference(ref)
-    kmers.kmers = kmers.signatures.view(np.uint64).copy()
-    with pytest.raises(NotImplementedError, match="save-kmers"):
-        next(PC.pairwise_matrix(Dashing2DistOptions(k=31, sketchsize=256,
-                                                    truncation_method=1),
-                                kmers, device="cpu"))
+    kmers.kmers = ids.copy()
+    ref.kmers = ids.copy()
+    kw = dict(k=31, sketchsize=256, truncation_method=1)
+    got = list(PC.pairwise_matrix(Dashing2DistOptions(**kw), kmers,
+                                  block=64, device="cpu"))
+    want = list(JC.pairwise_matrix(JOptions(**kw), ref, block=64))
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+    regs_only = from_reference(ref)
+    regs_only.kmers = None
+    plain = list(PC.pairwise_matrix(Dashing2DistOptions(**kw), regs_only,
+                                    block=64, device="cpu"))
+    assert not all(np.array_equal(g, p) for (_, g), (_, p)
+                   in zip(got, plain))
 
 
 @pytest.fixture(scope="module")

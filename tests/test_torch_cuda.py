@@ -8,6 +8,8 @@ nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest -m cuda --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -916,3 +918,199 @@ def test_weighted_cli_on_card_equals_cpu(card, tmp_path):
                 "--device", dev]) == 0
             outs.append(out.read_bytes())
         assert outs[0] == outs[1], tag
+
+
+def _masked_operands(lens, seed, kind):
+    """Streams whose weights hold zeros and negative values (masked: a
+    log-weight of -inf), the third every weight 0 or less, the last its
+    first two 2048-position rows masked."""
+    from dashing2_tpu_torch.sketch import weighted as PW
+    rng = np.random.default_rng(seed)
+    hs = [rng.integers(0, 1 << 64, n, dtype=np.uint64) for n in lens]
+    cs = []
+    for n in lens:
+        c = rng.integers(1, 10 ** 6 + 1, n).astype(np.float64)
+        u = rng.random(n)
+        c[u < 0.2] = 0.0
+        c[u > 0.9] *= -1.0
+        cs.append(c)
+    cs[2] = -np.abs(cs[2])
+    cs[-1][:4096] = 0.0
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    lnw = np.concatenate(PW._lnw_many(kind, hs, cs)).astype(np.float32)
+    return (torch.from_numpy(np.concatenate(hs).view(np.int64)),
+            torch.from_numpy(lnw), torch.from_numpy(off))
+
+
+@pytest.mark.parametrize("m", [1, 64, 1000, 1024])
+@pytest.mark.parametrize("kind", ["icws", "pmh"])
+def test_weighted_draws_masked_match_plain(card, kind, m):
+    """weighted_draws.cu against its plain version on streams with zero,
+    negative and all-masked weights: keys, winners and values bit for
+    bit; the all-masked item has key +inf, winner 0 and value 0."""
+    from dashing2_tpu_torch.ops import weighted_draws as WD
+    args = [t.to(card) for t in _masked_operands(
+        [1, 7, 2049, 2048, 5000], m, kind)]
+    got = WD.weighted_draws(kind, *args, m)
+    want = WD.weighted_draws_plain(kind, *args, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    key, win, val = (t[2].cpu() for t in got)
+    assert torch.isinf(key).all() and not win.any() and not val.any()
+
+
+@pytest.mark.parametrize("m", [64, 1024])
+def test_css_winners_on_card_equal_cpu(card, m):
+    """css_sketch_many(return_ids=True) on the card: the CPU's registers
+    and winners (indices in each item's input order)."""
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+    rng = np.random.default_rng(m)
+    items = [rng.permutation(np.unique(rng.integers(
+        0, 1 << 64, n, dtype=np.uint64))) for n in (3, 500, 9000, 30000)]
+    items.append(np.zeros(0, np.uint64))
+    got = SK.css_sketch_many(items, m, card, return_ids=True)
+    want = SK.css_sketch_many(items, m, "cpu", return_ids=True)
+    np.testing.assert_array_equal(got[0].view(np.int64),
+                                  want[0].view(np.int64))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_contain_lookup_on_card_equals_cpu(card):
+    """The contain lookup on the card: the CPU's match counts and depth
+    sums, keys at and above 2^63, a key many references hold, in
+    sub-blocks of a few entries too."""
+    from dashing2_tpu_torch.cmp import contain as PCT
+    rng = np.random.default_rng(17)
+    pool = rng.integers(0, 1 << 64, 5000, dtype=np.uint64)
+    pool[:3] = [0, 1 << 63, (1 << 64) - 1]
+    kmers = rng.choice(pool, (300, 128))
+    kmers[:, 0] = pool[1]
+    hv = np.concatenate([rng.choice(pool, 20000),
+                         rng.integers(0, 1 << 64, 3000, dtype=np.uint64)])
+    want = PCT.KmerLookup(kmers, "cpu").match(hv)
+    got = PCT.KmerLookup(kmers, card).match(hv)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    old = PCT.EXPAND_BLOCK
+    PCT.EXPAND_BLOCK = 97
+    try:
+        small = PCT.KmerLookup(kmers, card).match(hv)
+    finally:
+        PCT.EXPAND_BLOCK = old
+    for g, w in zip(small, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _interval_inputs(tmp_path):
+    """Four BED files, three BigWig tracks (values with zeros and
+    negatives) and a LeafCutter table."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    try:
+        from chip_smoke import _write_bigwig
+    finally:
+        sys.path.pop(0)
+    rng = np.random.default_rng(19)
+    beds = []
+    for i in range(4):
+        p = tmp_path / f"p{i}.bed"
+        p.write_text("".join(
+            f"chr{c}\t{s}\t{s + w}\n" for c, s, w in zip(
+                rng.integers(1, 4, 60), rng.integers(0, 50000, 60),
+                rng.integers(20, 300, 60))))
+        beds.append(str(p))
+    tracks = []
+    for i in range(3):
+        chroms = {}
+        for c in ("chr1", "chr2"):
+            s = np.sort(rng.choice(20000, 300, replace=False)).astype(
+                np.uint32) * 5
+            v = rng.choice([0.0, -2.0, 1.5, 4.0], 300).astype(np.float32)
+            chroms[c] = (s, s + rng.integers(1, 5, 300).astype(np.uint32), v)
+        p = str(tmp_path / f"t{i}.bw")
+        _write_bigwig(p, chroms, per_block=64)
+        tracks.append(p)
+    lf = tmp_path / "x_perind.counts"
+    lf.write_text("chrom a b c\n" + "".join(
+        f"chr1:{10 * j}:{10 * j + 5}:clu_{j} "
+        + " ".join(f"{rng.integers(0, 4)}/{rng.integers(1, 9)}"
+                   for _ in range(3)) + "\n" for j in range(200)))
+    return beds, tracks, [str(lf)]
+
+
+def test_interval_cli_on_card_equals_cpu(card, tmp_path):
+    """`sketch --bed` (one-permutation, --full-setsketch, -B
+    --normalize-intervals, -P), `--bigwig -P`, `--bigwig -B --by-chrom`
+    and `--leafcutter -B` through the CLI on the card write the CPU
+    run's bytes (comparison and -o)."""
+    from dashing2_tpu_torch import cli
+    beds, tracks, lf = _interval_inputs(tmp_path)
+    jobs = {"bed": (["--bed"], beds), "bed-fss": (["--bed", "--full"], beds),
+            "bed-bmh": (["--bed", "-B", "--normalize-intervals"], beds),
+            "bed-pmh": (["--bed", "-P"], beds),
+            "bw-pmh": (["--bigwig", "-P"], tracks),
+            "bw-bmh": (["--bigwig", "-B", "--by-chrom"], tracks),
+            "lf-bmh": (["--leafcutter", "-B"], lf)}
+    for tag, (flags, paths) in jobs.items():
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out, sig = tmp_path / f"{tag}-{dev}.bin", tmp_path / f"{tag}.sig"
+            assert cli.main(["sketch", "-S", "256"] + flags + [
+                "--binary-output", "--cmpout", str(out), "-o", str(sig)]
+                + paths + ["--device", dev]) == 0
+            outs.append((out.read_bytes(), sig.read_bytes()))
+        assert outs[0] == outs[1], tag
+
+
+def test_wsketch_cli_on_card_equals_cpu(card, tmp_path):
+    """`wsketch -B`, `-P` and `-q` over a CSR matrix (weights with zeros
+    and negatives, an empty row) on the card write the CPU run's files."""
+    from dashing2_tpu_torch import cli
+    rng = np.random.default_rng(23)
+    ids = rng.integers(0, 3000, 2500).astype(np.uint64)
+    w = rng.uniform(0.2, 4.0, 2500)
+    w[::11] = 0.0
+    w[3::13] *= -1
+    ip = np.array([0, 700, 700, 1500, 2500], np.uint64)
+    for name, arr in (("ids", ids), ("w", w), ("ip", ip)):
+        arr.tofile(str(tmp_path / name))
+    for flags in (["-B"], ["-P"], ["-q"]):
+        files = []
+        for dev in ("cuda", "cpu"):
+            pref = str(tmp_path / f"o{dev}")
+            assert cli.main(["wsketch", "-S", "256", "-o", pref] + flags + [
+                str(tmp_path / n) for n in ("ids", "w", "ip")]
+                + ["--device", dev]) == 0
+            files.append({s: open(f"{pref}{s}", "rb").read() for s in (
+                ".sampled.indices.stacked.4.256.i64",
+                ".sampled.regs.stacked.4.256.f64",
+                ".sampled.hashes.stacked.4.256.i64", ".sampled.info.txt")})
+        assert files[0] == files[1], flags
+
+
+def test_contain_cli_on_card_equals_cpu(card, tmp_path):
+    """`sketch -s -N -o db`, then `contain` binary and text with the
+    lookup on the card: the CPU run's bytes."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import write_corpus
+    paths = write_corpus(str(tmp_path / "fa"), seed=29, n_ancestors=3,
+                         n_mutants=4, length=3000)
+    db = str(tmp_path / "db")
+    assert cli.main(["sketch", "-k", "21", "-S", "256", "-s", "-N", "-o",
+                     db] + paths) == 0
+    for flags in (["--binary-output"], []):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"c-{dev}"
+            assert cli.main(["contain"] + flags + [
+                "--cmpout", str(out), db + ".kmer64"] + paths[:5]
+                + ["--device", dev]) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1], flags

@@ -210,12 +210,26 @@ def test_routes_outside_the_slice_raise(monkeypatch):
     res = SketchingResult(names=[f"s{i}" for i in range(n)],
                           cardinalities=np.ones(n),
                           signatures=_sketches(n, m, 4))
-    # equality-compared saved k-mers (--save-kmers) raise; panels run,
-    # on every route of n
-    eqfull = Dashing2DistOptions(k=31, sketchsize=m, truncation_method=1)
-    kmers = dataclasses.replace(res, kmers=res.signatures.view(np.uint64))
+    # m >= 65536 (u16 counts) raises; equality-compared saved k-mers
+    # (--save-kmers) run, their ids (densified with the registers)
+    # compared as the JAX package compares them; panels run, on every
+    # route of n
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(PC.pairwise_matrix(eqfull, kmers, device="cpu"))
+        next(PC.pairwise_matrix(Dashing2DistOptions(
+            k=31, sketchsize=1 << 16), res, device="cpu"))
+    eqfull = Dashing2DistOptions(k=31, sketchsize=m, truncation_method=1)
+    ids = np.random.default_rng(5).integers(0, 3, (n, m)).astype(np.uint64)
+    kmers = dataclasses.replace(res, signatures=res.signatures.copy(),
+                                kmers=ids.copy())
+    ref = JResult(names=list(res.names), cardinalities=np.ones(n),
+                  signatures=res.signatures.copy(), kmers=ids.copy())
+    got = list(PC.pairwise_matrix(eqfull, kmers, device="cpu"))
+    want = list(JC.pairwise_matrix(JOptions(k=31, sketchsize=m,
+                                            truncation_method=1), ref))
+    assert len(got) == len(want)
+    for (gs, g), (ws, w) in zip(got, want):
+        assert gs == ws
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
     monkeypatch.setattr(PC, "SELF_MAX", n - 1)
     nibble = Dashing2DistOptions(k=31, sketchsize=m, fd_level=0.5,
                                  truncation_method=1)

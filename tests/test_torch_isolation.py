@@ -25,6 +25,10 @@ import dashing2_tpu_torch.ops.int_counts, dashing2_tpu_torch.ops.pair_counts
 import dashing2_tpu_torch.cmp.graph, dashing2_tpu_torch.cmp.lsh
 import dashing2_tpu_torch.io.formats, dashing2_tpu_torch.io.fastx
 import dashing2_tpu_torch.ops.hashes, dashing2_tpu_torch.ops.sketch_kernels
+import dashing2_tpu_torch.sketch.intervals, dashing2_tpu_torch.sketch.wsketch
+import dashing2_tpu_torch.cmp.contain, dashing2_tpu_torch.io.bigwig
+import dashing2_tpu_torch.sketch.weighted
+import dashing2_tpu_torch.ops.weighted_draws
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dashing2_tpu."))
              or m == "dashing2_tpu")
@@ -70,6 +74,28 @@ def test_cli_default_cuda_device_fails_without_a_card(tmp_path):
 def test_full_register_job_on_cuda_fails_without_a_card(tmp_path):
     """The default job (no --fastcmp) with the default --device cuda."""
     _cuda_job_without_card(tmp_path, [])
+
+
+@pytest.mark.parametrize("job", ["bed", "wsketch", "contain"])
+def test_new_subcommands_on_cuda_fail_without_a_card(tmp_path, job):
+    """`sketch --bed -B`, `wsketch` and `contain` with the default
+    --device cuda exit non-zero without a card and write nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    (tmp_path / "a.bed").write_text("chr1\t0\t100\n")
+    (tmp_path / "ids.u64").write_bytes(bytes(8 * 4))
+    (tmp_path / "a.fa").write_text(">a\nACGTACGTACGTACGTACGTACGTACGT\n")
+    argv = {"bed": ["sketch", "--bed", "-B", "--binary-output", "--cmpout",
+                    "out", "a.bed", "a.bed"],
+            "wsketch": ["wsketch", "-o", "out", "ids.u64"],
+            "contain": ["contain", "--cmpout", "out", "db.kmer64",
+                        "a.fa"]}[job]
+    r = subprocess.run([sys.executable, "-m", "dashing2_tpu_torch"] + argv,
+                       cwd=str(tmp_path), env=_env(), capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA card" in r.stderr
+    assert not [f for f in os.listdir(tmp_path) if f.startswith("out")]
 
 
 def _names_jax_path(value: str) -> bool:

@@ -57,12 +57,33 @@ def test_sketch_matches_jax(groups, cfg, native_files, monkeypatch):
     dict(entmin=True), dict(parse_by_seq=True), dict(cache_sketches=True),
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SEQUENCE),
     dict(sspace=SketchSpace.SPACE_EDIT_DISTANCE),
-    dict(save_kmers=True), dict(filterset_path="some.fs"),
+    dict(by_chrom=True), dict(filterset_path="some.fs"),
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SET, use128=True),
 ])
 def test_configs_outside_the_file_driver_raise(groups, opts):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sketch_fastx(Dashing2Options(k=21, sketchsize=64, **opts), groups)
+
+
+@pytest.mark.parametrize("flags", [dict(save_kmers=True),
+                                   dict(save_kmercounts=True),
+                                   dict(save_kmers=True, save_kmercounts=True,
+                                        sketchsize=100, w=25)])
+def test_saved_kmers_match_jax(groups, flags, monkeypatch):
+    """-s/-N on the native file driver: each register's k-mer id (0 for
+    an empty register) and multiplicity, as the JAX package's."""
+    monkeypatch.setenv("DASHING2_TPU_NATIVE_FILES", "force")
+    kw = dict(dict(k=21, sketchsize=64), **flags)
+    got = sketch_fastx(Dashing2Options(**kw), groups)
+    want = jax_sketch_fastx(JOptions(**kw), groups)
+    np.testing.assert_array_equal(got.signatures, want.signatures)
+    for attr in ("kmers", "kmercounts"):
+        g, w = getattr(got, attr), getattr(want, attr)
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    assert (got.kmers is not None) == kw.get("save_kmers", False)
 
 
 def test_xz_inputs_raise(groups):
