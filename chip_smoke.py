@@ -14,17 +14,18 @@ FullSetSketch sketching (`--full-setsketch`, `--fastcmp-bytes`),
 `cmp --presketched`, exact k-mer sets and count dictionaries
 (`--set`, `--countdict`), the weighted sketches (`-B`, `-P`, `-c`), the
 k-mer database (`-s`, `-N`) and `contain`, the interval inputs
-(`--bed`, `--bigwig`, `--leafcutter`) and `wsketch` through the port's
-own CLI.
+(`--bed`, `--bigwig`, `--leafcutter`), `wsketch` and the edit-distance
+space (`-E`, `--parse-by-seq`, `--compute-edit-distance`, `--greedy
+...f`) through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu,
-   csrc/int_counts.cu and csrc/weighted_draws.cu (sm_90a) and g++ for
-   the native sketcher, FASTA
-   reader and formatter, all started together; build seconds and
-   ptxas' register/spill report;
+   csrc/int_counts.cu, csrc/weighted_draws.cu and csrc/omh.cu (sm_90a)
+   and g++ for the native sketcher, FASTA reader, formatter and Myers
+   edit distance, all started together; build seconds and ptxas'
+   register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
    1000, 1025, 4097} and m in {30, 62, 64, 96, 98, 100, 126, 128, 130,
@@ -153,8 +154,9 @@ no card, or when the port is not importable:
 14. the JAX package's FullSetSketch golden: `sketch -k 17 -S 128 --full`
    over tests/make_fixtures.py's six genomes on the card must write the
    bytes of tests/goldens/full_sim.bin;
-15. FullSetSketch at full size on the N = 10240 corpus: `sketch
-   --full-setsketch -o fss.sig --cmpout fss.bin` (the CSetSketch draws of
+15. FullSetSketch at full width on the first 5120 genomes of the
+   N = 10240 corpus: `sketch --full-setsketch -o fss.sig --cmpout
+   fss.bin` (the CSetSketch draws of
    every item on the card, then one gtlt_self launch, no other kernel);
    every emitted value equals the table at the plain counts of the
    written registers; the distinct k-mers of 8 items spread over the
@@ -172,8 +174,8 @@ no card, or when the port is not importable:
    --fastcmp 0.5 --bbit-sigs` over phase 5's `-o` output: one launch
    each (gtlt_self, tri_eq) and the bytes of the sketch job that wrote
    the file;
-18. exact k-mer sets at full size: `sketch --set --cmpout set.bin` on
-   the N = 10240 corpus, its intersections joined on the card
+18. exact k-mer sets: `sketch --set --cmpout set.bin` over the first
+   5120 genomes of the N = 10240 corpus, its intersections joined on the card
    (cmp/wcompare.py, no hand kernel: none is launched). The
    cardinalities equal the set sizes; 4096 sampled values (every pair
    of 8 families, the rest random pairs among 512 genomes) equal
@@ -185,13 +187,15 @@ no card, or when the port is not importable:
    `--device cpu`;
 20. a `--set -Q` panel over the first 1024 genomes, every tenth a
    query: byte-equal to `--device cpu`;
-21. `--set --topk 10 --index-save` at N = 10240, then the same job with
+21. `--set --topk 10 --index-save` over the first 5120 genomes, then
+   the same job with
    `--index-load`: equal bytes over the same candidate pairs; the card's
    pair counts equal the CPU's on 2048 of them. Prints the candidate
    count and the `cmp/exact-pairs` span;
 22. `--countdict --greedy 0.3` over the first 1024 genomes: byte-equal
    to `--device cpu`;
-23. `sketch -B -o wmh.sig` all pairs at N = 10240 (run before phases
+23. `sketch -B -o wmh.sig` all pairs over the first 5120 genomes of the
+   N = 10240 corpus (run before phases
    18-22): the draws on weighted_draws.cu, one gtlt_self launch over the
    registers' bits; the registers of 32 items spread over the corpus
    equal the plain version's on the card bit for bit and their
@@ -200,7 +204,8 @@ no card, or when the port is not importable:
    them. Prints the draws' seconds and rate and the spans;
 24. `-P -c 1048576` over the first 8 genomes at -S 256: byte-equal to
    `--device cpu`;
-25. `-P --topk 10` at N = 10240: the draws on the card, no other kernel;
+25. `-P --topk 10` over the first 5120 genomes: the draws on the card,
+   no other kernel;
    the bytes equal `neighbor_graph_main` on the CPU over the same
    sketches;
 26. `sketch -S 1024 -s -N -o db` over the N = 10240 corpus (no kernel):
@@ -209,7 +214,7 @@ no card, or when the port is not importable:
    1% of their bases mutated (about 1 Mbp a query), binary and text,
    the lookup on the card; the binary bytes equal `--device cpu`'s, and
    each query covers more than half of its genomes' keys;
-27. `sketch --bed` over 32 peak files (10,000-20,000 intervals of
+27. `sketch --bed` over 16 peak files (10,000-20,000 intervals of
    200-1,000 bp over 24 chromosomes, 60% of each file's peaks from its
    family's set of four): the one-permutation default (host), then
    `--full-setsketch` (the CSetSketch draws), `-B --normalize-intervals`
@@ -241,11 +246,49 @@ no card, or when the port is not importable:
 30. `wsketch -B`, `-P` and `-q` (`--u32 --f32`, u64 indptr) over a
    10,000-row count matrix of 1,000-3,000 non-zeros a row; the first 32
    rows (4 for -B) also with `--device cpu`: their rows of every output
-   file equal.
+   file equal;
+31. the OrderMinHash kernel (csrc/omh.cu) against its plain version on
+   the card, bit for bit: tests/omh_planted.py's streams (f64 key ties
+   planted by inverting wanghash, keys that round to 2^64, phantom slots
+   before and after a real winner at position 0, one and no valid
+   window) and random streams of 1 to 20000 positions (the kernel's
+   1024-position staging steps and 8192-position pieces), m in {1, 7,
+   130, 1024} (ell 2; ell 3 refused, no launch); the card's k-mers,
+   occurrence ranks and valid flags equal the CPU's over sequences
+   shorter than k, with N runs and all-A runs. Then the edit corpus
+   (io/corpus.py `edited_sequences`, seed 13: 512 families x 16 members
+   of 1,000-4,000 bp, each 1-3% edited by substitutions, insertions and
+   deletions in equal parts, N runs and poly-A tracts planted; about 20
+   Mbp in one FASTA): one launch over its 8192 sequences timed with CUDA
+   events, with its bound, and the plain version on its first 64
+   sequences;
+32. `sketch -E --parse-by-seq -k 15 -S 1024` all pairs at N = 8192: the
+   OMH words compared for equality (one gtlt_self launch), `--fastcmp
+   0.5` (tri_eq) and `--fastcmp 1` (int_counts_self, eq mode); each
+   output's size, its launches, and every value equal to the CPU
+   epilogue at the plain version's counts of the registers written with
+   `-o`; 32 sampled sequences' registers equal the plain version's on
+   the CPU and the cardinalities the base counts;
+33. `-E --parse-by-seq --compute-edit-distance --topk 10` at N = 8192:
+   OMH on the card (no other kernel), LSH candidates over the
+   registers, exact distances on the host (native/myers_ed.cpp); 1000
+   sampled edges' distances equal `myers_one`, every row ascending; the
+   job over the first 32 sequences byte-equal to `--device cpu`;
+34. `-E --parse-by-seq --greedy 0.3f` at N = 8192: every cluster's
+   representative sequence equals its input record byte for byte and
+   the clusters hold every sequence once; over the first 32 sequences
+   byte-equal to `--device cpu`;
+35. `-E --parse-by-seq --compute-edit-distance` all pairs over the
+   first 1024 sequences, binary: 1000 sampled values equal `myers_one`;
+36. whole-file `-E` (each genome file one item, about 20,000 positions,
+   three pieces) over the first 1024 genomes of the N = 10240 corpus,
+   `-o`: one omh and one gtlt_self launch; 8 genomes' written registers
+   equal the plain version's on the card; the first 8 genomes'
+   comparison byte-equal to `--device cpu`.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall, and phases
-26-30 their jobs' spans.
+26-36 their jobs' spans.
 
 Beside each kernel's time the script reckons its bound (the least time
 the card could take for the same work, from this run's shapes: the
@@ -267,15 +310,26 @@ Reductions: the north-star job uses 50 kb genomes; phases 5-8, 10, 12,
 first 1024 genomes, as phases 19, 20 and 22 do, and phase 15 checks 8
 items on the CPU (the port's own f64 log made the CSetSketch draws
 slower; the time went to the weighted phases, and the whole stays well
-inside the run's limit on a slower host). The comparison's work depends
-only on N and m; 20 kb genomes still carry about 20k distinct 31-mers
-and 10 kb genomes about 10k (both more than m = 1024, so every register
-fills and the jobs stay out of the OPH small-input regime). The cuts
-only shorten sketching and the generated FASTA: about 205 MB for phases
-5-8 (written once, read by all of them) and 205 MB for phase 9, against
-520 MB and 1 GB at 50 kb. Phases 26-30 run at full size on the card;
-their `--device cpu` checks run on cuts (named in each phase), because
-the plain draws take 100-400 ns each on the CPU.
+inside the run's limit on a slower host). Phases 15, 18, 21, 23 and 25
+take the first HALF_N = 5120 genomes, and phase 27 16 BED files instead
+of 32, to make room for phase 35's 1024-sequence exact job (about 90 s
+of host Myers distances): each spends most of its time on host reading,
+expansion, hashing and counting, or on draws, in proportion to its
+items, and its kernels' launches and shapes are timed elsewhere. The
+comparison's work depends only on N and m; 20 kb genomes still carry
+about 20k distinct 31-mers and 10 kb genomes about 10k (both more than m
+= 1024, so every register fills and the jobs stay out of the OPH
+small-input regime). The cuts only shorten sketching and the generated
+FASTA: about 205 MB for phases 5-8 (written once, read by all of them)
+and 205 MB for phase 9, against 520 MB and 1 GB at 50 kb. Phases 26-30
+run at full size on the card; their `--device cpu` checks run on cuts
+(named in each phase), because the plain draws take 100-400 ns each on
+the CPU. Phases 31-36 run at full width (m = 1024) over 8192 sequences;
+their `--device cpu` checks run on cuts (32 sequences, 8 genomes: the
+plain OMH on the CPU takes seconds for a few dozen sequences at m =
+1024, the cut jobs' `cpu` walls say how many), and the exact all-pairs
+job takes the first 1024 sequences (523,776 host Myers distances, about
+0.17-0.19 ms a pair on 8 threads).
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -293,6 +347,10 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 NORTH_STAR_N, NS_ANCESTORS, NS_MUTANTS, NS_LENGTH = 10240, 512, 20, 20000
+# genomes of the cut FullSetSketch, --set, --set --topk, -B and -P
+# --topk jobs (phases 15, 18, 21, 23 and 25): the first half of the
+# north-star corpus
+HALF_N = NORTH_STAR_N // 2
 NS_SEED = 11
 ROWS_N, ROWS_ANCESTORS, ROWS_MUTANTS, ROWS_LENGTH = 20480, 1024, 20, 10000
 ROWS_SEED = 12
@@ -381,13 +439,15 @@ def phase_build():
     from dashing2_tpu_torch.ops import int_counts as IC
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
+    from dashing2_tpu_torch.ops import omh as OP
     from dashing2_tpu_torch.ops import weighted_draws as WD
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
               "gtlt": G.load_kernel, "int_counts": IC.load_kernel,
-              "weighted_draws": WD.load_kernel,
+              "weighted_draws": WD.load_kernel, "omh": OP.load_kernel,
               "ophsketch": native.load_oph_lib,
               "fastx": native.load_fastx_lib,
-              "emitfmt": native.load_emit_lib}
+              "emitfmt": native.load_emit_lib,
+              "myersed": native.load_myers_lib}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -400,7 +460,7 @@ def phase_build():
     _say(f"[build] all {len(builds)} in {time.perf_counter() - t0:.3f} s, in "
          "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
     for name in ("tri_eq", "tri_comb", "gtlt", "int_counts",
-                 "weighted_draws"):
+                 "weighted_draws", "omh"):
         for ln in native.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 _say(f"[build] ptxas {name}: {ln.strip()}")
@@ -963,7 +1023,8 @@ def _job_epilogue(tag: str, kind: str, opts, creps, n: int):
     on_cpu = C._epilogue(kind, opts, creps, n, torch.device("cpu"))
     on_card = C._epilogue(kind, opts, creps, n, torch.device("cuda"))
     c = torch.arange(m + 1, dtype=torch.int32)
-    if kind.endswith("bbit"):
+    eq_kind = kind.endswith("bbit") or kind == "eqfull"
+    if eq_kind:
         host = on_cpu(c, None, None, None, None)
         card = on_card(c.cuda(), None, None, None, None).cpu()
     else:
@@ -973,9 +1034,9 @@ def _job_epilogue(tag: str, kind: str, opts, creps, n: int):
     assert torch.equal(host.view(torch.int32), card.view(torch.int32)), tag
     table = host.numpy()
     _say(f"[{tag}] card epilogue == CPU epilogue bit for bit on all "
-         f"{table.size} counts" + ("" if kind.endswith("bbit") else
+         f"{table.size} counts" + ("" if eq_kind else
                                    f" (gt, lt) at b = {creps.b!r}"))
-    if kind.endswith("bbit"):
+    if eq_kind:
         return lambda eq, gt, lt: table[eq]
     return lambda eq, gt, lt: table[gt, lt]
 
@@ -1630,10 +1691,11 @@ def _ulps(a, b):
 
 
 def phase_fss(lst: str, counters):
-    """`--full-setsketch` at full size: the CSetSketch draws on the card,
-    one gtlt_self launch, every value held to the table at the plain
-    counts; the card's registers of CSS_SAMPLE items held to the CPU's
-    bit for bit, with equal counts among them."""
+    """`--full-setsketch` at full width over the first HALF_N genomes
+    (`lst`): the CSetSketch draws on the card, one gtlt_self launch,
+    every value held to the table at the plain counts; the card's
+    registers of CSS_SAMPLE items held to the CPU's bit for bit, with
+    equal counts among them."""
     import numpy as np
     import torch
     from dashing2_tpu_torch.cmp import core as C
@@ -1642,7 +1704,7 @@ def phase_fss(lst: str, counters):
     from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import sketch_kernels as SK
 
-    n, m, tag = NORTH_STAR_N, 1024, "fss"
+    n, m, tag = HALF_N, 1024, "fss"
     out = os.path.join(WORK, "northstar", "fss.bin")
     sig = os.path.join(WORK, "northstar", "fss.sig")
     argv = ["sketch", "-k", "31", "-S", str(m), "--full-setsketch",
@@ -1757,23 +1819,24 @@ def phase_fss_bytes(lst: str, counters):
 
 
 # tag, the cmp job's flags, the stacked file it reads and the sketch
-# job's output its bytes must equal, and the one kernel it launches
+# job's output its bytes must equal, the one kernel it launches and the
+# items in the file
 PRESKETCHED_JOBS = (
-    ("cmp-fss", ["--full"], "fss.sig", "fss.bin", "gtlt_self"),
+    ("cmp-fss", ["--full"], "fss.sig", "fss.bin", "gtlt_self", HALF_N),
     ("cmp-nibble-bbit", ["--fastcmp", "0.5", "--bbit-sigs"], "ns.sig",
-     "out.bin", "tri_eq"),
+     "out.bin", "tri_eq", NORTH_STAR_N),
 )
 
 
 def phase_presketched(tag: str, flags, sig: str, want: str, counter: str,
-                      counters):
+                      n: int, counters):
     """`cmp --presketched` over a sketch job's `-o` output: the bytes of
     that job's --cmpout, one launch of its kernel."""
     d = os.path.join(WORK, "northstar")
     out = os.path.join(d, f"out_{tag}.bin")
     argv = ["cmp", "-k", "31", "--presketched"] + flags + [
         "--binary-output", "--cmpout", out, os.path.join(d, sig)]
-    wall, spans, launches = _run_cli(tag, argv, NORTH_STAR_N, counters)
+    wall, spans, launches = _run_cli(tag, argv, n, counters)
     others = [k for k in counters if k != counter]
     assert launches[counter] == 1 \
         and all(launches[k] == 0 for k in others), launches
@@ -1862,15 +1925,15 @@ def _hold_pairs(tag: str, res, ia, ib):
 
 
 def phase_exact_set(lst: str, counters):
-    """`sketch --set` all-pairs at full size: no hand kernel launched, the
-    intersections joined on the card; the cardinalities equal the set
-    sizes; EXACT_SAMPLE emitted values equal `exact_measures` at the CPU
-    engine's intersections."""
+    """`sketch --set` all-pairs over the first HALF_N genomes (`lst`):
+    no hand kernel launched, the intersections joined on the card; the
+    cardinalities equal the set sizes; EXACT_SAMPLE emitted values equal
+    `exact_measures` at the CPU engine's intersections."""
     import numpy as np
     from dashing2_tpu_torch.cmp import estimators as E
     from dashing2_tpu_torch.enums import Measure
 
-    n, tag = NORTH_STAR_N, "set"
+    n, tag = HALF_N, "set"
     out = os.path.join(WORK, "northstar", "set.bin")
     argv = ["sketch", "-k", "31", "--set", "--binary-output", "--cmpout",
             out, "-F", lst]
@@ -1965,12 +2028,13 @@ def phase_exact_vs_cpu(tag: str, flags, lists, counters):
 
 def phase_exact_knn(lst: str, counters):
     """`--set --topk 10 --index-save`, then `--index-load` of that index,
-    at N = 10240: equal bytes; the card's pair counts held to the CPU's
-    over EXACT_SAMPLE / 2 of the refined pairs."""
+    over the first HALF_N genomes (`lst`): equal bytes; the card's pair
+    counts held to the CPU's over EXACT_SAMPLE / 2 of the refined
+    pairs."""
     import numpy as np
     from dashing2_tpu_torch.cmp import core as C
 
-    n = NORTH_STAR_N
+    n = HALF_N
     d = os.path.join(WORK, "northstar")
     idx = os.path.join(d, "set.idx")
     outs, seen = [], []
@@ -2212,11 +2276,12 @@ WEIGHTED_SPANS = ("sketch", "sketch/read", "sketch/hash", "sketch/count",
 
 
 def phase_wmh(lst: str, counters):
-    """`sketch -B -o wmh.sig` all pairs at N = 10240: the draws on
-    weighted_draws.cu, one gtlt_self launch over the registers' bits; the
-    registers of WEIGHTED_SAMPLE items held to the plain version on the
-    card bit for bit, the cardinalities to the total counts, every
-    emitted value to the equality table at the card's counts."""
+    """`sketch -B -o wmh.sig` all pairs over the first HALF_N genomes
+    (`lst`): the draws on weighted_draws.cu, one gtlt_self launch over
+    the registers' bits; the registers of WEIGHTED_SAMPLE items held to
+    the plain version on the card bit for bit, the cardinalities to the
+    total counts, every emitted value to the equality table at the
+    card's counts."""
     import numpy as np
     import torch
     from dashing2_tpu_torch.cmp import core as C
@@ -2225,7 +2290,7 @@ def phase_wmh(lst: str, counters):
     from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import weighted_draws as WD
 
-    n, m, tag = NORTH_STAR_N, 1024, "wmh"
+    n, m, tag = HALF_N, 1024, "wmh"
     out = os.path.join(WORK, "northstar", "wmh.bin")
     sig = os.path.join(WORK, "northstar", "wmh.sig")
     argv = ["sketch", "-k", "31", "-S", str(m), "-B", "--binary-output",
@@ -2316,14 +2381,15 @@ def phase_pmh_countsketch(lst: str, counters):
 
 
 def phase_pmh_knn(lst: str, counters):
-    """`-P --topk 10` at N = 10240: the draws on the card (the neighbour
+    """`-P --topk 10` over the first HALF_N genomes (`lst`): the draws
+    on the card (the neighbour
     job's pair counts run plain PyTorch on the card, no hand kernel);
     the output bytes == neighbor_graph_main on the CPU over the same
     sketches."""
     from dashing2_tpu_torch import timing
     from dashing2_tpu_torch.cmp import graph as PG
     from dashing2_tpu_torch.sketch import core as SC
-    n, m, tag = NORTH_STAR_N, 1024, "pmh-knn"
+    n, m, tag = HALF_N, 1024, "pmh-knn"
     out = os.path.join(WORK, "northstar", "pmh_knn.bin")
     argv = ["sketch", "-k", "31", "-S", str(m), "-P", "--topk", "10",
             "--binary-output", "--cmpout", out, "-F", lst]
@@ -2367,7 +2433,8 @@ INTERVAL_SEED = 13
 INTERVAL_M = 1024
 # BED: peak files of a transcription factor's ChIP-seq size, sharing
 # intervals by family, over 24 chromosomes
-BED_FILES, BED_FAMILIES, BED_SHARED = 32, 4, 0.6
+# (16 files, to leave phase 35 room in the run's time limit)
+BED_FILES, BED_FAMILIES, BED_SHARED = 16, 4, 0.6
 BED_INTERVALS = (10000, 20000)
 BED_WIDTH = (200, 1000)
 BED_CHROMS = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
@@ -2988,6 +3055,439 @@ def phase_contain(lst: str, counters):
     return runs
 
 
+# ----------------------------------------------------------------------
+# the edit-distance space (-E): csrc/omh.cu, exact edit distances
+# ----------------------------------------------------------------------
+
+# 512 families x 16 members of 1,000-4,000 bp, each member 1-3% edited
+# (substitutions, insertions, deletions) from its ancestor, with planted
+# N runs and poly-A tracts (io/corpus.py `edited_sequences`): about 20
+# Mbp, the gene-length sequences or amplicons an edit-distance dedup or
+# neighbour search runs over
+EDIT_SEED = 13
+EDIT_FAMILIES, EDIT_MEMBERS = 512, 16
+EDIT_N = EDIT_FAMILIES * EDIT_MEMBERS
+EDIT_K, EDIT_M = 15, 1024
+EDIT_ARGS = ["-k", str(EDIT_K), "-S", str(EDIT_M)]
+# register counts and stream lengths of the kernel's check: one
+# register, m not a multiple of the 128-register tile, the main path's;
+# one position, the edges of the kernel's 1024-position staging steps and
+# its 8192-position pieces, a stream of three pieces
+OMH_MS = (1, 7, 130, 1024)
+OMH_LENS = (1, 1023, 1024, 1025, 8191, 8192, 8193, 20000)
+# one valid (position, register) of omh_select: the instructions the
+# function needs, the staged word xor the register's salt, the u64
+# wanghash chain and the u64 compare with the worst kept key, counted in
+# the SASS of csrc/omh.cu by `python3 experiments/omh_sass_ops.py` (nvcc
+# and cuobjdump on an NVIDIA H100 machine; every one of the 7 loads of a
+# staged word gives the same slice): OMH_ALU on the integer ALU and
+# OMH_IMAD IMADs on the FMA pipe (the loop's counter and address
+# arithmetic, the valid test, branches and the rare rounding and insert
+# left out). ALU and IMAD each issue 64 lanes a clock per SM, the two
+# together at most 128, so the bound charges the largest of OMH_ALU,
+# OMH_IMAD and (OMH_ALU + OMH_IMAD) / 2 at the int32 rate
+OMH_ALU, OMH_IMAD = 20, 9
+OMH_OPS = max(OMH_ALU, OMH_IMAD, (OMH_ALU + OMH_IMAD) / 2)
+OMH_PLAIN_SLICE = 64         # sequences the plain version is timed over
+EDIT_SAMPLE = 32             # sequences held to the plain version on the CPU
+EDIT_CUT = 32                # sequences of the --device cpu runs (jobs 3, 4)
+EDIT_EDGES = 1000            # edges held to myers_one
+# the exact all-pairs job: the first EDIT_ALLPAIRS_N sequences (523,776
+# pairs of host Myers distances, about 0.17-0.19 ms a pair on the 8
+# threads of an H100 machine's host)
+EDIT_ALLPAIRS_N = 1024
+EDIT_WHOLE_N = 1024          # whole-file -E over the N = 10240 genomes
+EDIT_WHOLE_SAMPLE = 8
+EDIT_WHOLE_CUT = 8
+EDIT_SPANS = ("sketch", "sketch/read", "sketch/omh", "write-sketches",
+              "compare+emit", "cmp/prep", "cmp/h2d", "cmp/kernel",
+              "cmp/epilogue", "cmp/d2h", "cmp/editdist", "lsh-index-build",
+              "lsh-candidates", "refine", "dedup-cluster", "dedup-emit",
+              "emit/write")
+
+
+def _edit_corpus():
+    """(FASTA path, {name: sequence}, records) of the edit corpus under
+    build/, and the FASTAs of its first EDIT_CUT and EDIT_ALLPAIRS_N
+    records."""
+    from dashing2_tpu_torch.io.corpus import edited_sequences, write_fasta
+    d = os.path.join(WORK, "edit")
+    recs = edited_sequences(EDIT_SEED, EDIT_FAMILIES, EDIT_MEMBERS)
+    fa = write_fasta(os.path.join(d, "seqs.fa"), recs)
+    write_fasta(os.path.join(d, "cut.fa"), recs[:EDIT_CUT])
+    write_fasta(os.path.join(d, "first.fa"), recs[:EDIT_ALLPAIRS_N])
+    return fa, recs
+
+
+def _codes(seqs):
+    from dashing2_tpu_torch.enums import Alphabet
+    from dashing2_tpu_torch.ops.kmers import encode_ascii
+    return [encode_ascii(s, Alphabet.DNA) for s in seqs]
+
+
+def phase_omh_vs_plain(recs):
+    """omh_registers against omh_registers_plain on the card, bit for bit:
+    the planted streams of tests/omh_planted.py (f64 key ties, keys that
+    round to 2^64, phantoms before and after a real winner, one and no
+    valid window) and random streams of OMH_LENS positions, for every m
+    of OMH_MS (ell 2: another depth raises, no launch); the card's
+    streams (k-mers and occurrence ranks) equal the CPU's over sequences
+    shorter than k, with N runs, all-A runs and fewer valid windows than
+    ell; then one launch over the corpus' 8192 sequences timed with CUDA
+    events over prebuilt arguments (the piece table on the card), and
+    the plain version on the first OMH_PLAIN_SLICE of them."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.ops import omh as OP
+    from dashing2_tpu_torch.sketch import omh as PO
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from omh_planted import planted_items, ragged
+    finally:
+        sys.path.pop(0)
+    rng = np.random.default_rng(EDIT_SEED)
+    items = planted_items()
+    for n in OMH_LENS:
+        km = rng.integers(0, 1 << 40, n, dtype=np.uint64)
+        items.append((km, rng.integers(0, 4, n).astype(np.int64),
+                      rng.random(n) > 0.1))
+    km, occ, va, off = ragged(items)
+    args = [torch.from_numpy(x).cuda() for x in (km.view(np.int64), occ,
+                                                 va, off)]
+    for m in OMH_MS:
+        got = OP.omh_registers(*args, m, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, OP.omh_registers_plain(*args, m, 2)), \
+            ("omh", m)
+    before = OP.launches.launches
+    try:
+        OP.omh_registers(*args, 7, 3)
+        raise AssertionError("omh_registers took ell = 3")
+    except ValueError:
+        assert OP.launches.launches == before
+    # the streams the sketch builds on the card == the CPU's
+    a = np.full(EDIT_K + 40, ord("A"), np.uint8).tobytes()
+    seqs = [b"ACGT" * 3, b"ACGTACGTACGTACG", b"N" * 30,
+            b"ACGTTGCA" * 2 + b"N" * 20, a, b"ACGT" * 50 + b"N" * 40 + a]
+    seqs += [s for _, s in recs[:8]]
+    codes = _codes(seqs)
+    cpu = PO._streams(codes, EDIT_K, torch.device("cpu"))
+    card = PO._streams(codes, EDIT_K, torch.device("cuda"))
+    for c, g in zip(cpu, card):
+        assert torch.equal(c, g.cpu()), "streams"
+    got = OP.omh_registers(*card, EDIT_M, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, OP.omh_registers_plain(*card, EDIT_M, 2))
+    _say(f"[omh] omh_registers == omh_registers_plain bit for bit at "
+         f"{len(OMH_MS) + 1} shapes: planted ties, phantoms and one or no "
+         f"valid window, streams of {OMH_LENS} positions, m in {OMH_MS} "
+         "(ell 2; ell 3 refused); the card's k-mers, occurrence ranks and "
+         "valid flags == the CPU's over sequences shorter than k, with N "
+         "runs, all-A runs and one valid window")
+
+    # one launch over the corpus, at the main path's shape
+    t0 = time.perf_counter()
+    codes = _codes([s for _, s in recs])
+    streams = PO._streams(codes, EDIT_K, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t_streams = time.perf_counter() - t0
+    host_off = PO.stream_offsets([len(c) for c in codes], EDIT_K)
+    pieces = OP.piece_table(host_off, "cuda")
+    OP.omh_registers(*streams, EDIT_M, 2, pieces=pieces)
+    torch.cuda.synchronize()
+    ms = _cuda_ms(lambda: OP.omh_registers(*streams, EDIT_M, 2,
+                                           pieces=pieces), 3)
+    full = OP.omh_registers(*streams, EDIT_M, 2)
+    kmers, occ, valid, offsets = streams
+    end = int(host_off[OMH_PLAIN_SLICE])
+    part = (kmers[:end], occ[:end], valid[:end],
+            offsets[:OMH_PLAIN_SLICE + 1])
+    part_pieces = OP.piece_table(host_off[:OMH_PLAIN_SLICE + 1], "cuda")
+    slice_ms = _cuda_ms(lambda: OP.omh_registers(*part, EDIT_M, 2,
+                                                 pieces=part_pieces), 3)
+    OP.omh_registers_plain(*part, EDIT_M, 2)
+    plain_ms = _cuda_ms(lambda: OP.omh_registers_plain(*part, EDIT_M, 2), 1)
+    assert torch.equal(full[:OMH_PLAIN_SLICE],
+                       OP.omh_registers_plain(*part, EDIT_M, 2))
+    npos, nvalid = int(kmers.numel()), int(valid.sum())
+    bound_ms, bound_by = _bound(nvalid * EDIT_M * OMH_OPS, "int32",
+                                17 * npos + 8 * EDIT_N * EDIT_M)
+    _say(f"[omh] {EDIT_N} sequences, {npos} positions ({nvalid} valid), "
+         f"m {EDIT_M}: streams on the card {t_streams:.3f} s (host "
+         f"encode, copy, k-mers and occurrence ranks); kernel {ms:.3f} ms "
+         f"(CUDA events, mean of 3, piece table prebuilt); bound "
+         f"{bound_ms:.3f} ms ({bound_by}: {OMH_ALU} ALU and {OMH_IMAD} "
+         f"IMAD instructions a valid (position, register), charged as "
+         f"{OMH_OPS} at the int32 rate), {100 * bound_ms / ms:.1f}% "
+         f"reached; on the first {OMH_PLAIN_SLICE} sequences kernel "
+         f"{slice_ms:.3f} ms, plain {plain_ms:.3f} ms (one run), equal "
+         "registers; library: none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=0, library_ms=None,
+                plain_shape=f"the first {OMH_PLAIN_SLICE} of the {EDIT_N} "
+                f"sequences ms and bound_ms cover (kernel there "
+                f"{slice_ms:.3f} ms)")
+
+
+EDIT_PAIR_JOBS = (("edit-full", [], "gtlt_self"),
+                  ("edit-nibble", ["--fastcmp", "0.5"], "tri_eq"),
+                  ("edit-u8", ["--fastcmp", "1"], "int_counts_self"))
+
+
+def phase_edit_allpairs(fa: str, recs, counters):
+    """`sketch -E --parse-by-seq` all pairs at N = 8192: the full OMH
+    words compared for equality (one gtlt_self launch), `--fastcmp 0.5`
+    (tri_eq) and `--fastcmp 1` (int_counts_self, eq mode). Each: the
+    output's size, its launches, and every value == the CPU epilogue at
+    the plain version's counts of the written registers (`-o`); 32
+    sampled sequences' registers == the plain version's on the CPU."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.ops import int_counts as IC
+    from dashing2_tpu_torch.ops import nibble_tri as NT
+    from dashing2_tpu_torch.result import SketchingResult
+    from dashing2_tpu_torch.sketch import omh as PO
+    n, m = EDIT_N, EDIT_M
+    d = os.path.join(WORK, "edit")
+    sig = os.path.join(d, "edit.sig")
+    runs = {}
+    for tag, flags, counter in EDIT_PAIR_JOBS:
+        out = os.path.join(d, f"{tag}.bin")
+        argv = ["sketch", "-E", "--parse-by-seq"] + EDIT_ARGS + flags + [
+            "--binary-output", "--cmpout", out] + (
+            ["-o", sig] if not runs else []) + [fa]
+        wall, spans, launches = _run_cli(tag, argv, n, counters)
+        assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+        assert launches["omh"] >= 1, f"{tag}: omh never launched"
+        assert launches[counter] == 1, (tag, launches)
+        _say_spans(tag, spans, EDIT_SPANS)
+        cards, sigs = formats.read_stacked_signatures(sig)
+        if not runs:
+            sample = np.sort(np.random.default_rng(EDIT_SEED).choice(
+                n, EDIT_SAMPLE, replace=False))
+            want = PO.omh_sketch_many(_codes([recs[i][1] for i in sample]),
+                                      EDIT_K, m, device="cpu")
+            assert np.array_equal(sigs.view(np.uint64)[sample], want)
+            assert np.array_equal(cards, [len(s) for _, s in recs])
+            _say(f"[{tag}] the written registers of {EDIT_SAMPLE} sampled "
+                 "sequences == the plain version's on the CPU; "
+                 "cardinalities == the base counts")
+        res = SketchingResult(names=[nm for nm, _ in recs],
+                              cardinalities=cards, signatures=sigs)
+        opts = _cli_opts(argv)
+        creps, res = C._prep(opts, res)
+        kind, data = C._representation(opts, res, creps)
+        regs = C._device_regs(data, torch.device("cuda"))
+        if kind == "nibble-bbit":
+            counts = NT.tri_eq_counts_plain(regs, m)
+        else:
+            counts = IC.int_counts_self_plain(regs, "eq")
+        counts = counts.cpu().numpy().astype(np.int64)
+        del regs
+        epi = _job_epilogue(tag, kind, opts, creps, n)
+        vals = np.fromfile(out, dtype=np.float32)
+        assert np.isfinite(vals).all()
+        _rows_equal(vals, n, lambda i0, i1: epi(counts[i0:i1], None, None))
+        _say(f"[{tag}] output == CPU epilogue at the plain counts ({kind}) "
+             f"for all {n * (n - 1) // 2} pairs; similarity counts in "
+             f"[0,1e-9) [1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+        runs[tag] = dict(wall=wall, launches=launches)
+        os.remove(out)
+    return runs
+
+
+def _myers_one(a: bytes, b: bytes) -> int:
+    import ctypes
+    import numpy as np
+    from dashing2_tpu_torch.native import load_myers_lib
+    lib = load_myers_lib()
+    u8p = ctypes.POINTER(ctypes.c_ubyte)
+    x = np.frombuffer(a + b"\0", np.uint8)
+    y = np.frombuffer(b + b"\0", np.uint8)
+    return int(lib.myers_one(x.ctypes.data_as(u8p), len(a),
+                             y.ctypes.data_as(u8p), len(b)))
+
+
+def phase_edit_knn(fa: str, recs, counters):
+    """`-E --parse-by-seq --compute-edit-distance --topk 10` at N = 8192:
+    OMH registers on the card (omh the only kernel), LSH candidates over
+    them, exact edit distances on the host; EDIT_EDGES sampled edges'
+    distances == myers_one of their sequences, each row ascending; the
+    bytes of the job over the first EDIT_CUT sequences == --device
+    cpu's."""
+    import numpy as np
+    from dashing2_tpu_torch.io import formats
+    n = EDIT_N
+    d = os.path.join(WORK, "edit")
+    out = os.path.join(d, "knn.bin")
+    flags = ["sketch", "-E", "--parse-by-seq", "--compute-edit-distance",
+             "--topk", "10", "--binary-output"] + EDIT_ARGS
+    wall, spans, launches = _run_cli("edit-knn", flags + ["--cmpout", out,
+                                                          fa], n, counters, 0)
+    assert launches["omh"] >= 1 and not any(
+        v for k, v in launches.items() if k != "omh"), launches
+    _say_spans("edit-knn", spans, EDIT_SPANS)
+    indptr, indices, data = formats.read_knn_csr(out)
+    assert len(indptr) == n + 1 and len(indices) > 0
+    rows = np.repeat(np.arange(n), np.diff(indptr.astype(np.int64)))
+    for i in range(n):
+        r = data[int(indptr[i]):int(indptr[i + 1])]
+        assert (np.diff(r) >= 0).all(), i
+    pick = np.random.default_rng(EDIT_SEED).choice(
+        len(indices), min(EDIT_EDGES, len(indices)), replace=False)
+    for e in pick:
+        assert _myers_one(recs[rows[e]][1], recs[indices[e]][1]) \
+            == data[e], e
+    fam = np.array([int(nm.split("_")[0][3:]) for nm, _ in recs])
+    same = float(np.mean(fam[rows] == fam[indices]))
+    _say(f"[edit-knn] {len(indices)} edges over {n} sequences "
+         f"({100 * same:.1f}% within a family); {len(pick)} sampled edges' "
+         "distances == myers_one; rows ascending")
+    _vs_cpu("edit-knn cut", flags + [os.path.join(d, "cut.fa")],
+            out + ".cut", EDIT_CUT, counters)
+    os.remove(out)
+    return dict(wall=wall, launches=launches)
+
+
+def phase_edit_greedy(fa: str, recs, counters):
+    """`-E --parse-by-seq --greedy 0.3f` at N = 8192: the clusters as
+    FASTA, every representative's sequence its input record byte for
+    byte; the bytes over the first EDIT_CUT sequences == --device
+    cpu's."""
+    n = EDIT_N
+    d = os.path.join(WORK, "edit")
+    out = os.path.join(d, "dedup.fa")
+    flags = ["sketch", "-E", "--parse-by-seq", "--greedy", "0.3f"] \
+        + EDIT_ARGS
+    wall, spans, launches = _run_cli("edit-greedy", flags + [
+        "--cmpout", out, fa], n, counters, 0)
+    assert launches["omh"] >= 1 and not any(
+        v for k, v in launches.items() if k != "omh"), launches
+    _say_spans("edit-greedy", spans, EDIT_SPANS)
+    seqs = dict(recs)
+    with open(out, "rb") as f:
+        lines = f.read().split(b"\n")
+    assert lines[-1] == b"" and len(lines) % 2 == 1
+    members = 0
+    for hdr, seq in zip(lines[0:-1:2], lines[1:-1:2]):
+        head = hdr.split(b" ")
+        name = head[0].split(b"_", 1)[1].decode()
+        assert seqs[name] == seq, name
+        members += 1 + (len(head[1].split(b",")) - 1 if len(head) > 1
+                        else 0)
+    assert members == n, members
+    _say(f"[edit-greedy] {len(lines) // 2} clusters of {n} sequences; "
+         "every representative's sequence == its input record")
+    _vs_cpu("edit-greedy cut", flags + [os.path.join(d, "cut.fa")],
+            out + ".cut", EDIT_CUT, counters)
+    os.remove(out)
+    return dict(wall=wall, launches=launches)
+
+
+def phase_edit_allpairs_exact(recs, counters):
+    """`-E --parse-by-seq --compute-edit-distance` all pairs over the
+    first EDIT_ALLPAIRS_N sequences, binary: the size, and 1000 sampled
+    values == myers_one."""
+    import numpy as np
+    n = EDIT_ALLPAIRS_N
+    d = os.path.join(WORK, "edit")
+    out = os.path.join(d, "ed_all.bin")
+    wall, spans, launches = _run_cli("edit-exact", [
+        "sketch", "-E", "--parse-by-seq", "--compute-edit-distance",
+        "--binary-output", "--cmpout", out] + EDIT_ARGS + [
+        os.path.join(d, "first.fa")], n, counters)
+    assert launches["omh"] >= 1
+    _say_spans("edit-exact", spans, EDIT_SPANS)
+    vals = np.fromfile(out, np.float32)
+    assert len(vals) == n * (n - 1) // 2
+    ia, ib = np.triu_indices(n, 1)
+    for p in np.random.default_rng(EDIT_SEED).choice(len(vals), 1000,
+                                                     replace=False):
+        assert _myers_one(recs[ia[p]][1], recs[ib[p]][1]) == vals[p], p
+    npairs = len(vals)
+    _say(f"[edit-exact] {npairs} exact distances over {n} sequences, "
+         f"{1e3 * spans.get('cmp/editdist', 0.0) / npairs:.4f} ms a pair "
+         "(cmp/editdist span); 1000 sampled values == myers_one")
+    os.remove(out)
+    return dict(wall=wall, launches=launches)
+
+
+def phase_edit_whole(lst: str, counters):
+    """Whole-file `-E` (one item a genome file, streams of about 20,000
+    positions, 3 pieces each) over the first EDIT_WHOLE_N genomes of the
+    N = 10240 corpus, `-o`: EDIT_WHOLE_SAMPLE genomes' written registers
+    == the plain version's on the card; the bytes over the first
+    EDIT_WHOLE_CUT genomes == --device cpu's."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.io.fastx import read_fastx
+    from dashing2_tpu_torch.ops import omh as OP
+    from dashing2_tpu_torch.sketch import omh as PO
+    with open(lst) as f:
+        paths = [ln.strip() for ln in f if ln.strip()][:EDIT_WHOLE_N]
+    d = os.path.join(WORK, "edit")
+    sub = _write_list(os.path.join(d, "whole.txt"), paths)
+    cut = _write_list(os.path.join(d, "whole_cut.txt"),
+                      paths[:EDIT_WHOLE_CUT])
+    out, sig = os.path.join(d, "whole.bin"), os.path.join(d, "whole.sig")
+    flags = ["sketch", "-E", "--binary-output"] + EDIT_ARGS
+    wall, spans, launches = _run_cli("edit-whole", flags + [
+        "-o", sig, "--cmpout", out, "-F", sub], EDIT_WHOLE_N, counters)
+    assert launches["omh"] >= 1 and launches["gtlt_self"] == 1, launches
+    _say_spans("edit-whole", spans, EDIT_SPANS)
+    _, sigs = formats.read_stacked_signatures(sig)
+    pick = np.sort(np.random.default_rng(EDIT_SEED).choice(
+        EDIT_WHOLE_N, EDIT_WHOLE_SAMPLE, replace=False))
+    codes = [np.concatenate(_codes([s for _, s in read_fastx(paths[i])]))
+             for i in pick]
+    streams = PO._streams(codes, EDIT_K, torch.device("cuda"))
+    want = OP.omh_registers_plain(*streams, EDIT_M, 2).cpu().numpy()
+    assert np.array_equal(sigs.view(np.uint64)[pick], want.view(np.uint64))
+    _say(f"[edit-whole] {EDIT_WHOLE_SAMPLE} genomes' written registers "
+         f"(streams of {min(len(c) for c in codes) - EDIT_K + 1}-"
+         f"{max(len(c) for c in codes) - EDIT_K + 1} positions, pieces of "
+         f"{OP.PIECE}) == the plain version's on the card")
+    _vs_cpu("edit-whole cut", flags + ["-F", cut], out + ".cut",
+            EDIT_WHOLE_CUT, counters)
+    os.remove(out)
+    return dict(wall=wall, launches=launches)
+
+
+def phase_edit(lst: str, counters):
+    """Phases 31-36, the edit-distance space."""
+    t0 = time.perf_counter()
+    fa, recs = _edit_corpus()
+    _say(f"[edit] corpus: {EDIT_N} sequences, "
+         f"{sum(len(s) for _, s in recs)} bp, written in "
+         f"{time.perf_counter() - t0:.3f} s")
+    runs = {}
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        _say(f"[wall] phase {name}: {time.perf_counter() - t1:.3f} s")
+        return out
+    kernel = timed("omh kernel", phase_omh_vs_plain, recs)
+    runs.update(timed("edit all-pairs jobs", phase_edit_allpairs, fa, recs,
+                      counters))
+    runs["edit-knn"] = timed("edit-knn job", phase_edit_knn, fa, recs,
+                             counters)
+    runs["edit-greedy"] = timed("edit-greedy job", phase_edit_greedy, fa,
+                                recs, counters)
+    runs["edit-exact"] = timed("edit-exact job", phase_edit_allpairs_exact,
+                               recs, counters)
+    runs["edit-whole"] = timed("edit-whole job", phase_edit_whole, lst,
+                               counters)
+    _say(f"[wall] edit-distance phases: {time.perf_counter() - t0:.3f} s")
+    shutil.rmtree(os.path.join(WORK, "edit"), ignore_errors=True)
+    kernel["launches"] = sum(r["launches"]["omh"] for r in runs.values())
+    return kernel, runs
+
+
 def phase_jax_golden(name: str):
     """The port's CLI on the card with the JAX package's golden config
     `name` (tests/golden_configs.py), over its fixtures
@@ -3032,6 +3532,7 @@ def main() -> int:
     from dashing2_tpu_torch.ops import int_counts as IC
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
+    from dashing2_tpu_torch.ops import omh as OP
     from dashing2_tpu_torch.ops import weighted_draws as WD
     # one process on this machine: the plain versions' CPU runs (phases
     # 15 and 24) may use every core, in chunks that torch spreads over
@@ -3042,7 +3543,7 @@ def main() -> int:
     counters = {"tri_eq": NT, "tri_comb": NC, "gtlt_self": G.self_launches,
                 "gtlt": G.rect_launches, "int_counts_self": IC.self_launches,
                 "int_counts": IC.rect_launches,
-                "weighted_draws": WD.launches}
+                "weighted_draws": WD.launches, "omh": OP.launches}
     t_start = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -3098,17 +3599,21 @@ def main() -> int:
         del sketches
         timed("golden full_sim.bin", phase_jax_golden, "full_sim.bin")
         lists = _subset_lists(lst)
-        fss_runs = {"fss": timed("fss job", phase_fss, lst, counters),
+        with open(lst) as f:
+            half = _write_list(os.path.join(os.path.dirname(lst), "half.txt"),
+                               [ln.strip() for ln in f
+                                if ln.strip()][:HALF_N])
+        fss_runs = {"fss": timed("fss job", phase_fss, half, counters),
                     "fss-u8-ab": timed("fss-u8-ab job", phase_fss_bytes,
                                        lists[0], counters)}
-        for tag, flags, sig, want, counter in PRESKETCHED_JOBS:
+        for tag, flags, sig, want, counter, n in PRESKETCHED_JOBS:
             fss_runs[tag] = timed(f"{tag} job", phase_presketched, tag,
-                                  flags, sig, want, counter, counters)
+                                  flags, sig, want, counter, n, counters)
         t0 = time.perf_counter()
-        w_jobs = {"wmh": timed("wmh job", phase_wmh, lst, counters),
+        w_jobs = {"wmh": timed("wmh job", phase_wmh, half, counters),
                   "pmh-c": timed("pmh-c jobs", phase_pmh_countsketch, lst,
                                  counters),
-                  "pmh-knn": timed("pmh-knn job", phase_pmh_knn, lst,
+                  "pmh-knn": timed("pmh-knn job", phase_pmh_knn, half,
                                    counters)}
         _say(f"[wall] weighted phases: {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
@@ -3122,14 +3627,15 @@ def main() -> int:
         _say("[wall] interval, wsketch and contain phases: "
              f"{time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
-        timed("set job", phase_exact_set, lst, counters)
+        timed("set job", phase_exact_set, half, counters)
         for tag, flags in EXACT_CPU_JOBS[:2]:
             timed(f"{tag} job", phase_exact_vs_cpu, tag, flags, lists,
                   counters)
-        timed("set-knn jobs", phase_exact_knn, lst, counters)
+        timed("set-knn jobs", phase_exact_knn, half, counters)
         timed(f"{EXACT_CPU_JOBS[2][0]} job", phase_exact_vs_cpu,
               *EXACT_CPU_JOBS[2], lists, counters)
         _say(f"[wall] exact-set phases: {time.perf_counter() - t0:.3f} s")
+        omh_run, e_runs = phase_edit(lst, counters)
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
         t0 = time.perf_counter()
         lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,
@@ -3181,6 +3687,13 @@ def main() -> int:
     i_runs = [r for key in ("bed", "bigwig", "leafcutter")
               for r in i_jobs[key].values()]
     self_run["launches"] += sum(r["launches"]["gtlt_self"] for r in i_runs)
+    # the edit-distance jobs' comparisons join their kernels' counts
+    for run, key, tags in ((self_run, "gtlt_self", ("edit-full",
+                                                    "edit-whole")),
+                           (eq_run, "tri_eq", ("edit-nibble",)),
+                           (int_self_eq_run, "int_counts_self",
+                            ("edit-u8",))):
+        run["launches"] += sum(e_runs[t]["launches"][key] for t in tags)
     # the panel jobs' rectangles join gtlt_counts and int_counts (their
     # own block times and bounds are printed above)
     for run, key in ((rect_run, "gtlt"), (int_rect_run, "int_counts")):
@@ -3228,6 +3741,22 @@ def main() -> int:
         "bound_ms": wrun["bound_ms"],
         "bound_by": wrun["bound_by"],
         "library_ms": None,
+    })
+    # the OrderMinHash registers: the corpus launch timed, launches of
+    # the edit-distance jobs
+    kernels.append({
+        "name": "omh",
+        "route": "cuda",
+        "source": "dashing2_tpu_torch/csrc/omh.cu",
+        "replaces": "dashing2_tpu/sketch/omh.py:50",
+        "launches": omh_run["launches"],
+        "max_abs_err": omh_run["err"],
+        "ms": omh_run["ms"],
+        "plain_ms": omh_run["plain_ms"],
+        "bound_ms": omh_run["bound_ms"],
+        "bound_by": omh_run["bound_by"],
+        "library_ms": None,
+        "plain_shape": omh_run["plain_shape"],
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,8 +10,10 @@ subcommands exist, and they run only the slices the port covers:
   `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`, the
   weighted sketches `-B` (`--multiset`) and `-P` (`--prob`), whose
   counts `-c` turns into a CountSketch's, or the exact k-mer sets
-  (`--set`) and count dictionaries (`--countdict`); or of interval
-  inputs, `--bed`, `--bigwig` (with `--by-chrom`, one item a
+  (`--set`) and count dictionaries (`--countdict`), or OrderMinHash
+  registers in the edit-distance space (`-E`, one item a record with
+  `--parse-by-seq`, the raw sequences kept, `--seqs-in-ram`); or of
+  interval inputs, `--bed`, `--bigwig` (with `--by-chrom`, one item a
   chromosome) and `--leafcutter`, in set space, FullSetSketch or -B/-P
   (`--normalize-intervals`). `-o` writes the stacked signatures
   (nothing for exact sets), with `-s` the k-mer database
@@ -36,9 +38,13 @@ registers (compared for equality, or quantised by `--fastcmp`), or over
 exact sets (their intersections joined on the card); emitted as binary f32,
 PHYLIP, the symmetric TSV or, with `--asymmetric-all-pairs`, the full
 square; with `-Q`, the references-by-queries panel; and the LSH
-neighbour jobs (`--topk`, `--similarity-threshold`, `--greedy` without
-its `f`, `--index-save`/`--index-load`, `--refine-exact`; over exact
-sets a bottom-k index), emitted as CSR or text (cmp/graph.py).
+neighbour jobs (`--topk`, `--similarity-threshold`, `--greedy`,
+`--index-save`/`--index-load`, `--refine-exact`; over exact
+sets a bottom-k index), emitted as CSR or text (cmp/graph.py);
+`--greedy ...f` writes the clusters as FASTA. An `-E` job compares its
+registers like full registers compared for equality (or their low bits
+with `--fastcmp`), or with `--compute-edit-distance` or
+`--exact-kmer-dist` computes exact edit distances (cmp/editdist.py).
 `--pairlist` sketches the unique paths it names and compares them
 all-pairs, as the reference does.
 
@@ -326,13 +332,16 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 # options outside the slice: dest -> the flag a user typed
 _OUTSIDE_SLICE = {
-    "outprefix": "--outprefix", "edit_distance": "--edit-distance",
-    "compute_edit": "--compute-edit-distance", "mmer_seq": "--seq",
+    "outprefix": "--outprefix", "mmer_seq": "--seq",
     "hpcompress": "--hp-compress", "cache": "--cache",
-    "exact_kmer_dist": "--exact-kmer-dist", "filterset": "--filterset",
-    "parse_by_seq": "--parse-by-seq", "entmin": "--entmin",
-    "by_chrom": "--by-chrom",
-    "seqs_in_ram": "--seqs-in-ram", "warm_only": "--warm-only",
+    "filterset": "--filterset", "entmin": "--entmin",
+    "by_chrom": "--by-chrom", "warm_only": "--warm-only",
+}
+# options the port runs only in the edit-distance space (-E)
+_EDIT_ONLY = {
+    "compute_edit": "--compute-edit-distance",
+    "exact_kmer_dist": "--exact-kmer-dist",
+    "parse_by_seq": "--parse-by-seq",
 }
 
 
@@ -342,20 +351,16 @@ def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
     slice). The flags are checked before any options are built, so that
     a flag outside the slice is reported as such even where building
     the options would fail. --by-chrom runs for BigWig inputs, and
-    --edit-distance reaches the BED sketcher, which refuses it as the
-    JAX package's does."""
-    allowed = set()
+    --compute-edit-distance, --exact-kmer-dist and --parse-by-seq only
+    with -E (--edit-distance; the BED sketcher refuses -E, as the JAX
+    package's does)."""
+    outside = dict(_OUTSIDE_SLICE)
     if a.bigwig:
-        allowed.add("by_chrom")
-    if a.bed:
-        allowed.add("edit_distance")
-    errs = [flag for dest, flag in _OUTSIDE_SLICE.items()
-            if dest not in allowed
-            and getattr(a, dest) != p.get_default(dest)]
-    if a.greedy is not None and "f" in a.greedy.lower():
-        # the FASTA form emits the sequences, which the port does not
-        # keep (ROADMAP Queue 1 item 6)
-        errs.append("--greedy ...f")
+        del outside["by_chrom"]
+    if not a.edit_distance:
+        outside.update(_EDIT_ONLY)
+    errs = [flag for dest, flag in outside.items()
+            if getattr(a, dest) != p.get_default(dest)]
     if errs or not compares:
         return errs
     opts = _build_opts(a)

@@ -132,7 +132,9 @@ def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
       package;
     * with --bbit-sigs, b-bit truncation of each register's reg2sig hash:
       its low 4 bits for nibbles, its top bits for the wide widths
-      (_BBIT_SHIFT: the top 6 bits for u8, 16 for u16, 32 for u32).
+      (_BBIT_SHIFT: the top 6 bits for u8, 16 for u16, 32 for u32);
+    * edit-distance (-E) registers, u64 OrderMinHash hashes, keep their
+      low bits (b-bit, with or without --bbit-sigs).
 
     At fd >= 8 (no --fastcmp) nothing is compressed: the full registers
     are compared (`_representation`). Registers sketched into a/b
@@ -150,9 +152,17 @@ def make_compressed(opts: Dashing2DistOptions, sigs: np.ndarray,
                               b=opts.compressed_b,
                               truncation=opts.truncation_method)
     if opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
-        raise NotImplementedError(
-            "edit-distance registers are not ported (ROADMAP Queue 1 "
-            "item 6)")
+        # OMH registers are u64 hashes stored in the signature slot; take
+        # low bytes (cmp_core.cpp:228-245). Nibbles pair the registers
+        # of the flattened (n, m) array, as the JAX package does.
+        sptr = sigs.view(np.uint64).reshape(sigs.shape)
+        if fd == 0.5:
+            flat = sptr.reshape(-1)
+            packed = ((flat[0::2] & np.uint64(0xF))
+                      | ((flat[1::2] & np.uint64(0xF)) << np.uint64(4)))
+            return CompressedReps(packed.astype(np.uint8).reshape(
+                sigs.shape[0], -1), truncation=1, nibble_packed=True)
+        return CompressedReps(sptr.astype(_REG_TYPES[fd]), truncation=1)
     if fd not in _QLUT:
         raise ValueError(f"no register width for --fastcmp {fd:g}")
     if opts.truncation_method <= 0:
@@ -522,6 +532,9 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
     n = result.n if result.names else len(result.cardinalities)
     nq = result.nqueries()
     upper_only = upper_only and not nq
+    if _edit_exact(opts):
+        yield from _edit_blocks(result, block, upper_only, n, nq)
+        return
     if _exact_sets(opts):
         yield from _exact_blocks(opts, result, block, upper_only, dev, n, nq)
         return
@@ -547,6 +560,53 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
         with span("cmp/d2h"):
             blk = vals.cpu().numpy()
         yield start, (_expand_upper(blk, start, n) if upper_only else blk)
+
+
+def _edit_exact(opts: Dashing2DistOptions) -> bool:
+    """Exact edit distances of an edit-distance (-E) job:
+    --compute-edit-distance (or any measure validate_dist turns into
+    it) or --exact-kmer-dist (also set by --set/--countdict)."""
+    return opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE and (
+        opts.exact_kmer_dist or opts.measure == Measure.M_EDIT_DISTANCE)
+
+
+def _edit_blocks(result: SketchingResult, block: int, upper_only: bool,
+                 n: int, nq: int) -> Iterator[Tuple[int, np.ndarray]]:
+    """pairwise_matrix of exact edit distances (the JAX generic row-block
+    loop over `_measure_block`'s edit-distance branch,
+    dashing2_tpu/cmp/core.py l.615-621), on the host (cmp/editdist.py:
+    threads over each block's pairs). Levenshtein is symmetric and
+    integral, so an all-pairs block computes only its pairs above the
+    diagonal; full rows (--asymmetric-all-pairs) mirror them from a
+    square kept for the job, the diagonal 0. A panel computes every
+    reference-query pair. Values are the f64 distances cast to f32, as
+    in the JAX package."""
+    from .editdist import edit_distances_pairs
+    nf = n - nq
+    square = None if upper_only or nq else np.zeros((n, n), np.float32)
+    for start in range(0, nf, block):
+        rows = np.arange(start, min(start + block, nf))
+        if nq:
+            cols = np.arange(nf, n)
+            with span("cmp/editdist"):
+                vals = edit_distances_pairs(
+                    result, np.repeat(rows, nq), np.tile(cols, len(rows)))
+            yield start, vals.reshape(len(rows), nq).astype(np.float32)
+            continue
+        cnt = n - 1 - rows
+        ia = np.repeat(rows, cnt)
+        first = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+        ib = np.arange(len(ia)) - np.repeat(first - rows - 1, cnt)
+        with span("cmp/editdist"):
+            vals = edit_distances_pairs(result, ia, ib).astype(np.float32)
+        if upper_only:
+            blk = np.zeros((len(rows), n), np.float32)
+            blk[ia - start, ib] = vals
+            yield start, blk
+            continue
+        square[ia, ib] = vals
+        square[ib, ia] = vals
+        yield start, square[rows].copy()
 
 
 def _exact_sets(opts: Dashing2DistOptions) -> bool:
@@ -638,6 +698,11 @@ def measure_pairs(opts: Dashing2DistOptions, result: SketchingResult,
     lists is a TPU dispatch trade-off the port does not copy."""
     if len(ia) == 0:
         return np.zeros(0, np.float32)
+    if _edit_exact(opts):
+        # dashing2_tpu/cmp/core.py l.2123-2126
+        from .editdist import edit_distances_pairs
+        with span("cmp/editdist"):
+            return edit_distances_pairs(result, ia, ib).astype(np.float32)
     dev = resolve(device)
     if _exact_sets(opts):
         # exact sets: dashing2_tpu/cmp/core.py l.2130-2133

@@ -8,9 +8,11 @@ Exact k-mer sets and count dictionaries (`--set`, `--countdict`) index
 their bottom-k hashes and refine on exact intersections
 (cmp/wcompare.py, on the caller's device). Left out: the JAX package's
 multi-host branches (ROADMAP Queue 1 item 9), its EXACT_KNN environment
-switch (`build_exact_lists` is a plain function here), the `--seq`
-minimizer-stream index (item 8) and the `--greedy ...f` FASTA output,
-which needs the sequences kept in RAM (item 6).
+switch (`build_exact_lists` is a plain function here) and the `--seq`
+minimizer-stream index (item 8). Edit-distance (`-E`) jobs index their
+OrderMinHash registers (the signatures), refine on them or on exact edit
+distances (cmp/editdist.py), and `--greedy ...f` writes each cluster's
+representative sequence.
 
 Reference: src/index_build.cpp (build_index / build_exact_graph),
 src/refine.cpp (refine_results), src/dedup_core.cpp (greedy CD-HIT-style
@@ -31,6 +33,7 @@ reference's exhaustive branch.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 from typing import List, Tuple
 
@@ -84,14 +87,18 @@ def _refine_lists(opts: Dashing2DistOptions, result: SketchingResult,
                   device="cuda") -> List[List[Tuple[float, int]]]:
     """Batched refinement + per-item selection (refine.cpp semantics).
     Returns per-item [(emitted_value, neighbor_id)] sorted best-first."""
-    if opts.refine_exact and not opts.exact_kmer_dist \
-            and opts.kmer_result <= KmerSketchResultType.FULL_SETSKETCH \
-            and creps.data is not None:
-        creps = C.CompressedReps(data=None)  # drop compression
-    # otherwise the JAX package sets exact_kmer_dist, which exact sets
-    # already have and no measure of full registers reads
+    ropts = opts
+    if opts.refine_exact and not opts.exact_kmer_dist:
+        if opts.kmer_result <= KmerSketchResultType.FULL_SETSKETCH and \
+                creps.data is not None:
+            creps = C.CompressedReps(data=None)  # drop compression
+        else:
+            # exact edit distances for -E (no other register kind reads
+            # exact_kmer_dist)
+            ropts = dataclasses.replace(opts)
+            ropts.exact_kmer_dist = True
     n = result.n
-    vals = (C.measure_pairs(opts, result, creps, ia, ib, device=device)
+    vals = (C.measure_pairs(ropts, result, creps, ia, ib, device=device)
             if len(ia) else np.zeros(0, np.float32))
     isdist = measure_is_distance(opts.measure)
     if len(ia) == 0:
@@ -409,17 +416,26 @@ def dedup_core(opts: Dashing2DistOptions, result: SketchingResult,
 
 def dedup_emit(ids: List[int], constituents: List[List[int]],
                opts: Dashing2DistOptions, result: SketchingResult) -> None:
-    """dedup_core.cpp:400-452: the human cluster list, or the binary CSR
-    with each cluster's representative first."""
-    if opts.fasta_dedup:
-        raise NotImplementedError(
-            "--greedy ...f writes the clusters' sequences, which the port "
-            "does not keep (ROADMAP Queue 1 item 6)")
+    """dedup_core.cpp:400-452: with --greedy ...f a FASTA record per
+    cluster (`>Cluster-<id>_<representative>` then `<name>:<index>,` of
+    each member, and the representative's sequence, or an empty line
+    where the job kept no sequences, as in the JAX package), else the
+    human cluster list, or the binary CSR with each cluster's
+    representative first."""
     path = opts.outfile_path
     f = (sys.stdout.buffer if not path or path in ("-", "/dev/stdout")
          else open(path, "wb"))
     try:
-        if opts.output_format == OutputFormat.HUMAN_READABLE:
+        if opts.fasta_dedup:
+            for cid, rep in enumerate(ids):
+                hdr = f">Cluster-{cid}_{result.names[rep]}"
+                if constituents[cid]:
+                    hdr += " " + "".join(
+                        f"{result.names[c]}:{c}," for c in constituents[cid])
+                seq = (result.sequences[rep].decode()
+                       if result.sequences else "")
+                f.write((hdr + "\n" + seq + "\n").encode())
+        elif opts.output_format == OutputFormat.HUMAN_READABLE:
             nitems = result.n
             avg = nitems / max(len(ids), 1)
             f.write((f"#Clustering {nitems} items yielded {len(ids)} "

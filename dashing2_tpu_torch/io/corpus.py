@@ -89,3 +89,60 @@ def write_corpus(outdir: str, seed: int, n_ancestors: int, n_mutants: int,
             f.write(_fasta_bytes(f"genome{g}", seqs[g]))
         paths.append(p)
     return paths
+
+
+def edited_sequences(seed: int, n_families: int, n_members: int,
+                     length: Tuple[int, int] = (1000, 4000),
+                     edits: Tuple[float, float] = (0.01, 0.03),
+                     n_every: int = 97, polya_every: int = 89
+                     ) -> List[Tuple[str, bytes]]:
+    """(name, sequence) records of families for the edit-distance space
+    (numpy's PCG64 from `seed`): each family an ancestor of uniform
+    random length in `length` (bases uniform over ACGT) and `n_members`
+    members, each edited from it at a rate uniform in `edits`, the edits
+    substitutions, insertions and deletions in equal parts at distinct
+    positions. Every `n_every`-th record gets a run of 20-200 N bases
+    and every `polya_every`-th a poly-A tract of 50-300 bases, at random
+    places. Records `fam<f>_<j>`, families in consecutive rows."""
+    rng = np.random.default_rng(seed)
+    out: List[Tuple[str, bytes]] = []
+    for f in range(n_families):
+        anc = _BASES[rng.integers(0, 4, int(rng.integers(*length,
+                                                         endpoint=True)))]
+        for j in range(n_members):
+            L = len(anc)
+            rate = rng.uniform(*edits)
+            pos = np.sort(rng.choice(L, size=int(round(rate * L)),
+                                     replace=False))
+            kind = rng.integers(0, 3, len(pos))
+            seq = anc.copy()
+            sub = pos[kind == 0]
+            shift = rng.integers(1, 4, len(sub))
+            # _BASES is sorted: searchsorted gives a base's code
+            seq[sub] = _BASES[(np.searchsorted(_BASES, seq[sub]) + shift) % 4]
+            ins = pos[kind == 1]
+            dele = pos[kind == 2]
+            seq = np.insert(seq, ins, _BASES[rng.integers(0, 4, len(ins))])
+            seq = np.delete(seq, dele + np.searchsorted(ins, dele,
+                                                        side="right"))
+            i = len(out)
+            if i % n_every == n_every - 1:
+                at, w = int(rng.integers(0, len(seq))), int(
+                    rng.integers(20, 201))
+                seq[at:at + w] = ord("N")
+            if i % polya_every == polya_every - 1:
+                at, w = int(rng.integers(0, len(seq))), int(
+                    rng.integers(50, 301))
+                seq[at:at + w] = ord("A")
+            out.append((f"fam{f}_{j}", seq.tobytes()))
+    return out
+
+
+def write_fasta(path: str, records) -> str:
+    """Write (name, sequence bytes) records as one FASTA file of 80-column
+    lines; returns the path."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        for name, seq in records:
+            f.write(_fasta_bytes(name, np.frombuffer(seq, np.uint8)))
+    return path

@@ -2,15 +2,17 @@
 build directory.
 
 Port of dashing2_tpu/native/__init__.py (`_load_lib`, `load_oph_lib`,
-`load_fastx_lib`, `load_emit_lib`). The C++ sources in this directory,
-oph_sketch.cpp, fastx_reader.h, fastx_reader.cpp and emit_fmt.cpp, are
-copies of the JAX package's files of the same names in its native/
-directory, line for line (one comment each of fastx_reader.h and
-fastx_reader.cpp cites the upstream source by name instead of by a local
-path); the port builds only these copies and reads no file of the JAX
-package. Unlike the JAX loader, a failed build raises: the port has no
-Python fallback for anything on its main path (the Python FASTA parser
-serves only .xz and .bz2 inputs, as in the JAX package).
+`load_fastx_lib`, `load_emit_lib`, `load_myers_lib`). The C++ sources in
+this directory, oph_sketch.cpp, fastx_reader.h, fastx_reader.cpp,
+emit_fmt.cpp and myers_ed.cpp, are copies of the JAX package's files of
+the same names in its native/ directory, line for line (one comment each
+of fastx_reader.h, fastx_reader.cpp and myers_ed.cpp cites the upstream
+source by name instead of by a local path); the port builds only these
+copies and reads no file of the JAX package. Unlike the JAX loader, a
+failed build raises: the port has no Python fallback for anything on its
+main path (the Python FASTA parser serves only .xz and .bz2 inputs, and
+the edit-distance space's raw sequences, as in the JAX package; the
+Python Myers recurrence of cmp/editdist.py is a test oracle only).
 
 `build_shared` is the one build routine. It keys each shared library on
 a hash of its sources, the local headers they include, and the command
@@ -208,5 +210,22 @@ def load_emit_lib() -> ctypes.CDLL:
         lib.fmt_f32_rows.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_size_t,
             ctypes.c_char, ctypes.c_char_p, ctypes.c_size_t]
+        lib._sigs_set = True
+    return lib
+
+
+def load_myers_lib() -> ctypes.CDLL:
+    """Blocked Myers bit-parallel edit distance, batch and threads (the
+    port's copy of myers_ed.cpp)."""
+    src = os.path.join(_HERE, "myers_ed.cpp")
+    lib = build_shared("myersed", [src], _gxx(src, ["-lpthread"], []))
+    if not getattr(lib, "_sigs_set", False):
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u8p = ctypes.POINTER(ctypes.c_ubyte)
+        lib.myers_batch.restype = None
+        lib.myers_batch.argtypes = [u8p, i64p, i64p, i64p,
+                                    ctypes.c_int64, ctypes.c_int, i64p]
+        lib.myers_one.restype = ctypes.c_int64
+        lib.myers_one.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
         lib._sigs_set = True
     return lib

@@ -6,7 +6,10 @@ FullSetSketch registers, or the u8/u16/u32 registers a sketch-compressed
 FullSetSketch job quantised), (optionally) k-mer ids and their counts
 (-s/-N of one-permutation jobs), and the exact k-mer
 sets of `--set`/`--countdict` jobs (each item's distinct u64 hashes,
-sorted, with their f64 counts for a count dictionary). The system has no
+sorted, with their f64 counts for a count dictionary), and the raw
+sequences of an edit-distance (`-E`) job, which its exact edit
+distances and `--greedy ...f` read (a list, or an io/seqstore.py
+SequenceStore). The system has no
 weights; the sketches are its state, and `from_reference` carries them
 over from the JAX package.
 """
@@ -14,7 +17,7 @@ over from the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -28,6 +31,7 @@ class SketchingResult:
     kmercounts: Optional[np.ndarray] = None           # (N, m) f32
     kmer_sets: Optional[List[np.ndarray]] = None      # N sorted u64 sets
     kmer_set_counts: Optional[List[np.ndarray]] = None  # N f64 counts
+    sequences: Optional[Sequence[bytes]] = None       # N raw (-E)
     nq: int = 0  # number of query items (PANEL); stored at the tail
 
     @property
@@ -49,8 +53,10 @@ def _copy_list(arrs) -> Optional[List[np.ndarray]]:
 def from_reference(ref) -> SketchingResult:
     """Copy a dashing2_tpu.result.SketchingResult (or anything with its
     attribute names) into the port's container: one-permutation or
-    FullSetSketch signatures of any register dtype, or exact k-mer sets
-    and their counts, with their cardinalities. Arrays are copied, so
+    FullSetSketch signatures of any register dtype, exact k-mer sets
+    and their counts, or edit-distance registers with their raw
+    sequences (carried as a list of bytes), with their cardinalities.
+    Arrays are copied, so
     the port's in-place densification never touches the reference's
     data.
     The ordered-register cache that the reference's full-register
@@ -63,6 +69,9 @@ def from_reference(ref) -> SketchingResult:
                           kmer_sets=_copy_list(ref.kmer_sets),
                           kmer_set_counts=_copy_list(ref.kmer_set_counts),
                           nq=int(ref.nq))
+    seqs = getattr(ref, "sequences", None)
+    if seqs is not None:
+        res.sequences = [bytes(s) for s in seqs]
     cache = getattr(ref, "_ordered_cache", None)
     if cache is not None:
         res._ordered_cache = (bool(cache[0]), _copy(cache[1]))

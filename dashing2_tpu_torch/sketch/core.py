@@ -21,7 +21,13 @@ Port of two routes of dashing2_tpu/sketch/core.py behind a
   ops/sketch_kernels.py::css_sketch_many draws the CSetSketch
   registers on the card, sketch/weighted.py the weighted ones
   (csrc/weighted_draws.cu), or the distinct hashes (and their counts)
-  are the result.
+  are the result;
+* the edit-distance space (-E, with or without --parse-by-seq):
+  `_load_raw` reads each record with the Python parser, keeps its raw
+  bytes in an io/seqstore.py SequenceStore (the JAX `_load_items`), and
+  sketch/omh.py draws the OrderMinHash registers (csrc/omh.cu on the
+  card), the base count as the cardinality (the JAX
+  `_sketch_fastx_core` branch, dashing2_tpu/sketch/core.py:1047-1059).
 
 Every other configuration raises NotImplementedError naming the
 ROADMAP Queue 1 item that ports it (`_unsupported`).
@@ -146,10 +152,9 @@ def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
     """Reasons the port cannot sketch this job (empty if it can)."""
     why = []
     hkw = _hash_kwargs(opts, 1 << 15)
-    if opts.parse_by_seq or opts.by_chrom:
+    edit = opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE
+    if opts.by_chrom or (opts.parse_by_seq and not edit):
         why.append("--parse-by-seq/--by-chrom (item 7)")
-    if opts.sspace not in (SketchSpace.SPACE_SET,) + _WEIGHTED:
-        why.append("the edit-distance sketch space (item 6)")
     if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
         why.append("--seq (item 8)")
     if _exact_sets(opts) and hkw["use128"] and not hkw["rolling"] \
@@ -161,7 +166,9 @@ def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
         why.append("--filterset (item 7)")
     if opts.cache_sketches:
         why.append("--cache (item 6)")
-    if why:
+    if why or edit:
+        # the edit-distance space encodes in numpy at any k and reads
+        # every input with the Python parser
         return why
     if not _native_oph_supported(hkw):
         why.append(f"k={opts.k} with this alphabet (item 7)")
@@ -196,13 +203,16 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
     FullSetSketch, --count-threshold > 1 and -B/-P the counting route,
     whose CSetSketch or weighted draws run on `device` (a CUDA request
     without a card raises; nothing falls back). --set and --countdict
-    count on the host and touch no device."""
+    count on the host and touch no device. -E draws OrderMinHash
+    registers on `device` (one item a record with --parse-by-seq)."""
     why = _unsupported(opts, groups)
     if why:
         raise NotImplementedError(
             "not ported: " + ", ".join(why) + " (ROADMAP Queue 1)")
     if not any(g.split() for g in groups):
         raise ValueError("no input files")
+    if opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
+        return _sketch_edit(opts, groups, device)
     if _exact_sets(opts):
         return _sketch_exact(opts, groups)
     if opts.sspace in _WEIGHTED:
@@ -483,4 +493,59 @@ def _sketch_weighted(opts: Dashing2Options, groups: Sequence[str],
     res = SketchingResult(names=list(groups))
     res.signatures = sigs
     res.cardinalities = cards
+    return res
+
+
+# ----------------------------------------------------------------------
+# the edit-distance space (-E): OrderMinHash registers
+# ----------------------------------------------------------------------
+
+def _load_raw(opts: Dashing2Options, groups: Sequence[str]):
+    """(names, codes, store): the JAX `_load_items` with raw sequences
+    kept (dashing2_tpu/sketch/core.py:315-350). Every record is read by
+    the Python parser and its bytes kept in a SequenceStore (RAM below
+    2 Gbp, an unlinked temp file above; --seqs-in-ram pins RAM). With
+    --parse-by-seq each record is an item (named by its record);
+    otherwise each group is one item, its records' codes and bytes
+    concatenated (k-mers then span the record boundaries)."""
+    from ..io.seqstore import SequenceStore
+    store = SequenceStore(in_ram=opts.seqs_in_ram)
+    names: List[str] = []
+    codes: List[np.ndarray] = []
+    with span("sketch/read"):
+        for group in groups:
+            if opts.parse_by_seq:
+                for path in group.split():
+                    for name, seq in fastx.read_fastx(path):
+                        store.append(bytes(seq))
+                        names.append(name)
+                        codes.append(K.encode_ascii(seq, opts.alphabet))
+                continue
+            parts, raws = [], []
+            for path in group.split():
+                for _, seq in fastx.read_fastx(path):
+                    parts.append(K.encode_ascii(seq, opts.alphabet))
+                    raws.append(bytes(seq))
+            store.append(b"".join(raws))
+            names.append(group)
+            codes.append(np.concatenate(parts) if parts
+                         else np.zeros(0, np.uint8))
+    return names, codes, store
+
+
+def _sketch_edit(opts: Dashing2Options, groups: Sequence[str],
+                 device) -> SketchingResult:
+    """OrderMinHash signatures (u64 in the f64 signature slot) over the
+    raw sequences, drawn on `device`; the base count as the
+    cardinality; the sequences kept for exact edit distances and
+    --greedy ...f."""
+    from .omh import omh_sketch_many
+    names, codes, store = _load_raw(opts, groups)
+    dev = resolve(device)
+    with span("sketch/omh"):
+        sigs = omh_sketch_many(codes, opts.k, opts.sketchsize, device=dev)
+    res = SketchingResult(names=names)
+    res.signatures = sigs.view(np.float64)
+    res.cardinalities = np.array([len(c) for c in codes], np.float64)
+    res.sequences = store
     return res

@@ -144,10 +144,12 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--greedy", "0.8f"], ["--outprefix", "p"],
+    ["--filterset", "fs.txt"], ["--outprefix", "p"],
     ["--leafcutter", "--by-chrom"],
     ["--cache"], ["--warm-only", "8"], ["--seq"],
-    ["--edit-distance"],
+    ["--hp-compress"],
+    # the edit-distance options run only with -E
+    ["--compute-edit-distance"], ["--exact-kmer-dist"],
 ])
 def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
     lst, _ = corpus

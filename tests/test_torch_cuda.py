@@ -1114,3 +1114,87 @@ def test_contain_cli_on_card_equals_cpu(card, tmp_path):
                 + ["--device", dev]) == 0
             outs.append(out.read_bytes())
         assert outs[0] == outs[1], flags
+
+
+def _omh_streams(card):
+    """The planted OMH streams (tests/omh_planted.py) and random streams
+    across the kernel's pieces (8192 positions) and staged steps (1024),
+    with invalid windows, back to back on the card."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from omh_planted import planted_items, ragged
+    rng = np.random.default_rng(41)
+    items = planted_items()
+    for n in (1, 1023, 1024, 1025, 8192, 8193, 20000):
+        km = rng.integers(0, 1 << 40, n, dtype=np.uint64)
+        items.append((km, rng.integers(0, 4, n).astype(np.int64),
+                      rng.random(n) > 0.1))
+    km, occ, va, off = ragged(items)
+    return [torch.from_numpy(x).to(card) for x in (
+        km.view(np.int64), occ, va, off)]
+
+
+@pytest.mark.parametrize("m", [1, 7, 130, 1024])
+def test_omh_kernel_matches_plain(card, m):
+    """csrc/omh.cu against omh_registers_plain, bit for bit: planted f64
+    ties, keys rounding to 2^64, phantoms before and after a real winner
+    at position 0, one and no valid window, and streams of 1 to 20000
+    positions; m not a multiple of the 128-register tile; with the piece
+    table built by the wrapper and prebuilt from host offsets."""
+    from dashing2_tpu_torch.ops import omh as OP
+    args = _omh_streams(card)
+    before = OP.launches.launches
+    got = OP.omh_registers(*args, m, 2)
+    pre = OP.omh_registers(*args, m, 2, pieces=OP.piece_table(
+        args[3].cpu().numpy(), args[0].device))
+    torch.cuda.synchronize()
+    assert OP.launches.launches == before + 2
+    want = OP.omh_registers_plain(*args, m, 2)
+    assert torch.equal(got, want) and torch.equal(pre, want)
+
+
+@pytest.mark.parametrize("ell", [1, 3])
+def test_omh_kernel_refuses_other_depths(card, ell):
+    """The kernel is built for ell = 2 only: another depth raises before
+    any launch."""
+    from dashing2_tpu_torch.ops import omh as OP
+    args = _omh_streams(card)
+    before = OP.launches.launches
+    with pytest.raises(ValueError, match="ell"):
+        OP.omh_registers(*args, 7, ell)
+    assert OP.launches.launches == before
+
+
+def test_omh_sketch_on_card_equals_cpu(card):
+    """sketch/omh.py's streams (k-mers and occurrence ranks in torch on
+    the card) and registers: the CPU's."""
+    from dashing2_tpu_torch.io.corpus import edited_sequences
+    from dashing2_tpu_torch.enums import Alphabet
+    from dashing2_tpu_torch.ops.kmers import encode_ascii
+    from dashing2_tpu_torch.sketch import omh as PO
+    recs = edited_sequences(43, 6, 4, length=(10, 3000), n_every=3,
+                            polya_every=4)
+    codes = [encode_ascii(s, Alphabet.DNA) for _, s in recs]
+    np.testing.assert_array_equal(
+        PO.omh_sketch_many(codes, 15, 200, device=card),
+        PO.omh_sketch_many(codes, 15, 200, device="cpu"))
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--fastcmp", "0.5"], ["--fastcmp", "1"],
+    ["--compute-edit-distance", "--topk", "3"], ["--greedy", "0.3f"]])
+def test_edit_distance_cli_on_card_equals_cpu(card, tmp_path, flags):
+    """`sketch -E --parse-by-seq` jobs with the registers drawn and
+    compared on the card: the CPU run's bytes."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import edited_sequences, write_fasta
+    fa = write_fasta(str(tmp_path / "s.fa"), edited_sequences(
+        47, 10, 8, length=(200, 900)))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"o-{dev}"
+        assert cli.main(["sketch", "-E", "--parse-by-seq", "-k", "15", "-S",
+                         "256", "--binary-output", "--cmpout", str(out)]
+                        + flags + [fa, "--device", dev]) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1] and outs[0]

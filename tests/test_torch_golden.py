@@ -160,7 +160,7 @@ def test_port_reproduces_jax_weighted_goldens(name, tmp_path):
     _reproduce_jax_golden(name, tmp_path)
 
 
-@pytest.mark.parametrize("name, flag", [("multiset.bin", "--edit-distance"),
+@pytest.mark.parametrize("name, flag", [("multiset.bin", "--hp-compress"),
                                         ("prob.bin", "--entmin")])
 def test_goldens_outside_the_port_are_rejected_by_flag(name, flag, tmp_path):
     sys.path.insert(0, HERE)

@@ -29,6 +29,8 @@ import dashing2_tpu_torch.sketch.intervals, dashing2_tpu_torch.sketch.wsketch
 import dashing2_tpu_torch.cmp.contain, dashing2_tpu_torch.io.bigwig
 import dashing2_tpu_torch.sketch.weighted
 import dashing2_tpu_torch.ops.weighted_draws
+import dashing2_tpu_torch.ops.omh, dashing2_tpu_torch.sketch.omh
+import dashing2_tpu_torch.cmp.editdist, dashing2_tpu_torch.io.seqstore
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dashing2_tpu."))
              or m == "dashing2_tpu")
@@ -76,10 +78,11 @@ def test_full_register_job_on_cuda_fails_without_a_card(tmp_path):
     _cuda_job_without_card(tmp_path, [])
 
 
-@pytest.mark.parametrize("job", ["bed", "wsketch", "contain"])
+@pytest.mark.parametrize("job", ["bed", "wsketch", "contain", "edit"])
 def test_new_subcommands_on_cuda_fail_without_a_card(tmp_path, job):
-    """`sketch --bed -B`, `wsketch` and `contain` with the default
-    --device cuda exit non-zero without a card and write nothing."""
+    """`sketch --bed -B`, `wsketch`, `contain` and `sketch -E` with the
+    default --device cuda exit non-zero without a card and write
+    nothing."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     (tmp_path / "a.bed").write_text("chr1\t0\t100\n")
@@ -89,7 +92,9 @@ def test_new_subcommands_on_cuda_fail_without_a_card(tmp_path, job):
                     "out", "a.bed", "a.bed"],
             "wsketch": ["wsketch", "-o", "out", "ids.u64"],
             "contain": ["contain", "--cmpout", "out", "db.kmer64",
-                        "a.fa"]}[job]
+                        "a.fa"],
+            "edit": ["sketch", "-E", "--parse-by-seq", "-k", "9",
+                     "--cmpout", "out", "a.fa"]}[job]
     r = subprocess.run([sys.executable, "-m", "dashing2_tpu_torch"] + argv,
                        cwd=str(tmp_path), env=_env(), capture_output=True,
                        text=True, timeout=120)
@@ -178,11 +183,13 @@ def test_path_check_sees_a_path_into_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["oph_sketch.cpp", "fastx_reader.h",
-                                  "emit_fmt.cpp", "fastx_reader.cpp"])
+                                  "emit_fmt.cpp", "fastx_reader.cpp",
+                                  "myers_ed.cpp"])
 def test_native_sources_are_copies_of_the_jax_package(name):
     """Line for line the JAX package's file; only a `//` comment line may
-    be worded otherwise (fastx_reader.h and fastx_reader.cpp cite the
-    upstream source by name where the JAX files give a local path)."""
+    be worded otherwise (fastx_reader.h, fastx_reader.cpp and
+    myers_ed.cpp cite the upstream source by name where the JAX files
+    give a local path)."""
     with open(os.path.join(ROOT, "dashing2_tpu_torch", "native", name)) as f:
         port = f.read().splitlines()
     with open(os.path.join(ROOT, "dashing2_tpu", "native", name)) as f:

@@ -56,7 +56,8 @@ def test_sketch_matches_jax(groups, cfg, native_files, monkeypatch):
 @pytest.mark.parametrize("opts", [
     dict(entmin=True), dict(parse_by_seq=True), dict(cache_sketches=True),
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SEQUENCE),
-    dict(sspace=SketchSpace.SPACE_EDIT_DISTANCE),
+    # the edit-distance space runs; with --by-chrom it stays outside
+    dict(sspace=SketchSpace.SPACE_EDIT_DISTANCE, by_chrom=True),
     dict(by_chrom=True), dict(filterset_path="some.fs"),
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SET, use128=True),
 ])
