@@ -16,13 +16,16 @@ FullSetSketch sketching (`--full-setsketch`, `--fastcmp-bytes`),
 k-mer database (`-s`, `-N`) and `contain`, the interval inputs
 (`--bed`, `--bigwig`, `--leafcutter`), `wsketch` and the edit-distance
 space (`-E`, `--parse-by-seq`, `--compute-edit-distance`, `--greedy
-...f`) through the port's own CLI.
+...f`) and the chunked route (`--parse-by-seq` outside `-E`,
+`--filterset`, `--by-chrom`, `.xz`/`.bz2` inputs) through the port's
+own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu,
-   csrc/int_counts.cu, csrc/weighted_draws.cu and csrc/omh.cu (sm_90a)
+   csrc/int_counts.cu, csrc/weighted_draws.cu, csrc/omh.cu and
+   csrc/oph_rows.cu (sm_90a)
    and g++ for the native sketcher, FASTA reader, formatter and Myers
    edit distance, all started together; build seconds and ptxas'
    register/spill report;
@@ -279,16 +282,53 @@ no card, or when the port is not importable:
    the clusters hold every sequence once; over the first 32 sequences
    byte-equal to `--device cpu`;
 35. `-E --parse-by-seq --compute-edit-distance` all pairs over the
-   first 1024 sequences, binary: 1000 sampled values equal `myers_one`;
+   first 768 sequences, binary: 1000 sampled values equal `myers_one`;
 36. whole-file `-E` (each genome file one item, about 20,000 positions,
    three pieces) over the first 1024 genomes of the N = 10240 corpus,
    `-o`: one omh and one gtlt_self launch; 8 genomes' written registers
    equal the plain version's on the card; the first 8 genomes'
-   comparison byte-equal to `--device cpu`.
+   comparison byte-equal to `--device cpu`;
+37. the chunked route's kernel (csrc/oph_rows.cu) against its plain
+   version on the card, registers and counts bit for bit, over the
+   first 256 records of the by-record corpus (io/corpus.py
+   `edited_sequences`, seed 14: 2,048 families x 16 members of
+   1,000-6,000 bp, each 1-5% edited, N runs in every 16th record, 16
+   records cut below k; about 114 Mbp in one FASTA) in each encoding:
+   2-bit DNA k = 31 canonical, window-50 minimizers with downsampling,
+   spaced seeds, the rolling hash at k = 48, the 128-bit low word at
+   k = 40, a filterset, and protein k = 7 over 256 random protein
+   records; then the whole corpus at k = 31, m = 1024 in the chunked
+   route's batches: the kernel's registers equal the native engine's
+   (`oph_rows_native` over the same rows, merged per record), the
+   kernel timed with CUDA events over the prebuilt batches, with its
+   bound, and the plain version on the first 256 records;
+38. `sketch --parse-by-seq -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs -o`
+   all pairs over the first 8,192 records: oph_rows and one tri_eq
+   launch; every value equal to the CPU epilogue at the plain counts
+   of the written registers; the first 64 records' registers equal the
+   chunked route's on the CPU; the names the records';
+39. `--parse-by-seq --topk 10` over all 32,768 records: oph_rows the
+   only hand kernel; the graph byte-equal to neighbor_graph_main on
+   the card over the native engine's registers of phase 37;
+40. `--filterset` over the first 5,120 genomes of the N = 10240 corpus
+   with a 256 kb filter FASTA cut from 64 of them: the full-register
+   all-pairs job on the file driver (one gtlt_self launch); the chunked
+   route's registers on the card with the same set equal the file
+   driver's; the filter changes every one of the 64 genomes' registers;
+   `:b` with the raw u64 list of the FASTA's hashes gives the FASTA
+   filter's bytes (matrix and `-o`);
+41. 256 genomes of that corpus as 4 contigs each, plain, `.xz` and
+   `.bz2`: the file driver's bytes on the plain files (matrix and `-o`)
+   equal the chunked route's on the `.xz` and `.bz2` files, on the plain
+   files with `--by-chrom`, and on the `.xz` files with `--by-chrom`;
+42. `--full-setsketch`, `--set` and `-B` with `--parse-by-seq` over the
+   first 2,048 records: each output's size and launches, and the job
+   over the first 64 records (32 for `--full-setsketch`, 8 for `-B`)
+   byte-equal to `--device cpu`.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall, and phases
-26-36 their jobs' spans.
+26-42 their jobs' spans.
 
 Beside each kernel's time the script reckons its bound (the least time
 the card could take for the same work, from this run's shapes: the
@@ -300,8 +340,10 @@ package's enc_onehot_T / enc_combined_T for tri_eq and tri_comb (all N^2
 pairs; the expansion is done before the timed window), `torch.cdist(x,
 x, p=0)` over the f32 registers for int_counts_self in eq mode (the
 unequal-register count, eq = m - d). No single call computes (gt, lt)
-counts, so gtlt_self_counts, gtlt_counts and int_counts have none. The
-kernels line gives int_counts_self twice: `int_counts_self` with the
+counts, so gtlt_self_counts, gtlt_counts and int_counts have none;
+nor does one call draw weighted registers (weighted_draws), select and
+fold OrderMinHash words (omh), or encode, select and bucket-min k-mers
+(oph_rows). The kernels line gives int_counts_self twice: `int_counts_self` with the
 u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
 with the u8 b-bit job's eq-mode times and its library call.
 
@@ -312,8 +354,8 @@ items on the CPU (the port's own f64 log made the CSetSketch draws
 slower; the time went to the weighted phases, and the whole stays well
 inside the run's limit on a slower host). Phases 15, 18, 21, 23 and 25
 take the first HALF_N = 5120 genomes, and phase 27 16 BED files instead
-of 32, to make room for phase 35's 1024-sequence exact job (about 90 s
-of host Myers distances): each spends most of its time on host reading,
+of 32, to make room for phase 35's exact job (about 90 s of host Myers
+distances over 1024 sequences; 768 since phases 37-42): each spends most of its time on host reading,
 expansion, hashing and counting, or on draws, in proportion to its
 items, and its kernels' launches and shapes are timed elsewhere. The
 comparison's work depends only on N and m; 20 kb genomes still carry
@@ -328,8 +370,13 @@ the CPU. Phases 31-36 run at full width (m = 1024) over 8192 sequences;
 their `--device cpu` checks run on cuts (32 sequences, 8 genomes: the
 plain OMH on the CPU takes seconds for a few dozen sequences at m =
 1024, the cut jobs' `cpu` walls say how many), and the exact all-pairs
-job takes the first 1024 sequences (523,776 host Myers distances, about
-0.17-0.19 ms a pair on 8 threads).
+job takes the first 768 sequences (294,528 host Myers distances, about
+0.17-0.19 ms a pair on 8 threads). Phases 37-42 run at full width over
+the 32,768-record corpus (phase 38 its first 8,192 records, phase 42 its
+first 2,048), 5,120 genomes (phase 40) and 256 genomes (phase 41); the
+CPU checks of phase 42 run over 64 records for `--set`, 32 for
+`--full-setsketch` and 8 for `-B` (the plain CSetSketch and weighted
+draws are slow on the CPU: 10.8 s for 64 records and 8.6 s for 16).
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -440,10 +487,12 @@ def phase_build():
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
     from dashing2_tpu_torch.ops import omh as OP
+    from dashing2_tpu_torch.ops import oph_rows as OR
     from dashing2_tpu_torch.ops import weighted_draws as WD
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
               "gtlt": G.load_kernel, "int_counts": IC.load_kernel,
               "weighted_draws": WD.load_kernel, "omh": OP.load_kernel,
+              "oph_rows": OR.load_kernel,
               "ophsketch": native.load_oph_lib,
               "fastx": native.load_fastx_lib,
               "emitfmt": native.load_emit_lib,
@@ -460,7 +509,7 @@ def phase_build():
     _say(f"[build] all {len(builds)} in {time.perf_counter() - t0:.3f} s, in "
          "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
     for name in ("tri_eq", "tri_comb", "gtlt", "int_counts",
-                 "weighted_draws", "omh"):
+                 "weighted_draws", "omh", "oph_rows"):
         for ln in native.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 _say(f"[build] ptxas {name}: {ln.strip()}")
@@ -3092,10 +3141,11 @@ OMH_PLAIN_SLICE = 64         # sequences the plain version is timed over
 EDIT_SAMPLE = 32             # sequences held to the plain version on the CPU
 EDIT_CUT = 32                # sequences of the --device cpu runs (jobs 3, 4)
 EDIT_EDGES = 1000            # edges held to myers_one
-# the exact all-pairs job: the first EDIT_ALLPAIRS_N sequences (523,776
+# the exact all-pairs job: the first EDIT_ALLPAIRS_N sequences (294,528
 # pairs of host Myers distances, about 0.17-0.19 ms a pair on the 8
-# threads of an H100 machine's host)
-EDIT_ALLPAIRS_N = 1024
+# threads of an H100 machine's host; 1024 sequences until the chunked
+# route's phases needed the room)
+EDIT_ALLPAIRS_N = 768
 EDIT_WHOLE_N = 1024          # whole-file -E over the N = 10240 genomes
 EDIT_WHOLE_SAMPLE = 8
 EDIT_WHOLE_CUT = 8
@@ -3488,6 +3538,484 @@ def phase_edit(lst: str, counters):
     return kernel, runs
 
 
+# ----------------------------------------------------------------------
+# phases 37-42: the chunked route (--parse-by-seq, --filterset,
+# --by-chrom, .xz/.bz2) on csrc/oph_rows.cu
+# ----------------------------------------------------------------------
+
+# 2,048 families x 16 members of 1,000-6,000 bp, each member 1-5% edited
+# (io/corpus.py `edited_sequences`), N runs in every 16th record, 16
+# records cut below k: about 115 Mbp, the gene or contig catalogues
+# users compare record by record
+BYSEQ_SEED = 14
+BYSEQ_FAMILIES, BYSEQ_MEMBERS = 2048, 16
+BYSEQ_N = BYSEQ_FAMILIES * BYSEQ_MEMBERS
+BYSEQ_K, BYSEQ_M = 31, 1024
+BYSEQ_ARGS = ["-k", str(BYSEQ_K), "-S", str(BYSEQ_M)]
+BYSEQ_SLICE = 256            # records of the per-encoding check
+BYSEQ_PAIRS_N = 8192         # records of the all-pairs job (phase 38)
+BYSEQ_COUNTING_N = 2048      # records of the counting-route jobs (42)
+# records of phase 42's --device cpu runs: --set, --full-setsketch and
+# -B (the plain CSetSketch and weighted draws are slow on the CPU)
+BYSEQ_CUTS = {"set": 64, "fss": 32, "bmh": 8}
+BYSEQ_CUT = BYSEQ_CUTS["set"]   # also phase 38's check on the CPU
+FILTER_PIECES, FILTER_PIECE = 64, 4096   # phase 40's 256 kb filter FASTA
+CONTIG_GENOMES = 256         # genomes of phase 41, each as 4 contigs
+# the least integer work of one valid position: its 2-bit k-mer rolled
+# one base, forward and reverse complement, and their unsigned min (15
+# 32-bit lane instructions), the maskfn and bucket wanghash chains (30
+# each: every u64 add, xor and shift two lane instructions, a multiply
+# by a small constant three) and the bucket's address and atomic (5).
+# Reckoned from that least form, not from csrc/oph_rows.cu's SASS,
+# which builds each code from its k bases
+OPH_OPS = 80
+# the per-encoding check: (tag, options); protein over random records
+OPH_CASES = (("dna-k31", dict(k=31)),
+             ("mini-w50-ds", dict(k=31, w=50, kmer_downsample_frac=0.5)),
+             ("spaced", dict(k=11, spacing="0,2,0,1,0x5,3")),
+             ("roll-k48", dict(k=48)),
+             ("u128-k40", dict(k=40, use128=True)),
+             ("filterset", dict(k=31)),
+             ("protein-k7", dict(k=7, alphabet="PROTEIN")))
+CHUNKED_SPANS = ("sketch", "sketch/read", "sketch/chunk", "sketch/oph-rows",
+                 "sketch/finalize", "sketch/native-files", "write-sketches",
+                 "compare+emit", "cmp/prep", "cmp/kernel", "cmp/d2h",
+                 "lsh-index-build", "lsh-candidates", "refine", "emit/write")
+
+
+def _byseq_corpus():
+    """(FASTA path, records) of the by-record corpus under build/, and
+    the FASTAs of its first BYSEQ_SLICE, BYSEQ_PAIRS_N, BYSEQ_COUNTING_N
+    and BYSEQ_CUTS records."""
+    from dashing2_tpu_torch.io.corpus import edited_sequences, write_fasta
+    d = os.path.join(WORK, "byseq")
+    recs = edited_sequences(BYSEQ_SEED, BYSEQ_FAMILIES, BYSEQ_MEMBERS,
+                            length=(1000, 6000), edits=(0.01, 0.05),
+                            n_every=16)
+    # 16 records shorter than k, whose registers stay empty
+    for i in range(0, BYSEQ_N, BYSEQ_N // 16):
+        recs[i] = (recs[i][0], recs[i][1][:BYSEQ_K - 1 - i % 7])
+    fa = write_fasta(os.path.join(d, "byseq.fa"), recs)
+    for name, n in (("slice", BYSEQ_SLICE), ("pairs", BYSEQ_PAIRS_N),
+                    ("counting", BYSEQ_COUNTING_N)):
+        write_fasta(os.path.join(d, f"{name}.fa"), recs[:n])
+    for n in set(BYSEQ_CUTS.values()):
+        write_fasta(os.path.join(d, f"cut{n}.fa"), recs[:n])
+    return fa, recs
+
+
+def _rows_of(opts, paths, batch_codes=1 << 40):
+    """(items, chunk length, hash kwargs, [(rows, item index)]) of the
+    chunked route over `paths`."""
+    from dashing2_tpu_torch.sketch import core as PC
+    items = list(PC._load_items(opts, paths))
+    chunk_len = PC._auto_chunk_len(items)
+    return (items, chunk_len, PC._hash_kwargs(opts, chunk_len),
+            list(PC._iter_chunk_batches(opts, items, chunk_len,
+                                        batch_codes)))
+
+
+def _valid_windows(items, k: int) -> int:
+    """Windows of k bases with no INVALID code, over every record."""
+    import numpy as np
+    total = 0
+    for it in items:
+        for c in it.codes:
+            if len(c) < k:
+                continue
+            bad = np.concatenate([[0], np.cumsum(c == 0xFF)])
+            total += int((bad[k:] == bad[:-k]).sum())
+    return total
+
+
+def phase_oph_vs_plain(fa: str, recs):
+    """oph_rows against oph_rows_plain on the card, registers and counts
+    bit for bit, over the first BYSEQ_SLICE records in each encoding
+    (OPH_CASES: 2-bit DNA, window-50 minimizers with downsampling, spaced
+    seeds, the rolling hash, the 128-bit low word, a filterset of a third
+    of the slice's hashes, protein over random records); then the whole
+    corpus at k = 31, m = 1024: the kernel's registers == the native
+    engine's (`oph_rows_native` on the host's threads, rows merged per
+    record). The kernel timed by CUDA events over the prebuilt batches
+    on the card; the plain version on the first BYSEQ_SLICE records."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.enums import Alphabet
+    from dashing2_tpu_torch.io.corpus import write_fasta
+    from dashing2_tpu_torch.native import load_oph_lib
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    from dashing2_tpu_torch.sketch import core as PC
+    d = os.path.join(WORK, "byseq")
+    rng = np.random.default_rng(BYSEQ_SEED)
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    pfa = write_fasta(os.path.join(d, "protein.fa"), [
+        (f"p{i}", rng.choice(letters, int(rng.integers(100, 2000))).tobytes())
+        for i in range(BYSEQ_SLICE)])
+    slice_fa = os.path.join(d, "slice.fa")
+    for tag, kw in OPH_CASES:
+        kw = dict(kw)
+        if "alphabet" in kw:
+            kw["alphabet"] = Alphabet[kw["alphabet"]]
+        opts = Dashing2Options(sketchsize=BYSEQ_M, parse_by_seq=True, **kw)
+        items, _, hkw, batches = _rows_of(
+            opts, [pfa if "alphabet" in kw else slice_fa])
+        rows = torch.from_numpy(batches[0][0]).cuda()
+        rid = torch.from_numpy(batches[0][1]).cuda()
+        fs = None
+        if tag == "filterset":
+            hashed, valid = OR.hash_chunk_batch(rows, hkw)
+            hv = np.unique(hashed[valid].cpu().numpy().view(np.uint64))
+            fs = torch.from_numpy(hv[::3].copy().view(np.int64)).cuda()
+        got = OR.oph_rows(rows, rid, len(items), BYSEQ_M, hkw, fs, True)
+        torch.cuda.synchronize()
+        want = OR.oph_rows_plain(rows, rid, len(items), BYSEQ_M, hkw, fs,
+                                 True)
+        assert torch.equal(got[0], want[0]), (tag, "registers")
+        assert torch.equal(got[1], want[1]), (tag, "counts")
+        _say(f"[oph] {tag}: oph_rows == oph_rows_plain, registers and "
+             f"counts, {len(items)} records in {rows.shape[0]} rows of "
+             f"{rows.shape[1]} codes; {int((got[0] != -1).sum())} of "
+             f"{got[0].numel()} registers filled"
+             + (f"; filterset of {fs.numel()} hashes" if fs is not None
+                else ""))
+
+    # the whole corpus: the kernel == the native engine
+    opts = Dashing2Options(k=BYSEQ_K, sketchsize=BYSEQ_M, parse_by_seq=True)
+    t0 = time.perf_counter()
+    items, chunk_len, hkw, batches = _rows_of(opts, [fa],
+                                              PC.BATCH_CODES["cuda"])
+    n, m = len(items), BYSEQ_M
+    t_rows = time.perf_counter() - t0
+    rows_np = np.concatenate([r for r, _ in batches])
+    rid_np = np.concatenate([i for _, i in batches])
+    t0 = time.perf_counter()
+    nat_r, nat_c = PC._native_oph_rows(load_oph_lib(), rows_np, hkw, m,
+                                       False)
+    t_native = time.perf_counter() - t0
+    host_regs, _ = PC.merge_rows(nat_r, nat_c, rid_np, n)
+    del nat_r, nat_c
+    on_card = [(torch.from_numpy(r).cuda(),
+                torch.from_numpy(i - i[0]).cuda(), int(i[0]),
+                int(i[-1]) + 1) for r, i in batches]
+
+    def run():
+        return [OR.oph_rows(r, i, i1 - i0, m, hkw)[0]
+                for r, i, i0, i1 in on_card]
+    outs = run()
+    torch.cuda.synchronize()
+    kern = np.full((n, m), PC.U64MAX, np.uint64)
+    for (_, _, i0, i1), g in zip(on_card, outs):
+        np.minimum(kern[i0:i1], g.cpu().numpy().view(np.uint64),
+                   out=kern[i0:i1])
+    del outs
+    assert np.array_equal(kern, host_regs), "kernel != native engine"
+    empty = int((kern == PC.U64MAX).all(axis=1).sum())
+    ms = _cuda_ms(run, 3)
+    # the first BYSEQ_SLICE records: kernel and plain version
+    r0, i0 = on_card[0][0], on_card[0][1]
+    cut = int(np.searchsorted(batches[0][1], BYSEQ_SLICE))
+    part = (r0[:cut].contiguous(), i0[:cut].contiguous())
+    slice_ms = _cuda_ms(lambda: OR.oph_rows(*part, BYSEQ_SLICE, m, hkw), 3)
+    OR.oph_rows_plain(*part, BYSEQ_SLICE, m, hkw)
+    plain_ms = _cuda_ms(lambda: OR.oph_rows_plain(*part, BYSEQ_SLICE, m,
+                                                  hkw), 1)
+    nvalid = _valid_windows(items, BYSEQ_K)
+    nbases = sum(len(c) for it in items for c in it.codes)
+    bound_ms, bound_by = _bound(nvalid * OPH_OPS, "int32",
+                                nbases + 8 * n * m)
+    _say(f"[oph] whole corpus: {n} records ({empty} empty: shorter than "
+         f"k), {nbases} bases, {nvalid} valid 31-mers, in {len(rows_np)} "
+         f"rows of {rows_np.shape[1]} codes (chunk length {chunk_len}) and "
+         f"{len(batches)} batches; kernel registers == oph_rows_native's "
+         f"(host, {t_native:.3f} s on {os.cpu_count()} threads; rows built "
+         f"in {t_rows:.3f} s); kernel {ms:.3f} ms over the batches (CUDA "
+         f"events, mean of 3, registers only); bound {bound_ms:.3f} ms "
+         f"({bound_by}: {OPH_OPS} int32 lane instructions a valid position, "
+         f"reckoned), {100 * bound_ms / ms:.1f}% reached; on the first "
+         f"{BYSEQ_SLICE} records kernel {slice_ms:.3f} ms, plain "
+         f"{plain_ms:.3f} ms (one run); library: none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=0, library_ms=None,
+                plain_shape=f"the first {BYSEQ_SLICE} of the {n} records ms "
+                f"and bound_ms cover (kernel there {slice_ms:.3f} ms)"), \
+        host_regs
+
+
+def phase_byseq_allpairs(recs, counters):
+    """`sketch --parse-by-seq -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs`
+    all pairs over the first BYSEQ_PAIRS_N records, `-o`: one tri_eq
+    launch; every value == the CPU epilogue at the plain counts of the
+    written registers; the first BYSEQ_CUT records' registers == the
+    chunked route's on the CPU (`--device cpu`'s plain version)."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.cmp import core as C
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.ops import nibble_tri as NT
+    from dashing2_tpu_torch.result import SketchingResult
+    from dashing2_tpu_torch.sketch.core import sketch_fastx
+    n, m = BYSEQ_PAIRS_N, BYSEQ_M
+    d = os.path.join(WORK, "byseq")
+    out, sig = os.path.join(d, "pairs.bin"), os.path.join(d, "pairs.sig")
+    argv = ["sketch", "--parse-by-seq"] + BYSEQ_ARGS + [
+        "--fastcmp", "0.5", "--bbit-sigs", "--binary-output", "--cmpout",
+        out, "-o", sig, os.path.join(d, "pairs.fa")]
+    wall, spans, launches = _run_cli("byseq-pairs", argv, n, counters)
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    assert launches["oph_rows"] >= 1 and launches["tri_eq"] == 1, launches
+    _say_spans("byseq-pairs", spans, CHUNKED_SPANS)
+    cards, sigs = formats.read_stacked_signatures(sig)
+    opts = _cli_opts(argv)
+    cpu = sketch_fastx(opts, [os.path.join(d, f"cut{BYSEQ_CUT}.fa")],
+                       device="cpu")
+    assert np.array_equal(sigs[:BYSEQ_CUT].view(np.uint64),
+                          np.asarray(cpu.signatures).view(np.uint64))
+    names, _ = formats.read_names_file(sig + ".names.txt")
+    assert names == [nm for nm, _ in recs[:n]]
+    res = SketchingResult(names=names, cardinalities=cards, signatures=sigs)
+    creps, res = C._prep(opts, res)
+    kind, data = C._representation(opts, res, creps)
+    regs = C._device_regs(data, torch.device("cuda"))
+    counts = NT.tri_eq_counts_plain(regs, m).cpu().numpy().astype(np.int64)
+    del regs
+    epi = _job_epilogue("byseq-pairs", kind, opts, creps, n)
+    vals = np.fromfile(out, dtype=np.float32)
+    assert np.isfinite(vals).all()
+    _rows_equal(vals, n, lambda i0, i1: epi(counts[i0:i1], None, None))
+    _say(f"[byseq-pairs] {BYSEQ_CUT} records' written registers == the "
+         f"plain version's on the CPU; names == the records'; output == "
+         f"CPU epilogue at the plain counts ({kind}) for all "
+         f"{n * (n - 1) // 2} pairs; similarity counts in [0,1e-9) "
+         f"[1e-9,.1) [.1,.5) [.5,.9) [.9,1]: {_histogram(vals)}")
+    os.remove(out)
+    return dict(wall=wall, launches=launches)
+
+
+def phase_byseq_knn(fa: str, recs, host_regs, counters):
+    """`--parse-by-seq --topk 10` over all BYSEQ_N records: registers on
+    the card (oph_rows the only hand kernel), LSH candidates and pair
+    counts; the graph == neighbor_graph_main on the card over the
+    native engine's registers of phase 37."""
+    import numpy as np
+    from dashing2_tpu_torch.cmp import graph as PG
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.result import SketchingResult
+    from dashing2_tpu_torch.sketch.core import _finalize_one_perm
+    n, m = BYSEQ_N, BYSEQ_M
+    d = os.path.join(WORK, "byseq")
+    out = os.path.join(d, "knn.bin")
+    argv = ["sketch", "--parse-by-seq", "--topk", "10", "--binary-output"] \
+        + BYSEQ_ARGS + ["--cmpout", out, fa]
+    wall, spans, launches = _run_cli("byseq-knn", argv, n, counters, 0)
+    assert launches["oph_rows"] >= 1 and not any(
+        v for k, v in launches.items() if k != "oph_rows"), launches
+    _say_spans("byseq-knn", spans, CHUNKED_SPANS)
+    opts = _cli_opts(argv)
+    opts.outfile_path = out + ".host"
+    names = [nm for nm, _ in recs]
+    res = _finalize_one_perm(opts, SketchingResult(names=names), host_regs,
+                             None, n, m)
+    PG.neighbor_graph_main(opts, res, device="cuda")
+    size = _same_bytes([out, out + ".host"])
+    indptr, indices, _ = formats.read_knn_csr(out)
+    rows = np.repeat(np.arange(n), np.diff(indptr.astype(np.int64)))
+    fam = np.array([int(nm.split("_")[0][3:]) for nm in names])
+    same = float(np.mean(fam[rows] == fam[indices]))
+    _say(f"[byseq-knn] {len(indices)} edges over {n} records "
+         f"({100 * same:.1f}% within a family) == the graph of the native "
+         f"engine's registers ({size} bytes)")
+    os.remove(out)
+    return dict(wall=wall, launches=launches)
+
+
+def _genome_paths(lst: str, n: int):
+    with open(lst) as f:
+        return [ln.strip() for ln in f if ln.strip()][:n]
+
+
+def phase_filterset(lst: str, counters):
+    """--filterset over the first HALF_N genomes of the N = 10240 corpus,
+    with a 256 kb filter FASTA cut from 64 of them: the full-register
+    all-pairs job (file driver with the set, one gtlt_self launch); the
+    chunked route's registers on the card (oph_rows) with the same set
+    == the file driver's; the filter changes registers; `:b` with the
+    raw u64 list of the FASTA's hashes gives the FASTA filter's bytes."""
+    import numpy as np
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.io import formats
+    from dashing2_tpu_torch.io.corpus import write_fasta
+    from dashing2_tpu_torch.io.fastx import read_fastx
+    from dashing2_tpu_torch.sketch import core as PC
+    paths = _genome_paths(lst, HALF_N)
+    d = os.path.join(WORK, "byseq")
+    filt = write_fasta(os.path.join(d, "filter.fa"), [
+        (f"f{i}", next(read_fastx(p))[1][:FILTER_PIECE])
+        for i, p in enumerate(paths[:FILTER_PIECES])])
+    half = _write_list(os.path.join(d, "half.txt"), paths)
+    hv = PC._filterset_array(Dashing2Options(k=31, filterset_path=filt))
+    raw = os.path.join(d, "filter.u64")
+    hv.tofile(raw)
+    runs = {}
+    files = {}
+    for tag, arg in (("filterset", filt), ("filterset-raw", raw + ":b")):
+        out, sig = os.path.join(d, f"{tag}.bin"), os.path.join(d, f"{tag}.sig")
+        argv = ["sketch", "-k", "31", "-S", "1024", "--filterset", arg,
+                "--binary-output", "--cmpout", out, "-o", sig, "-F", half]
+        wall, spans, launches = _run_cli(tag, argv, HALF_N, counters)
+        assert launches["gtlt_self"] == 1 and launches["oph_rows"] == 0, \
+            launches
+        _say_spans(tag, spans, CHUNKED_SPANS)
+        runs[tag] = dict(wall=wall, launches=launches)
+        files[tag] = (out, sig)
+    for i in range(2):
+        _same_bytes([files["filterset"][i], files["filterset-raw"][i]])
+    _, sigs = formats.read_stacked_signatures(files["filterset"][1])
+    opts = _cli_opts(["sketch", "-k", "31", "-S", "1024", "--filterset",
+                      filt])
+    t0 = time.perf_counter()
+    counters["oph_rows"].reset_launches()
+    card = PC._sketch_chunked(opts, paths, "cuda")
+    t_card = time.perf_counter() - t0
+    assert counters["oph_rows"].launches >= 1
+    assert np.array_equal(np.asarray(card.signatures), sigs)
+    plain = PC._sketch_files(Dashing2Options(k=31, sketchsize=1024),
+                             paths[:FILTER_PIECES])
+    changed = int((plain.signatures != sigs[:FILTER_PIECES]).any(axis=1)
+                  .sum())
+    assert changed > 0
+    _say(f"[filterset] {len(hv)} filter hashes from {FILTER_PIECES} pieces "
+         f"of {FILTER_PIECE} bp; the chunked route's registers on the card "
+         f"({t_card:.3f} s) == the file driver's with the set; {changed} of "
+         f"the first {FILTER_PIECES} genomes' registers changed by it; the "
+         "raw list's bytes == the FASTA filter's (matrix and -o)")
+    for out, sig in files.values():
+        os.remove(out)
+    return runs
+
+
+def phase_contigs(lst: str, counters):
+    """CONTIG_GENOMES genomes as 4 contigs each, plain, .xz and .bz2: the
+    file driver's bytes on the plain files (matrix and -o) == the
+    chunked route's on the .xz and the .bz2 files, on the plain files
+    with --by-chrom, and on the .xz files with --by-chrom."""
+    import bz2
+    import lzma
+    from dashing2_tpu_torch.io.corpus import write_fasta
+    from dashing2_tpu_torch.io.fastx import read_fastx
+    d = os.path.join(WORK, "contigs")
+    lists = {"plain": [], "xz": [], "bz2": []}
+    t0 = time.perf_counter()
+    for i, p in enumerate(_genome_paths(lst, CONTIG_GENOMES)):
+        seq = next(read_fastx(p))[1]
+        q = len(seq) // 4
+        fa = write_fasta(os.path.join(d, f"g{i}.fa"), [
+            (f"g{i}_c{j}", seq[j * q:(j + 1) * q if j < 3 else len(seq)])
+            for j in range(4)])
+        with open(fa, "rb") as f:
+            data = f.read()
+        lists["plain"].append(fa)
+        for suffix, pack in (("xz", lambda b: lzma.compress(b, preset=1)),
+                             ("bz2", lambda b: bz2.compress(b, 1))):
+            with open(fa + "." + suffix, "wb") as f:
+                f.write(pack(data))
+            lists[suffix].append(fa + "." + suffix)
+    lst_files = {k: _write_list(os.path.join(d, f"{k}.txt"), v)
+                 for k, v in lists.items()}
+    _say(f"[contigs] {CONTIG_GENOMES} genomes as 4 contigs, plain, .xz and "
+         f".bz2, written in {time.perf_counter() - t0:.3f} s")
+    runs = {}
+    outs = []
+    for tag, which, flags in (("contigs-plain", "plain", []),
+                              ("contigs-xz", "xz", []),
+                              ("contigs-bz2", "bz2", []),
+                              ("contigs-by-chrom", "plain", ["--by-chrom"]),
+                              ("contigs-xz-by-chrom", "xz", ["--by-chrom"])):
+        out, sig = os.path.join(d, f"{tag}.bin"), os.path.join(d, f"{tag}.sig")
+        wall, spans, launches = _run_cli(tag, [
+            "sketch", "-k", "31", "-S", "1024", "--binary-output",
+            "--cmpout", out, "-o", sig] + flags + ["-F", lst_files[which]],
+            CONTIG_GENOMES, counters)
+        assert launches["gtlt_self"] == 1, launches
+        assert (launches["oph_rows"] >= 1) == (tag != "contigs-plain"), \
+            launches
+        _say_spans(tag, spans, CHUNKED_SPANS)
+        runs[tag] = dict(wall=wall, launches=launches)
+        outs.append((out, sig))
+    for i in range(2):
+        size = _same_bytes([o[i] for o in outs])
+        _say(f"[contigs] {'matrix' if i == 0 else '-o registers'}: the "
+             f"file driver's bytes on the plain files == the chunked "
+             f"route's on .xz, .bz2, --by-chrom and .xz --by-chrom ({size} "
+             "bytes)")
+    shutil.rmtree(d, ignore_errors=True)
+    return runs
+
+
+BYSEQ_COUNTING_JOBS = (("byseq-fss", ["--full-setsketch"], "gtlt_self",
+                        BYSEQ_CUTS["fss"]),
+                       ("byseq-set", ["--set"], None, BYSEQ_CUTS["set"]),
+                       ("byseq-bmh", ["-B"], "weighted_draws",
+                        BYSEQ_CUTS["bmh"]))
+
+
+def phase_byseq_counting(counters):
+    """`--full-setsketch`, `--set` and `-B` with `--parse-by-seq` over the
+    first BYSEQ_COUNTING_N records (one item a record, the counting
+    route): each job's size and launches, and its bytes over the first
+    records (BYSEQ_CUTS) == --device cpu's."""
+    n = BYSEQ_COUNTING_N
+    d = os.path.join(WORK, "byseq")
+    runs = {}
+    for tag, flags, counter, cut in BYSEQ_COUNTING_JOBS:
+        out = os.path.join(d, f"{tag}.bin")
+        argv = ["sketch", "--parse-by-seq"] + BYSEQ_ARGS + flags + [
+            "--binary-output"]
+        wall, spans, launches = _run_cli(tag, argv + [
+            "--cmpout", out, os.path.join(d, "counting.fa")], n, counters)
+        assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+        assert launches["oph_rows"] == 0, launches
+        assert counter is None or launches[counter] >= 1, launches
+        _say_spans(tag, spans, FSS_SPANS)
+        cut_fa = os.path.join(d, f"cut{cut}.fa")
+        _vs_cpu(f"{tag} cut", argv + [cut_fa], out + ".cut", cut, counters)
+        runs[tag] = dict(wall=wall, launches=launches)
+        os.remove(out)
+    return runs
+
+
+def phase_chunked(lst: str, counters):
+    """Phases 37-42, the chunked route."""
+    t0 = time.perf_counter()
+    fa, recs = _byseq_corpus()
+    _say(f"[byseq] corpus: {BYSEQ_N} records, "
+         f"{sum(len(s) for _, s in recs)} bp, written in "
+         f"{time.perf_counter() - t0:.3f} s")
+    runs = {}
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        _say(f"[wall] phase {name}: {time.perf_counter() - t1:.3f} s")
+        return out
+    kernel, host_regs = timed("oph_rows kernel", phase_oph_vs_plain, fa,
+                              recs)
+    runs["byseq-pairs"] = timed("byseq all-pairs job", phase_byseq_allpairs,
+                                recs, counters)
+    runs["byseq-knn"] = timed("byseq-knn job", phase_byseq_knn, fa, recs,
+                              host_regs, counters)
+    del host_regs
+    runs.update(timed("filterset jobs", phase_filterset, lst, counters))
+    runs.update(timed("contig jobs", phase_contigs, lst, counters))
+    runs.update(timed("byseq counting jobs", phase_byseq_counting,
+                      counters))
+    _say(f"[wall] chunked-route phases: {time.perf_counter() - t0:.3f} s")
+    shutil.rmtree(os.path.join(WORK, "byseq"), ignore_errors=True)
+    kernel["launches"] = sum(r["launches"]["oph_rows"] for r in runs.values())
+    return kernel, runs
+
+
 def phase_jax_golden(name: str):
     """The port's CLI on the card with the JAX package's golden config
     `name` (tests/golden_configs.py), over its fixtures
@@ -3533,6 +4061,7 @@ def main() -> int:
     from dashing2_tpu_torch.ops import nibble_comb as NC
     from dashing2_tpu_torch.ops import nibble_tri as NT
     from dashing2_tpu_torch.ops import omh as OP
+    from dashing2_tpu_torch.ops import oph_rows as OR
     from dashing2_tpu_torch.ops import weighted_draws as WD
     # one process on this machine: the plain versions' CPU runs (phases
     # 15 and 24) may use every core, in chunks that torch spreads over
@@ -3543,7 +4072,8 @@ def main() -> int:
     counters = {"tri_eq": NT, "tri_comb": NC, "gtlt_self": G.self_launches,
                 "gtlt": G.rect_launches, "int_counts_self": IC.self_launches,
                 "int_counts": IC.rect_launches,
-                "weighted_draws": WD.launches, "omh": OP.launches}
+                "weighted_draws": WD.launches, "omh": OP.launches,
+                "oph_rows": OR.launches}
     t_start = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -3636,6 +4166,7 @@ def main() -> int:
               *EXACT_CPU_JOBS[2], lists, counters)
         _say(f"[wall] exact-set phases: {time.perf_counter() - t0:.3f} s")
         omh_run, e_runs = phase_edit(lst, counters)
+        oph_run, c_runs = phase_chunked(lst, counters)
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
         t0 = time.perf_counter()
         lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,
@@ -3694,6 +4225,12 @@ def main() -> int:
                            (int_self_eq_run, "int_counts_self",
                             ("edit-u8",))):
         run["launches"] += sum(e_runs[t]["launches"][key] for t in tags)
+    # the chunked route's comparisons and draws join their kernels' counts
+    for run, key, tags in ((self_run, "gtlt_self", (
+            "filterset", "filterset-raw", "contigs-plain", "contigs-xz",
+            "contigs-bz2", "contigs-by-chrom", "contigs-xz-by-chrom",
+            "byseq-fss")), (eq_run, "tri_eq", ("byseq-pairs",))):
+        run["launches"] += sum(c_runs[t]["launches"][key] for t in tags)
     # the panel jobs' rectangles join gtlt_counts and int_counts (their
     # own block times and bounds are printed above)
     for run, key in ((rect_run, "gtlt"), (int_rect_run, "int_counts")):
@@ -3734,7 +4271,8 @@ def main() -> int:
         "replaces": "dashing2_tpu/sketch/weighted.py:115",
         "launches": sum(r["launches"] for r in w_jobs.values())
         + sum(r["launches"]["weighted_draws"] for r in i_runs
-              + list(i_jobs["wsketch"].values())),
+              + list(i_jobs["wsketch"].values()))
+        + c_runs["byseq-bmh"]["launches"]["weighted_draws"],
         "max_abs_err": wrun["err"],
         "ms": wrun["ms"],
         "plain_ms": wrun["plain_ms"],
@@ -3757,6 +4295,22 @@ def main() -> int:
         "bound_by": omh_run["bound_by"],
         "library_ms": None,
         "plain_shape": omh_run["plain_shape"],
+    })
+    # the chunked route's registers: the corpus' batches timed, launches
+    # of the chunked-route jobs
+    kernels.append({
+        "name": "oph_rows",
+        "route": "cuda",
+        "source": "dashing2_tpu_torch/csrc/oph_rows.cu",
+        "replaces": "dashing2_tpu/sketch/core.py:146",
+        "launches": oph_run["launches"],
+        "max_abs_err": oph_run["err"],
+        "ms": oph_run["ms"],
+        "plain_ms": oph_run["plain_ms"],
+        "bound_ms": oph_run["bound_ms"],
+        "bound_by": oph_run["bound_by"],
+        "library_ms": None,
+        "plain_shape": oph_run["plain_shape"],
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

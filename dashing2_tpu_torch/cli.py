@@ -334,14 +334,12 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 _OUTSIDE_SLICE = {
     "outprefix": "--outprefix", "mmer_seq": "--seq",
     "hpcompress": "--hp-compress", "cache": "--cache",
-    "filterset": "--filterset", "entmin": "--entmin",
-    "by_chrom": "--by-chrom", "warm_only": "--warm-only",
+    "entmin": "--entmin", "warm_only": "--warm-only",
 }
 # options the port runs only in the edit-distance space (-E)
 _EDIT_ONLY = {
     "compute_edit": "--compute-edit-distance",
     "exact_kmer_dist": "--exact-kmer-dist",
-    "parse_by_seq": "--parse-by-seq",
 }
 
 
@@ -350,13 +348,10 @@ def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
     """Options this port does not run yet (empty if the job is in the
     slice). The flags are checked before any options are built, so that
     a flag outside the slice is reported as such even where building
-    the options would fail. --by-chrom runs for BigWig inputs, and
-    --compute-edit-distance, --exact-kmer-dist and --parse-by-seq only
-    with -E (--edit-distance; the BED sketcher refuses -E, as the JAX
-    package's does)."""
+    the options would fail. --compute-edit-distance and
+    --exact-kmer-dist run only with -E (--edit-distance; the BED
+    sketcher refuses -E, as the JAX package's does)."""
     outside = dict(_OUTSIDE_SLICE)
-    if a.bigwig:
-        del outside["by_chrom"]
     if not a.edit_distance:
         outside.update(_EDIT_ONLY)
     errs = [flag for dest, flag in outside.items()

@@ -126,16 +126,11 @@ def contain_main(a) -> int:
     with span("contain/db"):
         lookup = KmerLookup(db.kmers, dev)
 
-    from ..sketch.core import (_hash_kwargs, _native_hash_codes_list,
-                               _native_oph_supported)
+    from ..sketch.core import _hash_kwargs, _native_hash_codes_list
     opts = Dashing2Options(k=db.k, w=db.w, alphabet=db.alphabet,
                            canonicalize=db.canon, seedseed=db.seed)
     opts.xormask = xormask
     hkw = _hash_kwargs(opts, 1 << 15)
-    if not _native_oph_supported(hkw):
-        raise NotImplementedError(
-            f"contain over a k={db.k} database of this alphabet: the "
-            "native hashing does not cover it (ROADMAP Queue 1 item 7)")
     from ..native import load_oph_lib
     natlib = load_oph_lib()
     nq = len(queries)

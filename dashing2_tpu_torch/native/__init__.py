@@ -138,8 +138,10 @@ def nvcc_command(src: str) -> Callable[[str], List[str]]:
 def load_oph_lib() -> ctypes.CDLL:
     """The native threaded OPH sketcher (the port's copy of oph_sketch.cpp),
     with the file-driver entry `oph_sketch_files`, the k-mer hash entry
-    `hash_rows_native` of the counting route and `oph_update_hashed`, the
-    one-permutation update over pre-hashed items (set-space intervals).
+    `hash_rows_native` of the counting route, `oph_update_hashed`, the
+    one-permutation update over pre-hashed items (set-space intervals),
+    and `oph_rows_native`, the registers of chunk rows (a second
+    reference for csrc/oph_rows.cu in the tests and chip_smoke.py).
     Built with -march=native, so the build is scoped by the host's CPU
     feature flags (a library tuned for another microarchitecture loads
     fine and then dies of SIGILL)."""
@@ -161,6 +163,18 @@ def load_oph_lib() -> ctypes.CDLL:
             c.c_int32, c.c_int32, c.c_int32, c.c_int32,
             c.c_uint64, c.c_uint64,
             c.c_int32, c.c_uint64, c.c_uint64,
+            c.c_int64, c.c_int32,
+            c.c_int32, c.c_int32, c.c_int32,
+            c.POINTER(c.c_int32), c.c_int32,
+            c.POINTER(c.c_uint64),
+            c.POINTER(c.c_uint64), c.c_int64, c.c_int64,
+            c.POINTER(c.c_uint64), c.POINTER(c.c_uint32)]
+        lib.oph_rows_native.restype = None
+        lib.oph_rows_native.argtypes = [
+            c.POINTER(c.c_ubyte), c.c_int64, c.c_int64,
+            c.c_int32, c.c_int32, c.c_int32, c.c_int32,
+            c.c_uint64, c.c_uint64,
+            c.c_int32, c.c_uint64, c.c_uint64, c.c_int64, c.c_int64,
             c.c_int64, c.c_int32,
             c.c_int32, c.c_int32, c.c_int32,
             c.POINTER(c.c_int32), c.c_int32,

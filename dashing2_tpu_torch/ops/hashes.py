@@ -1,8 +1,8 @@
 """Device (torch) forms of the 64-bit hash chain, in int64.
 
 Port of the native-u64 forms of dashing2_tpu/ops/hashes.py (`wanghash`,
-`cehasher`, `css_item_hash`, `mulhi_u64`, `wyhash64_step`,
-`u64_to_unit_float`). torch has few uint64 ops, so a u64 travels as the
+`maskfn`, `cehasher`, `oph_hash`, `css_item_hash`, `mulhi_u64`,
+`wyhash64_step`, `u64_to_unit_float`). torch has few uint64 ops, so a u64 travels as the
 int64 with the same bits: wrapping `*`, `+`, `^`, `~` and `<<` give the
 same bits in two's complement; a logical right shift masks off the sign
 bits the arithmetic shift copies in (`srl`); the high word of a 64x64
@@ -54,6 +54,30 @@ def wanghash_(x: torch.Tensor) -> torch.Tensor:
         if mul != 1:
             x.mul_(mul)
     return x.add_(x << 31)
+
+
+def maskfn(x: torch.Tensor, xormask: int = H.XORMASK) -> torch.Tensor:
+    """WangHash(x ^ XORMASK): the global k-mer scrambler (enums.h:136)."""
+    return wanghash(x ^ s64(xormask))
+
+
+def oph_xor(seed: int = H.OPH_DEFAULT_SEED) -> int:
+    """The u64 the OPH bucket hash xors in before its WangHash."""
+    return H.mt19937_64_first(seed) ^ H.CEIXOR_OPH
+
+
+def oph_hash(x: torch.Tensor, seed: int = H.OPH_DEFAULT_SEED
+             ) -> torch.Tensor:
+    """OPH bucket hash (oph.h:55-89): WangHash(x ^ mt_seed ^ CEIXOR)."""
+    return wanghash(x ^ s64(oph_xor(seed)))
+
+
+def u64_lt(a: torch.Tensor, b) -> torch.Tensor:
+    """a < b in the unsigned order of the u64 bits held in int64."""
+    flip = -(1 << 63)
+    if isinstance(b, int):
+        return (a ^ flip) < s64(b ^ (1 << 63))
+    return (a ^ flip) < (b ^ flip)
 
 
 def cehasher(x: torch.Tensor) -> torch.Tensor:

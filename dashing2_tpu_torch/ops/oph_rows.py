@@ -1,0 +1,277 @@
+"""One-permutation registers of chunk rows: k-mer codes, minimizers,
+masks and the per-item bucket-min in one pass.
+
+Port of the JAX package's device OPH engine, the XLA function
+`_fused_oph_fn` (dashing2_tpu/sketch/core.py:146): `_hash_chunk_batch`
+(:59) fused with an OPH row engine (`oph_sketch_segments`,
+dashing2_tpu/ops/sketch_kernels.py:57, and its dense/sort/rot twins,
+which give the same bytes). That engine is XLA, not Pallas. Here one
+CUDA source, csrc/oph_rows.cu, computes it for a batch of rows;
+`oph_rows_plain` is its plain PyTorch version (the JAX functions
+rule for rule, in torch int64 on any device: ops/kmers.py for the codes
+and minimizers, a `scatter_reduce` min on sign-flipped ids, then a count
+pass); the wrapper `oph_rows` chooses by the tensors' device, as
+ops/omh.py does.
+
+What it computes, for rows of alphabet codes (INVALID = 0xFF outside a
+sequence or at a non-alphabet base), each row a chunk of one item:
+
+* per position, the k-mer code of the job's encoding (`encoding`: 2-bit
+  DNA, base-b, spaced seeds, the rolling hash, or the low word of the
+  128-bit code) and its validity (no INVALID in its span);
+* with w > k, window minimizers (`kmers.minimizer_mask`);
+* the maskfn scramble, the chunk's ownership window, the downsample
+  test and the filterset probe (a sorted u64 list; a member is dropped);
+* per item, register id % m = the least id = oph_hash(hashed) over its
+  rows' surviving positions (2^64 - 1 where none falls), and on request
+  its count, the number of those positions whose id equals it.
+
+Rows may be split or ordered in any way among batches: a register is a
+min, a count the multiplicity of the final min (the caller merges
+batches as `_merge_oph` does).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import hashing as H
+from ..enums import Alphabet
+from . import hashes as DH
+from . import kmers as K
+from .gtlt import LaunchCount
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "oph_rows.cu")
+
+DOWNSAMPLE_SALT = 0x6F22B7A19E5F3D71
+U64_ALL = (1 << 64) - 1
+
+# csrc/oph_rows.cu enum Mode (the native engine's, native/oph_sketch.cpp)
+DNA, BASEB, SPACED, ROLL, DNA128 = range(5)
+MAX_OFFSETS = 256            # spaced-seed offsets the kernel's Params hold
+MAX_SYMBOLS = 32             # rolling-table entries the kernel's Params hold
+TILE = 256                   # owned positions a block, csrc/oph_rows.cu
+SMEM_LIMIT = 232448          # dynamic shared memory a block may use
+
+launches = LaunchCount()
+
+
+def encoding(hkw: dict):
+    """(mode, base, bits, offsets, roll_table, canon_eff): the encoding
+    `_hash_chunk_batch` and `kmers.hashed_kmers` route a job to (the JAX
+    package's `_native_mode`). Canonical only for DNA, and never for
+    spaced seeds or base-b codes."""
+    alpha = hkw["alphabet"]
+    is_dna = alpha in (Alphabet.DNA, Alphabet.DNAC)
+    base = K.alphabet_size(alpha)
+    canon = bool(hkw["canon"])
+    if hkw["use128"] and not hkw["rolling"] and not hkw["spacing_offsets"]:
+        return DNA128, base, 2, None, None, canon
+    if hkw["rolling"]:
+        return (ROLL, base, 2, None, K._rolling_table(alpha),
+                canon and is_dna)
+    if hkw["spacing_offsets"]:
+        bits = 2 if is_dna else max(1, (base - 1).bit_length())
+        return (SPACED, base, bits,
+                np.asarray(hkw["spacing_offsets"], np.int32), None, False)
+    if is_dna:
+        return DNA, 4, 2, None, None, canon
+    return BASEB, base, 2, None, None, False
+
+
+def hash_chunk_batch(codes: torch.Tensor, hkw: dict,
+                     filterset: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the JAX `_hash_chunk_batch` (without --entmin):
+    codes (R, L) uint8 -> (hashed int64 (R, npos), valid bool (R,
+    npos)), npos = L - span + 1. `filterset`: sorted u64 bits (int64),
+    or None."""
+    k, w = hkw["k"], hkw["w"]
+    span = hkw.get("span") or k
+    if hkw["use128"] and not hkw["rolling"] and not hkw["spacing_offsets"]:
+        hi, lo, valid = K.dna_kmer_codes128(codes, k, hkw["canon"])
+        hashed = lo if hkw["seed_is_zero"] else DH.maskfn(lo, hkw["xormask"])
+        if w > k:
+            valid = K.minimizer_mask(DH.srl(hi, 1) ^ lo, valid, k, w)
+    else:
+        hashed, valid = K.hashed_kmers(
+            codes, k, w=w, canonicalize=hkw["canon"],
+            alphabet=hkw["alphabet"], xormask=hkw["xormask"],
+            seed_is_zero=hkw["seed_is_zero"],
+            spacing_offsets=hkw["spacing_offsets"], rolling=hkw["rolling"])
+    lo, hi = K.owned_kmer_range(span, w, hkw["chunk_len"])
+    pos = torch.arange(hashed.shape[-1], device=codes.device)
+    valid = valid & (pos >= lo) & (pos < hi)
+    ds = hkw["downsample_threshold"]
+    if ds < U64_ALL:
+        valid = valid & DH.u64_lt(
+            DH.wanghash(hashed ^ DH.s64(DOWNSAMPLE_SALT)), ds)
+    if filterset is not None and filterset.numel():
+        fs = filterset ^ K.FLIP
+        at = torch.searchsorted(fs, (hashed ^ K.FLIP).contiguous())
+        at = at.clamp_(max=fs.numel() - 1)
+        valid = valid & (fs[at] != (hashed ^ K.FLIP))
+    return hashed, valid
+
+
+def check_rows(codes: torch.Tensor, row_item: torch.Tensor, n_items: int,
+               m: int, filterset: Optional[torch.Tensor]) -> None:
+    if codes.dtype != torch.uint8 or codes.dim() != 2 \
+            or not codes.is_contiguous():
+        raise ValueError("codes must be a contiguous (R, L) uint8 tensor")
+    if row_item.dtype != torch.int32 or row_item.shape != codes.shape[:1] \
+            or not row_item.is_contiguous():
+        raise ValueError("row_item must be a contiguous (R,) int32 tensor")
+    if row_item.device != codes.device or (
+            filterset is not None and filterset.device != codes.device):
+        raise ValueError("codes, row items and filterset on different "
+                         "devices")
+    if filterset is not None and (filterset.dtype != torch.int64
+                                  or filterset.dim() != 1
+                                  or not filterset.is_contiguous()):
+        raise ValueError("the filterset must be a contiguous 1-d int64 "
+                         "tensor of sorted u64 bits")
+    if not 1 <= m < 1 << 31 or n_items < 0:
+        raise ValueError(f"m={m}, n_items={n_items} out of range")
+
+
+def oph_rows_plain(codes: torch.Tensor, row_item: torch.Tensor,
+                   n_items: int, m: int, hkw: dict,
+                   filterset: Optional[torch.Tensor] = None,
+                   want_counts: bool = False):
+    """Plain PyTorch version of `oph_rows`, on the tensors' device: the
+    JAX `_hash_chunk_batch`, then `oph_sketch_segments` as a
+    scatter_reduce min over (item, bucket) segments of the sign-flipped
+    ids and a count of the ids equal to their segment's min."""
+    check_rows(codes, row_item, n_items, m, filterset)
+    hashed, valid = hash_chunk_batch(codes, hkw, filterset)
+    valid &= (row_item >= 0)[:, None]
+    ids = DH.oph_hash(hashed[valid])
+    item = row_item.to(torch.int64)[:, None].expand_as(valid)[valid]
+    seg = item * m + DH.u64_mod(ids, m)
+    regs = torch.full((n_items * m,), K.SMAX, dtype=torch.int64,
+                      device=codes.device)
+    regs.scatter_reduce_(0, seg, ids ^ K.FLIP, "amin")
+    regs ^= K.FLIP
+    counts = None
+    if want_counts:
+        hit = ids == regs[seg]
+        counts = torch.bincount(seg[hit], minlength=n_items * m).to(
+            torch.int32).view(n_items, m)
+    return regs.view(n_items, m), counts
+
+
+class Params(ctypes.Structure):
+    """csrc/oph_rows.cu `Params`, field for field."""
+    _fields_ = [(f, ctypes.c_int64) for f in (
+                    "R", "W", "npos", "own_lo", "own_hi", "m", "fs_len",
+                    "ntiles")] \
+        + [(f, ctypes.c_uint64) for f in (
+            "xormask", "oph_xor", "ds_threshold", "ds_salt")] \
+        + [("roll", ctypes.c_uint64 * MAX_SYMBOLS)] \
+        + [(f, ctypes.c_int32) for f in (
+            "mode", "k", "span", "nwin", "canon", "seed_is_zero",
+            "downsample", "base", "bits", "noff")] \
+        + [("offsets", ctypes.c_int32 * MAX_OFFSETS)]
+
+
+def smem_bytes(nwin: int) -> int:
+    """Dynamic shared memory of a block: the scores and validity of its
+    TILE + 2 (nwin - 1) positions and the minima and liveness of its
+    TILE + nwin - 1 windows (none without minimizers)."""
+    if nwin <= 1:
+        return 0
+    h = nwin - 1
+    return 9 * (TILE + 2 * h) + 9 * (TILE + h)
+
+
+def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
+                  seed: int = H.OPH_DEFAULT_SEED) -> Params:
+    """The kernel's Params for a batch of R rows of L codes."""
+    mode, base, bits, offsets, table, canon = encoding(hkw)
+    k, w = hkw["k"], hkw["w"]
+    span = hkw.get("span") or k
+    nwin = w - k + 1 if w > k else 1
+    if smem_bytes(nwin) > SMEM_LIMIT:
+        raise ValueError(f"w={w}: the kernel's windows do not fit in a "
+                         "block's shared memory")
+    p = Params()
+    lo, hi = K.owned_kmer_range(span, w, hkw["chunk_len"])
+    p.R, p.W, p.npos, p.own_lo, p.own_hi = R, L, L - span + 1, lo, hi
+    p.m, p.fs_len = m, fs_len
+    p.xormask = hkw["xormask"] & U64_ALL
+    p.oph_xor = DH.oph_xor(seed) & U64_ALL
+    p.ds_threshold = hkw["downsample_threshold"] & U64_ALL
+    p.ds_salt = DOWNSAMPLE_SALT
+    if table is not None:
+        if len(table) > MAX_SYMBOLS:
+            raise ValueError("alphabet too large for the kernel")
+        for i, t in enumerate(table):
+            p.roll[i] = int(t)
+    if offsets is not None:
+        if len(offsets) > MAX_OFFSETS:
+            raise ValueError(f"{len(offsets)} spaced-seed offsets: the "
+                             f"kernel takes at most {MAX_OFFSETS}")
+        for i, o in enumerate(offsets):
+            p.offsets[i] = int(o)
+        p.noff = len(offsets)
+    p.mode, p.k, p.span, p.nwin = mode, k, span, nwin
+    p.canon, p.seed_is_zero = int(canon), int(hkw["seed_is_zero"])
+    p.downsample = int(hkw["downsample_threshold"] < U64_ALL)
+    p.base, p.bits = base, bits
+    return p
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (once per source hash) and load csrc/oph_rows.cu; raises
+    when nvcc is missing or the build fails."""
+    from ..native import build_shared, nvcc_command
+    lib = build_shared("oph_rows", [SOURCE], nvcc_command(SOURCE))
+    if not getattr(lib, "_sigs_set", False):
+        p = ctypes.c_void_p
+        lib.oph_rows.restype = ctypes.c_int
+        lib.oph_rows.argtypes = [ctypes.POINTER(Params), p, p, p, p, p, p]
+        lib._sigs_set = True
+    return lib
+
+
+def oph_rows(codes: torch.Tensor, row_item: torch.Tensor, n_items: int,
+             m: int, hkw: dict, filterset: Optional[torch.Tensor] = None,
+             want_counts: bool = False):
+    """Rows of codes -> (registers (n_items, m) int64 (u64 bits, 2^64 - 1
+    where empty), counts (n_items, m) int32 or None), on the tensors'
+    device. codes (R, L) uint8; row_item (R,) int32, the row's item in
+    [0, n_items) or -1 for a row to skip; `hkw` the JAX package's
+    `_hash_kwargs`; filterset sorted u64 bits (int64) or None. The CUDA
+    kernel for CUDA tensors (asynchronous, on the current stream), the
+    plain version for CPU tensors."""
+    check_rows(codes, row_item, n_items, m, filterset)
+    if codes.device.type == "cpu":
+        return oph_rows_plain(codes, row_item, n_items, m, hkw, filterset,
+                              want_counts)
+    if codes.device.type != "cuda":
+        raise ValueError(f"no oph_rows for device {codes.device}")
+    dev = codes.device
+    R, L = codes.shape
+    fs_len = 0 if filterset is None else int(filterset.numel())
+    params = kernel_params(hkw, R, L, m, fs_len)
+    lib = load_kernel()
+    regs = torch.full((n_items, m), -1, dtype=torch.int64, device=dev)
+    counts = (torch.zeros((n_items, m), dtype=torch.int32, device=dev)
+              if want_counts else None)
+    with torch.cuda.device(dev):
+        err = lib.oph_rows(
+            ctypes.byref(params), codes.data_ptr(), row_item.data_ptr(),
+            filterset.data_ptr() if fs_len else None, regs.data_ptr(),
+            counts.data_ptr() if want_counts else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"oph_rows kernel launch failed: CUDA error {err}")
+    launches.launches += 1
+    return regs, counts

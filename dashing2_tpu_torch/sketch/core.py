@@ -1,23 +1,33 @@
 """Sketch orchestration: FASTA/FASTQ files -> SketchingResult.
 
-Port of two routes of dashing2_tpu/sketch/core.py behind a
+Port of the routes of dashing2_tpu/sketch/core.py behind a
 `sketch_fastx` entry:
 
-* the native file driver (`_native_oph_supported`, `_native_mode`,
-  `_hash_kwargs`, `_finalize_one_perm`, `_try_native_files`) for
-  one-permutation jobs: the C++ engine (oph_sketch.cpp
+* the native file driver (`_native_mode`, `_hash_kwargs`,
+  `_finalize_one_perm`, `_try_native_files`) for one-permutation jobs
+  over whole plain or gzip files: the C++ engine (oph_sketch.cpp
   `oph_sketch_files`) reads, encodes, hashes and bucket-mins whole path
   groups on host cores (with -s/-N the registers' k-mer ids and
-  multiplicities too, which only these jobs have);
+  multiplicities too, which only one-permutation jobs have; with
+  --filterset its probe);
+* the chunked route (`_sketch_chunked`, the ONE_PERM branch of the JAX
+  `_sketch_fastx_core`) for the one-permutation jobs the file driver
+  declines: --parse-by-seq (one item a record), FASTA --by-chrom and
+  .xz/.bz2 inputs. `_load_items` reads the items, `_iter_chunk_batches`
+  cuts their records into chunk rows with halos, and
+  ops/oph_rows.py::oph_rows computes each batch's registers on the
+  device (csrc/oph_rows.cu on the card, the port of the JAX package's
+  device OPH engine); batches merge as `_merge_oph` does;
 * the generic route's counting stream for the jobs the file driver
   declines, FullSetSketch (--full-setsketch, with --setsketch-ab or
   --fastcmp-bytes/-shorts/-words quantised on the host),
   --count-threshold > 1, the weighted sketches (-B, -P) and the exact
   k-mer sets (--set) and count dictionaries (--countdict): `_load_items`
-  reads each group (the native reader, or the Python parser for
-  .xz/.bz2), `_native_hash_codes_list` hashes it (oph_sketch.cpp
-  `hash_rows_native`), np.unique counts it (a CountSketch with -c in
-  the weighted spaces; in a pool with -p > 1); then
+  reads each item (a group, or a record with --parse-by-seq; the native
+  reader, or the Python parser for .xz/.bz2), `_native_hash_codes_list`
+  hashes it (oph_sketch.cpp `hash_rows_native`, with the filterset's
+  probe), np.unique counts it (a CountSketch with -c in the weighted
+  spaces; in a pool with -p > 1); then
   ops/sketch_kernels.py::css_sketch_many draws the CSetSketch
   registers on the card, sketch/weighted.py the weighted ones
   (csrc/weighted_draws.cu), or the distinct hashes (and their counts)
@@ -29,19 +39,25 @@ Port of two routes of dashing2_tpu/sketch/core.py behind a
   card), the base count as the cardinality (the JAX
   `_sketch_fastx_core` branch, dashing2_tpu/sketch/core.py:1047-1059).
 
-Every other configuration raises NotImplementedError naming the
-ROADMAP Queue 1 item that ports it (`_unsupported`).
+--filterset (`_filterset_array`) applies on every route but -E, as in
+the JAX package. The configurations no route covers raise
+NotImplementedError naming the ROADMAP Queue 1 item that ports them
+(`_unsupported`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, List, Sequence, Tuple, TypeVar
+from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple, TypeVar)
 
 import numpy as np
+import torch
 
 from .. import hashing as H
 from ..config import Dashing2Options
@@ -49,57 +65,26 @@ from ..device import resolve
 from ..enums import Alphabet, KmerSketchResultType, SketchSpace
 from ..io import fastx, mmvec
 from ..ops import kmers as K
+from ..ops import oph_rows as OR
 from ..ops import sketch_kernels as SK
 from ..result import SketchingResult
 from ..timing import add_span, span
 
-DOWNSAMPLE_SALT = 0x6F22B7A19E5F3D71
+DOWNSAMPLE_SALT = OR.DOWNSAMPLE_SALT
 T = TypeVar("T")
 U64MAX = SK.U64MAX
-
-
-def _native_oph_supported(hkw: dict) -> bool:
-    """Config coverage of the native host OPH sketcher: every sketch
-    config except --entmin (whose entropy scores go through log2 and
-    division, not bit-reproducible between libms)."""
-    if hkw["entmin"]:
-        return False
-    if hkw["rolling"] or hkw["spacing_offsets"]:
-        return True
-    if hkw["use128"]:
-        return 1 <= hkw["k"] <= 63
-    if hkw["alphabet"] in (Alphabet.DNA, Alphabet.DNAC):
-        return 1 <= hkw["k"] <= 32
-    # base-b exact coding: non-rolling implies k is within the
-    # alphabet's 64-bit capacity (config.use_rolling_hash)
-    return hkw["k"] >= 1
-
-
-# native/oph_sketch.cpp enum Mode
-_NAT_DNA, _NAT_BASEB, _NAT_SPACED, _NAT_ROLL, _NAT_DNA128 = range(5)
-
-
-def _native_mode(hkw: dict):
-    """(mode, base, bits, offsets, roll_table, canon_eff): the native
-    engine's encoding selection, mirroring the JAX package's k-mer
-    routing exactly."""
-    alpha = hkw["alphabet"]
-    is_dna = alpha in (Alphabet.DNA, Alphabet.DNAC)
-    base = K.alphabet_size(alpha)
-    canon = bool(hkw["canon"])
-    if hkw["use128"] and not hkw["rolling"] and not hkw["spacing_offsets"]:
-        return _NAT_DNA128, base, 2, None, None, canon
-    if hkw["rolling"]:
-        # canonical only for DNA (kmers.rolling_hash_codes)
-        return (_NAT_ROLL, base, 2, None,
-                K._rolling_table(alpha), canon and is_dna)
-    if hkw["spacing_offsets"]:
-        bits = 2 if is_dna else max(1, (base - 1).bit_length())
-        return (_NAT_SPACED, base, bits,
-                np.asarray(hkw["spacing_offsets"], np.int32), None, False)
-    if is_dna:
-        return _NAT_DNA, 4, 2, None, None, canon
-    return _NAT_BASEB, base, 2, None, None, False
+# the encoding of a job (native/oph_sketch.cpp enum Mode): the same
+# selection for the native engine and csrc/oph_rows.cu
+_native_mode = OR.encoding
+# the u64 the OPH bucket hash xors in (its seed's first draw ^ CEIXOR)
+_OPH_XOR = (H.mt19937_64_first(H.OPH_DEFAULT_SEED) ^ H.CEIXOR_OPH) \
+    & 0xFFFFFFFFFFFFFFFF
+# input bytes above which the chunked route reads items as it reaches
+# them (the JAX `_should_stream` default) instead of all at once
+STREAM_BYTES = 2 << 30
+# codes a chunk batch holds: the card's kernel, or the plain version on
+# the CPU (whose int64 intermediates take about 100 bytes a position)
+BATCH_CODES = {"cuda": 1 << 26, "cpu": 1 << 19}
 
 
 def _hash_kwargs(opts: Dashing2Options, chunk_len: int) -> dict:
@@ -146,36 +131,22 @@ def _finalize_one_perm(opts: Dashing2Options, res: SketchingResult,
 _WEIGHTED = (SketchSpace.SPACE_MULTISET, SketchSpace.SPACE_PSET)
 
 
-# configurations neither route covers: the reason, and the ROADMAP Queue 1
+# configurations no route covers: the reason, and the ROADMAP Queue 1
 # item that ports it
-def _unsupported(opts: Dashing2Options, groups: Sequence[str]) -> List[str]:
+def _unsupported(opts: Dashing2Options) -> List[str]:
     """Reasons the port cannot sketch this job (empty if it can)."""
     why = []
     hkw = _hash_kwargs(opts, 1 << 15)
-    edit = opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE
-    if opts.by_chrom or (opts.parse_by_seq and not edit):
-        why.append("--parse-by-seq/--by-chrom (item 7)")
     if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
         why.append("--seq (item 8)")
     if _exact_sets(opts) and hkw["use128"] and not hkw["rolling"] \
             and not hkw["spacing_offsets"]:
         why.append("--long-kmers exact sets, u128 keys (item 8)")
-    if opts.entmin:
-        why.append("--entmin (item 7)")
-    if opts.filterset_path:
-        why.append("--filterset (item 7)")
+    if opts.entmin and opts.sspace != SketchSpace.SPACE_EDIT_DISTANCE:
+        why.append("--entmin, whose entropy scores go through a libm log2 "
+                   "that no engine reproduces bit for bit (item 7)")
     if opts.cache_sketches:
         why.append("--cache (item 6)")
-    if why or edit:
-        # the edit-distance space encodes in numpy at any k and reads
-        # every input with the Python parser
-        return why
-    if not _native_oph_supported(hkw):
-        why.append(f"k={opts.k} with this alphabet (item 7)")
-    if not _counting_route(opts) and any(
-            p.endswith((".xz", ".bz2")) for g in groups for p in g.split()):
-        # the JAX package sketches them on its chunked device engines
-        why.append(".xz/.bz2 inputs of a one-permutation job (item 7)")
     return why
 
 
@@ -199,13 +170,15 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
                  device="cuda") -> SketchingResult:
     """Sketch FASTA/FASTQ inputs. `groups`: one item per entry; an entry
     may contain several space-separated paths sketched jointly
-    (d2.h:52-71). One-permutation jobs run the native file driver;
-    FullSetSketch, --count-threshold > 1 and -B/-P the counting route,
-    whose CSetSketch or weighted draws run on `device` (a CUDA request
-    without a card raises; nothing falls back). --set and --countdict
-    count on the host and touch no device. -E draws OrderMinHash
-    registers on `device` (one item a record with --parse-by-seq)."""
-    why = _unsupported(opts, groups)
+    (d2.h:52-71); with --parse-by-seq each record is an item, named by
+    its record. One-permutation jobs run the native file driver over
+    plain and gzip files, the chunked route on `device` otherwise
+    (--parse-by-seq, --by-chrom, .xz/.bz2); FullSetSketch,
+    --count-threshold > 1 and -B/-P the counting route, whose CSetSketch
+    or weighted draws run on `device` (a CUDA request without a card
+    raises; nothing falls back). --set and --countdict count on the host
+    and touch no device. -E draws OrderMinHash registers on `device`."""
+    why = _unsupported(opts)
     if why:
         raise NotImplementedError(
             "not ported: " + ", ".join(why) + " (ROADMAP Queue 1)")
@@ -219,7 +192,34 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
         return _sketch_weighted(opts, groups, device)
     if _counting_route(opts):
         return _sketch_counted(opts, groups, device)
+    if opts.parse_by_seq or opts.by_chrom or any(
+            p.endswith((".xz", ".bz2")) for g in groups for p in g.split()):
+        # the jobs the JAX file driver declines
+        # (dashing2_tpu/sketch/core.py:923-931)
+        return _sketch_chunked(opts, groups, device)
     return _sketch_files(opts, groups)
+
+
+def _native_encoding(hkw: dict):
+    """(mode, base, bits, offsets pointer, offset count, rolling-table
+    pointer, canon): `_native_mode`'s encoding as the native engine's
+    arguments (each pointer keeps its array alive)."""
+    mode, base, bits, offsets, roll_table, canon = _native_mode(hkw)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    off_p, noff = i32p(), 0
+    if offsets is not None:
+        off_p = np.ascontiguousarray(offsets, np.int32).ctypes.data_as(i32p)
+        noff = len(offsets)
+    roll_p, _ = _u64p(roll_table)
+    return mode, base, bits, off_p, noff, roll_p, canon
+
+
+def _u64p(arr: Optional[np.ndarray]):
+    """(ctypes u64 pointer, length) of a u64 array, (NULL, 0) for None."""
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    if arr is None or not len(arr):
+        return u64p(), 0
+    return arr.ctypes.data_as(u64p), len(arr)
 
 
 def _sketch_files(opts: Dashing2Options, groups: Sequence[str]
@@ -242,20 +242,13 @@ def _sketch_files(opts: Dashing2Options, groups: Sequence[str]
     counts = (mmvec.alloc((n, m), np.uint32, opts.sig_ram_limit, fill=0)
               if want_counts else None)
     ds = hkw["downsample_threshold"] < (1 << 64) - 1
-    oph_xor = int(H.mt19937_64_first(H.OPH_DEFAULT_SEED)) ^ H.CEIXOR_OPH
-    mode, base, bits, offsets, roll_table, canon = _native_mode(hkw)
+    mode, base, bits, off_p, noff, roll_p, canon = _native_encoding(hkw)
     span_len = hkw.get("span") or hkw["k"]
     u64p = ctypes.POINTER(ctypes.c_uint64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     i32p = ctypes.POINTER(ctypes.c_int32)
-    off_p, noff = i32p(), 0
-    if offsets is not None:
-        offsets = np.ascontiguousarray(offsets, np.int32)
-        off_p, noff = offsets.ctypes.data_as(i32p), len(offsets)
-    roll_p = u64p()
-    if roll_table is not None:
-        roll_table = np.ascontiguousarray(roll_table, np.uint64)
-        roll_p = roll_table.ctypes.data_as(u64p)
+    fs = _filterset_array(opts)
+    fs_p, fs_len = _u64p(fs)
     cpaths = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
     items32 = np.ascontiguousarray(item_of, np.int32)
     lut = K.alphabet_lut(opts.alphabet).tobytes()
@@ -264,10 +257,10 @@ def _sketch_files(opts: Dashing2Options, groups: Sequence[str]
         rc = lib.oph_sketch_files(
             cpaths, items32.ctypes.data_as(i32p), len(paths), n, lut,
             hkw["k"], hkw["w"], int(canon), int(hkw["seed_is_zero"]),
-            hkw["xormask"], oph_xor & 0xFFFFFFFFFFFFFFFF,
+            hkw["xormask"], _OPH_XOR,
             int(ds), hkw["downsample_threshold"] & 0xFFFFFFFFFFFFFFFF,
             DOWNSAMPLE_SALT, m, nthreads,
-            mode, base, bits, off_p, noff, roll_p, u64p(), 0,
+            mode, base, bits, off_p, noff, roll_p, fs_p, fs_len,
             span_len, regs.ctypes.data_as(u64p),
             counts.ctypes.data_as(u32p) if want_counts else u32p())
     if rc < 0:
@@ -278,42 +271,274 @@ def _sketch_files(opts: Dashing2Options, groups: Sequence[str]
 
 
 # ----------------------------------------------------------------------
+# items: file groups or records
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Item:
+    """One sketchable item: a file group or a single record."""
+    name: str
+    codes: List[np.ndarray]
+
+
+def _load_items(opts: Dashing2Options, groups: Sequence[str]
+                ) -> Iterator[_Item]:
+    """The items, alphabet-encoded, each read when it is reached (the JAX
+    `_load_items` and `_iter_items_lazy` outside the edit-distance
+    space): with --parse-by-seq one item a record, named by its record;
+    otherwise one a group, its records' codes in a list."""
+    for group in groups:
+        t0 = time.perf_counter()
+        codes = []
+        for path in group.split():
+            for name, c in fastx.read_encoded(path, opts.alphabet):
+                if opts.parse_by_seq:
+                    add_span("sketch/read", time.perf_counter() - t0)
+                    yield _Item(name=name, codes=[c])
+                    t0 = time.perf_counter()
+                else:
+                    codes.append(c)
+        add_span("sketch/read", time.perf_counter() - t0)
+        if not opts.parse_by_seq:
+            yield _Item(name=group, codes=codes)
+
+
+def _should_stream(groups: Sequence[str]) -> bool:
+    """Read items as they are reached instead of all at once: above
+    STREAM_BYTES of input (the reference's per-file streaming with
+    O(file) buffers, fastxsketch.cpp:302-424)."""
+    total = 0
+    for g in groups:
+        for path in g.split():
+            try:
+                total += os.path.getsize(path)
+            except OSError:
+                pass
+        if total > STREAM_BYTES:
+            return True
+    return False
+
+
+def _count_records(groups: Sequence[str]) -> List[str]:
+    """The record names of --parse-by-seq, a first pass over the inputs
+    when the items stream (the reference's two-pass design,
+    fastxsketchbyseq.cpp:146-171)."""
+    return [name for group in groups for path in group.split()
+            for name, _ in fastx.read_fastx(path)]
+
+
+def _auto_chunk_len(items: Sequence[_Item]) -> int:
+    """Smallest power-of-two chunk covering the longest record, in
+    [4096, 32768] (the JAX package's choice: chunk edges then fall where
+    its route puts them)."""
+    longest = max((len(c) for it in items for c in it.codes), default=0)
+    cl = 4096
+    while cl < longest and cl < (1 << 15):
+        cl <<= 1
+    return cl
+
+
+def _iter_chunk_batches(opts: Dashing2Options, items: Iterable[_Item],
+                        chunk_len: int, batch_codes: int
+                        ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(rows (R, L) uint8, item index (R,) int32) batches of about
+    `batch_codes` codes: each item's records cut into chunk rows with
+    halos (`kmers.chunk_codes`), in item order; an item's rows may span
+    batches."""
+    spacing = (K.parse_spacing(opts.spacing, opts.k)
+               if opts.spacing else None)
+    span_len = (spacing[-1] + 1) if spacing else opts.k
+    halo_w = opts.w if opts.w > span_len else 0
+    h_l, h_r = K.chunk_halos(span_len, halo_w)
+    rows_per_batch = max(1, batch_codes // (chunk_len + h_l + h_r))
+    buf: List[np.ndarray] = []
+    ids: List[np.ndarray] = []
+    held = 0
+    for idx, item in enumerate(items):
+        t0 = time.perf_counter()
+        if any(len(c) >= span_len for c in item.codes):
+            rows = K.chunk_codes(item.codes, span_len, chunk_len=chunk_len,
+                                 w=halo_w)
+            buf.append(rows)
+            ids.append(np.full(len(rows), idx, np.int32))
+            held += len(rows)
+        add_span("sketch/chunk", time.perf_counter() - t0)
+        while held >= rows_per_batch:
+            t0 = time.perf_counter()
+            rows, rid = np.concatenate(buf), np.concatenate(ids)
+            out = (rows[:rows_per_batch], rid[:rows_per_batch])
+            buf, ids = [rows[rows_per_batch:]], [rid[rows_per_batch:]]
+            held -= rows_per_batch
+            add_span("sketch/chunk", time.perf_counter() - t0)
+            yield out
+    if held:
+        yield np.concatenate(buf), np.concatenate(ids)
+
+
+def _merge_oph(regs_a, counts_a, regs_b, counts_b):
+    """Merge two OPH partials: min registers; counts follow the winning
+    side and add when both sides hold the same min (streaming semantics,
+    oph.h:206-210)."""
+    take_b = regs_b < regs_a
+    tie = regs_b == regs_a
+    regs = np.where(take_b, regs_b, regs_a)
+    counts = np.where(tie, counts_a + counts_b,
+                      np.where(take_b, counts_b, counts_a))
+    return regs, counts
+
+
+def _sketch_chunked(opts: Dashing2Options, groups: Sequence[str], device
+                    ) -> SketchingResult:
+    """The one-permutation jobs the file driver declines: the ONE_PERM
+    branch of the JAX `_sketch_fastx_core`
+    (dashing2_tpu/sketch/core.py:1076-1229). Items' records are cut into
+    chunk rows (the chunk length the JAX package picks, from the longest
+    record), batches of rows go to `device`, ops/oph_rows.py computes
+    their items' registers (and with -N their counts) there, and the
+    host merges each batch into the items' rows (a register is a min, a
+    count follows its min). With the filterset's probe on the device."""
+    from ..io.prefetch import prefetch
+    dev = resolve(device)
+    if _should_stream(groups):
+        names = (_count_records(groups) if opts.parse_by_seq
+                 else list(groups))
+        items: Iterable[_Item] = _load_items(opts, groups)
+        chunk_len = 1 << 15
+    else:
+        items = list(_load_items(opts, groups))
+        names = [it.name for it in items]
+        chunk_len = _auto_chunk_len(items)
+    n, m = len(names), opts.sketchsize
+    hkw = _hash_kwargs(opts, chunk_len)
+    fs = _filterset_array(opts)
+    fs_dev = (torch.from_numpy(fs.view(np.int64)).to(dev)
+              if fs is not None and len(fs) else None)
+    want_counts = bool(opts.save_kmercounts)
+    regs = mmvec.alloc((n, m), np.uint64, opts.sig_ram_limit, fill=U64MAX)
+    counts = (mmvec.alloc((n, m), np.uint32, opts.sig_ram_limit, fill=0)
+              if want_counts else None)
+    for rows, rid in prefetch(_iter_chunk_batches(
+            opts, items, chunk_len, BATCH_CODES[dev.type])):
+        with span("sketch/oph-rows"):
+            i0, i1 = int(rid[0]), int(rid[-1]) + 1
+            r, c = OR.oph_rows(torch.from_numpy(rows).to(dev),
+                               torch.from_numpy(rid - i0).to(dev), i1 - i0,
+                               m, hkw, fs_dev, want_counts)
+            r = r.cpu().numpy().view(np.uint64)
+            if want_counts:
+                regs[i0:i1], counts[i0:i1] = _merge_oph(
+                    regs[i0:i1], counts[i0:i1], r,
+                    c.cpu().numpy().view(np.uint32))
+            else:
+                np.minimum(regs[i0:i1], r, out=regs[i0:i1])
+    res = SketchingResult(names=names)
+    with span("sketch/finalize"):
+        return _finalize_one_perm(opts, res, regs, counts, n, m)
+
+
+def _native_oph_rows(lib, chunks: np.ndarray, hkw: dict, m: int,
+                     want_counts: bool, filterset: Optional[np.ndarray] = None,
+                     nthreads: int = 0):
+    """(registers (R, m) u64, counts (R, m) u32) of each chunk row, on
+    host cores by the native engine (oph_rows_native; the JAX package's
+    `_native_oph_rows`): a second reference for ops/oph_rows.py, which
+    `sketch_fastx` never routes to."""
+    chunks = np.ascontiguousarray(chunks, dtype=np.uint8)
+    R, L = chunks.shape
+    regs = np.empty((R, m), np.uint64)
+    counts = np.zeros((R, m), np.uint32)
+    span_len = hkw.get("span") or hkw["k"]
+    lo, hi = K.owned_kmer_range(span_len, hkw["w"], hkw["chunk_len"])
+    ds = hkw["downsample_threshold"] < (1 << 64) - 1
+    mode, base, bits, off_p, noff, roll_p, canon = _native_encoding(hkw)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    fs_p, fs_len = _u64p(filterset)
+    lib.oph_rows_native(
+        chunks.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), R, L,
+        hkw["k"], hkw["w"], int(canon), int(hkw["seed_is_zero"]),
+        hkw["xormask"], _OPH_XOR, int(ds),
+        hkw["downsample_threshold"] & 0xFFFFFFFFFFFFFFFF, DOWNSAMPLE_SALT,
+        lo, hi, m, nthreads, mode, base, bits, off_p, noff, roll_p, fs_p,
+        fs_len, span_len, regs.ctypes.data_as(u64p),
+        counts.ctypes.data_as(u32p) if want_counts else u32p())
+    return regs, counts
+
+
+def merge_rows(regs: np.ndarray, counts: np.ndarray, row_item: np.ndarray,
+               n: int):
+    """Rows' registers and counts -> their items' (n, m), the rows in item
+    order: the min of the item's rows, and the counts of the rows that
+    hold it, summed (the merge of `_merge_oph`); items without rows stay
+    empty."""
+    if len(row_item) and (np.diff(row_item) < 0).any():
+        raise ValueError("rows must be in item order")
+    out = np.full((n, regs.shape[1]), U64MAX, np.uint64)
+    cnt = np.zeros(out.shape, np.uint32)
+    if not len(row_item):
+        return out, cnt
+    starts = np.flatnonzero(np.r_[True, row_item[1:] != row_item[:-1]])
+    mins = np.minimum.reduceat(regs, starts, axis=0)
+    held = regs == np.repeat(mins, np.diff(np.r_[starts, len(row_item)]),
+                             axis=0)
+    out[row_item[starts]] = mins
+    cnt[row_item[starts]] = np.add.reduceat(
+        np.where(held, counts, 0).astype(np.uint32), starts, axis=0)
+    return out, cnt
+
+
+# ----------------------------------------------------------------------
+# the filterset
+# ----------------------------------------------------------------------
+
+def _filterset_array(opts: Dashing2Options) -> Optional[np.ndarray]:
+    """The sorted distinct u64 hashes --filterset excludes (d2.cpp:45-98;
+    the JAX `_filterset_array`), None without one. A `:suffix` other than
+    'k'/'K' marks the file as a raw binary u64 list (e.g. a -s
+    artifact's ids) taken as it is; otherwise it is a FASTA whose records'
+    k-mers are hashed exactly like the data (the job's encoding,
+    minimizers and scramble, without downsampling), here by the native
+    engine (hash_rows_native)."""
+    if not opts.filterset_path:
+        return None
+    arg = opts.filterset_path
+    i = arg.rfind(":")
+    if i != -1:
+        path, suffix = arg[:i], arg[i + 1:]
+        if suffix[:1].upper() != "K":
+            with fastx.xopen(path) as f:
+                raw = np.frombuffer(f.read(), dtype=np.uint64)
+            return np.unique(raw)
+        arg = path
+    sub = dataclasses.replace(opts, filterset_path="",
+                              kmer_downsample_frac=1.0)
+    from ..native import load_oph_lib
+    lib = load_oph_lib()
+    hkw = _hash_kwargs(sub, 1 << 15)
+    hashes = [_native_hash_codes_list(lib, [codes], hkw)
+              for _, codes in fastx.read_encoded(arg, opts.alphabet)]
+    if not hashes:
+        return None
+    return np.unique(np.concatenate(hashes))
+
+
+# ----------------------------------------------------------------------
 # the counting route: hash, count, then FullSetSketch
 # ----------------------------------------------------------------------
 
-def _load_items(opts: Dashing2Options, groups: Sequence[str]
-                ) -> Iterator[List[np.ndarray]]:
-    """Each group's records, alphabet-encoded, read when the group is
-    reached (the JAX `_load_items` and `_iter_items_lazy`, without
-    --parse-by-seq and the edit-distance space, which the port does not
-    run)."""
-    for group in groups:
-        codes = []
-        with span("sketch/read"):
-            for path in group.split():
-                for _, c in fastx.read_encoded(path, opts.alphabet):
-                    codes.append(c)
-        yield codes
-
-
-def _native_hash_codes_list(lib, codes_list, hkw: dict) -> np.ndarray:
+def _native_hash_codes_list(lib, codes_list, hkw: dict,
+                            filterset: Optional[np.ndarray] = None
+                            ) -> np.ndarray:
     """Compact valid scrambled k-mer hashes for a list of RECORD code
-    arrays, computed on host by the native engine (hash_rows_native).
-    Records are padded into bucketed power-of-two rows (one record per
-    row — per-record semantics identical to the chunked device path)."""
+    arrays, computed on host by the native engine (hash_rows_native),
+    those in the sorted `filterset` dropped. Records are padded into
+    bucketed power-of-two rows (one record per row — per-record
+    semantics identical to the chunked device path)."""
     span_len = hkw.get("span") or hkw["k"]
     ds = hkw["downsample_threshold"] < (1 << 64) - 1
-    mode, base, bits, offsets, roll_table, canon = _native_mode(hkw)
+    mode, base, bits, off_p, noff, roll_p, canon = _native_encoding(hkw)
     u64p = ctypes.POINTER(ctypes.c_uint64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    off_p, noff = i32p(), 0
-    if offsets is not None:
-        offsets = np.ascontiguousarray(offsets, np.int32)
-        off_p, noff = offsets.ctypes.data_as(i32p), len(offsets)
-    roll_p = u64p()
-    if roll_table is not None:
-        roll_table = np.ascontiguousarray(roll_table, np.uint64)
-        roll_p = roll_table.ctypes.data_as(u64p)
+    fs_p, fs_len = _u64p(filterset)
     buckets: dict = {}
     for c in codes_list:
         if len(c) < span_len:
@@ -338,7 +563,7 @@ def _native_hash_codes_list(lib, codes_list, hkw: dict) -> np.ndarray:
                 int(hkw["seed_is_zero"]), hkw["xormask"], int(ds),
                 hkw["downsample_threshold"] & 0xFFFFFFFFFFFFFFFF,
                 DOWNSAMPLE_SALT, mode, base, bits, off_p, noff,
-                roll_p, u64p(), 0, span_len,
+                roll_p, fs_p, fs_len, span_len,
                 out.ctypes.data_as(u64p))
             parts.append(out[:cnt].copy())
     if not parts:
@@ -392,20 +617,26 @@ def in_order(calls: Iterable[Callable[[], T]], nthreads: int,
             yield fut.result()
 
 
-def _count_stream(opts: Dashing2Options, groups: Sequence[str]
+def _count_stream(opts: Dashing2Options, groups: Sequence[str],
+                  names: Optional[List[str]] = None
                   ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Each item's distinct hashes and their counts: native hashing item
-    by item, counting in a pool of -p threads when -p > 1."""
+    by item (with the filterset's probe), counting in a pool of -p
+    threads when -p > 1. The items' names are appended to `names`."""
     from ..native import load_oph_lib
     lib = load_oph_lib()
     hkw = _hash_kwargs(opts, 1 << 15)
+    fs = _filterset_array(opts)
 
     def calls():
-        for codes in _load_items(opts, groups):
+        for item in _load_items(opts, groups):
+            if names is not None:
+                names.append(item.name)
             with span("sketch/hash"):
-                hv = _native_hash_codes_list(lib, codes, hkw)
+                hv = _native_hash_codes_list(lib, item.codes, hkw, fs)
             yield functools.partial(_count_one, opts, hv)
-    return list(in_order(calls(), opts.nthreads, len(groups)))
+    n = 2 if opts.parse_by_seq else len(groups)   # more than one item?
+    return list(in_order(calls(), opts.nthreads, n))
 
 
 def _sketch_counted(opts: Dashing2Options, groups: Sequence[str],
@@ -416,12 +647,13 @@ def _sketch_counted(opts: Dashing2Options, groups: Sequence[str],
     m / sum(registers), an empty item's cardinality 0; with
     --setsketch-ab or --fastcmp-bytes/-shorts/-words the registers are
     quantised on the host, with the harmonic-mean cardinality."""
-    n, m = len(groups), opts.sketchsize
-    uniq = [u for u, _ in _count_stream(opts, groups)]
+    names: List[str] = []
+    uniq = [u for u, _ in _count_stream(opts, groups, names)]
+    n, m = len(names), opts.sketchsize
     dev = resolve(device)
     with span("sketch/css"):
         regs, _ = SK.css_sketch_many(uniq, m, dev)
-    res = SketchingResult(names=list(groups))
+    res = SketchingResult(names=names)
     with span("sketch/finalize"):
         sigs = mmvec.alloc((n, m), np.float64, opts.sig_ram_limit)
         cards = np.empty(n, dtype=np.float64)
@@ -462,8 +694,9 @@ def _sketch_exact(opts: Dashing2Options, groups: Sequence[str]
     distinct sorted hashes, with their number as the cardinality;
     --countdict also keeps their counts, with their sum as the
     cardinality. An item shorter than k has an empty set."""
-    counted = _count_stream(opts, groups)
-    res = SketchingResult(names=list(groups))
+    names: List[str] = []
+    counted = _count_stream(opts, groups, names)
+    res = SketchingResult(names=names)
     res.kmer_sets = [u for u, _ in counted]
     if opts.kmer_result == KmerSketchResultType.FULL_MMER_COUNTDICT:
         res.kmer_set_counts = [c for _, c in counted]
@@ -485,12 +718,13 @@ def _sketch_weighted(opts: Dashing2Options, groups: Sequence[str],
     from .weighted import bagminhash_many, probminhash_many
     fn = (bagminhash_many if opts.sspace == SketchSpace.SPACE_MULTISET
           else probminhash_many)
-    counted = _count_stream(opts, groups)
+    names: List[str] = []
+    counted = _count_stream(opts, groups, names)
     dev = resolve(device)
     with span("sketch/weighted"):
         sigs, cards = fn([u for u, _ in counted], [c for _, c in counted],
                          opts.sketchsize, dev)
-    res = SketchingResult(names=list(groups))
+    res = SketchingResult(names=names)
     res.signatures = sigs
     res.cardinalities = cards
     return res

@@ -143,6 +143,25 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
             (jax_creps.a, jax_creps.b, jax_creps.truncation)
 
 
+# options the port has run since the chunked route (ROADMAP item 7):
+# their cases below hold the port to the JAX CLI instead of a refusal
+RUN_NOW = ("--filterset", "--by-chrom", "--parse-by-seq")
+
+
+def _run_both(argv, tmp_path, capsys):
+    """Both CLIs over the same argv (with --device cpu for the port):
+    [(exit code, output bytes or None, error message)] port, then JAX."""
+    outs = []
+    for tag, fn, extra in (("port", cli.main, ["--device", "cpu"]),
+                           ("jax", jax_cli.main, [])):
+        out = tmp_path / f"{tag}.out"
+        rc = fn(argv + ["--cmpout", str(out)] + extra)
+        err = capsys.readouterr().err
+        outs.append((rc, _read(out) if out.exists() else None,
+                     err.split("error: ", 1)[-1] if rc else ""))
+    return outs
+
+
 @pytest.mark.parametrize("extra", [
     ["--filterset", "fs.txt"], ["--outprefix", "p"],
     ["--leafcutter", "--by-chrom"],
@@ -151,8 +170,21 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
     # the edit-distance options run only with -E
     ["--compute-edit-distance"], ["--exact-kmer-dist"],
 ])
-def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
-    lst, _ = corpus
+def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path,
+                                               capsys):
+    """Options outside the slice exit 2 and write nothing. --filterset
+    (here a genome of the corpus as the filter FASTA) and --by-chrom
+    (with --leafcutter over FASTA inputs, which both CLIs fail to parse
+    alike) run since the chunked route: the JAX CLI's exit code, bytes
+    and error message."""
+    lst, paths = corpus
+    if any(flag in extra for flag in RUN_NOW):
+        argv = NORTH_STAR + [paths[0] if a == "fs.txt" else a
+                             for a in extra] + ["-F", lst]
+        port, jax = _run_both(argv, tmp_path, capsys)
+        assert port == jax
+        assert extra[0] != "--filterset" or (port[0] == 0 and port[1])
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(NORTH_STAR + extra + ["--cmpout", str(tmp_path / "o"),
                                        "-F", lst, "--device", "cpu"])
@@ -168,8 +200,17 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path):
     ["sketch", "-S", "256", "--fastcmp", "1", "--containment",
      "-c", "1000", "--prob", "--save-kmers", "--hp-compress"],
 ])
-def test_cli_rejects_other_comparisons(corpus, argv, tmp_path):
+def test_cli_rejects_other_comparisons(corpus, argv, tmp_path, capsys):
+    """Jobs outside the slice exit 2. `--bed --by-chrom` (--by-chrom is
+    ignored for BED, as in the JAX CLI; FASTA inputs fail to parse as
+    BED in both) and `--parse-by-seq` (one item a record) run since the
+    chunked route: the JAX CLI's exit code, bytes and error message."""
     lst, _ = corpus
+    if any(flag in argv for flag in RUN_NOW):
+        port, jax = _run_both(argv + ["-F", lst], tmp_path, capsys)
+        assert port == jax
+        assert "--parse-by-seq" not in argv or (port[0] == 0 and port[1])
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--cmpout", str(tmp_path / "o"), "-F", lst,
                          "--device", "cpu"])

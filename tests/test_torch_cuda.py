@@ -1198,3 +1198,127 @@ def test_edit_distance_cli_on_card_equals_cpu(card, tmp_path, flags):
                         + flags + [fa, "--device", dev]) == 0
         outs.append(out.read_bytes())
     assert outs[0] == outs[1] and outs[0]
+
+
+# ----------------------------------------------------------------------
+# oph_rows: csrc/oph_rows.cu against oph_rows_plain
+# ----------------------------------------------------------------------
+
+# (options, alphabet letters): every encoding `oph_rows.encoding` selects
+OPH_CONFIGS = {
+    "dna-k31": (dict(k=31), "ACGT"),
+    "dna-k15-noncanonical": (dict(k=15, canonicalize=False), "ACGT"),
+    "mini-21-31": (dict(k=21, w=31), "ACGT"),
+    "mini-4-12": (dict(k=4, w=12), "ACGT"),
+    "mini-wide": (dict(k=21, w=3000), "ACGT"),   # shared memory > 48 KB
+    "protein-k7": (dict(k=7, alphabet="PROTEIN"), "ACDEFGHIKLMNPQRSTVWY"),
+    "protein3bit-k12-w20": (dict(k=12, w=20, alphabet="PROTEIN_3BIT"),
+                            "ACDEFGHIKLMNPQRSTVWY"),
+    "dna2-k40": (dict(k=40, alphabet="DNA2"), "ACGT"),
+    "spaced": (dict(k=11, spacing="0,2,0,1,0x5,3"), "ACGT"),
+    "spaced-w30": (dict(k=11, w=30, spacing="1x10"), "ACGT"),
+    "spaced-protein14": (dict(k=5, spacing="1,0,2,1",
+                              alphabet="PROTEIN_14"),
+                         "ACDEFGHIKLMNPQRSTVWY"),
+    "roll-48": (dict(k=48), "ACGT"),
+    "roll-80-noncanonical": (dict(k=80, canonicalize=False), "ACGT"),
+    "roll-40-w60": (dict(k=40, w=60), "ACGT"),
+    "roll-protein20-k30": (dict(k=30, alphabet="PROTEIN20"),
+                           "ACDEFGHIKLMNPQRSTVWY"),
+    "u128-k40": (dict(k=40, use128=True), "ACGT"),
+    "u128-k63-w80": (dict(k=63, w=80, use128=True), "ACGT"),
+    "ds": (dict(k=31, kmer_downsample_frac=0.3), "ACGT"),
+    "filterset": (dict(k=21, w=25), "ACGT"),
+}
+
+
+def _oph_rows_case(cfg, seed=0, R=23, L=5000, m=100):
+    """(codes, row items, n items, m, hkw, filterset) on the CPU: rows of
+    random letters of the alphabet with N runs, a short row, a row of
+    INVALID and a skipped row (-1), the items 0..6 in several rows each."""
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.enums import Alphabet
+    from dashing2_tpu_torch.ops import kmers as K
+    from dashing2_tpu_torch.sketch import core as PC
+    kw, letters = OPH_CONFIGS[cfg]
+    kw = dict(kw)
+    if "alphabet" in kw:
+        kw["alphabet"] = Alphabet[kw["alphabet"]]
+    opts = Dashing2Options(sketchsize=m, **kw)
+    rng = np.random.default_rng(seed)
+    seqs = rng.choice(np.frombuffer(letters.encode(), np.uint8), (R, L))
+    for r in range(0, R, 3):
+        at = int(rng.integers(0, L - 100))
+        seqs[r, at:at + int(rng.integers(1, 100))] = ord("N")
+    codes = K.encode_ascii(seqs.reshape(-1).tobytes(),
+                           opts.alphabet).reshape(R, L)
+    codes[1, 60:] = K.INVALID
+    codes[2] = K.INVALID
+    item = (np.arange(R) % 7).astype(np.int32)
+    item[5] = -1
+    hkw = PC._hash_kwargs(opts, L - 400)
+    fs = None
+    if cfg == "filterset":
+        hashed, valid = PC.OR.hash_chunk_batch(torch.from_numpy(codes), hkw)
+        hv = np.unique(hashed[valid].numpy().view(np.uint64))
+        fs = torch.from_numpy(np.sort(rng.choice(hv, len(hv) // 3,
+                                                 replace=False))
+                              .view(np.int64))
+    return (torch.from_numpy(codes), torch.from_numpy(item), 7, m, hkw, fs)
+
+
+@pytest.mark.parametrize("want_counts", [True, False])
+@pytest.mark.parametrize("cfg", sorted(OPH_CONFIGS))
+def test_oph_rows_kernel_matches_plain(card, cfg, want_counts):
+    """csrc/oph_rows.cu == oph_rows_plain (registers and counts) in each
+    encoding, with minimizers, downsampling and a filterset: N runs,
+    rows shorter than k and all INVALID, a skipped row, items over
+    several rows, m not a power of two."""
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    codes, item, n, m, hkw, fs = _oph_rows_case(cfg)
+    dev = [x.to(card) if x is not None else None for x in (codes, item, fs)]
+    before = OR.launches.launches
+    got_r, got_c = OR.oph_rows(dev[0], dev[1], n, m, hkw, dev[2],
+                               want_counts)
+    torch.cuda.synchronize()
+    assert OR.launches.launches == before + 1
+    want_r, want_c = OR.oph_rows_plain(dev[0], dev[1], n, m, hkw, dev[2],
+                                       want_counts)
+    assert torch.equal(got_r, want_r)
+    assert (got_c is None) == (not want_counts)
+    if want_counts:
+        assert torch.equal(got_c, want_c)
+    assert (got_r != -1).sum() > 16
+
+
+def test_oph_rows_on_card_equals_cpu(card):
+    """The plain version on the card == the plain version on the CPU."""
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    codes, item, n, m, hkw, fs = _oph_rows_case("mini-21-31", seed=3)
+    cpu = OR.oph_rows_plain(codes, item, n, m, hkw, fs, True)
+    got = OR.oph_rows_plain(codes.to(card), item.to(card), n, m, hkw, None,
+                            True)
+    assert torch.equal(got[0].cpu(), cpu[0])
+    assert torch.equal(got[1].cpu(), cpu[1])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--parse-by-seq"], ["--parse-by-seq", "--fastcmp", "0.5", "--bbit-sigs"],
+    ["--parse-by-seq", "-w", "40"], ["--by-chrom"], ["--parse-by-seq", "-B"]])
+def test_chunked_cli_on_card_equals_cpu(card, tmp_path, flags):
+    """The chunked route's jobs with the registers on the card: the CPU
+    run's bytes (the comparison and -o with -s and -N)."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import edited_sequences, write_fasta
+    fa = write_fasta(str(tmp_path / "s.fa"), edited_sequences(
+        53, 10, 8, length=(200, 9000), n_every=3))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out, sig = tmp_path / f"o-{dev}", tmp_path / f"s-{dev}"
+        assert cli.main(["sketch", "-k", "21", "-S", "256",
+                         "--binary-output", "--cmpout", str(out), "-o",
+                         str(sig)] + (["-s", "-N"] if "-B" not in flags
+                                      else []) + flags
+                        + [fa, fa, "--device", dev]) == 0
+        outs.append(out.read_bytes() + sig.read_bytes())
+    assert outs[0] == outs[1] and outs[0]

@@ -215,7 +215,10 @@ CLI_BED = {"set": [], "fss": ["--full-setsketch"],
            "bmh-norm": ["-B", "--normalize-intervals"], "pmh": ["-P"],
            "pmh-norm-mash": ["-P", "--normalize-intervals",
                              "--mash-distance"],
-           "bmh-containment": ["-B", "--containment"]}
+           "bmh-containment": ["-B", "--containment"],
+           # --by-chrom is ignored for BED, as in the JAX CLI
+           "set-by-chrom": ["--by-chrom"],
+           "bmh-by-chrom": ["-B", "--by-chrom"]}
 
 
 @pytest.mark.parametrize("job", sorted(CLI_BED))
@@ -240,7 +243,9 @@ def test_cli_bigwig_bytes_equal_jax(bigwigs, job, tmp_path):
 
 
 CLI_LF = {"set": [], "fss": ["--full-setsketch"], "bmh": ["-B"],
-          "pmh": ["-P"], "pmh-norm": ["-P", "--normalize-intervals"]}
+          "pmh": ["-P"], "pmh-norm": ["-P", "--normalize-intervals"],
+          # --by-chrom is ignored for LeafCutter, as in the JAX CLI
+          "pmh-by-chrom": ["-P", "--by-chrom"]}
 
 
 @pytest.mark.parametrize("job", sorted(CLI_LF))
@@ -284,14 +289,24 @@ def test_bed_errors_equal_jax(beds, flags, message, tmp_path, capsys):
 
 
 def test_fasta_by_chrom_stays_refused(tmp_path, capsys):
-    """--by-chrom runs for BigWig inputs only; with FASTA inputs it is a
-    flag outside the port's slice."""
+    """--by-chrom with FASTA inputs: the JAX CLI sketches the files as
+    without it (on its chunked route), and so does the port since the
+    chunked route: the JAX CLI's bytes."""
     fa = tmp_path / "a.fa"
-    fa.write_text(">a\nACGTACGTACGTACGTACGTACGTACGTACGTACGT\n")
-    with pytest.raises(SystemExit):
-        cli.main(["sketch", "--by-chrom", "--cmpout", str(tmp_path / "o"),
-                  str(fa), str(fa), "--device", "cpu"])
-    assert "--by-chrom" in capsys.readouterr().err
+    fa.write_text(">a\nACGTACGTACGTACGTACGTACGTACGTACGTACGT\n"
+                  ">b\nACGTTGCATGCAACGTAGCTAGCTAGGATCGATCGAT\n")
+    fb = tmp_path / "b.fa"
+    fb.write_text(">c\nACGTACGTACGTACGTACGTACGTACGTTTTTACGT\n")
+    outs = []
+    for tag, fn, extra in (("p", cli.main, ["--device", "cpu"]),
+                           ("j", jax_cli.main, [])):
+        out = tmp_path / f"{tag}.out"
+        assert fn(["sketch", "--by-chrom", "-k", "15", "-S", "64",
+                   "--binary-output", "--cmpout", str(out), str(fa), str(fb),
+                   str(fa)] + extra) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1] and len(outs[0]) == 12
+    assert "error" not in capsys.readouterr().err
 
 
 def _write_bigwig_blocks(path, chrom_intervals, per_block: int):

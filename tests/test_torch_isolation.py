@@ -31,6 +31,7 @@ import dashing2_tpu_torch.sketch.weighted
 import dashing2_tpu_torch.ops.weighted_draws
 import dashing2_tpu_torch.ops.omh, dashing2_tpu_torch.sketch.omh
 import dashing2_tpu_torch.cmp.editdist, dashing2_tpu_torch.io.seqstore
+import dashing2_tpu_torch.ops.oph_rows, dashing2_tpu_torch.ops.kmers
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dashing2_tpu."))
              or m == "dashing2_tpu")
@@ -78,23 +79,31 @@ def test_full_register_job_on_cuda_fails_without_a_card(tmp_path):
     _cuda_job_without_card(tmp_path, [])
 
 
-@pytest.mark.parametrize("job", ["bed", "wsketch", "contain", "edit"])
+@pytest.mark.parametrize("job", ["bed", "wsketch", "contain", "edit",
+                                 "byseq", "xz"])
 def test_new_subcommands_on_cuda_fail_without_a_card(tmp_path, job):
-    """`sketch --bed -B`, `wsketch`, `contain` and `sketch -E` with the
-    default --device cuda exit non-zero without a card and write
-    nothing."""
+    """`sketch --bed -B`, `wsketch`, `contain`, `sketch -E` and the
+    chunked route (`--parse-by-seq`, an .xz input) with the default
+    --device cuda exit non-zero without a card and write nothing."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     (tmp_path / "a.bed").write_text("chr1\t0\t100\n")
     (tmp_path / "ids.u64").write_bytes(bytes(8 * 4))
     (tmp_path / "a.fa").write_text(">a\nACGTACGTACGTACGTACGTACGTACGT\n")
+    import lzma
+    with lzma.open(tmp_path / "a.fa.xz", "wb") as f:
+        f.write(b">a\nACGTACGTACGTACGTACGTACGTACGT\n")
     argv = {"bed": ["sketch", "--bed", "-B", "--binary-output", "--cmpout",
                     "out", "a.bed", "a.bed"],
             "wsketch": ["wsketch", "-o", "out", "ids.u64"],
             "contain": ["contain", "--cmpout", "out", "db.kmer64",
                         "a.fa"],
             "edit": ["sketch", "-E", "--parse-by-seq", "-k", "9",
-                     "--cmpout", "out", "a.fa"]}[job]
+                     "--cmpout", "out", "a.fa"],
+            "byseq": ["sketch", "--parse-by-seq", "-k", "9", "--cmpout",
+                      "out", "a.fa"],
+            "xz": ["sketch", "-k", "9", "-o", "out", "a.fa.xz",
+                   "a.fa"]}[job]
     r = subprocess.run([sys.executable, "-m", "dashing2_tpu_torch"] + argv,
                        cwd=str(tmp_path), env=_env(), capture_output=True,
                        text=True, timeout=120)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from dashing2_tpu.config import Dashing2Options as JOptions
+from dashing2_tpu.enums import SketchSpace as JSpace
 from dashing2_tpu.sketch.core import sketch_fastx as jax_sketch_fastx
 from dashing2_tpu_torch.config import Dashing2Options
 from dashing2_tpu_torch.enums import (Alphabet, KmerSketchResultType,
@@ -56,14 +57,38 @@ def test_sketch_matches_jax(groups, cfg, native_files, monkeypatch):
 @pytest.mark.parametrize("opts", [
     dict(entmin=True), dict(parse_by_seq=True), dict(cache_sketches=True),
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SEQUENCE),
-    # the edit-distance space runs; with --by-chrom it stays outside
+    # the edit-distance space runs, --by-chrom ignored as in the JAX
+    # package
     dict(sspace=SketchSpace.SPACE_EDIT_DISTANCE, by_chrom=True),
     dict(by_chrom=True), dict(filterset_path="some.fs"),
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SET, use128=True),
 ])
 def test_configs_outside_the_file_driver_raise(groups, opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sketch_fastx(Dashing2Options(k=21, sketchsize=64, **opts), groups)
+    """--entmin, --cache, --seq and u128 exact sets raise, naming their
+    ROADMAP item. The rest run since the chunked route and equal the
+    JAX package's: --parse-by-seq (one item a record) and --by-chrom on
+    the chunked route, -E (its own route), --filterset (here the first
+    genome as the filter FASTA) on the file driver."""
+    runs = ("parse_by_seq" in opts or "by_chrom" in opts
+            or "filterset_path" in opts)
+    if not runs:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sketch_fastx(Dashing2Options(k=21, sketchsize=64, **opts),
+                         groups)
+        return
+    if "filterset_path" in opts:
+        opts = dict(opts, filterset_path=groups[0])
+    kw = dict(k=21, sketchsize=64, save_kmers=True, **opts)
+    jkw = dict(kw)
+    if "sspace" in kw:
+        jkw["sspace"] = JSpace(int(kw["sspace"]))
+    got = sketch_fastx(Dashing2Options(**kw), groups, device="cpu")
+    want = jax_sketch_fastx(JOptions(**jkw), groups)
+    assert got.names == want.names
+    np.testing.assert_array_equal(got.signatures, want.signatures)
+    np.testing.assert_array_equal(got.cardinalities, want.cardinalities)
+    if got.kmers is not None:
+        np.testing.assert_array_equal(got.kmers, want.kmers)
 
 
 @pytest.mark.parametrize("flags", [dict(save_kmers=True),
@@ -87,10 +112,32 @@ def test_saved_kmers_match_jax(groups, flags, monkeypatch):
     assert (got.kmers is not None) == kw.get("save_kmers", False)
 
 
-def test_xz_inputs_raise(groups):
-    with pytest.raises(NotImplementedError, match="xz"):
+def test_xz_inputs_raise(groups, tmp_path):
+    """A missing .xz input raises; one-permutation .xz/.bz2 inputs run
+    on the chunked route since it was ported, with the plain inputs'
+    registers and counts (and the JAX package's)."""
+    import bz2
+    import lzma
+    with pytest.raises(OSError):
         sketch_fastx(Dashing2Options(k=21, sketchsize=64),
-                     groups + ["x.fa.xz"])
+                     groups + [str(tmp_path / "x.fa.xz")], device="cpu")
+    kw = dict(k=21, sketchsize=64, save_kmers=True, save_kmercounts=True)
+    plain = [g.split()[0] for g in groups[:2]]
+    packed = []
+    for p, (suffix, opener) in zip(plain, ((".xz", lzma.open),
+                                           (".bz2", bz2.open))):
+        out = str(tmp_path / (p.rsplit("/", 1)[-1] + suffix))
+        with open(p, "rb") as f, opener(out, "wb") as g:
+            g.write(f.read())
+        packed.append(out)
+    want = sketch_fastx(Dashing2Options(**kw), plain, device="cpu")
+    got = sketch_fastx(Dashing2Options(**kw), packed, device="cpu")
+    jax = jax_sketch_fastx(JOptions(**kw), packed)
+    for attr in ("signatures", "cardinalities", "kmers", "kmercounts"):
+        np.testing.assert_array_equal(getattr(got, attr),
+                                      getattr(want, attr))
+        np.testing.assert_array_equal(getattr(got, attr),
+                                      getattr(jax, attr))
 
 
 def test_counting_route_reads_compressed_inputs(groups, tmp_path):
