@@ -17,15 +17,15 @@ k-mer database (`-s`, `-N`) and `contain`, the interval inputs
 (`--bed`, `--bigwig`, `--leafcutter`), `wsketch` and the edit-distance
 space (`-E`, `--parse-by-seq`, `--compute-edit-distance`, `--greedy
 ...f`) and the chunked route (`--parse-by-seq` outside `-E`,
-`--filterset`, `--by-chrom`, `.xz`/`.bz2` inputs) through the port's
-own CLI.
+`--filterset`, `--by-chrom`, `.xz`/`.bz2` inputs) and the sketch cache
+(`--cache`, `--outprefix`) through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu,
-   csrc/int_counts.cu, csrc/weighted_draws.cu, csrc/omh.cu and
-   csrc/oph_rows.cu (sm_90a)
+   csrc/int_counts.cu, csrc/weighted_draws.cu, csrc/omh.cu,
+   csrc/oph_rows.cu, csrc/css.cu and csrc/countsketch.cu (sm_90a)
    and g++ for the native sketcher, FASTA reader, formatter and Myers
    edit distance, all started together; build seconds and ptxas'
    register/spill report;
@@ -159,8 +159,8 @@ no card, or when the port is not importable:
    bytes of tests/goldens/full_sim.bin;
 15. FullSetSketch at full width on the first 5120 genomes of the
    N = 10240 corpus: `sketch --full-setsketch -o fss.sig --cmpout
-   fss.bin` (the CSetSketch draws of
-   every item on the card, then one gtlt_self launch, no other kernel);
+   fss.bin` (the CSetSketch draws of every item on csrc/css.cu, then
+   one gtlt_self launch, no other kernel);
    every emitted value equals the table at the plain counts of the
    written registers; the distinct k-mers of 8 items spread over the
    corpus go through the same draws on the CPU: the card's registers
@@ -169,8 +169,8 @@ no card, or when the port is not importable:
    counts. Prints the pass histogram and the spans (`sketch/read`,
    `sketch/hash`, `sketch/count`, `sketch/css`);
 16. `--full-setsketch --fastcmp-bytes` (u8 a/b registers, a = 20,
-   b = 1.2) over the first 1024 genomes: one int_counts_self launch, no
-   other kernel; the card's
+   b = 1.2) over the first 1024 genomes: the draws on css.cu, one
+   int_counts_self launch, no other kernel; the card's
    epilogue equals the CPU's on every (gt, lt), every value the CPU
    epilogue at the plain counts of the written registers;
 17. `cmp --presketched --full` over fss.sig, and `cmp --presketched
@@ -205,8 +205,8 @@ no card, or when the port is not importable:
    cardinalities their total counts; the card's gtlt_self counts equal
    the plain version's and every emitted value is the equality table at
    them. Prints the draws' seconds and rate and the spans;
-24. `-P -c 1048576` over the first 8 genomes at -S 256: byte-equal to
-   `--device cpu`;
+24. `-P -c 1048576` over the first 8 genomes at -S 256: one
+   countsketch launch a genome; byte-equal to `--device cpu`;
 25. `-P --topk 10` over the first 5120 genomes: the draws on the card,
    no other kernel;
    the bytes equal `neighbor_graph_main` on the CPU over the same
@@ -220,7 +220,7 @@ no card, or when the port is not importable:
 27. `sketch --bed` over 16 peak files (10,000-20,000 intervals of
    200-1,000 bp over 24 chromosomes, 60% of each file's peaks from its
    family's set of four): the one-permutation default (host), then
-   `--full-setsketch` (the CSetSketch draws), `-B --normalize-intervals`
+   `--full-setsketch` (css.cu), `-B --normalize-intervals`
    and `-P` (weighted_draws.cu), all pairs (one gtlt_self launch each);
    each also over the first 4 files with `--device cpu`, equal bytes
    (the weighted jobs over those files cut to their first 4 intervals);
@@ -246,7 +246,8 @@ no card, or when the port is not importable:
    equal bytes; with `-o`, the written registers, winners and
    cardinalities of the first samples (96 rows of 2048 positions in
    all) equal the plain version's on the card;
-30. `wsketch -B`, `-P` and `-q` (`--u32 --f32`, u64 indptr) over a
+30. `wsketch -B`, `-P` and `-q` (`--u32 --f32`, u64 indptr; -q on
+   css.cu with its winners) over a
    10,000-row count matrix of 1,000-3,000 non-zeros a row; the first 32
    rows (4 for -B) also with `--device cpu`: their rows of every output
    file equal;
@@ -322,9 +323,34 @@ no card, or when the port is not importable:
    equal the chunked route's on the `.xz` and `.bz2` files, on the plain
    files with `--by-chrom`, and on the `.xz` files with `--by-chrom`;
 42. `--full-setsketch`, `--set` and `-B` with `--parse-by-seq` over the
-   first 2,048 records: each output's size and launches, and the job
-   over the first 64 records (32 for `--full-setsketch`, 8 for `-B`)
-   byte-equal to `--device cpu`.
+   first 2,048 records: each output's size and launches (css.cu for
+   `--full-setsketch`), and the job over the first 64 records (32 for
+   `--full-setsketch`, 8 for `-B`) byte-equal to `--device cpu`;
+43. (after 15) the CSetSketch kernel (csrc/css.cu) on phase 15's own
+   operands, captured as the job launched it: on the first 8 items of
+   its first launch (6144 rows x m 1024), registers, cutoffs and winners
+   bit for bit == the plain version's on the card; over their first
+   2048 rows the plain early-exit walk (`css_walk_plain`, a torch step
+   a row) == the kernel's pass, its count of evaluated draws ==
+   `walk_draws`' from the kernel's output; then the
+   kernel alone over every launch of the job, timed with CUDA events,
+   against its bound, the instructions of the walk's loop in the
+   kernel's SASS (cuobjdump) charged to every draw the early exit
+   evaluates (and, printed beside it, to every kept draw);
+44. (after 24) the CountSketch kernel (csrc/countsketch.cu) on phase
+   24's 8 streams, captured as the job launched it: every bucket ==
+   the plain version's and == `torch.bincount`'s, exactly; the three
+   timed over the 8 streams;
+45. (after the weighted phases) `sketch --cache --outprefix D` over the
+   first 256 genomes of the N = 10240 corpus for the one-permutation
+   `-o`, `--full-setsketch`, `--full-setsketch --fastcmp-bytes`,
+   `--set`, `--countdict` and `-B` jobs, all pairs: a cold run, a warm
+   run (no route sketches: no route's span, no draw launched, the
+   route entry never called) and a run with every third genome's
+   artifacts deleted (the route called with exactly those genomes);
+   every output (matrix, `-o`, artifacts) == the cold run's byte for
+   byte; the artifacts of the first 16 genomes (1 for `-B`) == a
+   `--device cpu` run's.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall, and phases
@@ -342,8 +368,11 @@ x, p=0)` over the f32 registers for int_counts_self in eq mode (the
 unequal-register count, eq = m - d). No single call computes (gt, lt)
 counts, so gtlt_self_counts, gtlt_counts and int_counts have none;
 nor does one call draw weighted registers (weighted_draws), select and
-fold OrderMinHash words (omh), or encode, select and bucket-min k-mers
-(oph_rows). The kernels line gives int_counts_self twice: `int_counts_self` with the
+fold OrderMinHash words (omh), encode, select and bucket-min k-mers
+(oph_rows), or draw CSetSketch registers (css); the CountSketch's is
+`torch.bincount(idx, weights=sign, minlength=cssize)` over the bucket ids
+and signs (made before its window). The kernels line gives
+int_counts_self twice: `int_counts_self` with the
 u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
 with the u8 b-bit job's eq-mode times and its library call.
 
@@ -377,6 +406,11 @@ first 2,048), 5,120 genomes (phase 40) and 256 genomes (phase 41); the
 CPU checks of phase 42 run over 64 records for `--set`, 32 for
 `--full-setsketch` and 8 for `-B` (the plain CSetSketch and weighted
 draws are slow on the CPU: 10.8 s for 64 records and 8.6 s for 16).
+Phase 45 runs over the first 256 genomes (its jobs' work scales with
+their items; the kernels' shapes are timed in phases 43 and 44) and its
+`--device cpu` check over 16 genomes, 1 for `-B` (the plain weighted
+draws take 260-500 ns each on the CPU: 15.3 s for 2 genomes on the
+H100 machine's host).
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -385,6 +419,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -408,11 +443,13 @@ NIBBLE_MS = (30, 62, 64, 96, 98, 100, 126, 128, 130, 256, 1024)
 # peak rates of one H100 SXM at 700 W: int8 tensor operations (dense,
 # from NVIDIA's H100 datasheet) and, for the integer kernels, the
 # SM's 64 INT32 lanes and 16 popcount lanes a clock x 132 SMs x 1.98 GHz
-# boost (Hopper's SM layout), and its 128 FP32 lanes (an f32 operation or
+# boost (Hopper's SM layout), its 128 FP32 lanes (an f32 operation or
 # fused multiply-add each: the datasheet's 67 TFLOP/s counts an fma as
+# two) and its 64 FP64 lanes (the datasheet's 33.5 TFLOP/s, an fma as
 # two); device memory 3.35 TB/s
 RATES = {"int8": 1.979e15, "int32": 132 * 64 * 1.98e9,
-         "popc": 132 * 16 * 1.98e9, "f32": 132 * 128 * 1.98e9}
+         "popc": 132 * 16 * 1.98e9, "f32": 132 * 128 * 1.98e9,
+         "f64": 132 * 64 * 1.98e9}
 HBM = 3.35e12
 
 
@@ -482,6 +519,8 @@ def phase_device():
 
 def phase_build():
     from dashing2_tpu_torch import native
+    from dashing2_tpu_torch.ops import countsketch as CS
+    from dashing2_tpu_torch.ops import css as CSS
     from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import int_counts as IC
     from dashing2_tpu_torch.ops import nibble_comb as NC
@@ -492,7 +531,8 @@ def phase_build():
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
               "gtlt": G.load_kernel, "int_counts": IC.load_kernel,
               "weighted_draws": WD.load_kernel, "omh": OP.load_kernel,
-              "oph_rows": OR.load_kernel,
+              "oph_rows": OR.load_kernel, "css": CSS.load_kernel,
+              "countsketch": CS.load_kernel,
               "ophsketch": native.load_oph_lib,
               "fastx": native.load_fastx_lib,
               "emitfmt": native.load_emit_lib,
@@ -509,7 +549,7 @@ def phase_build():
     _say(f"[build] all {len(builds)} in {time.perf_counter() - t0:.3f} s, in "
          "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
     for name in ("tri_eq", "tri_comb", "gtlt", "int_counts",
-                 "weighted_draws", "omh", "oph_rows"):
+                 "weighted_draws", "omh", "oph_rows", "css", "countsketch"):
         for ln in native.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 _say(f"[build] ptxas {name}: {ln.strip()}")
@@ -1759,16 +1799,19 @@ def phase_fss(lst: str, counters):
     argv = ["sketch", "-k", "31", "-S", str(m), "--full-setsketch",
             "--binary-output", "-o", sig, "--cmpout", out, "-F", lst]
     rec, undo = _css_capture()
+    ops, undo_ops = _capture_css()
     try:
         wall, spans, launches = _run_cli(tag, argv, n, counters)
     finally:
         undo()
+        undo_ops()
     assert os.path.getsize(out) == 4 * n * (n - 1) // 2
-    others = [k for k in counters if k != "gtlt_self"]
-    assert launches["gtlt_self"] == 1 \
+    others = [k for k in counters if k not in ("gtlt_self", "css")]
+    assert launches["gtlt_self"] == 1 and launches["css"] >= 1 \
         and all(launches[k] == 0 for k in others), launches
     hist = np.bincount(rec["passes"])
-    _say(f"[{tag}] gtlt_self launched once, no other kernel; CSetSketch "
+    _say(f"[{tag}] css launched {launches['css']} time(s), gtlt_self "
+         f"once, no other kernel; CSetSketch "
          f"passes (count: items) " + ", ".join(
              f"{p}: {c}" for p, c in enumerate(hist) if c)
          + f"; {rec['distinct']} distinct k-mers "
@@ -1818,7 +1861,8 @@ def phase_fss(lst: str, counters):
          f"(gt, lt) counts equal exactly ({CSS_SAMPLE}x{CSS_SAMPLE}); "
          f"CPU css {cpu_s:.3f} s for "
          f"them ({1e3 * cpu_s / CSS_SAMPLE:.3f} ms an item)")
-    return dict(launches=launches, wall=wall, css_s=rec["seconds"])
+    return dict(launches=launches, wall=wall, css_s=rec["seconds"],
+                css_operands=ops)
 
 
 def phase_fss_bytes(lst: str, counters):
@@ -1840,10 +1884,11 @@ def phase_fss_bytes(lst: str, counters):
             out, "-F", lst]
     wall, spans, launches = _run_cli(tag, argv, n, counters)
     assert os.path.getsize(out) == 4 * n * (n - 1) // 2
-    others = [k for k in counters if k != "int_counts_self"]
-    assert launches["int_counts_self"] == 1 \
+    others = [k for k in counters if k not in ("int_counts_self", "css")]
+    assert launches["int_counts_self"] == 1 and launches["css"] >= 1 \
         and all(launches[k] == 0 for k in others), launches
-    _say(f"[{tag}] int_counts_self launched once, no other kernel")
+    _say(f"[{tag}] css launched {launches['css']} time(s), "
+         "int_counts_self once, no other kernel")
     _say_spans(tag, spans, FSS_SPANS)
     # the header counts f64-sized registers (m / 8 for u8), so the reader
     # returns the u8 registers' bytes as f64
@@ -2416,17 +2461,26 @@ def phase_pmh_countsketch(lst: str, counters):
     outs = []
     for dev in ("cuda", "cpu"):
         out = os.path.join(d, f"pmh_c_{dev}.bin")
-        wall, spans, launches = _run_cli(f"{tag} {dev}", argv + [
-            "--cmpout", out, "--device", dev], len(paths), counters)
+        if dev == "cuda":
+            streams, undo = _capture_countsketch()
+        try:
+            wall, spans, launches = _run_cli(f"{tag} {dev}", argv + [
+                "--cmpout", out, "--device", dev], len(paths), counters)
+        finally:
+            if dev == "cuda":
+                undo()
         with open(out, "rb") as f:
             outs.append(f.read())
         if dev == "cuda":
             card = launches
             _say_spans(tag, spans, WEIGHTED_SPANS)
     assert card["weighted_draws"] >= 1 and card["gtlt_self"] == 1, card
+    assert card["countsketch"] == len(paths), card
     assert outs[0] == outs[1] and len(outs[0]) == 4 * 8 * 7 // 2
-    _say(f"[{tag}] card bytes == --device cpu bytes ({len(outs[0])} bytes)")
-    return dict(launches=card["weighted_draws"])
+    _say(f"[{tag}] countsketch launched once a genome; card bytes == "
+         f"--device cpu bytes ({len(outs[0])} bytes)")
+    return dict(launches=card["weighted_draws"],
+                countsketch=card["countsketch"], streams=streams)
 
 
 def phase_pmh_knn(lst: str, counters):
@@ -2757,6 +2811,9 @@ def _interval_job(tag: str, argv, n: int, counters, weighted: bool):
     if weighted:
         assert launches["weighted_draws"] >= 1, launches
         want["weighted_draws"] = launches["weighted_draws"]
+    if "--full-setsketch" in argv:
+        assert launches["css"] >= 1, launches
+        want["css"] = launches["css"]
     assert all(launches[k] == want.get(k, 0) for k in counters), launches
     vals = np.fromfile(out, np.float32)
     assert len(vals) == n * (n - 1) // 2 and np.isfinite(vals).all()
@@ -2982,10 +3039,9 @@ def phase_wsketch(counters):
         argv = ["wsketch", "-S", str(m), "--u32", "--f32"] + flags
         wall, spans, launches = _run_cli(tag, argv + ["-o", pref] + full,
                                          WS_ROWS, counters, 0)
-        want = launches["weighted_draws"] if tag != "ws-set" else 0
-        assert (want >= 1) == (tag != "ws-set") and all(
-            launches[k] == (want if k == "weighted_draws" else 0)
-            for k in counters), launches
+        kernel = "css" if tag == "ws-set" else "weighted_draws"
+        assert launches[kernel] >= 1 and all(
+            launches[k] == 0 for k in counters if k != kernel), launches
         _say_spans(tag, spans, WS_SPANS)
         sub = _csr(os.path.join(d, f"first{cpu_rows}"), matrix, cpu_rows)
         cpref = os.path.join(d, tag + "-cpu")
@@ -3976,6 +4032,8 @@ def phase_byseq_counting(counters):
         assert os.path.getsize(out) == 4 * n * (n - 1) // 2
         assert launches["oph_rows"] == 0, launches
         assert counter is None or launches[counter] >= 1, launches
+        assert (launches["css"] >= 1) == ("--full-setsketch" in flags), \
+            launches
         _say_spans(tag, spans, FSS_SPANS)
         cut_fa = os.path.join(d, f"cut{cut}.fa")
         _vs_cpu(f"{tag} cut", argv + [cut_fa], out + ".cut", cut, counters)
@@ -4014,6 +4072,392 @@ def phase_chunked(lst: str, counters):
     shutil.rmtree(os.path.join(WORK, "byseq"), ignore_errors=True)
     kernel["launches"] = sum(r["launches"]["oph_rows"] for r in runs.values())
     return kernel, runs
+
+
+# ----------------------------------------------------------------------
+# the CSetSketch draws (csrc/css.cu), the CountSketch
+# (csrc/countsketch.cu) and --cache/--outprefix
+# ----------------------------------------------------------------------
+
+# items of the css check against its plain version: the FullSetSketch
+# job's first pass, cut to what the plain version's (items, rows, m) f64
+# draws hold
+CSS_CHECK_ITEMS = 8
+# rows of those items the plain early-exit walk (a torch step a row) is
+# held to the full pass and the draw count over
+CSS_WALK_ROWS = 2048
+# genomes of the cache phase, and of its --device cpu comparison (the -B
+# job's over CACHE_CPU_BMH: the plain weighted draws take 260-500 ns
+# each on the CPU, 20k positions x 1024 registers a genome)
+CACHE_N = 256
+CACHE_CPU = 16
+CACHE_CPU_BMH = 1
+CACHE_JOBS = (("cache-oph", ["-S", "1024"], True),
+              ("cache-fss", ["-S", "1024", "--full-setsketch"], True),
+              ("cache-fss-u8", ["-S", "1024", "--full-setsketch",
+                                "--fastcmp-bytes"], True),
+              ("cache-set", ["--set"], False),
+              ("cache-countdict", ["--countdict"], False),
+              ("cache-bmh", ["-S", "1024", "-B"], True))
+# the spans of a route that sketches (a warm run has none of them)
+SKETCH_ROUTE_SPANS = ("sketch/native-files", "sketch/read", "sketch/hash",
+                      "sketch/count", "sketch/css", "sketch/weighted",
+                      "sketch/cache-write")
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_SKIP = ("BRA", "BSSY", "BSYNC", "NOP", "EXIT", "CALL", "RET",
+              "WARPSYNC", "BAR", "YIELD", "DEPBAR")
+
+
+def _sass_loop_ops(lib_name: str, function: str, marker: str):
+    """`_loop_ops` over the SASS of the built library `lib_name`
+    (cuobjdump -sass)."""
+    from dashing2_tpu_torch import native
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", native._libs[lib_name]._name],
+                          check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    return _loop_ops(text, function, marker)
+
+
+def _loop_ops(text: str, function: str, marker: str):
+    """Instructions of one trip of the innermost loop of `function` (a
+    part of its mangled name) that holds the first `marker` (an opcode
+    prefix) in the SASS `text`: the f64 pipe's (D* operations, MUFU.*64*,
+    conversions to or from F64) and the integer lanes' (every other ALU
+    instruction; loads, stores, branches and barriers left out), each
+    divided by the marker's copies in the loop (an unrolled loop holds
+    several trips). Returns (f64, int32, trips, loop lines)."""
+    insns, labels, keep = [], {}, False
+    pending = []
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            keep = function in ln
+            continue
+        if not keep:
+            continue
+        lab = _SASS_LABEL.match(ln)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _SASS_INSN.search(ln)
+        if not m:
+            continue
+        addr, body = int(m.group(1), 16), m.group(2).strip()
+        if body.startswith("@"):
+            body = body.split(None, 1)[1]
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        insns.append((addr, body.split(None, 1)[0], body))
+    if not insns:
+        raise ValueError(f"no function {function} in the SASS of {lib_name}")
+    marks = [a for a, op, _ in insns if op.startswith(marker)]
+    if not marks:
+        raise ValueError(f"no {marker} in {function}")
+    loops = []
+    for addr, op, body in insns:
+        if not op.startswith("BRA"):
+            continue
+        tgt = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", body.split(None, 1)[1])
+        to = labels.get(tgt.group(1)) if tgt.group(1) else int(tgt.group(2),
+                                                              16)
+        if to is not None and to <= marks[0] <= addr:
+            loops.append((addr - to, to, addr))
+    if not loops:
+        raise ValueError(f"no loop around {marker} in {function}")
+    _, lo, hi = min(loops)
+    body = [(op, b) for a, op, b in insns if lo <= a <= hi]
+    trips = sum(op.startswith(marker) for op, _ in body)
+    f64 = alu = 0
+    for op, _ in body:
+        base = op.split(".")[0]
+        if base.startswith(_SASS_SKIP) or base.startswith(("LD", "ST",
+                                                          "RED", "ATOM")):
+            continue
+        if base.startswith("D") or (base in ("MUFU", "F2F", "I2F", "F2I")
+                                    and "64" in op and (
+                                        base == "MUFU" or "F64" in op)):
+            f64 += 1
+        else:
+            alu += 1
+    return f64 / trips, alu / trips, trips, [b for _, b in body]
+
+
+def _capture_css():
+    """Wrap ops/css.py's css_pass so that a CLI run leaves a copy of the
+    operands of every launch on the card; returns (record, undo)."""
+    from dashing2_tpu_torch.ops import css as CSS
+    real = CSS.css_pass
+    rec = []
+
+    def wrapped(sx1, srv, k, threshold, m, return_ids=False):
+        if sx1.is_cuda:
+            rec.append((sx1.clone(), srv.clone(), k.clone(),
+                        threshold.clone(), m))
+        return real(sx1, srv, k, threshold, m, return_ids)
+    CSS.css_pass = wrapped
+
+    def undo():
+        CSS.css_pass = real
+    return rec, undo
+
+
+def phase_css_vs_plain(launches):
+    """csrc/css.cu on the `--full-setsketch` job's own operands (phase
+    15's launches): on the first CSS_CHECK_ITEMS items of the first
+    launch, registers, cutoffs and winners == css_pass_plain's bit for
+    bit, and the early-exit walk's draws counted by css_walk_plain ==
+    walk_draws' count from the kernel's registers and winners; then the
+    kernel alone over every launch of the job, timed with CUDA events,
+    against its bound over all kept (row, register) draws and over the
+    draws the early exit evaluates, each draw charged the instructions of
+    the walk's loop in the kernel's SASS."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.ops import css as CSS
+    sx1, srv, k, t, m = launches[0]
+    cut = [x[:CSS_CHECK_ITEMS].contiguous() for x in (sx1, srv, k, t)]
+    got = CSS.css_pass(*cut, m, return_ids=True)
+    torch.cuda.synchronize()
+    want = CSS.css_pass_plain(*cut, m, return_ids=True)
+    for g, w, what in zip(got, want, ("registers", "tcut", "winners")):
+        assert torch.equal(g.view(torch.int64) if g.is_floating_point()
+                           else g, w.view(torch.int64)
+                           if w.is_floating_point() else w), what
+    err = float((got[0] - want[0]).abs().nan_to_num(0.0).max())
+    # the walk over the first CSS_WALK_ROWS rows (the items' caps cut)
+    short = [cut[0][:, :CSS_WALK_ROWS].contiguous(),
+             cut[1][:, :CSS_WALK_ROWS].contiguous(),
+             cut[2].clamp(max=CSS_WALK_ROWS), cut[3]]
+    walk = CSS.css_walk_plain(*short, m)
+    full = CSS.css_pass(*short, m, return_ids=True)
+    assert all(torch.equal(a, b) for a, b in zip(walk[:3], full))
+    walked = CSS.walk_draws(short[0], short[2], short[3], full[0], full[2])
+    assert torch.equal(walked, walk[3]), "walk_draws != the plain walk"
+    plain_ms = _cuda_ms(lambda: CSS.css_pass_plain(*cut, m), 1)
+    cut_ms = _cuda_ms(lambda: CSS.css_pass(*cut, m), 3)
+    # the whole job: every launch timed, the draws counted
+    ms, kept_rows, drawn, nbytes = 0.0, 0, 0, 0
+    for sx1, srv, k, t, m in launches:
+        CSS.css_pass(sx1, srv, k, t, m)
+        torch.cuda.synchronize()
+        ms += _cuda_ms(lambda: CSS.css_pass(sx1, srv, k, t, m), 3)
+        regs, _, ids = CSS.css_pass(sx1, srv, k, t, m, return_ids=True)
+        keep = (torch.arange(sx1.shape[1], device=sx1.device)[None, :]
+                < k[:, None]) & (sx1 <= t[:, None])
+        rows = int(keep.sum())
+        kept_rows += rows
+        drawn += int(CSS.walk_draws(sx1, k, t, regs, ids).sum())
+        nbytes += 16 * rows + 8 * sx1.shape[0] * (m + 1)
+        del regs, ids, keep
+    items = sum(x[0].shape[0] for x in launches)
+    all_draws = kept_rows * m
+    f64, alu, trips, _ = _sass_loop_ops("css", "css_kernel", "MUFU.RCP64")
+    t_f64 = drawn * f64 / RATES["f64"] * 1e3
+    t_alu = drawn * alu / RATES["int32"] * 1e3
+    t_bytes = nbytes / HBM * 1e3
+    bound_ms = max(t_f64, t_alu, t_bytes)
+    bound_all = max(all_draws * f64 / RATES["f64"],
+                    all_draws * alu / RATES["int32"]) * 1e3
+    bound_by = "bytes" if t_bytes >= max(t_f64, t_alu) else "operations"
+    _say(f"[css] kernel == css_pass_plain bit for bit (registers, tcut, "
+         f"winners) on the first {CSS_CHECK_ITEMS} items of the "
+         f"--full-setsketch job's first launch ({cut[0].shape[1]} rows x m "
+         f"{m}); there kernel {cut_ms:.3f} ms, plain {plain_ms:.3f} ms; "
+         f"over their first {CSS_WALK_ROWS} rows the plain early-exit walk "
+         f"== the kernel's pass, and its {int(walk[3].sum())} evaluated "
+         "draws == walk_draws' count from the kernel's output")
+    _say(f"[css] SASS of the walk's loop: {f64:.2f} f64 and {alu:.2f} "
+         f"integer lane instructions a draw ({trips} draws a trip)")
+    _say(f"[css] the job's {len(launches)} launch(es) over {items} items: "
+         f"kernel {ms:.3f} ms (CUDA events, mean of 3 each); {kept_rows} "
+         f"kept rows, {all_draws} kept (row, register) draws, {drawn} "
+         f"evaluated by the early exit ({100 * drawn / all_draws:.2f}%); "
+         f"bound {bound_ms:.3f} ms over the evaluated draws (f64 "
+         f"{t_f64:.3f}, int32 {t_alu:.3f}, bytes {t_bytes:.4f} ms: "
+         f"{100 * bound_ms / ms:.1f}% reached), {bound_all:.3f} ms over all "
+         f"kept draws ({100 * bound_all / ms:.1f}%); library: none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_all_ms=bound_all, err=err,
+                library_ms=None, draws=drawn, all_draws=all_draws,
+                plain_shape=f"the first {CSS_CHECK_ITEMS} of the {items} "
+                f"items ms and bound_ms cover (kernel there {cut_ms:.3f} "
+                "ms)")
+
+
+def _capture_countsketch():
+    """Wrap ops/countsketch.py's countsketch_buckets so that a CLI run
+    leaves a copy of every stream it took on the card."""
+    from dashing2_tpu_torch.ops import countsketch as CS
+    real = CS.countsketch_buckets
+    rec = []
+
+    def wrapped(hv, cssize):
+        if hv.is_cuda:
+            rec.append((hv.clone(), cssize))
+        return real(hv, cssize)
+    CS.countsketch_buckets = wrapped
+
+    def undo():
+        CS.countsketch_buckets = real
+    return rec, undo
+
+
+def phase_countsketch_vs_plain(streams):
+    """csrc/countsketch.cu on the `-P -c` job's own streams (phase 24's
+    8 genomes): every bucket == countsketch_buckets_plain's and ==
+    torch.bincount's, exactly; the kernel, its plain version and
+    torch.bincount(idx, weights=sign, minlength=cssize) (the bucket ids
+    and signs made before its window) timed over the 8 streams."""
+    import torch
+    from dashing2_tpu_torch.ops import countsketch as CS
+    from dashing2_tpu_torch.ops import hashes as DH
+    assert streams, "the -P -c job took no stream on the card"
+    prepped = []
+    for hv, cssize in streams:
+        got = CS.countsketch_buckets(hv, cssize)
+        torch.cuda.synchronize()
+        want = CS.countsketch_buckets_plain(hv, cssize)
+        assert torch.equal(got.to(torch.int64), want)
+        idx = DH.u64_mod(hv, cssize)
+        sign = torch.where((hv & 1) != 0, 1.0, -1.0).to(torch.float64)
+        lib = torch.bincount(idx, weights=sign, minlength=cssize)
+        assert torch.equal(lib, want.to(torch.float64))
+        prepped.append((idx, sign, cssize))
+
+    def kernel():
+        for hv, cssize in streams:
+            CS.countsketch_buckets(hv, cssize)
+
+    def plain():
+        for hv, cssize in streams:
+            CS.countsketch_buckets_plain(hv, cssize)
+
+    def library():
+        for idx, sign, cssize in prepped:
+            torch.bincount(idx, weights=sign, minlength=cssize)
+    ms = _cuda_ms(kernel, 5)
+    plain_ms = _cuda_ms(plain, 3)
+    library_ms = _library_ms(library, 5)
+    n = sum(hv.shape[0] for hv, _ in streams)
+    nbytes = 8 * n + sum(4 * c for _, c in streams)
+    _, alu, trips, _ = _sass_loop_ops("countsketch", "countsketch_kernel",
+                                      "RED")
+    bound_ms, bound_by = _bound(n * alu, "int32", nbytes)
+    _say(f"[countsketch] kernel == plain == torch.bincount on every "
+         f"bucket, {len(streams)} streams of {n} hashes into "
+         f"{streams[0][1]} buckets each; kernel {ms:.3f} ms (CUDA events, "
+         f"mean of 5, the buckets' zeroing included), plain {plain_ms:.3f} "
+         f"ms, torch.bincount {library_ms:.3f} ms; bound {bound_ms:.4f} ms "
+         f"({bound_by}: {nbytes} bytes, {alu:.1f} integer lane "
+         f"instructions a hash in the SASS loop, {trips} a trip), "
+         f"{100 * bound_ms / ms:.1f}% reached")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=0, library_ms=library_ms)
+
+
+def _cache_files(d: str):
+    return {f: open(os.path.join(d, f), "rb").read()
+            for f in sorted(os.listdir(d))}
+
+
+def phase_cache(lst: str, counters):
+    """`sketch --cache --outprefix D` over the first CACHE_N genomes of
+    the N = 10240 corpus, for the one-permutation `-o`,
+    `--full-setsketch`, `--full-setsketch --fastcmp-bytes`, `--set`,
+    `--countdict` and `-B` jobs: a cold run; a warm run that sketches
+    nothing (no route's span, no draw launched) and loads every
+    artifact; a run with every third genome's artifacts deleted, which
+    sketches only those and rewrites them. Every output (the matrix,
+    `-o`, the artifacts) equals the cold run's byte for byte; the
+    artifacts of the first CACHE_CPU genomes (CACHE_CPU_BMH for -B)
+    equal a `--device cpu` run's."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.sketch import core
+    d = os.path.join(WORK, "northstar", "cache")
+    with open(lst) as f:
+        paths = [ln.strip() for ln in f if ln.strip()][:CACHE_N]
+    real = core._sketch_routes
+    sketched = []
+
+    def routes(opts, groups, device):
+        sketched.append(list(groups))
+        return real(opts, groups, device)
+    core._sketch_routes = routes
+    try:
+        return {tag: _cache_job(tag, flags, sig, paths, d, counters,
+                                sketched, cli.main)
+                for tag, flags, sig in CACHE_JOBS}
+    finally:
+        core._sketch_routes = real
+
+
+def _cache_job(tag: str, flags, sig: bool, paths, d: str, counters,
+               sketched, cli_main):
+    """One job of phase_cache: cold, warm and partial runs, then the
+    --device cpu run over the first genomes."""
+    pd = os.path.join(d, tag)
+    os.makedirs(pd)
+    outs, walls, total = [], [], {}
+    for run in ("cold", "warm", "partial"):
+        if run == "partial":
+            gone = [os.path.basename(p) + "." for p in paths[::3]]
+            for name in os.listdir(pd):
+                if name.startswith(tuple(gone)):
+                    os.remove(os.path.join(pd, name))
+        sketched.clear()
+        out = os.path.join(d, f"{tag}-{run}.bin")
+        argv = ["sketch", "-k", "31"] + flags + [
+            "--cache", "--outprefix", pd, "--binary-output", "--cmpout",
+            out] + (["-o", out + ".sig"] if sig else []) + paths
+        wall, spans, launches = _run_cli(f"{tag} {run}", argv,
+                                         CACHE_N, counters)
+        walls.append(wall)
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+        assert sketched == ({"cold": [paths], "warm": [],
+                             "partial": [paths[::3]]}[run]), \
+            (tag, run, [len(g) for g in sketched])
+        data = open(out, "rb").read() + (
+            open(out + ".sig", "rb").read() if sig else b"")
+        outs.append((data, _cache_files(pd)))
+        route = sorted(k for k in SKETCH_ROUTE_SPANS if k in spans)
+        if run == "warm":
+            assert not route, f"{tag}: the warm run sketched: {route}"
+            assert launches["css"] == launches["weighted_draws"] \
+                == launches["countsketch"] == 0, launches
+        else:
+            assert route, f"{tag}: the {run} run sketched nothing"
+        if "--full-setsketch" in flags and run != "warm":
+            assert launches["css"] >= 1, launches
+        if "-B" in flags and run != "warm":
+            assert launches["weighted_draws"] >= 1, launches
+    assert len(outs[0][1]) >= CACHE_N, (tag, len(outs[0][1]))
+    assert outs[1] == outs[0] and outs[2] == outs[0], \
+        f"{tag}: a warm or partial run changed a byte"
+    # the first genomes' artifacts against a --device cpu run's
+    ncpu = CACHE_CPU_BMH if "-B" in flags else CACHE_CPU
+    cd = os.path.join(d, tag + "-cpu")
+    os.makedirs(cd)
+    t0 = time.perf_counter()
+    assert cli_main(["sketch", "-k", "31"] + flags + [
+        "--cache", "--outprefix", cd, "--device", "cpu"]
+        + paths[:ncpu]) == 0
+    cpu_s = time.perf_counter() - t0
+    cpu_files = _cache_files(cd)
+    assert len(cpu_files) >= ncpu
+    assert all(outs[0][1][f] == b for f, b in cpu_files.items()), tag
+    _say(f"[{tag}] {CACHE_N} genomes: cold {walls[0]:.3f} s, warm "
+         f"{walls[1]:.3f} s (no route ran, no draw launched), a third "
+         f"deleted {walls[2]:.3f} s; every output byte == the cold "
+         f"run's; {len(outs[0][1])} artifacts, those of the first "
+         f"{ncpu} == --device cpu's ({cpu_s:.3f} s)")
+    shutil.rmtree(pd, ignore_errors=True)
+    shutil.rmtree(cd, ignore_errors=True)
+    return dict(walls=walls, launches=total)
 
 
 def phase_jax_golden(name: str):
@@ -4055,6 +4499,8 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 2
     import dashing2_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from dashing2_tpu_torch.ops import countsketch as CS
+    from dashing2_tpu_torch.ops import css as CSS
     from dashing2_tpu_torch.ops import fixedmath as FM
     from dashing2_tpu_torch.ops import gtlt as G
     from dashing2_tpu_torch.ops import int_counts as IC
@@ -4073,7 +4519,8 @@ def main() -> int:
                 "gtlt": G.rect_launches, "int_counts_self": IC.self_launches,
                 "int_counts": IC.rect_launches,
                 "weighted_draws": WD.launches, "omh": OP.launches,
-                "oph_rows": OR.launches}
+                "oph_rows": OR.launches, "css": CSS.launches,
+                "countsketch": CS.launches}
     t_start = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -4133,9 +4580,11 @@ def main() -> int:
             half = _write_list(os.path.join(os.path.dirname(lst), "half.txt"),
                                [ln.strip() for ln in f
                                 if ln.strip()][:HALF_N])
-        fss_runs = {"fss": timed("fss job", phase_fss, half, counters),
-                    "fss-u8-ab": timed("fss-u8-ab job", phase_fss_bytes,
-                                       lists[0], counters)}
+        fss_runs = {"fss": timed("fss job", phase_fss, half, counters)}
+        css_run = timed("css kernel", phase_css_vs_plain,
+                        fss_runs["fss"].pop("css_operands"))
+        fss_runs["fss-u8-ab"] = timed("fss-u8-ab job", phase_fss_bytes,
+                                      lists[0], counters)
         for tag, flags, sig, want, counter, n in PRESKETCHED_JOBS:
             fss_runs[tag] = timed(f"{tag} job", phase_presketched, tag,
                                   flags, sig, want, counter, n, counters)
@@ -4145,7 +4594,10 @@ def main() -> int:
                                  counters),
                   "pmh-knn": timed("pmh-knn job", phase_pmh_knn, half,
                                    counters)}
+        cs_run = timed("countsketch kernel", phase_countsketch_vs_plain,
+                       w_jobs["pmh-c"].pop("streams"))
         _say(f"[wall] weighted phases: {time.perf_counter() - t0:.3f} s")
+        cache_runs = timed("cache jobs", phase_cache, lst, counters)
         t0 = time.perf_counter()
         i_jobs = {"contain": timed("save-kmers and contain jobs",
                                    phase_contain, lst, counters)}
@@ -4218,6 +4670,11 @@ def main() -> int:
     i_runs = [r for key in ("bed", "bigwig", "leafcutter")
               for r in i_jobs[key].values()]
     self_run["launches"] += sum(r["launches"]["gtlt_self"] for r in i_runs)
+    # the cache jobs' comparisons join their kernels' counts
+    for run, key in ((self_run, "gtlt_self"),
+                     (int_self_run, "int_counts_self")):
+        run["launches"] += sum(r["launches"][key]
+                               for r in cache_runs.values())
     # the edit-distance jobs' comparisons join their kernels' counts
     for run, key, tags in ((self_run, "gtlt_self", ("edit-full",
                                                     "edit-whole")),
@@ -4271,7 +4728,8 @@ def main() -> int:
         "replaces": "dashing2_tpu/sketch/weighted.py:115",
         "launches": sum(r["launches"] for r in w_jobs.values())
         + sum(r["launches"]["weighted_draws"] for r in i_runs
-              + list(i_jobs["wsketch"].values()))
+              + list(i_jobs["wsketch"].values())
+              + list(cache_runs.values()))
         + c_runs["byseq-bmh"]["launches"]["weighted_draws"],
         "max_abs_err": wrun["err"],
         "ms": wrun["ms"],
@@ -4311,6 +4769,41 @@ def main() -> int:
         "bound_by": oph_run["bound_by"],
         "library_ms": None,
         "plain_shape": oph_run["plain_shape"],
+    })
+    # the CSetSketch draws: the --full-setsketch job's launches timed,
+    # launches of every job that draws them
+    kernels.append({
+        "name": "css",
+        "route": "cuda",
+        "source": "dashing2_tpu_torch/csrc/css.cu",
+        "replaces": "dashing2_tpu/ops/sketch_kernels.py:622",
+        "launches": sum(r["launches"]["css"] for r in list(
+            fss_runs.values()) + i_runs
+            + list(i_jobs["wsketch"].values())
+            + list(cache_runs.values()))
+        + c_runs["byseq-fss"]["launches"]["css"],
+        "max_abs_err": css_run["err"],
+        "ms": css_run["ms"],
+        "plain_ms": css_run["plain_ms"],
+        "bound_ms": css_run["bound_ms"],
+        "bound_by": css_run["bound_by"],
+        "library_ms": None,
+        "bound_all_draws_ms": css_run["bound_all_ms"],
+        "plain_shape": css_run["plain_shape"],
+    })
+    # the CountSketch: the -P -c job's 8 streams timed, its launches
+    kernels.append({
+        "name": "countsketch",
+        "route": "cuda",
+        "source": "dashing2_tpu_torch/csrc/countsketch.cu",
+        "replaces": "dashing2_tpu/ops/sketch_kernels.py:724",
+        "launches": w_jobs["pmh-c"]["countsketch"],
+        "max_abs_err": cs_run["err"],
+        "ms": cs_run["ms"],
+        "plain_ms": cs_run["plain_ms"],
+        "bound_ms": cs_run["bound_ms"],
+        "bound_by": cs_run["bound_by"],
+        "library_ms": cs_run["library_ms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

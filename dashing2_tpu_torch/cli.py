@@ -18,7 +18,10 @@ subcommands exist, and they run only the slices the port covers:
   (`--normalize-intervals`). `-o` writes the stacked signatures
   (nothing for exact sets), with `-s` the k-mer database
   `<-o>.kmer64` and with `-N` its counts `<-o>.kmercounts.f64` (FASTA
-  one-permutation jobs). With --cmpout, the comparison:
+  one-permutation jobs). `--cache` (`-W`) loads each FASTA item's
+  sketch artifact where it exists and writes it where it does not (in
+  `--outprefix` when given; not with `--parse-by-seq` or `-E`, as in
+  the JAX package). With --cmpout, the comparison:
 * `cmp` (alias `dist`): sketch and compare, or with `--presketched`
   compare stacked signature files (`-o` output, with its .names.txt),
   single sketch caches (.opss, .ss, .bmh, .pmh) and exact k-mer set
@@ -332,8 +335,7 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 # options outside the slice: dest -> the flag a user typed
 _OUTSIDE_SLICE = {
-    "outprefix": "--outprefix", "mmer_seq": "--seq",
-    "hpcompress": "--hp-compress", "cache": "--cache",
+    "mmer_seq": "--seq", "hpcompress": "--hp-compress",
     "entmin": "--entmin", "warm_only": "--warm-only",
 }
 # options the port runs only in the edit-distance space (-E)

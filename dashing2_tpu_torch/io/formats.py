@@ -9,8 +9,9 @@ CSR:
   src/fastxsketch.cpp:236-244; reader python/parse.py).
   Companion <out>.names.txt: "#Name\tCardinality" + per-item lines
   (src/sketch_core.cpp:146-161).
-* Single sketch cache (.opss, .ss, .bmh, .pmh): f64 cardinality, then
-  registers (src/fastxsketch.cpp:461-489).
+* Single sketch cache (.opss, .ss, .bmh, .pmh; `--cache`): f64
+  cardinality, then registers (f64, or the quantised width)
+  (src/fastxsketch.cpp:461-489).
 * K-mer database (--save-kmers, .kmer64): u32 dtype|canon<<8, u32
   sketchsize, u32 k, u32 w, u64 seed, then u64 kmers
   (src/fastxsketch.cpp:245-264).
@@ -93,11 +94,21 @@ def read_names_file(path: str) -> Tuple[List[str], np.ndarray]:
     return names, np.asarray(cards)
 
 
-def read_sketch_cache(path: str) -> Tuple[float, np.ndarray]:
-    """(cardinality, f64 registers) of a single sketch cache."""
+def write_sketch_cache(path: str, cardinality: float, registers: np.ndarray
+                       ) -> None:
+    """A single sketch cache: the f64 cardinality, then the registers as
+    they are stored (f64, or the u8/u16/u32/u64 of a quantised sketch)."""
+    with open(path, "wb") as f:
+        np.array([cardinality], dtype=np.float64).tofile(f)
+        np.ascontiguousarray(registers).tofile(f)
+
+
+def read_sketch_cache(path: str, dtype=np.float64
+                      ) -> Tuple[float, np.ndarray]:
+    """(cardinality, registers of `dtype`) of a single sketch cache."""
     dat = np.fromfile(path, dtype=np.uint8)
     card = float(dat[:8].view(np.float64)[0])
-    return card, dat[8:].view(np.float64)
+    return card, dat[8:].view(dtype)
 
 
 def write_knn_csr_fileobj(f, indptr: np.ndarray, indices: np.ndarray,

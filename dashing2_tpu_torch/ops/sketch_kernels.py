@@ -8,10 +8,9 @@ update itself runs in the port's copy of the JAX package's C++ engine
 (oph_sketch.cpp); a device sketch kernel is ROADMAP Queue 1 item 7.
 
 The CSetSketch pass (`_css_pass`, jitted XLA in the JAX package, not
-Pallas) is torch here: on a CUDA tensor it runs on the card, on a CPU
-tensor the same code runs on the CPU. `css_sketch_many` batches items
-(each keeps its own threshold, cap and top-k); a fused CUDA kernel for
-the pass is ROADMAP Queue 2 follow-up work.
+Pallas) is ops/css.py: csrc/css.cu on a CUDA tensor, its plain PyTorch
+version on a CPU tensor. `css_sketch_many` batches items (each keeps its
+own threshold, cap and top-k) and orders each item's rows on `device`.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import hashing as H
+from . import css as CSS
 from . import hashes as DH
 from .fixedmath import log64
 
@@ -127,7 +127,7 @@ def oph_densify_rows(sigs: np.ndarray, kmers: np.ndarray | None = None,
 # CSetSketch
 # ----------------------------------------------------------------------
 
-_GOLD = 0x9E3779B97F4A7C15  # 2^64 / golden ratio, register-stride salt
+_GOLD = CSS.GOLD  # 2^64 / golden ratio, register-stride salt
 
 
 def _css_x1(hashed: torch.Tensor, m: int):
@@ -145,48 +145,10 @@ def _css_x1(hashed: torch.Tensor, m: int):
     return x1, rv
 
 
-def _css_pass(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
-              threshold: torch.Tensor, m: int, return_ids: bool = False):
-    """One filtered CSetSketch pass over B items at once. sx1, srv:
-    (B, K) x1 and rv of each item's hashes in ascending x1 (stable: the
-    lower index first among equal x1, as lax.top_k orders -x1); k (B,)
-    the rows each item takes (its cap, <= K); threshold (B,) f64.
-    Returns (registers (B, m) f64, tcut (B,) f64), and with return_ids
-    the row of each register's winner ((B, m) int64, the first of equal
-    minima, as the JAX pass's argmin takes it).
-
-    Per item, as the JAX `_css_pass` computes it: of its k smallest x1,
-    the rows with x1 <= threshold are kept; tcut is the smallest x1 of
-    the k that is not kept (+inf if all k are kept; rows beyond k do not
-    count, as in the JAX function); each kept row d draws
-    e[d, j] = x1[d] - log(u(wanghash(rv[d] ^ j * GOLD))) for every
-    register j, except e[d, idx0] = x1[d] with idx0 = wyhash(rv[d]) mod
-    m; a register is the least e of the kept rows (+inf if none). The
-    result is exact iff max(registers) <= tcut (css_sketch_many checks)."""
-    K = sx1.shape[1]
-    sel = torch.arange(K, device=sx1.device)[None, :] < k[:, None]
-    keep = sel & (sx1 <= threshold[:, None])
-    tcut = torch.where(keep | ~sel, torch.inf, sx1).amin(1)
-    _, draw = DH.wyhash64_step(srv)
-    idx0 = DH.u64_mod(draw, m)
-    j = torch.arange(m, dtype=torch.int64, device=sx1.device) \
-        * DH.s64(_GOLD)
-    e = srv[:, :, None] ^ j
-    DH.wanghash_(e)
-    u = DH.u64_to_unit_float(e)
-    del e
-    # e = x1 - log(u), as -log(u) + x1 (the same IEEE subtraction)
-    e = log64(u.clamp_(min=1e-300)).neg_().add_(sx1[:, :, None])
-    del u
-    e.scatter_(2, idx0[:, :, None], sx1[:, :, None])
-    e.masked_fill_(~keep[:, :, None], torch.inf)
-    if return_ids:
-        return e.amin(1), tcut, e.argmin(1)
-    return e.amin(1), tcut
-
-
-# one pass's (items, rows, registers) f64 elements; a few such tensors
-# are alive at once
+# one pass's elements: on the CPU the plain pass's (items, rows,
+# registers) f64 draws, of which a few such tensors are alive at once; on
+# the card the kernel's (items, rows + registers), rows in and registers
+# out (the item's hashes and their sort, of its whole width, beside them)
 CSS_BATCH_ELEMENTS = 1 << 27
 
 
@@ -204,7 +166,9 @@ def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cuda",
     passes (64 passes at most). Here the items run in batches on
     `device`, each item keeping its own t, cap and top-k; a pass re-runs
     only the items it left unconverged. A pass draws at most `budget`
-    f64 values (one item at least). An empty item's registers are +inf
+    f64 values (one item at least); on the card, where the kernel draws
+    without holding the draws, a batch and a pass hold at most `budget`
+    (items x (hashes + m)) elements. An empty item's registers are +inf
     after no pass."""
     dev = torch.device(device)
     n_items = len(items)
@@ -215,9 +179,12 @@ def css_sketch_many(items: Sequence[np.ndarray], m: int, device="cuda",
     sizes = np.array([len(x) for x in items], np.int64)
     order = [i for i in np.argsort(sizes, kind="stable") if sizes[i]]
     # items of similar size share a batch, which the first pass's rows
-    # (at most cap an item) keep within the budget
-    first = np.minimum(sizes[order], cap)
-    for grp in _budget_groups(np.arange(len(order)), first, m, budget):
+    # (at most cap an item; on the card the item's hashes) keep within
+    # the budget
+    kernel = dev.type == "cuda"
+    width = sizes[order] if kernel else np.minimum(sizes[order], cap)
+    for grp in _budget_groups(np.arange(len(order)), width, m, budget,
+                              kernel):
         batch = [order[i] for i in grp]
         _css_batch([items[i] for i in batch], m, cap, dev, budget,
                    regs, passes, np.asarray(batch), ids)
@@ -254,13 +221,15 @@ def _css_batch(items: List[np.ndarray], m: int, cap: int, dev, budget: int,
         # the pass's rows: the most any unconverged item takes, in
         # groups that keep each pass within the budget
         got_r, got_c, got_w = [], [], []
-        for grp in _budget_groups(todo, kcap, m, budget):
+        for grp in _budget_groups(todo, kcap, m, budget,
+                                  dev.type == "cuda"):
             K = int(kcap[grp].max())
             sel = torch.from_numpy(grp).to(dev)
-            out = _css_pass(sx1[sel, :K], srv[sel, :K],
-                            torch.from_numpy(kcap[grp]).to(dev),
-                            torch.from_numpy(t[grp]).to(dev), m,
-                            return_ids=ids is not None)
+            out = CSS.css_pass(sx1[sel, :K].contiguous(),
+                               srv[sel, :K].contiguous(),
+                               torch.from_numpy(kcap[grp]).to(dev),
+                               torch.from_numpy(t[grp]).to(dev), m,
+                               return_ids=ids is not None)
             got_r.append(out[0].cpu().numpy())
             got_c.append(out[1].cpu().numpy())
             if ids is not None:
@@ -281,15 +250,17 @@ def _css_batch(items: List[np.ndarray], m: int, cap: int, dev, budget: int,
     raise RuntimeError("css_sketch failed to converge")
 
 
-def _budget_groups(todo: np.ndarray, kcap: np.ndarray, m: int, budget: int):
+def _budget_groups(todo: np.ndarray, kcap: np.ndarray, m: int, budget: int,
+                   kernel: bool = False):
     """Split `todo` (ascending rows) into groups whose (items x rows x m)
-    pass stays within `budget`, one item at least."""
+    pass (with `kernel`, the card's (items x (rows + m))) stays within
+    `budget`, one item at least."""
     s = 0
     while s < len(todo):
         b, top = 1, int(kcap[todo[s]])
         while s + b < len(todo):
             wider = max(top, int(kcap[todo[s + b]]))
-            if (b + 1) * wider * m > budget:
+            if (b + 1) * (wider + m if kernel else wider * m) > budget:
                 break
             b, top = b + 1, wider
         yield todo[s:s + b]

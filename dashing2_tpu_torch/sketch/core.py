@@ -26,12 +26,12 @@ Port of the routes of dashing2_tpu/sketch/core.py behind a
   reads each item (a group, or a record with --parse-by-seq; the native
   reader, or the Python parser for .xz/.bz2), `_native_hash_codes_list`
   hashes it (oph_sketch.cpp `hash_rows_native`, with the filterset's
-  probe), np.unique counts it (a CountSketch with -c in the weighted
-  spaces; in a pool with -p > 1); then
+  probe), np.unique counts it (in a pool with -p > 1; with -c in the
+  weighted spaces a CountSketch, csrc/countsketch.cu on the card); then
   ops/sketch_kernels.py::css_sketch_many draws the CSetSketch
-  registers on the card, sketch/weighted.py the weighted ones
-  (csrc/weighted_draws.cu), or the distinct hashes (and their counts)
-  are the result;
+  registers (csrc/css.cu on the card), sketch/weighted.py the weighted
+  ones (csrc/weighted_draws.cu), or the distinct hashes (and their
+  counts) are the result;
 * the edit-distance space (-E, with or without --parse-by-seq):
   `_load_raw` reads each record with the Python parser, keeps its raw
   bytes in an io/seqstore.py SequenceStore (the JAX `_load_items`), and
@@ -145,8 +145,6 @@ def _unsupported(opts: Dashing2Options) -> List[str]:
     if opts.entmin and opts.sspace != SketchSpace.SPACE_EDIT_DISTANCE:
         why.append("--entmin, whose entropy scores go through a libm log2 "
                    "that no engine reproduces bit for bit (item 7)")
-    if opts.cache_sketches:
-        why.append("--cache (item 6)")
     return why
 
 
@@ -177,13 +175,25 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
     --count-threshold > 1 and -B/-P the counting route, whose CSetSketch
     or weighted draws run on `device` (a CUDA request without a card
     raises; nothing falls back). --set and --countdict count on the host
-    and touch no device. -E draws OrderMinHash registers on `device`."""
+    and touch no device. -E draws OrderMinHash registers on `device`.
+    With --cache (outside --parse-by-seq and -E, as in the JAX package)
+    each item's artifact is loaded where it exists and written where it
+    does not (`_sketch_cached`)."""
     why = _unsupported(opts)
     if why:
         raise NotImplementedError(
             "not ported: " + ", ".join(why) + " (ROADMAP Queue 1)")
     if not any(g.split() for g in groups):
         raise ValueError("no input files")
+    if opts.cache_sketches and not opts.parse_by_seq \
+            and opts.sspace != SketchSpace.SPACE_EDIT_DISTANCE:
+        return _sketch_cached(opts, groups, device)
+    return _sketch_routes(opts, groups, device)
+
+
+def _sketch_routes(opts: Dashing2Options, groups: Sequence[str], device
+                   ) -> SketchingResult:
+    """`sketch_fastx` without the cache: the route of the job."""
     if opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
         return _sketch_edit(opts, groups, device)
     if _exact_sets(opts):
@@ -571,22 +581,22 @@ def _native_hash_codes_list(lib, codes_list, hkw: dict,
     return np.concatenate(parts)
 
 
-def _count_one(opts: Dashing2Options, hv: np.ndarray
+def _count_one(opts: Dashing2Options, hv: np.ndarray,
+               device=torch.device("cpu")
                ) -> Tuple[np.ndarray, np.ndarray]:
     """The distinct hashes (sorted u64) and their counts (f64), those seen
     fewer than --count-threshold times dropped. With -c (--countsketch-size)
-    in a weighted space, a CountSketch's (enums.h:44-57, counter.h) instead:
-    bucket h % c gains +1 where h is odd and -1 where it is even; the
-    items are the non-zero buckets' indices, their weights |bucket| (the
-    JAX CPU route's host CountSketch; its sums of +-1 are exact in f64 in
-    any order)."""
+    in a weighted space, a CountSketch's (enums.h:44-57, counter.h) instead,
+    on `device` (ops/countsketch.py: csrc/countsketch.cu on the card, as
+    the JAX package sends it to its device): bucket h % c gains +1 where h
+    is odd and -1 where it is even; the items are the non-zero buckets'
+    indices, their weights |bucket| (integer sums, exact in any order)."""
     t0 = time.perf_counter()
     if opts.cssize > 0 and opts.sspace in _WEIGHTED:
-        idx = (hv % np.uint64(opts.cssize)).astype(np.int64)
-        sign = np.where((hv & np.uint64(1)).astype(bool), 1.0, -1.0)
-        buckets = np.bincount(idx, weights=sign, minlength=opts.cssize)
-        nz = np.nonzero(buckets)[0]
-        u, c = nz.astype(np.uint64), np.abs(buckets[nz])
+        from ..ops import countsketch as CS
+        ids, sums = CS.countsketch_counts(
+            torch.from_numpy(hv.view(np.int64)).to(device), opts.cssize)
+        u, c = ids.cpu().numpy().view(np.uint64), sums.cpu().numpy()
     else:
         u, c = np.unique(hv, return_counts=True)
     if opts.count_threshold > 1:
@@ -618,11 +628,14 @@ def in_order(calls: Iterable[Callable[[], T]], nthreads: int,
 
 
 def _count_stream(opts: Dashing2Options, groups: Sequence[str],
-                  names: Optional[List[str]] = None
+                  names: Optional[List[str]] = None,
+                  device=torch.device("cpu")
                   ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Each item's distinct hashes and their counts: native hashing item
     by item (with the filterset's probe), counting in a pool of -p
-    threads when -p > 1. The items' names are appended to `names`."""
+    threads when -p > 1 (a CountSketch on `device`; the pool's launches
+    share the device's current stream). The items' names are appended to
+    `names`."""
     from ..native import load_oph_lib
     lib = load_oph_lib()
     hkw = _hash_kwargs(opts, 1 << 15)
@@ -634,7 +647,7 @@ def _count_stream(opts: Dashing2Options, groups: Sequence[str],
                 names.append(item.name)
             with span("sketch/hash"):
                 hv = _native_hash_codes_list(lib, item.codes, hkw, fs)
-            yield functools.partial(_count_one, opts, hv)
+            yield functools.partial(_count_one, opts, hv, device)
     n = 2 if opts.parse_by_seq else len(groups)   # more than one item?
     return list(in_order(calls(), opts.nthreads, n))
 
@@ -719,8 +732,8 @@ def _sketch_weighted(opts: Dashing2Options, groups: Sequence[str],
     fn = (bagminhash_many if opts.sspace == SketchSpace.SPACE_MULTISET
           else probminhash_many)
     names: List[str] = []
-    counted = _count_stream(opts, groups, names)
     dev = resolve(device)
+    counted = _count_stream(opts, groups, names, dev)
     with span("sketch/weighted"):
         sigs, cards = fn([u for u, _ in counted], [c for _, c in counted],
                          opts.sketchsize, dev)
@@ -782,4 +795,180 @@ def _sketch_edit(opts: Dashing2Options, groups: Sequence[str],
     res.signatures = sigs.view(np.float64)
     res.cardinalities = np.array([len(c) for c in codes], np.float64)
     res.sequences = store
+    return res
+
+
+# ----------------------------------------------------------------------
+# --cache: per-item artifacts (checkpoint/restart)
+# ----------------------------------------------------------------------
+
+# register dtype of a sketch-compressed FullSetSketch cache, by --fastcmp
+_CACHE_DTYPES = {0.5: np.uint8, 1.0: np.uint8, 2.0: np.uint16,
+                 4.0: np.uint32, 8.0: np.uint64}
+
+
+def _counts_dest(keys_dest: str) -> str:
+    """<keys path minus its suffix>.kmercounts.f64: the reference's
+    destkmercounts naming (fastxsketch.cpp:314-318)."""
+    return keys_dest[:keys_dest.rfind(".")] + ".kmercounts.f64"
+
+
+def _write_kmer_set(keys: np.ndarray, path: str, card: float) -> None:
+    """An exact set's cache (fastxsketch.cpp:467-489): the f64
+    cardinality, then the u64 keys."""
+    with open(path, "wb") as f:
+        np.float64(card).tofile(f)
+        np.ascontiguousarray(keys, np.uint64).tofile(f)
+
+
+def _read_kmer_set(opts: Dashing2Options, path: str,
+                   beside: Sequence[str] = ()):
+    """(cardinality, u64 keys) of an exact set's cache. The JAX package
+    streams one from its file (io/diskset.py) where it and the files
+    `beside` it hold more than --sig-ram-limit bytes, which is not
+    ported."""
+    if sum(os.path.getsize(p) for p in (path, *beside)) \
+            > opts.sig_ram_limit:
+        raise NotImplementedError(
+            f"{path}: exact-set caches larger than --sig-ram-limit are "
+            "streamed from their files in the JAX package, which is not "
+            "ported (ROADMAP Queue 1 item 8)")
+    card = float(np.fromfile(path, np.float64, count=1)[0])
+    return card, np.fromfile(path, dtype=np.uint64, offset=8)
+
+
+def _load_cached(opts: Dashing2Options, group: str, dest: str, sig_dt,
+                 want_kmers: bool):
+    """(cardinality, payload) of the item's artifact, or None for a miss
+    (a missing, short or unreadable file): the registers with their
+    `.kmers.u64`/`.kmercounts.f32` siblings, an exact set's keys, or a
+    count dictionary's keys and `.kmercounts.f64` counts."""
+    from ..io import formats
+    from ..io.cache import makedest
+    kres = opts.kmer_result
+    try:
+        if kres == KmerSketchResultType.FULL_MMER_COUNTDICT:
+            kpath = makedest(opts, group, iskmer=True)
+            cpath = _counts_dest(kpath)
+            if not (os.path.isfile(kpath) and os.path.isfile(cpath)):
+                return None
+            card, keys = _read_kmer_set(opts, kpath, (cpath,))
+            counts = np.fromfile(cpath, dtype=np.float64)
+            return (card, (keys, counts)) if len(keys) == len(counts) \
+                else None
+        if not os.path.isfile(dest):
+            return None
+        if kres == KmerSketchResultType.FULL_MMER_SET:
+            return _read_kmer_set(opts, dest)
+        card, regs = formats.read_sketch_cache(dest, dtype=sig_dt)
+        m = opts.sketchsize
+        kk = cc = None
+        if want_kmers and opts.save_kmers:
+            kk = np.fromfile(dest + ".kmers.u64", dtype=np.uint64)
+        if want_kmers and opts.save_kmercounts:
+            cc = np.fromfile(dest + ".kmercounts.f32", dtype=np.float32)
+        if len(regs) != m or any(x is not None and len(x) != m
+                                 for x in (kk, cc)):
+            return None
+        return card, (regs, kk, cc)
+    except (OSError, ValueError):
+        return None
+
+
+def _sketch_cached(opts: Dashing2Options, groups: Sequence[str], device
+                   ) -> SketchingResult:
+    """--cache (the JAX `_sketch_fastx_cached`,
+    dashing2_tpu/sketch/core.py:518-696; fastxsketch.cpp:313-380,461-524):
+    probe every item's artifact (io/cache.py::makedest, under --outprefix
+    when given) and load the hits; sketch the misses through the routes
+    above; assemble the result in input order; write each miss's
+    artifact (a write that fails is skipped). Artifacts: the registers
+    (.opss/.ss/.bmh/.pmh: f64, or the quantised width of a
+    sketch-compressed FullSetSketch), with -s/-N in set space their
+    `.kmers.u64`/`.kmercounts.f32`, an exact set's `.kmerset64`, a count
+    dictionary's keys and `.kmercounts.f64`."""
+    from ..io import formats
+    from ..io.cache import makedest
+    kres = opts.kmer_result
+    exact = _exact_sets(opts)
+    m, n = opts.sketchsize, len(groups)
+    sig_dt = (_CACHE_DTYPES[opts.fd_level] if opts.sketch_compressed_set
+              else np.float64)
+    # -s/-N artifacts ride the cache of one-permutation set sketches (the
+    # other spaces' routes keep no k-mers); a register file without them
+    # is a miss
+    want_kmers = (kres == KmerSketchResultType.ONE_PERM
+                  and opts.sspace == SketchSpace.SPACE_SET
+                  and (opts.save_kmers or opts.save_kmercounts))
+    dests = [makedest(opts, g) for g in groups]
+    with span("sketch/cache-load"):
+        loaded = {}
+        for i, (g, dest) in enumerate(zip(groups, dests)):
+            got = _load_cached(opts, g, dest, sig_dt, want_kmers)
+            if got is not None:
+                loaded[i] = got
+    pending = [g for i, g in enumerate(groups) if i not in loaded]
+    sub = _sketch_routes(opts, pending, device) if pending else None
+    res = SketchingResult(names=list(groups))
+    res.cardinalities = np.zeros(n, np.float64)
+    if exact:
+        res.kmer_sets = [None] * n
+        if kres == KmerSketchResultType.FULL_MMER_COUNTDICT:
+            res.kmer_set_counts = [None] * n
+    else:
+        res.signatures = np.zeros((n, m), sig_dt)
+        if want_kmers and opts.save_kmers:
+            res.kmers = np.zeros((n, m), np.uint64)
+        if want_kmers and opts.save_kmercounts:
+            res.kmercounts = np.zeros((n, m), np.float32)
+    si = 0
+    t0 = time.perf_counter()
+    for i in range(n):
+        if i in loaded:
+            res.cardinalities[i], payload = loaded[i]
+            if kres == KmerSketchResultType.FULL_MMER_COUNTDICT:
+                res.kmer_sets[i], res.kmer_set_counts[i] = payload
+            elif exact:
+                res.kmer_sets[i] = payload
+            else:
+                regs, kk, cc = payload
+                res.signatures[i] = regs
+                if kk is not None:
+                    res.kmers[i] = kk
+                if cc is not None:
+                    res.kmercounts[i] = cc
+            continue
+        res.cardinalities[i] = sub.cardinalities[si]
+        if exact:
+            res.kmer_sets[i] = sub.kmer_sets[si]
+            if res.kmer_set_counts is not None:
+                res.kmer_set_counts[i] = sub.kmer_set_counts[si]
+        else:
+            res.signatures[i] = sub.signatures[si]
+            if res.kmers is not None:
+                res.kmers[i] = sub.kmers[si]
+            if res.kmercounts is not None:
+                res.kmercounts[i] = sub.kmercounts[si]
+        si += 1
+        dest = dests[i]
+        try:
+            if kres == KmerSketchResultType.FULL_MMER_COUNTDICT:
+                kdest = makedest(opts, groups[i], iskmer=True)
+                _write_kmer_set(res.kmer_sets[i], kdest,
+                                res.cardinalities[i])
+                res.kmer_set_counts[i].astype(np.float64).tofile(
+                    _counts_dest(kdest))
+            elif exact:
+                _write_kmer_set(res.kmer_sets[i], dest, res.cardinalities[i])
+            else:
+                formats.write_sketch_cache(dest, res.cardinalities[i],
+                                           res.signatures[i])
+                if res.kmers is not None:
+                    res.kmers[i].tofile(dest + ".kmers.u64")
+                if res.kmercounts is not None:
+                    res.kmercounts[i].tofile(dest + ".kmercounts.f32")
+        except OSError:
+            pass
+    if pending:
+        add_span("sketch/cache-write", time.perf_counter() - t0)
     return res

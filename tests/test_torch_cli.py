@@ -145,7 +145,8 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 
 # options the port has run since the chunked route (ROADMAP item 7):
 # their cases below hold the port to the JAX CLI instead of a refusal
-RUN_NOW = ("--filterset", "--by-chrom", "--parse-by-seq")
+RUN_NOW = ("--filterset", "--by-chrom", "--parse-by-seq", "--outprefix",
+           "--cache")
 
 
 def _run_both(argv, tmp_path, capsys):
@@ -175,15 +176,18 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path,
     """Options outside the slice exit 2 and write nothing. --filterset
     (here a genome of the corpus as the filter FASTA) and --by-chrom
     (with --leafcutter over FASTA inputs, which both CLIs fail to parse
-    alike) run since the chunked route: the JAX CLI's exit code, bytes
-    and error message."""
+    alike) run since the chunked route, --outprefix and --cache (the
+    port's cold run beside the inputs, then the JAX CLI's warm one)
+    since the cache: the JAX CLI's exit code, bytes and error
+    message."""
     lst, paths = corpus
     if any(flag in extra for flag in RUN_NOW):
         argv = NORTH_STAR + [paths[0] if a == "fs.txt" else a
                              for a in extra] + ["-F", lst]
         port, jax = _run_both(argv, tmp_path, capsys)
         assert port == jax
-        assert extra[0] != "--filterset" or (port[0] == 0 and port[1])
+        assert extra[0] not in ("--filterset", "--cache") \
+            or (port[0] == 0 and port[1])
         return
     with pytest.raises(SystemExit) as e:
         cli.main(NORTH_STAR + extra + ["--cmpout", str(tmp_path / "o"),

@@ -1322,3 +1322,130 @@ def test_chunked_cli_on_card_equals_cpu(card, tmp_path, flags):
                         + [fa, fa, "--device", dev]) == 0
         outs.append(out.read_bytes() + sig.read_bytes())
     assert outs[0] == outs[1] and outs[0]
+
+
+def _css_rows(m: int, seed: int, card):
+    """(sx1, srv, k, threshold) on the card: six items as css_sketch_many
+    orders them (x1 ascending, +inf past an item's hashes), with equal
+    rows planted (equal draws), caps below the width, thresholds that
+    keep every row, cut inside the rows or keep none, and one item of
+    one row."""
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+    rng = np.random.default_rng(seed)
+    width = 1500
+    sx1 = torch.full((6, width), torch.inf, dtype=torch.float64)
+    srv = torch.zeros((6, width), dtype=torch.int64)
+    for i, n in enumerate((width, 1400, 900, 1200, 1, 700)):
+        h = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        h[7:30] = h[0]
+        x1, rv = SK._css_x1(torch.from_numpy(h.view(np.int64)), m)
+        s, perm = torch.sort(x1, stable=True)
+        sx1[i, :n], srv[i, :n] = s, rv[perm]
+    k = torch.tensor([width, 1400, 300, 1000, 1, 700])
+    base = (np.log(m) + 8.0) / width
+    t = torch.tensor([1e300, base, base / 4.0, float(sx1[3, 511]),
+                      1e300, float(sx1[5, 0]) / 2.0], dtype=torch.float64)
+    return [x.to(card) for x in (sx1, srv, k, t)]
+
+
+@pytest.mark.parametrize("m", [1, 7, 64, 127, 128, 130, 1024])
+def test_css_kernel_matches_plain(card, m):
+    """csrc/css.cu against its plain version and the early-exit walk on
+    the card: registers, cutoffs and winners bit for bit; one launch."""
+    from dashing2_tpu_torch.ops import css as CSS
+    args = _css_rows(m, m, card)
+    before = CSS.launches.launches
+    got = CSS.css_pass(*args, m, return_ids=True)
+    torch.cuda.synchronize()
+    assert CSS.launches.launches == before + 1
+    want = CSS.css_pass_plain(*args, m, return_ids=True)
+    walk = CSS.css_walk_plain(*args, m)
+    for g, w, v in zip(got, want, walk):
+        assert torch.equal(g.view(torch.int64) if g.is_floating_point()
+                           else g, w.view(torch.int64)
+                           if w.is_floating_point() else w)
+        assert torch.equal(w, v)
+    regs, tcut = CSS.css_pass(*args, m)
+    assert torch.equal(regs, got[0]) and torch.equal(tcut, got[1])
+    cpu = CSS.css_pass(*[a.cpu() for a in args], m, return_ids=True)
+    for g, c in zip(got, cpu):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_css_sketch_many_launches_the_kernel(card):
+    """css_sketch_many on the card goes through csrc/css.cu (one launch a
+    pass), with the CPU's registers, passes and winners."""
+    from dashing2_tpu_torch.ops import css as CSS
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+    rng = np.random.default_rng(3)
+    items = [rng.integers(0, 1 << 64, n, dtype=np.uint64)
+             for n in (1, 40, 7000, 30000)]
+    before = CSS.launches.launches
+    got = SK.css_sketch_many(items, 256, card, return_ids=True)
+    assert CSS.launches.launches > before
+    want = SK.css_sketch_many(items, 256, "cpu", return_ids=True)
+    np.testing.assert_array_equal(got[0].view(np.int64),
+                                  want[0].view(np.int64))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("cssize", [1, 7, 1 << 20])
+def test_countsketch_kernel_matches_plain(card, cssize):
+    """csrc/countsketch.cu against its plain version: every bucket, then
+    the compacted ids and sums, exactly; one launch."""
+    from dashing2_tpu_torch.ops import countsketch as CS
+    rng = np.random.default_rng(cssize)
+    hv = rng.integers(0, 1 << 64, 300000, dtype=np.uint64)
+    hv[:50000] = hv[50000:100000] ^ np.uint64(1)
+    t = torch.from_numpy(hv.view(np.int64)).to(card)
+    before = CS.launches.launches
+    got = CS.countsketch_buckets(t, cssize)
+    torch.cuda.synchronize()
+    assert CS.launches.launches == before + 1 and got.dtype == torch.int32
+    want = CS.countsketch_buckets_plain(t, cssize)
+    assert torch.equal(got.to(torch.int64), want)
+    ids, sums = CS.countsketch_counts(t, cssize)
+    cids, csums = CS.countsketch_counts(t.cpu(), cssize)
+    assert torch.equal(ids.cpu(), cids) and torch.equal(sums.cpu(), csums)
+    empty = CS.countsketch_buckets(t[:0], cssize)
+    assert not empty.any()
+
+
+def test_cache_cli_on_card_equals_cpu(card, tmp_path):
+    """`--cache --outprefix` on the card: the cold run writes the CPU
+    run's artifacts and bytes (the FullSetSketch registers from
+    csrc/css.cu, the -P -c buckets from csrc/countsketch.cu), and a warm
+    run launches neither kernel."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import write_corpus
+    from dashing2_tpu_torch.ops import countsketch as CS
+    from dashing2_tpu_torch.ops import css as CSS
+    paths = write_corpus(str(tmp_path / "fa"), seed=12, n_ancestors=3,
+                         n_mutants=4, length=3000)
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    for tag, flags in (("fss", ["--full-setsketch"]),
+                       ("pmh", ["-P", "-c", "4096"]),
+                       ("set", ["--set"])):
+        outs, files = [], []
+        for dev in ("cuda", "cpu", "cuda"):
+            d = tmp_path / f"{tag}-{dev}"
+            d.mkdir(exist_ok=True)
+            out = tmp_path / f"{tag}-{dev}.bin"
+            CSS.launches.reset_launches()
+            CS.launches.reset_launches()
+            assert cli.main(["sketch", "-k", "21", "-S", "128"] + flags + [
+                "--cache", "--outprefix", str(d), "--binary-output",
+                "--cmpout", str(out), "-F", str(lst), "--device",
+                dev]) == 0
+            outs.append(out.read_bytes())
+            files.append({f: (d / f).read_bytes()
+                          for f in sorted(os.listdir(d))})
+            if dev == "cuda" and len(outs) == 1:
+                assert CSS.launches.launches > 0 or tag != "fss"
+                assert CS.launches.launches > 0 or tag != "pmh"
+        # the third run is warm: nothing drawn
+        assert CSS.launches.launches == CS.launches.launches == 0
+        assert outs[0] == outs[1] == outs[2], tag
+        assert files[0] == files[1] == files[2] and files[0], tag

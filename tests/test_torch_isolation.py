@@ -32,6 +32,8 @@ import dashing2_tpu_torch.ops.weighted_draws
 import dashing2_tpu_torch.ops.omh, dashing2_tpu_torch.sketch.omh
 import dashing2_tpu_torch.cmp.editdist, dashing2_tpu_torch.io.seqstore
 import dashing2_tpu_torch.ops.oph_rows, dashing2_tpu_torch.ops.kmers
+import dashing2_tpu_torch.ops.css, dashing2_tpu_torch.ops.countsketch
+import dashing2_tpu_torch.io.cache
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dashing2_tpu."))
              or m == "dashing2_tpu")
@@ -80,11 +82,12 @@ def test_full_register_job_on_cuda_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("job", ["bed", "wsketch", "contain", "edit",
-                                 "byseq", "xz"])
+                                 "byseq", "xz", "cache", "countsketch"])
 def test_new_subcommands_on_cuda_fail_without_a_card(tmp_path, job):
-    """`sketch --bed -B`, `wsketch`, `contain`, `sketch -E` and the
-    chunked route (`--parse-by-seq`, an .xz input) with the default
-    --device cuda exit non-zero without a card and write nothing."""
+    """`sketch --bed -B`, `wsketch`, `contain`, `sketch -E`, the chunked
+    route (`--parse-by-seq`, an .xz input), `--full-setsketch --cache`
+    and `-P -c` with the default --device cuda exit non-zero without a
+    card and write nothing (no cache file either)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     (tmp_path / "a.bed").write_text("chr1\t0\t100\n")
@@ -103,13 +106,18 @@ def test_new_subcommands_on_cuda_fail_without_a_card(tmp_path, job):
             "byseq": ["sketch", "--parse-by-seq", "-k", "9", "--cmpout",
                       "out", "a.fa"],
             "xz": ["sketch", "-k", "9", "-o", "out", "a.fa.xz",
-                   "a.fa"]}[job]
+                   "a.fa"],
+            "cache": ["sketch", "-k", "9", "--full-setsketch", "--cache",
+                      "--outprefix", ".", "-o", "out", "a.fa", "a.fa"],
+            "countsketch": ["sketch", "-k", "9", "-P", "-c", "64", "-o",
+                            "out", "a.fa", "a.fa"]}[job]
     r = subprocess.run([sys.executable, "-m", "dashing2_tpu_torch"] + argv,
                        cwd=str(tmp_path), env=_env(), capture_output=True,
                        text=True, timeout=120)
     assert r.returncode != 0
     assert "no CUDA card" in r.stderr
-    assert not [f for f in os.listdir(tmp_path) if f.startswith("out")]
+    assert not [f for f in os.listdir(tmp_path)
+                if f.startswith("out") or ".k9." in f]
 
 
 def _names_jax_path(value: str) -> bool:

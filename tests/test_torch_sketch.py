@@ -64,13 +64,14 @@ def test_sketch_matches_jax(groups, cfg, native_files, monkeypatch):
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SET, use128=True),
 ])
 def test_configs_outside_the_file_driver_raise(groups, opts):
-    """--entmin, --cache, --seq and u128 exact sets raise, naming their
-    ROADMAP item. The rest run since the chunked route and equal the
-    JAX package's: --parse-by-seq (one item a record) and --by-chrom on
-    the chunked route, -E (its own route), --filterset (here the first
-    genome as the filter FASTA) on the file driver."""
+    """--entmin, --seq and u128 exact sets raise, naming their ROADMAP
+    item. The rest run and equal the JAX package's: --parse-by-seq (one
+    item a record) and --by-chrom on the chunked route, -E (its own
+    route), --filterset (here the first genome as the filter FASTA) on
+    the file driver, --cache (the port's cold run beside the inputs with
+    -s, then the JAX package's warm one)."""
     runs = ("parse_by_seq" in opts or "by_chrom" in opts
-            or "filterset_path" in opts)
+            or "filterset_path" in opts or "cache_sketches" in opts)
     if not runs:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sketch_fastx(Dashing2Options(k=21, sketchsize=64, **opts),
