@@ -283,7 +283,7 @@ no card, or when the port is not importable:
    the clusters hold every sequence once; over the first 32 sequences
    byte-equal to `--device cpu`;
 35. `-E --parse-by-seq --compute-edit-distance` all pairs over the
-   first 768 sequences, binary: 1000 sampled values equal `myers_one`;
+   first 512 sequences, binary: 1000 sampled values equal `myers_one`;
 36. whole-file `-E` (each genome file one item, about 20,000 positions,
    three pieces) over the first 1024 genomes of the N = 10240 corpus,
    `-o`: one omh and one gtlt_self launch; 8 genomes' written registers
@@ -301,8 +301,9 @@ no card, or when the port is not importable:
    records; then the whole corpus at k = 31, m = 1024 in the chunked
    route's batches: the kernel's registers equal the native engine's
    (`oph_rows_native` over the same rows, merged per record), the
-   kernel timed with CUDA events over the prebuilt batches, with its
-   bound, and the plain version on the first 256 records;
+   kernel timed with CUDA events over the prebuilt batches, with the
+   bound; on the first 256 records the wrapper, the bare C entry
+   on prebuilt arguments and the plain version timed;
 38. `sketch --parse-by-seq -k 31 -S 1024 --fastcmp 0.5 --bbit-sigs -o`
    all pairs over the first 8,192 records: oph_rows and one tri_eq
    launch; every value equal to the CPU epilogue at the plain counts
@@ -384,8 +385,9 @@ slower; the time went to the weighted phases, and the whole stays well
 inside the run's limit on a slower host). Phases 15, 18, 21, 23 and 25
 take the first HALF_N = 5120 genomes, and phase 27 16 BED files instead
 of 32, to make room for phase 35's exact job (about 90 s of host Myers
-distances over 1024 sequences; 768 since phases 37-42): each spends most of its time on host reading,
-expansion, hashing and counting, or on draws, in proportion to its
+distances over 1024 sequences; 768 since phases 37-42, 512 since
+phase 37 also times the bare launch): each spends most of its time on
+host reading, expansion, hashing and counting, or on draws, in proportion to its
 items, and its kernels' launches and shapes are timed elsewhere. The
 comparison's work depends only on N and m; 20 kb genomes still carry
 about 20k distinct 31-mers and 10 kb genomes about 10k (both more than m
@@ -399,7 +401,7 @@ the CPU. Phases 31-36 run at full width (m = 1024) over 8192 sequences;
 their `--device cpu` checks run on cuts (32 sequences, 8 genomes: the
 plain OMH on the CPU takes seconds for a few dozen sequences at m =
 1024, the cut jobs' `cpu` walls say how many), and the exact all-pairs
-job takes the first 768 sequences (294,528 host Myers distances, about
+job takes the first 512 sequences (130,816 host Myers distances, about
 0.17-0.19 ms a pair on 8 threads). Phases 37-42 run at full width over
 the 32,768-record corpus (phase 38 its first 8,192 records, phase 42 its
 first 2,048), 5,120 genomes (phase 40) and 256 genomes (phase 41); the
@@ -3197,11 +3199,11 @@ OMH_PLAIN_SLICE = 64         # sequences the plain version is timed over
 EDIT_SAMPLE = 32             # sequences held to the plain version on the CPU
 EDIT_CUT = 32                # sequences of the --device cpu runs (jobs 3, 4)
 EDIT_EDGES = 1000            # edges held to myers_one
-# the exact all-pairs job: the first EDIT_ALLPAIRS_N sequences (294,528
+# the exact all-pairs job: the first EDIT_ALLPAIRS_N sequences (130,816
 # pairs of host Myers distances, about 0.17-0.19 ms a pair on the 8
-# threads of an H100 machine's host; 1024 sequences until the chunked
-# route's phases needed the room)
-EDIT_ALLPAIRS_N = 768
+# threads of an H100 machine's host; 1024 sequences, then 768, until
+# the chunked route's phases needed the room)
+EDIT_ALLPAIRS_N = 512
 EDIT_WHOLE_N = 1024          # whole-file -E over the N = 10240 genomes
 EDIT_WHOLE_SAMPLE = 8
 EDIT_WHOLE_CUT = 8
@@ -3622,8 +3624,9 @@ CONTIG_GENOMES = 256         # genomes of phase 41, each as 4 contigs
 # 32-bit lane instructions), the maskfn and bucket wanghash chains (30
 # each: every u64 add, xor and shift two lane instructions, a multiply
 # by a small constant three) and the bucket's address and atomic (5).
-# Reckoned from that least form, not from csrc/oph_rows.cu's SASS,
-# which builds each code from its k bases
+# Reckoned from that least form, not from csrc/oph_rows.cu's SASS; kept
+# as it was when the kernel built each code from its k bases, so that
+# the yardstick does not move with the design
 OPH_OPS = 80
 # the per-encoding check: (tag, options); protein over random records
 OPH_CASES = (("dna-k31", dict(k=31)),
@@ -3723,10 +3726,10 @@ def phase_oph_vs_plain(fa: str, recs):
             hashed, valid = OR.hash_chunk_batch(rows, hkw)
             hv = np.unique(hashed[valid].cpu().numpy().view(np.uint64))
             fs = torch.from_numpy(hv[::3].copy().view(np.int64)).cuda()
-        got = OR.oph_rows(rows, rid, len(items), BYSEQ_M, hkw, fs, True)
-        torch.cuda.synchronize()
         want = OR.oph_rows_plain(rows, rid, len(items), BYSEQ_M, hkw, fs,
                                  True)
+        got = OR.oph_rows(rows, rid, len(items), BYSEQ_M, hkw, fs, True)
+        torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]), (tag, "registers")
         assert torch.equal(got[1], want[1]), (tag, "counts")
         _say(f"[oph] {tag}: oph_rows == oph_rows_plain, registers and "
@@ -3765,14 +3768,17 @@ def phase_oph_vs_plain(fa: str, recs):
         np.minimum(kern[i0:i1], g.cpu().numpy().view(np.uint64),
                    out=kern[i0:i1])
     del outs
-    assert np.array_equal(kern, host_regs), "kernel != native engine"
-    empty = int((kern == PC.U64MAX).all(axis=1).sum())
+    assert np.array_equal(kern, host_regs), "!= native engine"
     ms = _cuda_ms(run, 3)
-    # the first BYSEQ_SLICE records: kernel and plain version
+    empty = int((kern == PC.U64MAX).all(axis=1).sum())
+    # the first BYSEQ_SLICE records: the wrapper, the bare C entry on
+    # prebuilt arguments (CUDA events around `lib.oph_rows` only, each
+    # launch into registers filled beforehand), the plain version
     r0, i0 = on_card[0][0], on_card[0][1]
     cut = int(np.searchsorted(batches[0][1], BYSEQ_SLICE))
     part = (r0[:cut].contiguous(), i0[:cut].contiguous())
     slice_ms = _cuda_ms(lambda: OR.oph_rows(*part, BYSEQ_SLICE, m, hkw), 3)
+    bare_ms = _bare_oph_ms(part, BYSEQ_SLICE, m, hkw, 3)
     OR.oph_rows_plain(*part, BYSEQ_SLICE, m, hkw)
     plain_ms = _cuda_ms(lambda: OR.oph_rows_plain(*part, BYSEQ_SLICE, m,
                                                   hkw), 1)
@@ -3785,17 +3791,52 @@ def phase_oph_vs_plain(fa: str, recs):
          f"rows of {rows_np.shape[1]} codes (chunk length {chunk_len}) and "
          f"{len(batches)} batches; kernel registers == oph_rows_native's "
          f"(host, {t_native:.3f} s on {os.cpu_count()} threads; rows built "
-         f"in {t_rows:.3f} s); kernel {ms:.3f} ms over the batches (CUDA "
-         f"events, mean of 3, registers only); bound {bound_ms:.3f} ms "
-         f"({bound_by}: {OPH_OPS} int32 lane instructions a valid position, "
-         f"reckoned), {100 * bound_ms / ms:.1f}% reached; on the first "
-         f"{BYSEQ_SLICE} records kernel {slice_ms:.3f} ms, plain "
+         f"in {t_rows:.3f} s); kernel over the batches (CUDA events, mean "
+         f"of 3, registers only, "
+         f"{'shared' if OR.use_smem_buckets(m) else 'global'} bucket-min): "
+         f"{ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}: {OPH_OPS} "
+         f"int32 lane instructions a valid position, reckoned), "
+         f"{100 * bound_ms / ms:.1f}% reached; on the first {BYSEQ_SLICE} "
+         f"records the wrapper "
+         f"{slice_ms:.3f} ms, the bare launch {bare_ms:.3f} ms, plain "
          f"{plain_ms:.3f} ms (one run); library: none")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=0, library_ms=None,
+                bound_by=bound_by, err=0, library_ms=None, slice_ms=slice_ms,
+                slice_bare_ms=bare_ms,
                 plain_shape=f"the first {BYSEQ_SLICE} of the {n} records ms "
                 f"and bound_ms cover (kernel there {slice_ms:.3f} ms)"), \
         host_regs
+
+
+def _bare_oph_ms(part, n_items: int, m: int, hkw, reps: int) -> float:
+    """Mean device time of the bare C entry `oph_rows` on prebuilt
+    Params, rows and registers: CUDA events around the library calls
+    only (the wrapper's `kernel_params`, register fill and checks are
+    outside the window)."""
+    import ctypes
+    import torch
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    rows, rid = part
+    lib = OR.load_kernel()
+    params = OR.kernel_params(hkw, rows.shape[0], rows.shape[1], m, 0)
+    regs = [torch.full((n_items, m), -1, dtype=torch.int64, device="cuda")
+            for _ in range(reps + 1)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(g):
+        assert lib.oph_rows(ctypes.byref(params), rows.data_ptr(),
+                            rid.data_ptr(), None, g.data_ptr(), None,
+                            stream) == 0
+    launch(regs[-1])                              # warm-up
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for g in regs[:reps]:
+        launch(g)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def phase_byseq_allpairs(recs, counters):
@@ -4768,6 +4809,8 @@ def main() -> int:
         "bound_ms": oph_run["bound_ms"],
         "bound_by": oph_run["bound_by"],
         "library_ms": None,
+        "slice_ms": oph_run["slice_ms"],
+        "slice_bare_ms": oph_run["slice_bare_ms"],
         "plain_shape": oph_run["plain_shape"],
     })
     # the CSetSketch draws: the --full-setsketch job's launches timed,

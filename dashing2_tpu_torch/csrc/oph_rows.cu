@@ -31,26 +31,64 @@
 //   * owned positions only ([own_lo, own_hi): chunk halos), maskfn, the
 //     downsample test, the filterset probe, id = wanghash(h ^ oph_xor).
 //
-// Design: one block of TILE threads a (row, tile of TILE owned
-// positions); a thread a position. Each position's code is built from
-// its span of codes read from device memory (neighbouring threads read
-// neighbouring bytes; the L1 cache serves the overlap). With minimizers
-// the block first scores its TILE + 2 (nwin - 1) positions and the
-// minima and liveness of its TILE + nwin - 1 windows into shared memory
-// (the halo is recomputed by the neighbouring tiles). The bucket-min is
-// an atomicMin on the item's register; the counts are a second launch
-// of the same kernel that adds 1 where a position's id equals its
-// register. What bounds it: integer work, O(k) a position for its code
-// plus three u64 hash chains; the bytes (the codes once, the registers
-// once) are far less. This first kernel builds each code from its span
-// instead of rolling it along the row.
+// Schedule. What bounds the work is integer lane instructions (the
+// codes are 1 byte a position, the registers 8 bytes each), so the
+// design spends as few of them as it can on each position:
+//   * A block of 128 threads takes one segment of a row: `seg` owned
+//     positions (with minimizers also the nwin - 1 scored on each side).
+//     It stages the segment's codes in shared memory with aligned
+//     16-byte loads, so no device byte is read twice, and finds the
+//     first and last code that is not INVALID (a warp reduction and one
+//     barrier); a block with none leaves there.
+//   * Only the positions whose windows lie between those two codes are
+//     rolled: chunk padding past a record's end costs nothing more. They
+//     are cut into runs of at most about `run` positions (4 times an
+//     odd number, so the 32 lanes of a warp, a run apart, read 32
+//     distinct banks), one a thread, as few warps as hold them and each
+//     of those warps full; the other warps skip the rolling.
+//   * A thread builds its run's first window from its bases, then rolls
+//     one base a step: 2-bit DNA v = ((v << 2) | c) & mask and the
+//     reverse complement rc = (rc >> 2) | ((3 - c) << 2(k - 1)) (on
+//     (hi, lo) pairs for the 128-bit code; past 32 (64) bases the
+//     complement's newest base is the window's 32nd (64th)); base-b
+//     v = (v - c_old b^(k-1)) b + c_new; the rolling hash
+//     v = rotl(v, 1) ^ rotl(T[c_old], k) ^ T[c_new] and
+//     rc = rotr(rc ^ T[3 - c_old], 1) ^ rotl(T[3 - c_new], k - 1), all
+//     exact in u64 wrap-around arithmetic. Validity is the count of
+//     valid bases since the last INVALID one: a window is valid when it
+//     reaches the span. A step has no branch: an INVALID code costs its
+//     shared load and a compare, resets the count and the base-b and
+//     rolling codes, and shifts into the 2-bit codes like a base (its
+//     bits leave the window before the count reaches k again). Spaced
+//     seeds build each valid code from their offsets in shared memory;
+//     only their validity is rolled.
+//   * The valid positions' keys go into a ring of 64 in shared memory a
+//     warp (ballot + popc); whenever 32 are waiting, the 32 lanes hash
+//     one each, so the hash chains run on full warps however ragged the
+//     valid positions are.
+//   * With minimizers the runs write their scores (and validity) to
+//     shared memory instead; the windows' minima and liveness and the
+//     selection rule follow as in `minimizer_mask`, and the selected
+//     keys go through the same rings.
+//   * The bucket-min, for m up to ops/oph_rows.py's SMEM_BUCKETS_MAX_M
+//     (`smem_buckets`): a block-level bucket-min in shared memory (a u64
+//     atomicMin there is a compare-and-swap loop on sm_90), flushed by
+//     reading each touched register and issuing the global atomicMin
+//     only where the block's id is below it. Otherwise the same tested
+//     atomicMin a position: a plain (L2) read of the register first,
+//     and the atomic only where the id is below it (registers only
+//     fall, so a stale read never skips a needed update). Counts are a
+//     second launch on the same schedule that adds 1 where a position's
+//     id equals its register.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 256;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int RING = 64;               // keys a warp's ring holds
 constexpr uint8_t INVALID = 0xFF;
 constexpr uint64_t U64MAX = ~0ULL;
 constexpr int MAX_SYMBOLS = 32;
@@ -62,15 +100,48 @@ enum Mode { MODE_DNA = 0, MODE_BASEB = 1, MODE_SPACED = 2, MODE_ROLL = 3,
 
 // ops/oph_rows.py `Params`, field for field
 struct Params {
-    int64_t R, W, npos, own_lo, own_hi, m, fs_len, ntiles;
-    uint64_t xormask, oph_xor, ds_threshold, ds_salt;
+    int64_t R, W, npos, own_lo, own_hi, m, fs_len, seg, nseg;
+    uint64_t xormask, oph_xor, ds_threshold, ds_salt, bpow;
     uint64_t roll[MAX_SYMBOLS];
     int32_t mode, k, span, nwin, canon, seed_is_zero, downsample, base,
-        bits, noff;
+        bits, noff, run, smem_buckets;
     int32_t offsets[MAX_OFFSETS];
 };
 
 namespace {
+
+// Shared-memory layout of a block, in bytes (ops/oph_rows.py
+// `smem_bytes` computes the same total).
+struct Layout {
+    int64_t ring, table, ext, buckets, sc, ky, wm, stage, va, wl, total;
+    int64_t E, NW, nstage;
+};
+
+__host__ __device__ inline int64_t align16(int64_t x) {
+    return (x + 15) & ~int64_t(15);
+}
+
+__host__ __device__ inline Layout layout(const Params& p) {
+    Layout L;
+    const int64_t h = p.nwin > 1 ? p.nwin - 1 : 0;
+    L.E = p.nwin > 1 ? p.seg + 2 * h : 0;       // scored positions
+    L.NW = p.nwin > 1 ? p.seg + h : 0;          // windows
+    L.nstage = align16((p.nwin > 1 ? L.E : p.seg) + p.span - 1 + 32);
+    int64_t at = 0;
+    L.ring = at;    at += 8 * (int64_t)WARPS * RING;
+    L.table = at;   at += 8 * MAX_SYMBOLS;
+    L.ext = at;     at += 8 * WARPS;
+    L.buckets = at; at += p.smem_buckets ? 8 * p.m : 0;
+    L.sc = at;      at += 8 * L.E;
+    L.ky = at;      at += 8 * L.E;
+    L.wm = at;      at += 8 * L.NW;
+    at = align16(at);
+    L.stage = at;   at += L.nstage;
+    L.va = at;      at += L.E;
+    L.wl = at;      at += L.NW;
+    L.total = align16(at);
+    return L;
+}
 
 __device__ __forceinline__ uint64_t wanghash(uint64_t x) {
     x = (~x) + (x << 21);
@@ -83,183 +154,396 @@ __device__ __forceinline__ uint64_t wanghash(uint64_t x) {
     return x;
 }
 
+// rotl by s in [0, 64), as two funnel shifts of the 32-bit halves
 __device__ __forceinline__ uint64_t rotl(uint64_t x, int s) {
-    s &= 63;
-    return s ? (x << s) | (x >> (64 - s)) : x;
+    uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+    if (s & 32) {
+        const uint32_t t = lo;
+        lo = hi;
+        hi = t;
+    }
+    return ((uint64_t)__funnelshift_l(lo, hi, s) << 32)
+        | __funnelshift_l(hi, lo, s);
 }
 
-struct Kmer {
-    uint64_t score;   // minimizer score (the u64 max where invalid)
-    uint64_t key;     // the code maskfn scrambles
-    bool valid;
+// What one block shares between its stages.
+struct Ctx {
+    const Params* p;
+    const uint64_t* __restrict__ fs;
+    unsigned long long* __restrict__ regs;
+    unsigned int* __restrict__ counts;
+    unsigned long long* sbk;            // shared buckets, or null
+    uint64_t* ring;                     // this warp's ring
+    int64_t reg0;                       // item * m
+    bool count_pass;
 };
 
-// The code of position q of `row`; q outside [0, npos), or a window
-// that holds an INVALID code, is invalid (score the u64 max, no key).
-__device__ Kmer kmer_at(const Params& p, const uint8_t* __restrict__ row,
-                        int64_t q) {
-    Kmer out{U64MAX, 0, false};
-    if (q < 0 || q >= p.npos) return out;
-    const uint8_t* c = row + q;
-    bool bad = false;
-    for (int j = 0; j < p.span; ++j) bad |= c[j] == INVALID;
-    if (bad) return out;   // no code: chunk padding, N runs
-    uint64_t v = 0, key;
-    switch (p.mode) {
-    case MODE_DNA: {
-        uint64_t rc = 0;
-        for (int j = 0; j < p.k; ++j) {
-            const uint64_t cv = c[j] == INVALID ? 0 : c[j];
-            v = (v << 2) | cv;
-            if (p.canon && 2 * j < 64) rc |= (3 - cv) << (2 * j);
-        }
-        if (p.canon && rc < v) v = rc;
-        key = v;
-        break;
-    }
-    case MODE_BASEB:
-        for (int j = 0; j < p.k; ++j)
-            v = v * (uint64_t)p.base + (c[j] == INVALID ? 0 : c[j]);
-        key = v;
-        break;
-    case MODE_SPACED:
-        for (int j = 0; j < p.noff; ++j) {
-            const uint8_t b = c[p.offsets[j]];
-            v = (v << p.bits) | (b == INVALID ? 0 : b);
-        }
-        key = v;
-        break;
-    case MODE_ROLL: {
-        uint64_t rc = 0;
-        for (int j = 0; j < p.k; ++j) {
-            const bool inv = c[j] == INVALID;
-            v ^= rotl(p.roll[inv ? 0 : c[j]], (p.k - 1 - j) & 63);
-            if (p.canon) rc ^= rotl(p.roll[inv ? 0 : 3 - c[j]], j & 63);
-        }
-        if (p.canon && rc < v) v = rc;
-        key = v;
-        break;
-    }
-    default: {  // MODE_DNA128
-        uint64_t fhi = 0, flo = 0, rhi = 0, rlo = 0;
-        for (int j = 0; j < p.k; ++j) {
-            const uint64_t cv = c[j] == INVALID ? 0 : c[j];
-            fhi = (fhi << 2) | (flo >> 62);
-            flo = (flo << 2) | cv;
-            if (2 * j < 64) rlo |= (3 - cv) << (2 * j);
-            else rhi |= (3 - cv) << (2 * j - 64);
-        }
-        uint64_t hi = fhi, lo = flo;
-        if (p.canon && (rhi < fhi || (rhi == fhi && rlo < flo))) {
-            hi = rhi;
-            lo = rlo;
-        }
-        v = (hi >> 1) ^ lo;
-        key = lo;
-        break;
-    }
-    }
-    out.valid = true;
-    out.score = v;
-    out.key = key;
-    return out;
-}
-
-// the surviving position's id, or false where the masks drop it
-__device__ __forceinline__ bool position_id(const Params& p, uint64_t key,
-                                            const uint64_t* __restrict__ fs,
-                                            uint64_t* id) {
+// One position's key through the masks to its bucket.
+__device__ __forceinline__ void consume(const Ctx& cx, uint64_t key) {
+    const Params& p = *cx.p;
     const uint64_t h = p.seed_is_zero ? key : wanghash(key ^ p.xormask);
     if (p.downsample && !(wanghash(h ^ p.ds_salt) < p.ds_threshold))
-        return false;
+        return;
     if (p.fs_len) {
         int64_t lo = 0, hi = p.fs_len;
         while (lo < hi) {
             const int64_t mid = (lo + hi) >> 1;
-            if (fs[mid] < h) lo = mid + 1; else hi = mid;
+            if (cx.fs[mid] < h) lo = mid + 1; else hi = mid;
         }
-        if (lo < p.fs_len && fs[lo] == h) return false;
+        if (lo < p.fs_len && cx.fs[lo] == h) return;
     }
-    *id = wanghash(h ^ p.oph_xor);
-    return true;
+    const uint64_t id = wanghash(h ^ p.oph_xor);
+    const uint64_t b = (p.m & (p.m - 1)) == 0 ? id & (uint64_t)(p.m - 1)
+                                              : id % (uint64_t)p.m;
+    unsigned long long* reg = cx.regs + cx.reg0 + (int64_t)b;
+    if (cx.count_pass) {
+        if (__ldcg(reg) == id) atomicAdd(cx.counts + cx.reg0 + b, 1u);
+    } else if (cx.sbk) {
+        atomicMin(cx.sbk + b, (unsigned long long)id);
+    } else if (id < __ldcg(reg)) {
+        atomicMin(reg, (unsigned long long)id);
+    }
 }
 
-template <bool COUNT>
-__global__ void __launch_bounds__(TILE)
+// A warp's ring: the lanes' valid keys of one step go in; 32 come out
+// and are consumed, one a lane, whenever 32 wait. head and tail are the
+// same in every lane.
+struct Ring {
+    unsigned head = 0, tail = 0;
+
+    __device__ __forceinline__ void push(const Ctx& cx, bool valid,
+                                         uint64_t key) {
+        const unsigned lane = threadIdx.x & 31;
+        const unsigned bal = __ballot_sync(0xFFFFFFFFu, valid);
+        if (valid)
+            cx.ring[(tail + __popc(bal & ((1u << lane) - 1))) & (RING - 1)]
+                = key;
+        tail += __popc(bal);
+        if (tail - head >= 32) {
+            __syncwarp();
+            const uint64_t k = cx.ring[(head + lane) & (RING - 1)];
+            __syncwarp();
+            head += 32;
+            consume(cx, k);
+        }
+    }
+
+    __device__ __forceinline__ void drain(const Ctx& cx) {
+        const unsigned lane = threadIdx.x & 31;
+        __syncwarp();
+        if (lane < tail - head)
+            consume(cx, cx.ring[(head + lane) & (RING - 1)]);
+        __syncwarp();
+        head = tail;
+    }
+};
+
+// The rolling state of one run: the codes of the window that ends at
+// the last pushed base, and `len`, the valid bases since the last
+// INVALID one (or since the run's first base). A push has no branch:
+// an INVALID base is shifted into the 2-bit codes like any other (its
+// bits leave the window before the count reaches k again; its
+// complement is pushed as 0) and resets the base-b and rolling codes.
+template <int MODE, bool CANON>
+struct Roller {
+    uint64_t v = 0, rc = 0, vhi = 0, rchi = 0;
+    int len = 0;
+    // the job's constants
+    uint64_t lmask, hmask, bpow, base;
+    int k, sh, dk, rk, rk1;
+
+    __device__ __forceinline__ explicit Roller(const Params& p) {
+        k = p.k;
+        const int kr = MODE == MODE_DNA ? 32 : 64;   // bases rc holds
+        lmask = k >= 32 ? U64MAX : (1ULL << (2 * k)) - 1;
+        hmask = k >= 64 ? U64MAX : k > 32 ? (1ULL << (2 * k - 64)) - 1 : 0;
+        sh = 2 * ((k < kr ? k : kr) - 1);
+        // the complement's newest base: the window's last, or its kr-th
+        // when k > kr (bases past kr shift out of rc)
+        dk = k > kr ? k - kr : 0;
+        rk = k & 63;
+        rk1 = (k - 1) & 63;
+        bpow = p.bpow;
+        base = (uint64_t)p.base;
+    }
+
+    // push stage[xi] (an INVALID base where !in)
+    __device__ __forceinline__ void push(const uint8_t* __restrict__ stage,
+                                         const uint64_t* T, int xi,
+                                         bool in) {
+        const uint32_t c = in ? stage[xi] : INVALID;
+        const bool inv = c == INVALID;
+        const bool full = len >= k;            // base xi - k leaves
+        len = inv ? 0 : len + 1;
+        if constexpr (MODE == MODE_DNA || MODE == MODE_DNA128) {
+            if constexpr (MODE == MODE_DNA128)
+                vhi = ((vhi << 2) | (v >> 62)) & hmask;
+            v = ((v << 2) | c) & lmask;
+            if constexpr (CANON) {
+                const int i = xi - dk;
+                const uint32_t cr = dk == 0 ? c
+                    : in && i >= 0 ? stage[i] : INVALID;
+                const uint64_t comp = (uint64_t)(~cr & 3);
+                if constexpr (MODE == MODE_DNA) {
+                    rc = (rc >> 2) | (comp << sh);
+                } else {
+                    rc = (rc >> 2) | (rchi << 62);
+                    rchi >>= 2;
+                    if (sh < 64) rc |= comp << sh;
+                    else rchi |= comp << (sh - 64);
+                }
+            }
+        } else if constexpr (MODE == MODE_BASEB) {
+            const uint64_t co = full && in ? stage[xi - k] : 0;
+            const uint64_t nv = (v - co * bpow) * base + c;
+            v = inv ? 0 : nv;
+        } else if constexpr (MODE == MODE_ROLL) {
+            const uint32_t cc = inv ? 0 : c;
+            const uint32_t co = full && in ? stage[xi - k] : 0;
+            uint64_t nv = rotl(v, 1) ^ T[cc];
+            if (full) nv ^= rotl(T[co], rk);
+            v = inv ? 0 : nv;
+            if constexpr (CANON) {
+                const uint64_t nrc = rotl(full ? rc ^ T[3 - co] : rc, 63)
+                    ^ rotl(T[3 - cc], rk1);
+                rc = inv ? 0 : nrc;
+            }
+        }
+        // MODE_SPACED: only the count
+    }
+
+    // the (score, key) of the window that starts at stage index qi
+    __device__ __forceinline__ void code(const Params& p,
+                                         const uint8_t* __restrict__ stage,
+                                         int qi, uint64_t* score,
+                                         uint64_t* key) const {
+        if constexpr (MODE == MODE_DNA || MODE == MODE_ROLL) {
+            *key = CANON && rc < v ? rc : v;
+            *score = *key;
+        } else if constexpr (MODE == MODE_DNA128) {
+            const bool r = CANON && (rchi < vhi || (rchi == vhi && rc < v));
+            *key = r ? rc : v;
+            *score = ((r ? rchi : vhi) >> 1) ^ *key;
+        } else if constexpr (MODE == MODE_BASEB) {
+            *key = *score = v;
+        } else {  // MODE_SPACED
+            uint64_t s = 0;
+            for (int j = 0; j < p.noff; ++j)
+                s = (s << p.bits) | stage[qi + p.offsets[j]];
+            *key = *score = s;
+        }
+    }
+};
+
+template <int MODE, bool CANON>
+__global__ void __launch_bounds__(THREADS)
 oph_rows_kernel(const __grid_constant__ Params p,
                 const uint8_t* __restrict__ codes,
                 const int32_t* __restrict__ row_item,
                 const uint64_t* __restrict__ fs,
                 unsigned long long* __restrict__ regs,
-                unsigned int* __restrict__ counts) {
-    extern __shared__ unsigned char smem[];
-    const int64_t r = blockIdx.x / p.ntiles;
-    const int64_t t = blockIdx.x % p.ntiles;
+                unsigned int* __restrict__ counts, int count_pass) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int64_t r = blockIdx.x / p.nseg;
+    const int64_t s = blockIdx.x % p.nseg;
     const int32_t item = row_item[r];
     if (item < 0) return;                       // the whole block
+    const Layout Ly = layout(p);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int64_t lo = p.own_lo > 0 ? p.own_lo : 0;
     const int64_t hi = p.own_hi < p.npos ? p.own_hi : p.npos;
-    const int64_t p0 = lo + t * TILE;
-    const int64_t p1 = p0 + TILE < hi ? p0 + TILE : hi;
-    const uint8_t* row = codes + r * p.W;
-    const int64_t i = p0 + threadIdx.x;
-    uint64_t key;
-    if (p.nwin <= 1) {
-        if (i >= p1) return;
-        const Kmer km = kmer_at(p, row, i);
-        if (!km.valid) return;
-        key = km.key;
-    } else {
-        const int h = p.nwin - 1;
-        const int E = TILE + 2 * h, NW = TILE + h;
-        uint64_t* sc = reinterpret_cast<uint64_t*>(smem);   // E scores
-        uint64_t* wm = sc + E;                              // NW minima
-        uint8_t* va = reinterpret_cast<uint8_t*>(wm + NW);  // E valid
-        uint8_t* wl = va + E;                               // NW live
-        const int64_t q0 = p0 - h;      // first scored position
-        const int ne = (int)(p1 - p0) + 2 * h;
-        for (int e = threadIdx.x; e < ne; e += TILE) {
-            const Kmer km = kmer_at(p, row, q0 + e);
-            sc[e] = km.score;
-            va[e] = km.valid;
+    const int64_t p0 = lo + s * p.seg;
+    const int64_t p1 = p0 + p.seg < hi ? p0 + p.seg : hi;
+    const bool mini = p.nwin > 1;
+    const int h = mini ? p.nwin - 1 : 0;
+    // rolled positions [e0, e1): the owned ones, with minimizers also h
+    // on each side (inside [0, npos)); below, positions are counted
+    // from e0 in int
+    const int64_t qs = p0 - h;                  // slot 0 of the scores
+    const int64_t e0 = qs > 0 ? qs : 0;
+    const int64_t e1 = p1 + h < p.npos ? p1 + h : p.npos;
+    const int ne = (int)(e1 - e0);
+    const int nb = ne + p.span - 1;             // bases [e0, e0 + nb)
+
+    Ctx cx;
+    cx.p = &p;
+    cx.fs = fs;
+    cx.regs = regs;
+    cx.counts = counts;
+    cx.reg0 = (int64_t)item * p.m;
+    cx.count_pass = count_pass != 0;
+    cx.ring = reinterpret_cast<uint64_t*>(smem + Ly.ring) + warp * RING;
+    cx.sbk = p.smem_buckets && !count_pass
+        ? reinterpret_cast<unsigned long long*>(smem + Ly.buckets)
+        : nullptr;
+    uint64_t* T = reinterpret_cast<uint64_t*>(smem + Ly.table);
+    uint64_t* sc = reinterpret_cast<uint64_t*>(smem + Ly.sc);
+    uint64_t* ky = reinterpret_cast<uint64_t*>(smem + Ly.ky);
+    uint64_t* wm = reinterpret_cast<uint64_t*>(smem + Ly.wm);
+    uint8_t* va = smem + Ly.va;
+    uint8_t* wl = smem + Ly.wl;
+
+    // stage the bases with aligned 16-byte loads: stage[a + j] = base
+    // e0 + j, a = the misalignment of row + e0
+    const uint8_t* g = codes + r * p.W + e0;
+    const uint4* g16 = reinterpret_cast<const uint4*>(
+        reinterpret_cast<uintptr_t>(g) & ~uintptr_t(15));
+    const int a = (int)(reinterpret_cast<uintptr_t>(g) & 15);
+    uint8_t* stage = smem + Ly.stage;
+    const int nvec = (a + nb + 15) >> 4;
+    // the first and last staged code that is not INVALID (stage indices)
+    int first = 0x7FFFFFFF, last = -1;
+    for (int i = tid; i < nvec; i += THREADS) {
+        const uint4 x = __ldg(g16 + i);
+        reinterpret_cast<uint4*>(stage)[i] = x;
+        const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int wb = 16 * i + 4 * j;      // the word's first byte
+            uint32_t nf = ~w[j];                // nonzero bytes: codes
+            if (wb < a || wb + 4 > a + nb) {    // bytes outside the range
+                const int b0 = a - wb, b1 = a + nb - wb;
+                for (int bt = 0; bt < 4; ++bt)
+                    if (bt < b0 || bt >= b1) nf &= ~(0xFFu << (8 * bt));
+            }
+            if (nf) {
+                first = min(first, wb + ((__ffs(nf) - 1) >> 3));
+                last = max(last, wb + ((31 - __clz(nf)) >> 3));
+            }
         }
+    }
+    if (MODE == MODE_ROLL && tid < MAX_SYMBOLS) T[tid] = p.roll[tid];
+    if (cx.sbk)
+        for (int64_t b = tid; b < p.m; b += THREADS) cx.sbk[b] = U64MAX;
+    if (mini) {
+        for (int64_t e = tid; e < Ly.E; e += THREADS) {
+            sc[e] = U64MAX;
+            va[e] = 0;
+        }
+    }
+    int* ext = reinterpret_cast<int*>(smem + Ly.ext);
+    first = __reduce_min_sync(0xFFFFFFFFu, first);
+    last = __reduce_max_sync(0xFFFFFFFFu, last);
+    if (lane == 0) {
+        ext[warp] = first;
+        ext[WARPS + warp] = last;
+    }
+    __syncthreads();
+    for (int w = 0; w < WARPS; ++w) {
+        first = min(first, ext[w]);
+        last = max(last, ext[WARPS + w]);
+    }
+    // positions [ulo, uhi) (from e0) whose windows lie between those
+    // codes: every other one is invalid
+    const int ulo = first - a;
+    const int uhi = min(last - a - p.span + 2, ne);
+    if (uhi <= ulo) return;                     // no window: nothing
+
+    // this thread's run of positions [u0, u0 + un): the range cut into
+    // runs of at most about p.run that fill whole warps
+    const int nx = uhi - ulo;
+    const int nwu = (nx + 32 * p.run - 1) / (32 * p.run);
+    int run = (nx + 32 * nwu - 1) / (32 * nwu);
+    run = (run + 3) & ~3;
+    if (((run >> 2) & 1) == 0) run += 4;        // 4 x odd
+    const int u0 = ulo + tid * run;
+    const int un = min(run, uhi - u0);
+    const bool live = warp < nwu;
+
+    Ring ring;
+    if (live) {
+        Roller<MODE, CANON> ro(p);
+        const int qi0 = a + u0;                 // stage index of u0
+        if (un > 0)
+            for (int j = 0; j < p.span - 1; ++j)
+                ro.push(stage, T, qi0 + j, true);
+        const int sm1 = p.span - 1;
+        const int ds = (int)(e0 - qs);          // score slot of e0
+        for (int t = 0; t < run; ++t) {
+            const bool in = t < un;
+            ro.push(stage, T, qi0 + t + sm1, in);
+            const bool valid = in && ro.len >= p.span;
+            uint64_t score = U64MAX, key = 0;
+            if (valid) ro.code(p, stage, qi0 + t, &score, &key);
+            if (mini) {
+                if (in) {
+                    const int e = ds + u0 + t;
+                    sc[e] = score;
+                    va[e] = valid;
+                    if (MODE == MODE_DNA128) ky[e] = key;
+                }
+            } else {
+                ring.push(cx, valid, key);
+            }
+        }
+    }
+    if (mini) {
         __syncthreads();
         const int64_t nw = p.npos - p.nwin + 1;
         const int nwt = (int)(p1 - p0) + h;
-        for (int e = threadIdx.x; e < nwt; e += TILE) {
-            const int64_t j = q0 + e;   // window j covers [j, j + h]
+        for (int e = tid; e < nwt; e += THREADS) {
+            const int64_t j = qs + e;   // window j covers [j, j + h]
             uint64_t mn = U64MAX;
-            bool live = j >= 0 && j < nw;
+            bool wlive = j >= 0 && j < nw;
             for (int d = 0; d <= h; ++d) {
-                const uint64_t s = sc[e + d];
-                mn = s < mn ? s : mn;
-                live = live && va[e + d];
+                const uint64_t v = sc[e + d];
+                mn = v < mn ? v : mn;
+                wlive = wlive && va[e + d];
             }
             wm[e] = mn;
-            wl[e] = live;
+            wl[e] = wlive;
         }
         __syncthreads();
-        if (i >= p1) return;
-        const int e = threadIdx.x + h;
-        if (!va[e]) return;
-        const uint64_t s = sc[e];
-        for (int d = 1; d <= h; ++d)
-            if (sc[e - d] == s) return;
-        bool hit = false;
-        for (int d = 0; d <= h; ++d)    // windows i - h .. i
-            hit = hit || (wl[threadIdx.x + d] && wm[threadIdx.x + d] == s);
-        if (!hit) return;
-        key = kmer_at(p, row, i).key;
+        for (int base = 0; base < p1 - p0; base += THREADS) {
+            const int i = base + tid;           // position p0 + i
+            bool sel = false;
+            uint64_t key = 0;
+            if (i < p1 - p0) {
+                const int e = i + h;            // its score slot
+                if (va[e]) {
+                    const uint64_t v = sc[e];
+                    bool dup = false;
+                    for (int d = 1; d <= h; ++d) dup = dup || sc[e - d] == v;
+                    bool hit = false;
+                    for (int d = 0; d <= h; ++d)   // windows p0 + i - h ..
+                        hit = hit || (wl[i + d] && wm[i + d] == v);
+                    sel = hit && !dup;
+                    key = MODE == MODE_DNA128 ? ky[e] : v;
+                }
+            }
+            ring.push(cx, sel, key);
+        }
     }
-    uint64_t id;
-    if (!position_id(p, key, fs, &id)) return;
-    const uint64_t b = (p.m & (p.m - 1)) == 0 ? id & (uint64_t)(p.m - 1)
-                                              : id % (uint64_t)p.m;
-    const int64_t at = (int64_t)item * p.m + (int64_t)b;
-    if (!COUNT)
-        atomicMin(regs + at, (unsigned long long)id);
-    else if (regs[at] == id)
-        atomicAdd(counts + at, 1u);
+    ring.drain(cx);
+    if (cx.sbk) {
+        __syncthreads();
+        for (int64_t b = tid; b < p.m; b += THREADS) {
+            const unsigned long long v = cx.sbk[b];
+            if (v != U64MAX && v < __ldcg(regs + cx.reg0 + b))
+                atomicMin(regs + cx.reg0 + b, v);
+        }
+    }
+}
+
+template <int MODE, bool CANON>
+cudaError_t launch(const Params& p, size_t smem, const uint8_t* codes,
+                   const int32_t* row_item, const uint64_t* fs,
+                   unsigned long long* regs, unsigned int* counts,
+                   cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            oph_rows_kernel<MODE, CANON>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    const unsigned blocks = (unsigned)(p.R * p.nseg);
+    oph_rows_kernel<MODE, CANON><<<blocks, THREADS, smem, stream>>>(
+        p, codes, row_item, fs, regs, counts, 0);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || counts == nullptr) return e;
+    oph_rows_kernel<MODE, CANON><<<blocks, THREADS, smem, stream>>>(
+        p, codes, row_item, fs, regs, counts, 1);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -268,6 +552,8 @@ extern "C" {
 
 // Registers (and with `counts`, their counts) of R rows: one launch, or
 // two with counts. Returns the CUDA error of the launches (0 = none).
+// The caller sets `run` and `seg` (ops/oph_rows.py `geometry`); nseg is
+// set here.
 int oph_rows(const Params* host_params, const uint8_t* codes,
              const int32_t* row_item, const uint64_t* fs,
              unsigned long long* regs, unsigned int* counts,
@@ -276,31 +562,34 @@ int oph_rows(const Params* host_params, const uint8_t* codes,
     const int64_t lo = p.own_lo > 0 ? p.own_lo : 0;
     const int64_t hi = p.own_hi < p.npos ? p.own_hi : p.npos;
     if (p.R <= 0 || hi <= lo) return 0;
-    p.ntiles = (hi - lo + TILE - 1) / TILE;
-    const int64_t blocks = p.R * p.ntiles;
-    if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
-    size_t smem = 0;
-    if (p.nwin > 1) {
-        const int h = p.nwin - 1;
-        smem = 9 * (size_t)(TILE + 2 * h) + 9 * (size_t)(TILE + h);
+    const int64_t h = p.nwin > 1 ? p.nwin - 1 : 0;
+    // every rolled position needs a thread's run
+    if (p.seg <= 0 || p.run <= 0 || p.run % 4
+            || (int64_t)THREADS * p.run < p.seg + 2 * h
+            || p.mode < MODE_DNA || p.mode > MODE_DNA128)
+        return (int)cudaErrorInvalidValue;
+    p.nseg = (hi - lo + p.seg - 1) / p.seg;
+    if (p.R * p.nseg > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = (size_t)layout(p).total;
+#define OPH_LAUNCH(M, C) launch<M, C>(p, smem, codes, row_item, fs, regs, \
+                                       counts, stream)
+    cudaError_t e;
+    switch (p.mode) {
+    case MODE_DNA:
+        e = p.canon ? OPH_LAUNCH(MODE_DNA, true) : OPH_LAUNCH(MODE_DNA, false);
+        break;
+    case MODE_BASEB: e = OPH_LAUNCH(MODE_BASEB, false); break;
+    case MODE_SPACED: e = OPH_LAUNCH(MODE_SPACED, false); break;
+    case MODE_ROLL:
+        e = p.canon ? OPH_LAUNCH(MODE_ROLL, true)
+                    : OPH_LAUNCH(MODE_ROLL, false);
+        break;
+    default:
+        e = p.canon ? OPH_LAUNCH(MODE_DNA128, true)
+                    : OPH_LAUNCH(MODE_DNA128, false);
     }
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            oph_rows_kernel<false>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                oph_rows_kernel<true>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    oph_rows_kernel<false><<<(unsigned)blocks, TILE, smem, stream>>>(
-        p, codes, row_item, fs, regs, counts);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess || counts == nullptr) return (int)e;
-    oph_rows_kernel<true><<<(unsigned)blocks, TILE, smem, stream>>>(
-        p, codes, row_item, fs, regs, counts);
-    return (int)cudaGetLastError();
+#undef OPH_LAUNCH
+    return (int)e;
 }
 
 }  // extern "C"

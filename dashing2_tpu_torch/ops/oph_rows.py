@@ -13,6 +13,11 @@ and minimizers, a `scatter_reduce` min on sign-flipped ids, then a count
 pass); the wrapper `oph_rows` chooses by the tensors' device, as
 ops/omh.py does.
 
+The kernel rolls each code along its row (a thread a run of positions,
+the row staged in shared memory) and hashes the valid positions on full
+warps; `rolled_codes_plain` is the plain version of that rolling, which
+the CPU tests hold to ops/kmers.py's codes and the JAX package's.
+
 What it computes, for rows of alphabet codes (INVALID = 0xFF outside a
 sequence or at a non-alphabet base), each row a chunk of one item:
 
@@ -56,8 +61,12 @@ U64_ALL = (1 << 64) - 1
 DNA, BASEB, SPACED, ROLL, DNA128 = range(5)
 MAX_OFFSETS = 256            # spaced-seed offsets the kernel's Params hold
 MAX_SYMBOLS = 32             # rolling-table entries the kernel's Params hold
-TILE = 256                   # owned positions a block, csrc/oph_rows.cu
+THREADS = 128                # threads a block, csrc/oph_rows.cu
+RING = 64                    # keys a warp's ring holds, csrc/oph_rows.cu
 SMEM_LIMIT = 232448          # dynamic shared memory a block may use
+# m up to which the bucket-min runs in a block's shared memory (both
+# forms timed on the H100 by experiments/oph_rows_turns.py)
+SMEM_BUCKETS_MAX_M = 8192
 
 launches = LaunchCount()
 
@@ -167,28 +176,197 @@ def oph_rows_plain(codes: torch.Tensor, row_item: torch.Tensor,
     return regs.view(n_items, m), counts
 
 
+def rolled_codes_plain(codes: torch.Tensor, hkw: dict, run: int,
+                       start: int = 0):
+    """Plain version of csrc/oph_rows.cu's rolling, for the tests: codes
+    (R, L) uint8 -> (score, key, valid) per position (int64 u64 bits,
+    bool; (R, L - span + 1)), each computed as a thread of the kernel
+    computes it. The positions are cut into runs of `run` from `start`
+    (and a first run [0, start)); a run's first window is pushed base by
+    base, then each step pushes one base, as `Roller::push` does: the
+    encoding's recurrence with no branch, its validity the count of
+    valid bases since the last INVALID one; an INVALID base shifts into
+    the 2-bit codes as it is (its complement as 0) and resets the
+    base-b and rolling ones; past a run's end INVALID is pushed. Where
+    no code is valid, score 2^64 - 1 and key 0. `hkw` as for
+    `oph_rows`, without minimizers (the scores feed
+    `kmers.minimizer_mask`)."""
+    mode, base, bits, offsets, table, canon = encoding(hkw)
+    k = hkw["k"]
+    span = hkw.get("span") or k
+    R, L = codes.shape
+    npos = L - span + 1
+    dev = codes.device
+    starts = ([0] if start > 0 else []) + list(range(start, npos, run))
+    rs = torch.tensor(starts, dtype=torch.int64, device=dev)
+    rl = torch.tensor(starts[1:] + [npos], dtype=torch.int64,
+                      device=dev) - rs
+    c64 = codes.to(torch.int64)
+    T = (None if table is None else
+         torch.from_numpy(np.asarray(table).view(np.int64)).to(dev))
+    bpow = DH.s64(pow(base, k - 1, 1 << 64))
+
+    def mask(nbits):
+        return -1 if nbits >= 64 else (1 << max(nbits, 0)) - 1
+    lmask, hmask = mask(2 * k), mask(2 * k - 64)
+    kr = 32 if mode == DNA else 64          # bases a complement holds
+    sh = 2 * (min(k, kr) - 1)               # its newest base's shift
+
+    def at(x):          # the bases at columns x (0 outside the row)
+        inside = (x >= 0) & (x < L)
+        return torch.where(inside[None, :], c64[:, x.clamp(0, L - 1)], 0)
+
+    z = torch.zeros((R, len(starts)), dtype=torch.int64, device=dev)
+    v, rc, vhi, rchi, n = z, z, z, z, z
+
+    def push(x, active):
+        nonlocal v, rc, vhi, rchi, n
+        c = torch.where(active[None, :], at(x), K.INVALID)
+        inv = c == K.INVALID
+        full = n >= k
+        n = torch.where(inv, 0, n + 1)
+        if mode in (DNA, DNA128):
+            # INVALID shifts in as it is (its bits leave the window
+            # before the count reaches k); its complement as 0
+            if k <= kr:
+                cr = c
+            else:
+                cr = torch.where(active[None, :] & (x >= k - kr)[None, :],
+                                 at(x - (k - kr)), K.INVALID)
+            comp = ((~cr) & 3) << (sh % 64)
+            if mode == DNA:
+                v = ((v << 2) | c) & lmask
+                rc = DH.srl(rc, 2) | comp
+            else:
+                vhi = ((vhi << 2) | DH.srl(v, 62)) & hmask
+                v = ((v << 2) | c) & lmask
+                rc, rchi = DH.srl(rc, 2) | (rchi << 62), DH.srl(rchi, 2)
+                if sh < 64:
+                    rc = rc | comp
+                else:
+                    rchi = rchi | comp
+        elif mode == BASEB:
+            co = torch.where(full & active[None, :], at(x - k), 0)
+            v = torch.where(inv, 0, (v - co * bpow) * base + c)
+        elif mode == ROLL:
+            cc = torch.where(inv, 0, c)
+            co = torch.where(full & active[None, :], at(x - k), 0)
+            out = torch.where(full, K._rotl64(T[co], k % 64), 0)
+            v = torch.where(inv, 0, K._rotl64(v, 1) ^ T[cc] ^ out)
+            if canon:
+                rc = torch.where(inv, 0, K._rotl64(
+                    torch.where(full, rc ^ T[3 - co], rc), 63)
+                    ^ K._rotl64(T[3 - cc], (k - 1) % 64))
+
+    score = torch.full((R, npos), -1, dtype=torch.int64, device=dev)
+    key = torch.zeros((R, npos), dtype=torch.int64, device=dev)
+    valid = torch.zeros((R, npos), dtype=torch.bool, device=dev)
+    for j in range(span - 1):
+        push(rs + j, rl > 0)
+    for t in range(int(rl.max())):
+        act = t < rl
+        q = rs + t
+        push(q + span - 1, act)
+        ok = act[None, :] & (n >= span)
+        if mode in (DNA, ROLL):
+            kq = torch.where(DH.u64_lt(rc, v), rc, v) if canon else v
+            sq = kq
+        elif mode == DNA128:
+            less = (DH.u64_lt(rchi, vhi) | ((rchi == vhi) & DH.u64_lt(rc, v))
+                    ) if canon else torch.zeros_like(ok)
+            hi, kq = torch.where(less, rchi, vhi), torch.where(less, rc, v)
+            sq = DH.srl(hi, 1) ^ kq
+        elif mode == BASEB:
+            kq = sq = v
+        else:
+            kq = torch.zeros_like(v)
+            for o in offsets:
+                kq = (kq << bits) | at(q + int(o))
+            sq = kq
+        cols = q[act]
+        score[:, cols] = torch.where(ok, sq, -1)[:, act]
+        key[:, cols] = torch.where(ok, kq, 0)[:, act]
+        valid[:, cols] = ok[:, act]
+    return score, key, valid
+
+
 class Params(ctypes.Structure):
     """csrc/oph_rows.cu `Params`, field for field."""
     _fields_ = [(f, ctypes.c_int64) for f in (
                     "R", "W", "npos", "own_lo", "own_hi", "m", "fs_len",
-                    "ntiles")] \
+                    "seg", "nseg")] \
         + [(f, ctypes.c_uint64) for f in (
-            "xormask", "oph_xor", "ds_threshold", "ds_salt")] \
+            "xormask", "oph_xor", "ds_threshold", "ds_salt", "bpow")] \
         + [("roll", ctypes.c_uint64 * MAX_SYMBOLS)] \
         + [(f, ctypes.c_int32) for f in (
             "mode", "k", "span", "nwin", "canon", "seed_is_zero",
-            "downsample", "base", "bits", "noff")] \
+            "downsample", "base", "bits", "noff", "run", "smem_buckets")] \
         + [("offsets", ctypes.c_int32 * MAX_OFFSETS)]
 
 
-def smem_bytes(nwin: int) -> int:
-    """Dynamic shared memory of a block: the scores and validity of its
-    TILE + 2 (nwin - 1) positions and the minima and liveness of its
-    TILE + nwin - 1 windows (none without minimizers)."""
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def use_smem_buckets(m: int) -> bool:
+    """Whether the bucket-min runs in a block's shared memory (m <=
+    SMEM_BUCKETS_MAX_M) or as a read-tested global atomicMin a
+    position."""
+    return m <= SMEM_BUCKETS_MAX_M
+
+
+def smem_bytes(seg: int, span: int, nwin: int, m: int) -> int:
+    """Dynamic shared memory of a block (csrc/oph_rows.cu `layout`): the
+    warps' rings, the rolling table, the warps' extents of codes, the
+    shared buckets, with minimizers
+    the scores, keys and validity of seg + 2 (nwin - 1) positions and the
+    minima and liveness of seg + nwin - 1 windows, and the staged codes."""
+    h = nwin - 1 if nwin > 1 else 0
+    E = seg + 2 * h if nwin > 1 else 0
+    NW = seg + h if nwin > 1 else 0
+    nstage = _align16((E if nwin > 1 else seg) + span - 1 + 32)
+    at = 8 * (THREADS // 32) * RING + 8 * MAX_SYMBOLS + 8 * (THREADS // 32) \
+        + (8 * m if use_smem_buckets(m) else 0) + 16 * E + 8 * NW
+    return _align16(_align16(at) + nstage + E + NW)
+
+
+def run_length(n: int) -> int:
+    """The least 4 * odd >= n: a thread's run of positions, so that the
+    32 lanes of a warp, `run` bytes apart, read 32 distinct banks."""
+    r = 4 * -(-n // 4)
+    return r + 4 if (r // 4) % 2 == 0 else r
+
+
+def geometry(span: int, nwin: int, m: int) -> Tuple[int, int, int]:
+    """(run, seg, shared bytes) of the kernel's blocks: the longest run
+    of rolled positions a thread takes and a block's owned positions.
+    Without minimizers runs of at least span + 4 (32 to 252: on the
+    H100, k = 31, 36 beat 20-28 and 68-132, whose warm-up is shorter
+    but whose blocks keep fewer warps busy; experiments/oph_rows_turns.py)
+    and 128 runs a segment; with them segments of 512 owned positions
+    (halved until the block's scores and windows fit), cut into 128
+    runs (on the H100, k = 21, w = 31: 512 beat 1024-4096, whose runs
+    warm up less but whose blocks, larger in shared memory, fit fewer
+    on an SM; experiments/oph_rows_turns.py)."""
     if nwin <= 1:
-        return 0
+        run = run_length(min(max(span + 4, 32), 252))
+        seg = THREADS * run
+        smem = smem_bytes(seg, span, nwin, m)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"span {span}: the kernel's staged codes do "
+                             "not fit in a block's shared memory")
+        return run, seg, smem
     h = nwin - 1
-    return 9 * (TILE + 2 * h) + 9 * (TILE + h)
+    seg = 512
+    while True:
+        run = run_length(-(-(seg + 2 * h) // THREADS))
+        smem = smem_bytes(seg, span, nwin, m)
+        if smem <= SMEM_LIMIT:
+            return run, seg, smem
+        if seg <= 32:
+            raise ValueError(f"w: {nwin} windows of the kernel do not fit "
+                             "in a block's shared memory")
+        seg //= 2
 
 
 def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
@@ -198,17 +376,16 @@ def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
     k, w = hkw["k"], hkw["w"]
     span = hkw.get("span") or k
     nwin = w - k + 1 if w > k else 1
-    if smem_bytes(nwin) > SMEM_LIMIT:
-        raise ValueError(f"w={w}: the kernel's windows do not fit in a "
-                         "block's shared memory")
+    run, seg, _ = geometry(span, nwin, m)
     p = Params()
     lo, hi = K.owned_kmer_range(span, w, hkw["chunk_len"])
     p.R, p.W, p.npos, p.own_lo, p.own_hi = R, L, L - span + 1, lo, hi
-    p.m, p.fs_len = m, fs_len
+    p.m, p.fs_len, p.seg = m, fs_len, seg
     p.xormask = hkw["xormask"] & U64_ALL
     p.oph_xor = DH.oph_xor(seed) & U64_ALL
     p.ds_threshold = hkw["downsample_threshold"] & U64_ALL
     p.ds_salt = DOWNSAMPLE_SALT
+    p.bpow = pow(base, k - 1, 1 << 64)
     if table is not None:
         if len(table) > MAX_SYMBOLS:
             raise ValueError("alphabet too large for the kernel")
@@ -225,6 +402,7 @@ def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
     p.canon, p.seed_is_zero = int(canon), int(hkw["seed_is_zero"])
     p.downsample = int(hkw["downsample_threshold"] < U64_ALL)
     p.base, p.bits = base, bits
+    p.run, p.smem_buckets = run, int(use_smem_buckets(m))
     return p
 
 

@@ -97,7 +97,7 @@ def _sass_counts(tag: str, so_path: str, keep: str = "") -> None:
     CS._say(f"[sass] {tag}: " + ", ".join(f"{k} {v}" for k, v in top))
 
 
-def _probe_source(kernel: str, source: str, probe: str, subs) -> str:
+def probe_source(kernel: str, source: str, probe: str, subs) -> str:
     """`source` with the probe's substitutions, written into the build
     directory."""
     with open(source) as f:
@@ -111,10 +111,23 @@ def _probe_source(kernel: str, source: str, probe: str, subs) -> str:
     return path
 
 
-def _ptxas(name: str) -> None:
+def ptxas(name: str) -> None:
     for ln in native.build_logs.get(name, "").splitlines():
         if "registers" in ln or "spill" in ln or "smem" in ln:
             CS._say(f"[build] ptxas {name}: {ln.strip()}")
+
+
+def in_turns(rounds, timer):
+    """{round: [[name, ms], ...]}: each round's (name, run) pairs timed
+    by `timer(run)` in the order given, each time printed."""
+    out = {}
+    for key, turns in rounds:
+        out[key] = []
+        for name, run in turns:
+            ms = timer(run)
+            out[key].append([name, ms])
+            CS._say(f"[{key}] {name} {ms:.6f} ms")
+    return out
 
 
 def main() -> int:
@@ -131,7 +144,7 @@ def main() -> int:
 
     def build(name, source):
         lib = native.build_shared(name, [source], native.nvcc_command(source))
-        _ptxas(name)
+        ptxas(name)
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -139,7 +152,7 @@ def main() -> int:
         return lib, fn
     lib_new, fn_new = build(kernel, mod.SOURCE)
     lib_other, fn_other = build(f"{kernel}_other", other)
-    fn_probes = {p: build(f"{kernel}_{p}", _probe_source(
+    fn_probes = {p: build(f"{kernel}_{p}", probe_source(
         kernel, mod.SOURCE, p, subs))[1] for p, subs in probes.items()}
     _sass_counts("new", lib_new._name, f"{kernel}.sass")
     _sass_counts("other", lib_other._name)
@@ -179,12 +192,7 @@ def main() -> int:
     for p, fn in fn_probes.items():
         run_p = launcher(fn)
         rounds.append((p, ((p, run_p), ("new", run_new), (p, run_p))))
-    for key, turns in rounds:
-        rec[key] = []
-        for name, run in turns:
-            ms = CS._library_ms(run, 20)
-            rec[key].append([name, ms])
-            CS._say(f"[{key}] {name} {ms:.6f} ms")
+    rec.update(in_turns(rounds, lambda run: CS._library_ms(run, 20)))
     best = min(ms for name, ms in rec["turns"] if name == "new")
     CS._say(f"[bound] {rec['bound_ms']:.6f} ms ({rec['bound_by']}); new "
             f"kernel at {100 * rec['bound_ms'] / best:.1f}% of it")

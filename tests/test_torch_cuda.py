@@ -1267,28 +1267,67 @@ def _oph_rows_case(cfg, seed=0, R=23, L=5000, m=100):
     return (torch.from_numpy(codes), torch.from_numpy(item), 7, m, hkw, fs)
 
 
+# rows the kernel's schedule treats apart: (config, m, how the rows are
+# changed); every case also runs with counts
+OPH_EDGES = {
+    # every row padding: each block leaves after its one ballot
+    "all-padding": ("dna-k31", 100, "pad"),
+    # valid stretches shorter than k, one of k exactly, N runs a base apart
+    "short-stretch": ("dna-k31", 100, "short"),
+    # m not a power of two: the bucket's % path
+    "m-1000": ("dna-k31", 1000, None),
+    "m-1000-roll": ("roll-48", 1000, None),
+    # m above the shared bucket-min: the tested global atomicMin
+    "m-32768": ("dna-k31", 32768, None),
+    "m-32768-mini": ("mini-21-31", 32768, None),
+    # a filterset with counts (and minimizers)
+    "filterset-counts": ("filterset", 1000, None),
+}
+
+
+def _oph_edge_case(case):
+    cfg, m, how = OPH_EDGES[case]
+    codes, item, n, _, hkw, fs = _oph_rows_case(cfg, m=m)
+    if how == "pad":
+        codes[:] = 0xFF
+    elif how == "short":
+        codes[:] = 0xFF
+        for r in range(codes.shape[0]):
+            at = 100 + 37 * r
+            codes[r, at:at + 30] = r % 4            # 30 bases: no 31-mer
+            codes[r, at + 300:at + 331] = (r + 1) % 4   # one 31-mer
+            codes[r, 900:2000:2] = 2                # N a base apart
+    return codes, item, n, m, hkw, fs
+
+
 @pytest.mark.parametrize("want_counts", [True, False])
-@pytest.mark.parametrize("cfg", sorted(OPH_CONFIGS))
+@pytest.mark.parametrize("cfg", sorted(OPH_CONFIGS) + sorted(OPH_EDGES))
 def test_oph_rows_kernel_matches_plain(card, cfg, want_counts):
     """csrc/oph_rows.cu == oph_rows_plain (registers and counts) in each
     encoding, with minimizers, downsampling and a filterset: N runs,
     rows shorter than k and all INVALID, a skipped row, items over
-    several rows, m not a power of two."""
+    several rows, m not a power of two; and the edge rows of OPH_EDGES,
+    which take the tested global atomicMin above SMEM_BUCKETS_MAX_M."""
     from dashing2_tpu_torch.ops import oph_rows as OR
-    codes, item, n, m, hkw, fs = _oph_rows_case(cfg)
+    codes, item, n, m, hkw, fs = (_oph_edge_case(cfg) if cfg in OPH_EDGES
+                                  else _oph_rows_case(cfg))
+    assert OR.use_smem_buckets(m) is not cfg.startswith("m-32768")
     dev = [x.to(card) if x is not None else None for x in (codes, item, fs)]
+    want_r, want_c = OR.oph_rows_plain(dev[0], dev[1], n, m, hkw, dev[2],
+                                       want_counts)
     before = OR.launches.launches
     got_r, got_c = OR.oph_rows(dev[0], dev[1], n, m, hkw, dev[2],
                                want_counts)
     torch.cuda.synchronize()
     assert OR.launches.launches == before + 1
-    want_r, want_c = OR.oph_rows_plain(dev[0], dev[1], n, m, hkw, dev[2],
-                                       want_counts)
     assert torch.equal(got_r, want_r)
     assert (got_c is None) == (not want_counts)
     if want_counts:
         assert torch.equal(got_c, want_c)
-    assert (got_r != -1).sum() > 16
+    if cfg == "all-padding":
+        assert (got_r == -1).all()
+    else:
+        assert (got_r != -1).sum() > 16
 
 
 def test_oph_rows_on_card_equals_cpu(card):
