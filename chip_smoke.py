@@ -333,11 +333,17 @@ no card, or when the port is not importable:
    bit for bit == the plain version's on the card; over their first
    2048 rows the plain early-exit walk (`css_walk_plain`, a torch step
    a row) == the kernel's pass, its count of evaluated draws ==
-   `walk_draws`' from the kernel's output; then the
-   kernel alone over every launch of the job, timed with CUDA events,
-   against its bound, the instructions of the walk's loop in the
-   kernel's SASS (cuobjdump) charged to every draw the early exit
-   evaluates (and, printed beside it, to every kept draw);
+   `walk_draws`' from the kernel's output; the kernel == plain bit for
+   bit on tests/css_planted.py's rows (equal rows and own-row hits where
+   its 32-row steps meet, caps of 0, 1, 33 and 95) at m 1, 33 and 1024;
+   then the kernel alone over every launch of the job, timed with CUDA
+   events, against its bound, the PR 18 kernel's walk-loop instructions
+   (CSS_INT_OPS, CSS_F64_OPS: a fixed yardstick) charged to every draw
+   the early exit evaluates (and, printed beside it, to every kept
+   draw); and the lane slots a draw of the PR 18 schedule (a thread a
+   register: a warp's longest of 32 walks, a block's of 128) and of
+   this kernel's (a warp a register, 32 rows a step), from the walks'
+   lengths;
 44. (after 24) the CountSketch kernel (csrc/countsketch.cu) on phase
    24's 8 streams, captured as the job launched it: every bucket ==
    the plain version's and == `torch.bincount`'s, exactly; the three
@@ -4127,6 +4133,14 @@ CSS_CHECK_ITEMS = 8
 # rows of those items the plain early-exit walk (a torch step a row) is
 # held to the full pass and the draw count over
 CSS_WALK_ROWS = 2048
+# the bound's yardstick for a css draw: the integer-lane and f64
+# instructions of one trip of the PR 18 kernel's walk loop (its SASS,
+# counted by `_loop_ops`), kept fixed so that the bound of a launch does
+# not move when the kernel changes
+CSS_INT_OPS = 102
+CSS_F64_OPS = 47
+# register counts of the css check on tests/css_planted.py's rows
+CSS_PLANTED_MS = (1, 33, 1024)
 # genomes of the cache phase, and of its --device cpu comparison (the -B
 # job's over CACHE_CPU_BMH: the plain weighted draws take 260-500 ns
 # each on the CPU, 20k positions x 1024 registers a genome)
@@ -4251,24 +4265,46 @@ def phase_css_vs_plain(launches):
     15's launches): on the first CSS_CHECK_ITEMS items of the first
     launch, registers, cutoffs and winners == css_pass_plain's bit for
     bit, and the early-exit walk's draws counted by css_walk_plain ==
-    walk_draws' count from the kernel's registers and winners; then the
-    kernel alone over every launch of the job, timed with CUDA events,
-    against its bound over all kept (row, register) draws and over the
-    draws the early exit evaluates, each draw charged the instructions of
-    the walk's loop in the kernel's SASS."""
-    import numpy as np
+    walk_draws' count from the kernel's registers and winners; the same
+    on tests/css_planted.py's rows (equal rows and own-row hits where the
+    kernel's 32-row steps meet, caps of 0, 1, 33 and 95) at
+    CSS_PLANTED_MS; then the kernel alone over every launch of the job,
+    timed with CUDA events, against its bound over all kept (row,
+    register) draws and over the draws the early exit evaluates, each
+    draw charged CSS_INT_OPS and CSS_F64_OPS; and the lane slots a draw
+    of the walk's schedules, from the walks' lengths: the PR 18 kernel's
+    (a thread a register, a warp or block of 128 running until its
+    longest walk ends) and this kernel's (a warp a register, 32 rows a
+    step)."""
     import torch
     from dashing2_tpu_torch.ops import css as CSS
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from css_planted import planted_rows
+    finally:
+        sys.path.pop(0)
+
+    def same(got, want, what):
+        for g, w, name in zip(got, want, ("registers", "tcut", "winners")):
+            assert torch.equal(g.view(torch.int64) if g.is_floating_point()
+                               else g, w.view(torch.int64)
+                               if w.is_floating_point() else w), \
+                f"{what}: {name} != plain"
     sx1, srv, k, t, m = launches[0]
     cut = [x[:CSS_CHECK_ITEMS].contiguous() for x in (sx1, srv, k, t)]
     got = CSS.css_pass(*cut, m, return_ids=True)
     torch.cuda.synchronize()
     want = CSS.css_pass_plain(*cut, m, return_ids=True)
-    for g, w, what in zip(got, want, ("registers", "tcut", "winners")):
-        assert torch.equal(g.view(torch.int64) if g.is_floating_point()
-                           else g, w.view(torch.int64)
-                           if w.is_floating_point() else w), what
+    same(got, want, "the job's rows")
     err = float((got[0] - want[0]).abs().nan_to_num(0.0).max())
+    for pm in CSS_PLANTED_MS:
+        (px1, prv, pk, pt), winners = planted_rows(pm, seed=pm + 21)
+        planted = [x.cuda() for x in (px1, prv, pk, pt)]
+        pgot = CSS.css_pass(*planted, pm, return_ids=True)
+        same(pgot, CSS.css_pass_plain(*planted, pm, return_ids=True),
+             f"planted rows at m {pm}")
+        ids = pgot[2].cpu()
+        assert all(int(ids[i, j]) == d for (i, j), d in winners.items())
     # the walk over the first CSS_WALK_ROWS rows (the items' caps cut)
     short = [cut[0][:, :CSS_WALK_ROWS].contiguous(),
              cut[1][:, :CSS_WALK_ROWS].contiguous(),
@@ -4281,7 +4317,7 @@ def phase_css_vs_plain(launches):
     plain_ms = _cuda_ms(lambda: CSS.css_pass_plain(*cut, m), 1)
     cut_ms = _cuda_ms(lambda: CSS.css_pass(*cut, m), 3)
     # the whole job: every launch timed, the draws counted
-    ms, kept_rows, drawn, nbytes = 0.0, 0, 0, 0
+    ms, kept_rows, nbytes, walks = 0.0, 0, 0, []
     for sx1, srv, k, t, m in launches:
         CSS.css_pass(sx1, srv, k, t, m)
         torch.cuda.synchronize()
@@ -4291,39 +4327,50 @@ def phase_css_vs_plain(launches):
                 < k[:, None]) & (sx1 <= t[:, None])
         rows = int(keep.sum())
         kept_rows += rows
-        drawn += int(CSS.walk_draws(sx1, k, t, regs, ids).sum())
+        walks.append(CSS.walk_draws(sx1, k, t, regs, ids))
         nbytes += 16 * rows + 8 * sx1.shape[0] * (m + 1)
         del regs, ids, keep
     items = sum(x[0].shape[0] for x in launches)
     all_draws = kept_rows * m
-    f64, alu, trips, _ = _sass_loop_ops("css", "css_kernel", "MUFU.RCP64")
-    t_f64 = drawn * f64 / RATES["f64"] * 1e3
-    t_alu = drawn * alu / RATES["int32"] * 1e3
+    drawn = sum(int(w.sum()) for w in walks)
+    slots = {name: sum(fn(w, g) * int(w.sum()) for w in walks) / drawn
+             for name, fn, g in (("warp", CSS.lane_slot_ratio, 32),
+                                 ("block", CSS.lane_slot_ratio, 128),
+                                 ("steps", CSS.step_slot_ratio, 32))}
+    t_f64 = drawn * CSS_F64_OPS / RATES["f64"] * 1e3
+    t_alu = drawn * CSS_INT_OPS / RATES["int32"] * 1e3
     t_bytes = nbytes / HBM * 1e3
     bound_ms = max(t_f64, t_alu, t_bytes)
-    bound_all = max(all_draws * f64 / RATES["f64"],
-                    all_draws * alu / RATES["int32"]) * 1e3
+    bound_all = max(all_draws * CSS_F64_OPS / RATES["f64"],
+                    all_draws * CSS_INT_OPS / RATES["int32"]) * 1e3
     bound_by = "bytes" if t_bytes >= max(t_f64, t_alu) else "operations"
     _say(f"[css] kernel == css_pass_plain bit for bit (registers, tcut, "
          f"winners) on the first {CSS_CHECK_ITEMS} items of the "
          f"--full-setsketch job's first launch ({cut[0].shape[1]} rows x m "
-         f"{m}); there kernel {cut_ms:.3f} ms, plain {plain_ms:.3f} ms; "
-         f"over their first {CSS_WALK_ROWS} rows the plain early-exit walk "
-         f"== the kernel's pass, and its {int(walk[3].sum())} evaluated "
-         "draws == walk_draws' count from the kernel's output")
-    _say(f"[css] SASS of the walk's loop: {f64:.2f} f64 and {alu:.2f} "
-         f"integer lane instructions a draw ({trips} draws a trip)")
+         f"{m}) and on the planted rows at m {CSS_PLANTED_MS} (the planted "
+         f"winners win); there kernel {cut_ms:.3f} ms, plain "
+         f"{plain_ms:.3f} ms; over their first {CSS_WALK_ROWS} rows the "
+         f"plain early-exit walk == the kernel's pass, and its "
+         f"{int(walk[3].sum())} evaluated draws == walk_draws' count from "
+         "the kernel's output")
+    _say(f"[css] lane slots a draw of the walk: {slots['warp']:.4f} for a "
+         f"thread a register (PR 18: its warp runs until its longest of 32 "
+         f"walks ends), {slots['block']:.4f} over a block of 128 such "
+         f"threads; {slots['steps']:.4f} for a warp a register, 32 rows a "
+         "step (this kernel)")
     _say(f"[css] the job's {len(launches)} launch(es) over {items} items: "
          f"kernel {ms:.3f} ms (CUDA events, mean of 3 each); {kept_rows} "
          f"kept rows, {all_draws} kept (row, register) draws, {drawn} "
          f"evaluated by the early exit ({100 * drawn / all_draws:.2f}%); "
-         f"bound {bound_ms:.3f} ms over the evaluated draws (f64 "
-         f"{t_f64:.3f}, int32 {t_alu:.3f}, bytes {t_bytes:.4f} ms: "
+         f"bound {bound_ms:.3f} ms over the evaluated draws at "
+         f"{CSS_INT_OPS} int32 and {CSS_F64_OPS} f64 instructions a draw "
+         f"(f64 {t_f64:.3f}, int32 {t_alu:.3f}, bytes {t_bytes:.4f} ms: "
          f"{100 * bound_ms / ms:.1f}% reached), {bound_all:.3f} ms over all "
          f"kept draws ({100 * bound_all / ms:.1f}%); library: none")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_all_ms=bound_all, err=err,
                 library_ms=None, draws=drawn, all_draws=all_draws,
+                lane_slots=slots,
                 plain_shape=f"the first {CSS_CHECK_ITEMS} of the {items} "
                 f"items ms and bound_ms cover (kernel there {cut_ms:.3f} "
                 "ms)")
@@ -4832,6 +4879,7 @@ def main() -> int:
         "bound_by": css_run["bound_by"],
         "library_ms": None,
         "bound_all_draws_ms": css_run["bound_all_ms"],
+        "lane_slots": css_run["lane_slots"],
         "plain_shape": css_run["plain_shape"],
     })
     # the CountSketch: the -P -c job's 8 streams timed, its launches

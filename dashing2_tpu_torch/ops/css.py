@@ -7,9 +7,11 @@ Port of the JAX package's CSetSketch pass, the XLA function `_css_pass`
 csrc/css.cu, draws and reduces a whole batch of items in one launch;
 `css_pass_plain` is its plain PyTorch version (torch int64/f64 on any
 device), and the wrapper `css_pass` chooses by the tensors' device, as
-ops/weighted_draws.py does. `css_walk_plain` is the kernel's early-exit
-walk in plain torch, a row at a time: the tests hold it to the full pass
-bit for bit, and it counts the draws the walk evaluates.
+ops/weighted_draws.py does. `css_walk_plain` is the early-exit walk in
+plain torch, a row at a time or, as the kernel takes it, 32 rows a step:
+the tests hold it to the full pass bit for bit, and it counts the draws
+the walk evaluates. `lane_slot_ratio` and `step_slot_ratio` say, from
+those counts, how many lane slots a schedule spends per evaluated draw.
 
 What a pass computes, per item (the JAX `_css_pass`): of its k smallest
 x1 (sx1 ascending, srv the rows' RNG values), the rows with x1 <=
@@ -39,7 +41,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "css.cu")
 
 GOLD = 0x9E3779B97F4A7C15  # 2^64 / golden ratio, register-stride salt
-TPB = 128                  # registers (threads) per block, csrc/css.cu
+M_MAX = 65535 * 128        # the most registers a pass takes
+LANES = 32                 # rows a step of csrc/css.cu's walk (a warp)
 
 launches = LaunchCount()
 
@@ -60,7 +63,7 @@ def check_pass(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
         raise ValueError("css_pass operands must be contiguous")
     if len({sx1.device, srv.device, k.device, threshold.device}) != 1:
         raise ValueError("css_pass operands on different devices")
-    if not 1 <= m <= 65535 * TPB:
+    if not 1 <= m <= M_MAX:
         raise ValueError(f"m={m} out of range")
 
 
@@ -108,14 +111,17 @@ def css_pass_plain(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
 
 
 def css_walk_plain(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
-                   threshold: torch.Tensor, m: int):
-    """The kernel's early-exit walk in plain PyTorch: rows in ascending
-    order, a register stopping at its first row whose x1 is not below its
-    least draw (no draw of that row or a later one can beat it), all
-    stopping past the kept prefix. Returns (registers, tcut, winners,
+                   threshold: torch.Tensor, m: int, step: int = 1):
+    """The early-exit walk in plain PyTorch: rows in ascending order,
+    `step` at a time (1: the walk a row at a time; LANES: csrc/css.cu's,
+    a warp's lanes across the rows of a step). A register evaluates a step
+    while the step's first row is kept and its x1 is below the register's
+    least draw (no draw of that row or a later one can beat it); a step's
+    least, at its first row among equal draws, replaces the register's
+    only when strictly below it. Returns (registers, tcut, winners,
     draws): the pass's three results (the full pass's, bit for bit, since
     every draw of a row is at least its x1) and, per (item, register), the
-    rows the walk evaluated."""
+    kept rows the walk evaluated."""
     check_pass(sx1, srv, k, threshold, m)
     keep, tcut = _tcut(sx1, k, threshold)
     B, K = sx1.shape
@@ -124,17 +130,43 @@ def css_walk_plain(sx1: torch.Tensor, srv: torch.Tensor, k: torch.Tensor,
     row = torch.zeros((B, m), dtype=torch.int64, device=dev)
     live = torch.ones((B, m), dtype=torch.bool, device=dev)
     draws = torch.zeros((B, m), dtype=torch.int64, device=dev)
-    for d in range(K):
-        x = sx1[:, d, None]
-        live &= keep[:, d, None] & (x < best)
+    for d in range(0, K, step):
+        live &= keep[:, d, None] & (sx1[:, d, None] < best)
         if not bool(live.any()):
             break
-        e = _draws(srv[:, d], sx1[:, d], m)
-        better = live & (e < best)
-        best = torch.where(better, e, best)
-        row = torch.where(better, d, row)
-        draws += live
+        kept = keep[:, d:d + step]
+        e = _draws(srv[:, d:d + step], sx1[:, d:d + step], m)
+        e.masked_fill_(~kept[:, :, None], torch.inf)
+        least, at = e.amin(1), e.argmin(1)
+        better = live & (least < best)
+        best = torch.where(better, least, best)
+        row = torch.where(better, at + d, row)
+        draws += live * kept.sum(1, keepdim=True)
     return best, tcut, row, draws
+
+
+def lane_slot_ratio(draws: torch.Tensor, lanes: int = LANES) -> float:
+    """Lane slots per evaluated draw of the thread-per-register walk (the
+    PR 18 kernel's schedule), from `draws` (items, m), the rows each
+    register's walk evaluates: `lanes` consecutive registers of an item
+    share a warp (or a block), which runs until its longest walk ends.
+    lanes x (sum over groups of the longest walk) / (sum of walks); the
+    registers past m in the last group walk nothing."""
+    B, m = draws.shape
+    pad = -m % lanes
+    g = torch.nn.functional.pad(draws, (0, pad)).reshape(B, -1, lanes)
+    total = int(draws.sum())
+    return lanes * int(g.amax(2).sum()) / total if total else 1.0
+
+
+def step_slot_ratio(draws: torch.Tensor, lanes: int = LANES) -> float:
+    """Lane slots per evaluated draw of csrc/css.cu's walk, from the same
+    `draws` (items, m) of the row-at-a-time walk: a register of n >= 1
+    rows takes ceil(n / lanes) steps of `lanes` lane slots each."""
+    n = draws[draws > 0]
+    total = int(n.sum())
+    steps = int(((n + lanes - 1) // lanes).sum())
+    return lanes * steps / total if total else 1.0
 
 
 def walk_draws(sx1: torch.Tensor, k: torch.Tensor, threshold: torch.Tensor,

@@ -1,10 +1,14 @@
-"""A nibble kernel on the card, timed in turns against another source of
-the same C entry, and against copies of itself with parts taken out.
+"""A kernel on the card, timed in turns against another source of the
+same C entry, and against copies of itself with parts taken out.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper card
 and nvcc:
 
     python3 experiments/torch_kernel_turns.py KERNEL OTHER.cu
+    python3 experiments/torch_kernel_turns.py css OTHER.cu [--check]
+
+`css` (csrc/css.cu, C entry `css_pass`) is described under CSS below;
+the rest of this text is the nibble kernels'.
 
 KERNEL is `tri_eq` (csrc/tri_eq.cu, C entry `tri_eq_counts_u16`) or
 `tri_comb` (csrc/tri_comb.cu, `tri_comb_counts_u16`). OTHER.cu is any
@@ -32,6 +36,34 @@ Exactness at every other shape, the bound's rates and the library call
 are chip_smoke.py's; this script takes its helpers from there. Prints
 the card's name and power limit, and as its last line one JSON object,
 also written to chiprun_out/KERNEL_turns.json.
+
+CSS. The operands of the FullSetSketch job's first pass, built as
+ops/sketch_kernels.py `_css_batch` builds them: 5,120 items of 19,970
+seeded random u64 hashes, m = 1024, x1 and rv sorted by x1, the first
+6,144 rows (the cap max(4096, 6m)) kept, threshold (ln m + 8)/n. The
+script
+
+1. builds csrc/css.cu, OTHER.cu (e.g. `git show
+   833c1c6:dashing2_tpu_torch/csrc/css.cu`, the PR 18 kernel: a thread a
+   register) and the copies below, and prints ptxas' report;
+2. holds the kernel to `css_pass_plain` bit for bit on the first 8
+   items (registers, cutoffs, winners), and OTHER and every variant to
+   the kernel over all items;
+3. prints the lane slots a draw of both schedules, from the walks'
+   lengths (`walk_draws` of OTHER's output: `lane_slot_ratio` over a
+   warp and a block of 128 registers, `step_slot_ratio`), and the bound
+   (chip_smoke.py's CSS_INT_OPS integer-lane instructions a draw the
+   early exit evaluates);
+4. unless --check: times them by CUDA events (mean of CSS_REPS launches
+   after a warm-up) in turns: other, new, new, other; each variant
+   (`tileN`: N registers a block, `warpsN`: N warps a block; exact) and
+   probe (`nolog`: no f64 log, a draw x1 + u, so wrong registers;
+   `old-nolog` the same in OTHER) as variant, new (or other), variant;
+5. prints the SASS opcode counts of both kernels, writes the kernel's
+   SASS to chiprun_out/css.sass, and counts the instructions of one trip
+   of each walk loop (chip_smoke.py `_loop_ops`).
+
+Its JSON goes to chiprun_out/css_turns.json.
 """
 
 import ctypes
@@ -74,11 +106,15 @@ KERNELS = {
 }
 
 
+def _sass_text(so_path: str) -> str:
+    tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def _sass_counts(tag: str, so_path: str, keep: str = "") -> None:
     """Opcode counts of the SASS in a built library (cuobjdump)."""
-    tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
-                          text=True, check=True).stdout
+    text = _sass_text(so_path)
     if keep:
         with open(os.path.join(ROOT, "chiprun_out", keep), "w") as f:
             f.write(text)
@@ -130,7 +166,159 @@ def in_turns(rounds, timer):
     return out
 
 
+# css: the FullSetSketch job's first pass
+CSS_ITEMS, CSS_HASHES, CSS_M = 5120, 19970, 1024
+CSS_REPS = 5
+_CSS_TILE = re.compile(r"constexpr int TILE = \d+;")
+_CSS_WARPS = re.compile(r"constexpr int WARPS = \d+;")
+_CSS_LOG = (re.compile(re.escape("return __dadd_rn(-log64(u), x1);")),
+            "return __dadd_rn(u, x1);")
+# copies of csrc/css.cu: exact variants, and probes (wrong registers)
+CSS_VARIANTS = {
+    "tile128": (((_CSS_TILE, "constexpr int TILE = 128;"), 1),),
+    "tile256": (((_CSS_TILE, "constexpr int TILE = 256;"), 1),),
+    "warps4": (((_CSS_WARPS, "constexpr int WARPS = 4;"), 1),),
+    "warps16": (((_CSS_WARPS, "constexpr int WARPS = 16;"), 1),),
+}
+CSS_PROBES = {"nolog": ((_CSS_LOG, 1),)}
+
+
+def css_operands():
+    """(sx1, srv, k, threshold) on the card, as `_css_batch` builds the
+    first pass of CSS_ITEMS items of CSS_HASHES seeded random hashes."""
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+    rng = np.random.default_rng(2026)
+    h = rng.integers(0, 1 << 64, (CSS_ITEMS, CSS_HASHES), dtype=np.uint64)
+    hashed = torch.from_numpy(h.view(np.int64)).cuda()
+    del h
+    x1, rv = SK._css_x1(hashed, CSS_M)
+    sx1, perm = torch.sort(x1, dim=1, stable=True)
+    srv = torch.gather(rv, 1, perm)
+    del hashed, x1, rv, perm
+    cap = max(4096, 6 * CSS_M)
+    k = torch.full((CSS_ITEMS,), cap, dtype=torch.int64, device="cuda")
+    t = torch.full((CSS_ITEMS,), (np.log(CSS_M) + 8.0) / CSS_HASHES,
+                   dtype=torch.float64, device="cuda")
+    return sx1[:, :cap].contiguous(), srv[:, :cap].contiguous(), k, t
+
+
+def css_main(other: str, check: bool) -> int:
+    from concurrent.futures import ThreadPoolExecutor
+    from dashing2_tpu_torch.ops import css as CSSOP
+    smi = CS.phase_device()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    sources = {"new": CSSOP.SOURCE, "other": other}
+    copies = dict(CSS_VARIANTS, **CSS_PROBES)
+    for name, subs in copies.items():
+        sources[name] = probe_source("css", CSSOP.SOURCE, name, subs)
+    sources["old-nolog"] = probe_source("css", other, "old-nolog",
+                                        CSS_PROBES["nolog"])
+
+    def build(name):
+        lib = native.build_shared(f"css_{name}", [sources[name]],
+                                  native.nvcc_command(sources[name]))
+        fn = lib.css_pass
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, ll, ll, ctypes.c_int, p, p, p, p]
+        return lib
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(build, sources)))
+    for name in sources:
+        ptxas(f"css_{name}")
+
+    sx1, srv, k, t = css_operands()
+    B, K = sx1.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+
+    def launcher(name):
+        regs = torch.empty((B, CSS_M), dtype=torch.float64, device="cuda")
+        tcut = torch.empty(B, dtype=torch.float64, device="cuda")
+        ids = torch.empty((B, CSS_M), dtype=torch.int64, device="cuda")
+        outs[name] = (regs, tcut, ids)
+        fn = libs[name].css_pass
+
+        def run():
+            err = fn(sx1.data_ptr(), srv.data_ptr(), k.data_ptr(),
+                     t.data_ptr(), B, K, CSS_M, regs.data_ptr(),
+                     tcut.data_ptr(), ids.data_ptr(), stream)
+            assert err == 0, f"{name}: CUDA error {err}"
+        return run
+    runs = {name: launcher(name) for name in sources}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+
+    def bits(x):
+        return x.view(torch.int64) if x.is_floating_point() else x
+    cut = [x[:8].contiguous() for x in (sx1, srv, k, t)]
+    want = CSSOP.css_pass_plain(*cut, CSS_M, return_ids=True)
+    assert all(torch.equal(bits(g[:8]), bits(w))
+               for g, w in zip(outs["new"], want)), "new != plain"
+    for name in ["other"] + list(CSS_VARIANTS):
+        assert all(torch.equal(bits(a), bits(b)) for a, b in
+                   zip(outs[name], outs["new"])), f"{name} != new"
+    CS._say(f"[exact] new == plain on 8 items; other and "
+            f"{', '.join(CSS_VARIANTS)} == new on {B} items x {K} rows, "
+            f"m = {CSS_M} (registers, cutoffs, winners)")
+
+    walks = CSSOP.walk_draws(sx1, k, t, outs["other"][0], outs["other"][2])
+    drawn = int(walks.sum())
+    slots = {"warp": CSSOP.lane_slot_ratio(walks, 32),
+             "block": CSSOP.lane_slot_ratio(walks, 128),
+             "steps": CSSOP.step_slot_ratio(walks, 32)}
+    probe_draws = {p: int(CSSOP.walk_draws(sx1, k, t, outs[p][0],
+                                           outs[p][2]).sum())
+                   for p in ("nolog", "old-nolog")}
+    bound_ms = drawn * CS.CSS_INT_OPS / CS.RATES["int32"] * 1e3
+    CS._say(f"[walk] {drawn} draws evaluated of {B * K * CSS_M} kept "
+            f"({100 * drawn / (B * K * CSS_M):.2f}%), mean walk "
+            f"{drawn / (B * CSS_M):.1f} rows; lane slots a draw: a thread "
+            f"a register {slots['warp']:.4f} (warp), {slots['block']:.4f} "
+            f"(block of 128); a warp a register {slots['steps']:.4f}; the "
+            f"probes' own walks: {probe_draws}")
+    CS._say(f"[bound] {bound_ms:.3f} ms ({CS.CSS_INT_OPS} int32 lane "
+            "instructions a draw evaluated)")
+    rec = {"card": smi, "kernel": "css", "items": B, "rows": K, "m": CSS_M,
+           "other": other, "draws": drawn, "lane_slots": slots,
+           "probe_draws": probe_draws, "bound_ms": bound_ms}
+    if not check:
+        rounds = [("turns", (("other", runs["other"]), ("new", runs["new"]),
+                             ("new", runs["new"]),
+                             ("other", runs["other"])))]
+        for name in list(copies) + ["old-nolog"]:
+            base = "other" if name == "old-nolog" else "new"
+            rounds.append((name, ((name, runs[name]), (base, runs[base]),
+                                  (name, runs[name]))))
+        rec.update(in_turns(rounds, lambda run: CS._library_ms(run,
+                                                                CSS_REPS)))
+        best = min(ms for name, ms in rec["turns"] if name == "new")
+        CS._say(f"[bound] new kernel at {100 * bound_ms / best:.1f}% of it")
+    for name, keep in (("new", "css.sass"), ("other", "")):
+        path = libs[name]._name
+        _sass_counts(name, path, keep)
+        try:
+            f64, alu, trips, _ = CS._loop_ops(_sass_text(path), "css_kernel",
+                                              "MUFU.RCP64")
+            CS._say(f"[sass] {name}: walk loop {alu:.2f} integer-lane and "
+                    f"{f64:.2f} f64 instructions a draw ({trips} a trip)")
+            rec[f"loop_ops_{name}"] = [alu, f64]
+        except ValueError as e:
+            CS._say(f"[sass] {name}: no walk loop found ({e})")
+    with open(os.path.join(ROOT, "chiprun_out", "css_turns.json"), "w") as f:
+        json.dump(rec, f)
+    print(json.dumps(rec))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "css":
+        if not torch.cuda.is_available():
+            print("no CUDA card", file=sys.stderr)
+            return 2
+        return css_main(os.path.abspath(sys.argv[2]),
+                        "--check" in sys.argv[3:])
     if len(sys.argv) != 3 or sys.argv[1] not in KERNELS:
         print(__doc__, file=sys.stderr)
         return 2

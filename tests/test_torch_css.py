@@ -6,17 +6,26 @@
   or cut the rows: the registers and the cutoff within CSS_ULP ulp (the
   port's own f64 log against XLA's, README "Documented deviations"),
   the winners (mapped to the hash's index) equal.
-* `css_walk_plain`, the kernel's early-exit walk in plain torch, equal
-  bit for bit to the full pass (registers, cutoff, winners), on planted
-  items: duplicate rows (equal draws, the first row wins), caps below
-  the row count, thresholds inside the rows, an item with no row kept;
+* `css_walk_plain`, the early-exit walk in plain torch, equal bit for
+  bit to the full pass (registers, cutoff, winners), on planted items:
+  duplicate rows (equal draws, the first row wins), caps below the row
+  count, thresholds inside the rows, an item with no row kept;
   `walk_draws` gives the walk's own count of evaluated rows.
+* The same a row at a time and 32 rows a step (csrc/css.cu's schedule)
+  on tests/css_planted.py's rows: equal rows across a step boundary and
+  within a step, own-row hits on a step's first and last lane, caps of
+  0, 1, 33 and 95 rows; the planted winners win. The step walk's draws
+  are the row walk's rounded up to whole steps (within the kept rows).
+* `lane_slot_ratio` and `step_slot_ratio` against direct loops.
 * The early exit's premise: -log64(u) >= 0 for u at 1, its 2^20 nearest
   f64 neighbours below 1, 2^-64, 1e-300 and 10^6 values spread over
   (0, 1), so every draw of a row is at least its x1.
 * The wrapper without a card: a CUDA request raises (the kernel cannot
   build, the device cannot be reached), another device is refused.
 """
+
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +36,9 @@ from dashing2_tpu.ops import sketch_kernels as JSK
 from dashing2_tpu_torch.ops import css as CSS
 from dashing2_tpu_torch.ops import sketch_kernels as SK
 from dashing2_tpu_torch.ops.fixedmath import log64
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from css_planted import planted_rows  # noqa: E402
 
 # the port's f64 log against XLA's CPU log (the C library's)
 CSS_ULP = 4
@@ -140,6 +152,78 @@ def test_early_exit_walk_on_the_sketch_route():
     assert torch.equal(CSS.walk_draws(sx1, k, t, walk[0], walk[2]),
                        walk[3])
     assert walk[3][0].float().mean() < float(k[0])
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int64) if x.is_floating_point() else x
+
+
+@pytest.mark.parametrize("m", [1, 7, 33, 64, 130, 1024])
+def test_step_walk_on_planted_rows(m):
+    """Rows planted where the kernel's 32-row steps meet: the row walk
+    and the step walk equal the full pass bit for bit (registers, tcut,
+    winners), and the planted winners win."""
+    (sx1, srv, k, t), winners = planted_rows(m, seed=m + 21)
+    full = CSS.css_pass_plain(sx1, srv, k, t, m, return_ids=True)
+    rows = CSS.css_walk_plain(sx1, srv, k, t, m)
+    steps = CSS.css_walk_plain(sx1, srv, k, t, m, step=CSS.LANES)
+    for f, r, s in zip(full, rows[:3], steps[:3]):
+        assert torch.equal(_bits(r), _bits(f))
+        assert torch.equal(_bits(s), _bits(f))
+    regs, tcut, ids = full
+    for (i, j), d in winners.items():
+        assert int(ids[i, j]) == d and regs[i, j] == sx1[i, d], (i, j, d)
+    if m >= 64:
+        # every tie and lane hit planted, in items 0, 3 (k = 33: row 32,
+        # a step's first lane, is the last kept) and 5 (71 rows kept)
+        assert {d for (i, _), d in winners.items() if i == 0} \
+            == {0, 31, 40, 63, 95, 96, 127}
+        assert {d for (i, _), d in winners.items() if i == 3} == {0, 31}
+        assert {d for (i, _), d in winners.items() if i == 5} \
+            == {0, 31, 40, 63}
+    # no kept row (k = 0): +inf and row 0; k = 1: every register row 0
+    assert torch.isinf(regs[1]).all() and not ids[1].any()
+    assert torch.isfinite(regs[2]).all() and not ids[2].any()
+    assert torch.isinf(tcut[:5]).all() and float(tcut[5]) == float(sx1[5, 71])
+    n = CSS.walk_draws(sx1, k, t, regs, ids)
+    assert torch.equal(rows[3], n)
+    kept = CSS._tcut(sx1, k, t)[0].sum(1, keepdim=True)
+    whole = torch.minimum((n + CSS.LANES - 1) // CSS.LANES * CSS.LANES, kept)
+    assert torch.equal(steps[3], whole)
+    assert (steps[3] > 0).sum() == (n > 0).sum()
+
+
+def _lane_slots_loop(draws: np.ndarray, lanes: int) -> float:
+    slots = 0
+    for item in draws:
+        for g in range(0, len(item), lanes):
+            slots += lanes * int(item[g:g + lanes].max())
+    return slots / int(draws.sum())
+
+
+def _step_slots_loop(draws: np.ndarray, lanes: int) -> float:
+    slots = total = 0
+    for n in draws.ravel():
+        if n > 0:
+            slots += lanes * -(-int(n) // lanes)
+            total += int(n)
+    return slots / total
+
+
+@pytest.mark.parametrize("m,lanes", [(64, 32), (100, 32), (1024, 128),
+                                     (7, 32)])
+def test_slot_ratios_match_loops(m, lanes):
+    rng = np.random.default_rng(m + lanes)
+    draws = rng.geometric(1.0 / m, size=(5, m)).astype(np.int64)
+    draws[1, : m // 2] = 0
+    t = torch.from_numpy(draws)
+    assert CSS.lane_slot_ratio(t, lanes) == pytest.approx(
+        _lane_slots_loop(draws, lanes), rel=1e-12)
+    assert CSS.step_slot_ratio(t, lanes) == pytest.approx(
+        _step_slots_loop(draws, lanes), rel=1e-12)
+    assert CSS.lane_slot_ratio(t, lanes) >= 1.0
+    assert CSS.lane_slot_ratio(torch.zeros((2, m), dtype=torch.int64)) \
+        == 1.0
 
 
 def test_negative_log_is_never_negative():

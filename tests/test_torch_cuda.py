@@ -1368,7 +1368,12 @@ def _css_rows(m: int, seed: int, card):
     orders them (x1 ascending, +inf past an item's hashes), with equal
     rows planted (equal draws), caps below the width, thresholds that
     keep every row, cut inside the rows or keep none, and one item of
-    one row."""
+    one row; then tests/css_planted.py's seven items (equal rows across
+    and within the kernel's 32-row steps, own-row hits on a step's first
+    and last lane, caps of 0, 1, 33 and 95), padded to the width."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from css_planted import planted_rows
     from dashing2_tpu_torch.ops import sketch_kernels as SK
     rng = np.random.default_rng(seed)
     width = 1500
@@ -1384,10 +1389,16 @@ def _css_rows(m: int, seed: int, card):
     base = (np.log(m) + 8.0) / width
     t = torch.tensor([1e300, base, base / 4.0, float(sx1[3, 511]),
                       1e300, float(sx1[5, 0]) / 2.0], dtype=torch.float64)
-    return [x.to(card) for x in (sx1, srv, k, t)]
+    (px1, prv, pk, pt), _ = planted_rows(m, seed)
+    pad = width - px1.shape[1]
+    sx1 = torch.cat([sx1, torch.nn.functional.pad(px1, (0, pad),
+                                                  value=torch.inf)])
+    srv = torch.cat([srv, torch.nn.functional.pad(prv, (0, pad))])
+    return [x.to(card) for x in (sx1, srv, torch.cat([k, pk]),
+                                 torch.cat([t, pt]))]
 
 
-@pytest.mark.parametrize("m", [1, 7, 64, 127, 128, 130, 1024])
+@pytest.mark.parametrize("m", [1, 7, 33, 64, 127, 128, 130, 1024, 4096])
 def test_css_kernel_matches_plain(card, m):
     """csrc/css.cu against its plain version and the early-exit walk on
     the card: registers, cutoffs and winners bit for bit; one launch."""
@@ -1409,6 +1420,31 @@ def test_css_kernel_matches_plain(card, m):
     cpu = CSS.css_pass(*[a.cpu() for a in args], m, return_ids=True)
     for g, c in zip(got, cpu):
         assert torch.equal(g.cpu(), c)
+
+
+def test_css_kernel_past_the_staged_rows(card):
+    """A block stages the own registers of an item's first 12,256 rows
+    in shared memory; rows past them compute theirs in the walk. Two
+    items of 14,000 random hashes, every row kept, at m = 8192 (about a
+    fifth of the walks pass row 12,256): registers, cutoffs and winners
+    == plain bit for bit, and some winners lie past the staged rows."""
+    from dashing2_tpu_torch.ops import css as CSS
+    from dashing2_tpu_torch.ops import sketch_kernels as SK
+    m, n = 8192, 14000
+    rng = np.random.default_rng(8)
+    h = rng.integers(0, 1 << 64, (2, n), dtype=np.uint64)
+    x1, rv = SK._css_x1(torch.from_numpy(h.view(np.int64)).to(card), m)
+    sx1, perm = torch.sort(x1, dim=1, stable=True)
+    args = [sx1, torch.gather(rv, 1, perm).contiguous(),
+            torch.full((2,), n, dtype=torch.int64, device=card),
+            torch.full((2,), 1e300, dtype=torch.float64, device=card)]
+    got = CSS.css_pass(*args, m, return_ids=True)
+    want = CSS.css_pass_plain(*args, m, return_ids=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int64) if g.is_floating_point()
+                           else g, w.view(torch.int64)
+                           if w.is_floating_point() else w)
+    assert int((got[2] >= 12256).sum()) > 0
 
 
 def test_css_sketch_many_launches_the_kernel(card):
