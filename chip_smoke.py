@@ -25,10 +25,12 @@ no card, or when the port is not importable:
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu,
    csrc/int_counts.cu, csrc/weighted_draws.cu, csrc/omh.cu,
-   csrc/oph_rows.cu, csrc/css.cu and csrc/countsketch.cu (sm_90a)
-   and g++ for the native sketcher, FASTA reader, formatter and Myers
-   edit distance, all started together; build seconds and ptxas'
-   register/spill report;
+   csrc/oph_rows.cu, csrc/css.cu and csrc/countsketch.cu (sm_90a),
+   the earlier dense-bucket CountSketch kernel
+   (experiments/countsketch_dense.cu, phase 44's yardstick) and g++ for
+   the native sketcher, FASTA reader, formatter and Myers edit distance,
+   all started together; build seconds and ptxas' register/spill
+   report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
    1000, 1025, 4097} and m in {30, 62, 64, 96, 98, 100, 126, 128, 130,
@@ -206,7 +208,8 @@ no card, or when the port is not importable:
    the plain version's and every emitted value is the equality table at
    them. Prints the draws' seconds and rate and the spans;
 24. `-P -c 1048576` over the first 8 genomes at -S 256: one
-   countsketch launch a genome; byte-equal to `--device cpu`;
+   countsketch call for the batch of 8 genomes; byte-equal to
+   `--device cpu`;
 25. `-P --topk 10` over the first 5120 genomes: the draws on the card,
    no other kernel;
    the bytes equal `neighbor_graph_main` on the CPU over the same
@@ -344,10 +347,19 @@ no card, or when the port is not importable:
    register: a warp's longest of 32 walks, a block's of 128) and of
    this kernel's (a warp a register, 32 rows a step), from the walks'
    lengths;
-44. (after 24) the CountSketch kernel (csrc/countsketch.cu) on phase
-   24's 8 streams, captured as the job launched it: every bucket ==
-   the plain version's and == `torch.bincount`'s, exactly; the three
-   timed over the 8 streams;
+44. (after 46) the CountSketch kernel (csrc/countsketch.cu) on three
+   sets of streams: (a) phase 24's 8 streams and (c) phase 46's 8,192,
+   captured as the jobs called it, and (b) 8 streams of 5,000,000
+   hashes made on the card from a seeded generator (a 5 Mbp bacterial
+   genome's 31-mers, 5 hashes repeated 1,000 times and one 100,000
+   times in each) at cssize 2^20, and the first of them again at
+   2^31 - 1: on each, every stream's count and non-zero buckets ==
+   the plain version's, == `torch.bincount`'s (a stream at a time) and
+   == the earlier dense-bucket kernel's whole function's (a zeroed
+   cssize-sized array a stream, the kernel, `torch.nonzero`, the
+   gather and the cast), exactly; the four timed (the kernel route
+   with ids and sums left on the card), with the bound (CS_OPS and the
+   function's own bytes) and each one's share of it;
 45. (after the weighted phases) `sketch --cache --outprefix D` over the
    first 256 genomes of the N = 10240 corpus for the one-permutation
    `-o`, `--full-setsketch`, `--full-setsketch --fastcmp-bytes`,
@@ -357,7 +369,13 @@ no card, or when the port is not importable:
    artifacts deleted (the route called with exactly those genomes);
    every output (matrix, `-o`, artifacts) == the cold run's byte for
    byte; the artifacts of the first 16 genomes (1 for `-B`) == a
-   `--device cpu` run's.
+   `--device cpu` run's;
+46. (after 42) `sketch -k 31 -S 256 -P -c 1048576 --parse-by-seq
+   --binary-output` all pairs over the first 8,192 records (phase 38's):
+   one countsketch call a batch of hashes, the draws on
+   weighted_draws.cu, one gtlt_self launch; its wall and `sketch/hash`,
+   `/count` and `/weighted` spans; the job over the first 64 records
+   byte-equal to `--device cpu`.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall, and phases
@@ -377,8 +395,9 @@ counts, so gtlt_self_counts, gtlt_counts and int_counts have none;
 nor does one call draw weighted registers (weighted_draws), select and
 fold OrderMinHash words (omh), encode, select and bucket-min k-mers
 (oph_rows), or draw CSetSketch registers (css); the CountSketch's is
-`torch.bincount(idx, weights=sign, minlength=cssize)` over the bucket ids
-and signs (made before its window). The kernels line gives
+`torch.bincount(idx, weights=sign, minlength=cssize)` a stream over the
+bucket ids and signs (made before its window), then `torch.nonzero` and
+the gather. The kernels line gives
 int_counts_self twice: `int_counts_self` with the
 u8 a/b job's gtlt-mode times (no library call) and `int_counts_self_eq`
 with the u8 b-bit job's eq-mode times and its library call.
@@ -413,7 +432,10 @@ the 32,768-record corpus (phase 38 its first 8,192 records, phase 42 its
 first 2,048), 5,120 genomes (phase 40) and 256 genomes (phase 41); the
 CPU checks of phase 42 run over 64 records for `--set`, 32 for
 `--full-setsketch` and 8 for `-B` (the plain CSetSketch and weighted
-draws are slow on the CPU: 10.8 s for 64 records and 8.6 s for 16).
+draws are slow on the CPU: 10.8 s for 64 records and 8.6 s for 16);
+phase 46 runs over phase 38's 8,192 records and its `--device cpu`
+check over the first 64 (the plain `-P` draws at m = 256: 5.7-10.9 s
+on the H100 machine's host).
 Phase 45 runs over the first 256 genomes (its jobs' work scales with
 their items; the kernels' shapes are timed in phases 43 and 44) and its
 `--device cpu` check over 16 genomes, 1 for `-B` (the plain weighted
@@ -541,6 +563,7 @@ def phase_build():
               "weighted_draws": WD.load_kernel, "omh": OP.load_kernel,
               "oph_rows": OR.load_kernel, "css": CSS.load_kernel,
               "countsketch": CS.load_kernel,
+              "countsketch_dense": _cs_dense_lib,
               "ophsketch": native.load_oph_lib,
               "fastx": native.load_fastx_lib,
               "emitfmt": native.load_emit_lib,
@@ -2483,12 +2506,14 @@ def phase_pmh_countsketch(lst: str, counters):
             card = launches
             _say_spans(tag, spans, WEIGHTED_SPANS)
     assert card["weighted_draws"] >= 1 and card["gtlt_self"] == 1, card
-    assert card["countsketch"] == len(paths), card
+    assert card["countsketch"] == len(streams) == 1, card
+    assert streams[0][1].shape[0] == len(paths) + 1
     assert outs[0] == outs[1] and len(outs[0]) == 4 * 8 * 7 // 2
-    _say(f"[{tag}] countsketch launched once a genome; card bytes == "
-         f"--device cpu bytes ({len(outs[0])} bytes)")
+    _say(f"[{tag}] countsketch called once for the batch of "
+         f"{len(paths)} genomes; card bytes == --device cpu bytes "
+         f"({len(outs[0])} bytes)")
     return dict(launches=card["weighted_draws"],
-                countsketch=card["countsketch"], streams=streams)
+                countsketch=card["countsketch"], streams=_cs_set(streams))
 
 
 def phase_pmh_knn(lst: str, counters):
@@ -4089,8 +4114,48 @@ def phase_byseq_counting(counters):
     return runs
 
 
+def phase_byseq_countsketch(counters):
+    """`sketch -k 31 -S 256 -P -c 1048576 --parse-by-seq --binary-output`
+    all pairs over the first BYSEQ_PAIRS_N records (phase 38's): one
+    countsketch call a batch of CS.BATCH_HASHES hashes, the draws on
+    weighted_draws.cu, one gtlt_self launch; its bytes over the first
+    BYSEQ_CUTS["set"] records == --device cpu's. Returns its wall,
+    launches and the streams it counted (set (c) of phase 44)."""
+    from dashing2_tpu_torch.ops import countsketch as CS
+    n = BYSEQ_PAIRS_N
+    d = os.path.join(WORK, "byseq")
+    tag = "byseq-pmh-c"
+    out = os.path.join(d, f"{tag}.bin")
+    argv = ["sketch", "--parse-by-seq", "-k", str(BYSEQ_K), "-S", "256",
+            "-P", "-c", "1048576", "--binary-output"]
+    rec, undo = _capture_countsketch()
+    try:
+        wall, spans, launches = _run_cli(tag, argv + [
+            "--cmpout", out, os.path.join(d, "pairs.fa")], n, counters)
+    finally:
+        undo()
+    assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+    hv, offsets, _ = _cs_set(rec)
+    batches = -(-hv.shape[0] // CS.BATCH_HASHES)
+    assert offsets.shape[0] == n + 1 and launches["countsketch"] == len(
+        rec) == batches, (launches, len(rec))
+    assert launches["weighted_draws"] >= 1 and launches["gtlt_self"] == 1
+    assert all(launches[k] == 0 for k in launches
+               if k not in ("countsketch", "weighted_draws", "gtlt_self"))
+    _say(f"[{tag}] {n} records, {hv.shape[0]} hashes: {len(rec)} "
+         f"countsketch call(s), one a batch")
+    _say_spans(tag, spans, ("sketch", "sketch/read", "sketch/hash",
+                            "sketch/count", "sketch/weighted",
+                            "compare+emit"))
+    cut = BYSEQ_CUTS["set"]
+    _vs_cpu(f"{tag} cut", argv + [os.path.join(d, f"cut{cut}.fa")],
+            out + ".cut", cut, counters)
+    os.remove(out)
+    return dict(wall=wall, launches=launches, streams=_cs_set(rec))
+
+
 def phase_chunked(lst: str, counters):
-    """Phases 37-42, the chunked route."""
+    """Phases 37-42 and 46, the chunked route."""
     t0 = time.perf_counter()
     fa, recs = _byseq_corpus()
     _say(f"[byseq] corpus: {BYSEQ_N} records, "
@@ -4115,6 +4180,8 @@ def phase_chunked(lst: str, counters):
     runs.update(timed("contig jobs", phase_contigs, lst, counters))
     runs.update(timed("byseq counting jobs", phase_byseq_counting,
                       counters))
+    runs["byseq-pmh-c"] = timed("byseq -P -c job", phase_byseq_countsketch,
+                                counters)
     _say(f"[wall] chunked-route phases: {time.perf_counter() - t0:.3f} s")
     shutil.rmtree(os.path.join(WORK, "byseq"), ignore_errors=True)
     kernel["launches"] = sum(r["launches"]["oph_rows"] for r in runs.values())
@@ -4377,74 +4444,191 @@ def phase_css_vs_plain(launches):
 
 
 def _capture_countsketch():
-    """Wrap ops/countsketch.py's countsketch_buckets so that a CLI run
-    leaves a copy of every stream it took on the card."""
+    """Wrap ops/countsketch.py's countsketch_batch so that a CLI run
+    leaves a copy of every batch it took on the card: (hashes on the
+    card, offsets, cssize)."""
     from dashing2_tpu_torch.ops import countsketch as CS
-    real = CS.countsketch_buckets
+    real = CS.countsketch_batch
     rec = []
 
-    def wrapped(hv, cssize):
+    def wrapped(hv, offsets, cssize):
         if hv.is_cuda:
-            rec.append((hv.clone(), cssize))
-        return real(hv, cssize)
-    CS.countsketch_buckets = wrapped
+            rec.append((hv.clone(), offsets.clone(), cssize))
+        return real(hv, offsets, cssize)
+    CS.countsketch_batch = wrapped
 
     def undo():
-        CS.countsketch_buckets = real
+        CS.countsketch_batch = real
     return rec, undo
 
 
-def phase_countsketch_vs_plain(streams):
-    """csrc/countsketch.cu on the `-P -c` job's own streams (phase 24's
-    8 genomes): every bucket == countsketch_buckets_plain's and ==
-    torch.bincount's, exactly; the kernel, its plain version and
-    torch.bincount(idx, weights=sign, minlength=cssize) (the bucket ids
-    and signs made before its window) timed over the 8 streams."""
+def _cs_set(rec):
+    """The captured batches of one job as one set (hashes, offsets,
+    cssize): the batches' streams in order."""
+    import torch
+    hv = torch.cat([r[0] for r in rec])
+    offs = [rec[0][1]]
+    for r in rec[1:]:
+        offs.append(r[1][1:] + offs[-1][-1])
+    return hv, torch.cat(offs), rec[0][2]
+
+
+# set (b) of the CountSketch phase: 8 streams of a 5 Mbp bacterial
+# genome's 31-mers, 5 hashes repeated 1,000 times and one 100,000 times
+# in each, at cssize 2^20 (and the first stream again at 2^31 - 1)
+CS_BACTERIA, CS_BACTERIA_N, CS_BACTERIA_SEED = 8, 5_000_000, 5
+# the bound's yardstick for a CountSketch hash: the int32 lane
+# instructions of the least form of its work, reckoned once and kept
+# fixed: the u64 modulo by a precomputed reciprocal (a 64 x 64 high
+# product 8, q * cssize 3, the remainder 2, two conditional
+# subtractions 6), the sign 2 and the accumulate 1
+CS_OPS = 22
+# the earlier dense-bucket kernel, built beside the port's as the
+# phase's yardstick
+CS_DENSE_SOURCE = os.path.join(ROOT, "experiments", "countsketch_dense.cu")
+
+
+def _cs_bacterial(n_streams: int, cssize: int):
+    """Set (b) on the card from a seeded generator: n_streams streams of
+    CS_BACTERIA_N random u64 hashes, each with 5 hashes planted 1,000
+    times and one 100,000 times at random places."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(CS_BACTERIA_SEED)
+    n = CS_BACTERIA_N
+    parts = []
+    for _ in range(n_streams):
+        hi = torch.randint(0, 1 << 32, (n,), generator=g, device="cuda")
+        lo = torch.randint(0, 1 << 32, (n,), generator=g, device="cuda")
+        hv = (hi << 32) | lo
+        pos = torch.randperm(n, generator=g, device="cuda")[:105000]
+        reps = torch.repeat_interleave(hv[:6], torch.tensor(
+            [1000] * 5 + [100000], device="cuda"))
+        hv[pos] = reps
+        parts.append(hv)
+    offsets = torch.arange(n_streams + 1, dtype=torch.int64) * n
+    return torch.cat(parts), offsets, cssize
+
+
+def _cs_dense_lib():
+    import ctypes
+    from dashing2_tpu_torch import native
+    lib = native.build_shared("countsketch_dense", [CS_DENSE_SOURCE],
+                              native.nvcc_command(CS_DENSE_SOURCE))
+    lib.countsketch.restype = ctypes.c_int
+    lib.countsketch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                ctypes.c_ulonglong, ctypes.c_void_p,
+                                ctypes.c_void_p]
+    return lib
+
+
+def cs_dense_function(lib, hv, offsets, cssize: int):
+    """The dense-bucket route's whole function over a set, a stream at a time,
+    ids and sums left on the card: a cssize-sized int32 bucket array
+    zeroed, the kernel, `torch.nonzero`, the gather, |.| and the cast to
+    f64 (as ops/countsketch.py did before the batched entry)."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for s in range(offsets.shape[0] - 1):
+        h = hv[int(offsets[s]):int(offsets[s + 1])]
+        b = torch.zeros(cssize, dtype=torch.int32, device="cuda")
+        assert lib.countsketch(h.data_ptr(), h.shape[0], cssize,
+                               b.data_ptr(), stream) == 0
+        nz = torch.nonzero(b).squeeze(1)
+        out.append((nz, b[nz].abs().to(torch.float64)))
+    return out
+
+
+def _cs_library(prepped, cssize: int):
+    """torch.bincount(idx, weights=sign, minlength=cssize) a stream, then
+    nonzero and the gather: the same output, from ids and signs made
+    before its window."""
+    import torch
+    out = []
+    for idx, sign in prepped:
+        b = torch.bincount(idx, weights=sign, minlength=cssize)
+        nz = torch.nonzero(b).squeeze(1)
+        out.append((nz, b[nz].abs()))
+    return out
+
+
+def _cs_hold(tag, want, per_stream) -> None:
+    """per_stream [(ids, sums)] == the rows `want` (K, 2), in order."""
+    import torch
+    ids = torch.cat([i for i, _ in per_stream])
+    sums = torch.cat([v for _, v in per_stream])
+    assert torch.equal(ids, want[:, 0].to(torch.int64)), tag
+    assert torch.equal(sums.to(torch.float64),
+                       want[:, 1].to(torch.float64)), tag
+
+
+def phase_countsketch_vs_plain(sets, dense_lib):
+    """csrc/countsketch.cu on three sets of streams: (a) phase 24's 8
+    genomes, (b) 8 bacterial-genome streams (and one at cssize 2^31 - 1),
+    (c) phase 46's 8,192 records. On each, the kernel's counts and rows
+    == the plain version's, == torch.bincount's (a stream at a time,
+    nonzero and gather) and == the dense-bucket route's function, exactly;
+    the kernel route (ids and sums on the card, no host copy in the
+    window), the plain version, the library call and the dense function
+    timed by CUDA events; the bound (CS_OPS, and 8 bytes a hash, a
+    non-zero bucket and a stream offset) and each one's share of it."""
     import torch
     from dashing2_tpu_torch.ops import countsketch as CS
     from dashing2_tpu_torch.ops import hashes as DH
-    assert streams, "the -P -c job took no stream on the card"
-    prepped = []
-    for hv, cssize in streams:
-        got = CS.countsketch_buckets(hv, cssize)
+    reps = {"a": (20, 5, 5), "b": (5, 3, 3), "b31": (2, 1, 1),
+            "c": (5, 1, 1)}
+    res = {}
+    for tag, (hv, offsets, cssize) in sets.items():
+        t0 = time.perf_counter()
+        n, S = hv.shape[0], offsets.shape[0] - 1
+        out, counts = CS.countsketch_batch(hv, offsets, cssize)
         torch.cuda.synchronize()
-        want = CS.countsketch_buckets_plain(hv, cssize)
-        assert torch.equal(got.to(torch.int64), want)
-        idx = DH.u64_mod(hv, cssize)
-        sign = torch.where((hv & 1) != 0, 1.0, -1.0).to(torch.float64)
-        lib = torch.bincount(idx, weights=sign, minlength=cssize)
-        assert torch.equal(lib, want.to(torch.float64))
-        prepped.append((idx, sign, cssize))
-
-    def kernel():
-        for hv, cssize in streams:
-            CS.countsketch_buckets(hv, cssize)
-
-    def plain():
-        for hv, cssize in streams:
-            CS.countsketch_buckets_plain(hv, cssize)
-
-    def library():
-        for idx, sign, cssize in prepped:
-            torch.bincount(idx, weights=sign, minlength=cssize)
-    ms = _cuda_ms(kernel, 5)
-    plain_ms = _cuda_ms(plain, 3)
-    library_ms = _library_ms(library, 5)
-    n = sum(hv.shape[0] for hv, _ in streams)
-    nbytes = 8 * n + sum(4 * c for _, c in streams)
-    _, alu, trips, _ = _sass_loop_ops("countsketch", "countsketch_kernel",
-                                      "RED")
-    bound_ms, bound_by = _bound(n * alu, "int32", nbytes)
-    _say(f"[countsketch] kernel == plain == torch.bincount on every "
-         f"bucket, {len(streams)} streams of {n} hashes into "
-         f"{streams[0][1]} buckets each; kernel {ms:.3f} ms (CUDA events, "
-         f"mean of 5, the buckets' zeroing included), plain {plain_ms:.3f} "
-         f"ms, torch.bincount {library_ms:.3f} ms; bound {bound_ms:.4f} ms "
-         f"({bound_by}: {nbytes} bytes, {alu:.1f} integer lane "
-         f"instructions a hash in the SASS loop, {trips} a trip), "
-         f"{100 * bound_ms / ms:.1f}% reached")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=0, library_ms=library_ms)
+        pout, pcounts = CS.countsketch_batch_plain(hv, offsets, cssize)
+        assert torch.equal(counts, pcounts), tag
+        k = int(counts.sum())
+        assert torch.equal(out[:k], pout[:k]), tag
+        rows = out[:k]
+        del pout
+        _cs_hold(f"{tag} dense", rows, cs_dense_function(dense_lib, hv,
+                                                         offsets, cssize))
+        prepped = []
+        for s in range(S):
+            h = hv[int(offsets[s]):int(offsets[s + 1])]
+            prepped.append((DH.u64_mod(h, cssize), torch.where(
+                (h & 1) != 0, 1.0, -1.0).to(torch.float64)))
+        _cs_hold(f"{tag} bincount", rows, _cs_library(prepped, cssize))
+        del rows, out
+        r_new, r_lib, r_old = reps[tag]
+        ms = _library_ms(lambda: CS.countsketch_batch(hv, offsets, cssize),
+                         r_new)
+        plain_ms = _library_ms(
+            lambda: CS.countsketch_batch_plain(hv, offsets, cssize), r_lib)
+        library_ms = _library_ms(lambda: _cs_library(prepped, cssize), r_lib)
+        old_ms = _library_ms(lambda: cs_dense_function(
+            dense_lib, hv, offsets, cssize), r_old)
+        del prepped
+        nbytes = 8 * n + 8 * k + 8 * (S + 1)
+        bound_ms, bound_by = _bound(n * CS_OPS, "int32", nbytes)
+        res[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        old_ms=old_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        bytes=nbytes, hashes=n, streams=S, nonzero=k,
+                        cssize=cssize, share=bound_ms / ms,
+                        old_share=bound_ms / old_ms)
+        _say(f"[countsketch] set {tag}: {S} streams, {n} hashes, cssize "
+             f"{cssize}, {k} non-zero buckets; kernel == plain == "
+             f"torch.bincount == the dense function, exactly; kernel route "
+             f"{ms:.4f} ms (CUDA events, mean of {r_new}), dense function "
+             f"{old_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount "
+             f"{library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+             f"{nbytes} bytes, {CS_OPS} int32 lane instructions a hash); "
+             f"{100 * bound_ms / ms:.2f}% reached (dense "
+             f"{100 * bound_ms / old_ms:.2f}%); phase wall "
+             f"{time.perf_counter() - t0:.3f} s")
+        torch.cuda.empty_cache()
+    c = res["c"]
+    return dict(ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                bound_by=c["bound_by"], err=0, library_ms=c["library_ms"],
+                sets=res)
 
 
 def _cache_files(d: str):
@@ -4682,8 +4866,6 @@ def main() -> int:
                                  counters),
                   "pmh-knn": timed("pmh-knn job", phase_pmh_knn, half,
                                    counters)}
-        cs_run = timed("countsketch kernel", phase_countsketch_vs_plain,
-                       w_jobs["pmh-c"].pop("streams"))
         _say(f"[wall] weighted phases: {time.perf_counter() - t0:.3f} s")
         cache_runs = timed("cache jobs", phase_cache, lst, counters)
         t0 = time.perf_counter()
@@ -4707,6 +4889,13 @@ def main() -> int:
         _say(f"[wall] exact-set phases: {time.perf_counter() - t0:.3f} s")
         omh_run, e_runs = phase_edit(lst, counters)
         oph_run, c_runs = phase_chunked(lst, counters)
+        cs_sets = {"a": w_jobs["pmh-c"].pop("streams"),
+                   "b": _cs_bacterial(CS_BACTERIA, 1 << 20),
+                   "b31": _cs_bacterial(1, (1 << 31) - 1),
+                   "c": c_runs["byseq-pmh-c"].pop("streams")}
+        cs_run = timed("countsketch kernel", phase_countsketch_vs_plain,
+                       cs_sets, _cs_dense_lib())
+        del cs_sets
         shutil.rmtree(os.path.join(WORK, "northstar"), ignore_errors=True)
         t0 = time.perf_counter()
         lst = _corpus("rowblock", ROWS_SEED, ROWS_ANCESTORS, ROWS_MUTANTS,
@@ -4774,7 +4963,8 @@ def main() -> int:
     for run, key, tags in ((self_run, "gtlt_self", (
             "filterset", "filterset-raw", "contigs-plain", "contigs-xz",
             "contigs-bz2", "contigs-by-chrom", "contigs-xz-by-chrom",
-            "byseq-fss")), (eq_run, "tri_eq", ("byseq-pairs",))):
+            "byseq-fss", "byseq-pmh-c")), (eq_run, "tri_eq",
+                                           ("byseq-pairs",))):
         run["launches"] += sum(c_runs[t]["launches"][key] for t in tags)
     # the panel jobs' rectangles join gtlt_counts and int_counts (their
     # own block times and bounds are printed above)
@@ -4818,7 +5008,8 @@ def main() -> int:
         + sum(r["launches"]["weighted_draws"] for r in i_runs
               + list(i_jobs["wsketch"].values())
               + list(cache_runs.values()))
-        + c_runs["byseq-bmh"]["launches"]["weighted_draws"],
+        + sum(c_runs[t]["launches"]["weighted_draws"]
+              for t in ("byseq-bmh", "byseq-pmh-c")),
         "max_abs_err": wrun["err"],
         "ms": wrun["ms"],
         "plain_ms": wrun["plain_ms"],
@@ -4882,19 +5073,22 @@ def main() -> int:
         "lane_slots": css_run["lane_slots"],
         "plain_shape": css_run["plain_shape"],
     })
-    # the CountSketch: the -P -c job's 8 streams timed, its launches
+    # the CountSketch: set (c), the by-record -P -c job's batch, timed
+    # (sets (a), (b) and (c) under "sets"); launches of both -P -c jobs
     kernels.append({
         "name": "countsketch",
         "route": "cuda",
         "source": "dashing2_tpu_torch/csrc/countsketch.cu",
         "replaces": "dashing2_tpu/ops/sketch_kernels.py:724",
-        "launches": w_jobs["pmh-c"]["countsketch"],
+        "launches": w_jobs["pmh-c"]["countsketch"]
+        + c_runs["byseq-pmh-c"]["launches"]["countsketch"],
         "max_abs_err": cs_run["err"],
         "ms": cs_run["ms"],
         "plain_ms": cs_run["plain_ms"],
         "bound_ms": cs_run["bound_ms"],
         "bound_by": cs_run["bound_by"],
         "library_ms": cs_run["library_ms"],
+        "sets": cs_run["sets"],
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

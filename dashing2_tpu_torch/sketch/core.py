@@ -27,7 +27,8 @@ Port of the routes of dashing2_tpu/sketch/core.py behind a
   reader, or the Python parser for .xz/.bz2), `_native_hash_codes_list`
   hashes it (oph_sketch.cpp `hash_rows_native`, with the filterset's
   probe), np.unique counts it (in a pool with -p > 1; with -c in the
-  weighted spaces a CountSketch, csrc/countsketch.cu on the card); then
+  weighted spaces a CountSketch over a batch of items at a time,
+  csrc/countsketch.cu on the card); then
   ops/sketch_kernels.py::css_sketch_many draws the CSetSketch
   registers (csrc/css.cu on the card), sketch/weighted.py the weighted
   ones (csrc/weighted_draws.cu), or the distinct hashes (and their
@@ -581,29 +582,23 @@ def _native_hash_codes_list(lib, codes_list, hkw: dict,
     return np.concatenate(parts)
 
 
-def _count_one(opts: Dashing2Options, hv: np.ndarray,
-               device=torch.device("cpu")
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    """The distinct hashes (sorted u64) and their counts (f64), those seen
-    fewer than --count-threshold times dropped. With -c (--countsketch-size)
-    in a weighted space, a CountSketch's (enums.h:44-57, counter.h) instead,
-    on `device` (ops/countsketch.py: csrc/countsketch.cu on the card, as
-    the JAX package sends it to its device): bucket h % c gains +1 where h
-    is odd and -1 where it is even; the items are the non-zero buckets'
-    indices, their weights |bucket| (integer sums, exact in any order)."""
-    t0 = time.perf_counter()
-    if opts.cssize > 0 and opts.sspace in _WEIGHTED:
-        from ..ops import countsketch as CS
-        ids, sums = CS.countsketch_counts(
-            torch.from_numpy(hv.view(np.int64)).to(device), opts.cssize)
-        u, c = ids.cpu().numpy().view(np.uint64), sums.cpu().numpy()
-    else:
-        u, c = np.unique(hv, return_counts=True)
+def _thresholded(opts: Dashing2Options, u: np.ndarray, c: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The items seen at least --count-threshold times."""
     if opts.count_threshold > 1:
         keep = c >= opts.count_threshold
         u, c = u[keep], c[keep]
+    return u.astype(np.uint64, copy=False), c.astype(np.float64, copy=False)
+
+
+def _count_one(opts: Dashing2Options, hv: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct hashes (sorted u64) and their counts (f64), those seen
+    fewer than --count-threshold times dropped."""
+    t0 = time.perf_counter()
+    u, c = np.unique(hv, return_counts=True)
     add_span("sketch/count", time.perf_counter() - t0)
-    return u.astype(np.uint64), c.astype(np.float64)
+    return _thresholded(opts, u, c)
 
 
 def in_order(calls: Iterable[Callable[[], T]], nthreads: int,
@@ -633,23 +628,59 @@ def _count_stream(opts: Dashing2Options, groups: Sequence[str],
                   ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Each item's distinct hashes and their counts: native hashing item
     by item (with the filterset's probe), counting in a pool of -p
-    threads when -p > 1 (a CountSketch on `device`; the pool's launches
-    share the device's current stream). The items' names are appended to
-    `names`."""
+    threads when -p > 1. With -c in a weighted space the items' streams
+    are counted in batches instead (`_count_sketched`). The items' names
+    are appended to `names`."""
     from ..native import load_oph_lib
     lib = load_oph_lib()
     hkw = _hash_kwargs(opts, 1 << 15)
     fs = _filterset_array(opts)
 
-    def calls():
+    def streams():
         for item in _load_items(opts, groups):
             if names is not None:
                 names.append(item.name)
             with span("sketch/hash"):
                 hv = _native_hash_codes_list(lib, item.codes, hkw, fs)
-            yield functools.partial(_count_one, opts, hv, device)
+            yield hv
+    if opts.cssize > 0 and opts.sspace in _WEIGHTED:
+        return _count_sketched(opts, streams(), device)
+    calls = (functools.partial(_count_one, opts, hv) for hv in streams())
     n = 2 if opts.parse_by_seq else len(groups)   # more than one item?
-    return list(in_order(calls(), opts.nthreads, n))
+    return list(in_order(calls, opts.nthreads, n))
+
+
+def _count_sketched(opts: Dashing2Options, streams: Iterable[np.ndarray],
+                    device) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The CountSketches of the items' hash streams, in item order (with
+    -c in a weighted space, enums.h:44-57, counter.h): bucket h % c gains
+    +1 where h is odd and -1 where it is even; an item's entries are its
+    non-zero buckets' indices, their weights |bucket|. The streams are
+    gathered into batches of up to CS.BATCH_HASHES hashes (an item longer
+    than that alone), each batch counted by one ops/countsketch.py call
+    on `device` (csrc/countsketch.cu on the card, its plain version on
+    the CPU) in this thread, then --count-threshold applied item by
+    item."""
+    from ..ops import countsketch as CS
+    out: List[Tuple[np.ndarray, np.ndarray]] = []
+    batch: List[np.ndarray] = []
+
+    def flush():
+        t0 = time.perf_counter()
+        out.extend(_thresholded(opts, u, c) for u, c in
+                   CS.countsketch_many(batch, opts.cssize, device))
+        add_span("sketch/count", time.perf_counter() - t0)
+        batch.clear()
+    size = 0
+    for hv in streams:
+        if batch and size + len(hv) > CS.BATCH_HASHES:
+            flush()
+            size = 0
+        batch.append(hv)
+        size += len(hv)
+    if batch:
+        flush()
+    return out
 
 
 def _sketch_counted(opts: Dashing2Options, groups: Sequence[str],

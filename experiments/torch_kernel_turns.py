@@ -6,9 +6,11 @@ and nvcc:
 
     python3 experiments/torch_kernel_turns.py KERNEL OTHER.cu
     python3 experiments/torch_kernel_turns.py css OTHER.cu [--check]
+    python3 experiments/torch_kernel_turns.py countsketch OTHER.cu
 
-`css` (csrc/css.cu, C entry `css_pass`) is described under CSS below;
-the rest of this text is the nibble kernels'.
+`css` (csrc/css.cu, C entry `css_pass`) is described under CSS below,
+`countsketch` under COUNTSKETCH; the rest of this text is the nibble
+kernels'.
 
 KERNEL is `tri_eq` (csrc/tri_eq.cu, C entry `tri_eq_counts_u16`) or
 `tri_comb` (csrc/tri_comb.cu, `tri_comb_counts_u16`). OTHER.cu is any
@@ -64,6 +66,38 @@ script
    of each walk loop (chip_smoke.py `_loop_ops`).
 
 Its JSON goes to chiprun_out/css_turns.json.
+
+COUNTSKETCH. csrc/countsketch.cu's batched route (C entry
+`countsketch_batch`, through ops/countsketch.py) against OTHER.cu, a
+source with the C entry `countsketch` of the dense-bucket kernel (e.g.
+experiments/countsketch_dense.cu, or `git show
+833c1c6:dashing2_tpu_torch/csrc/countsketch.cu`), run as that kernel's
+whole function (chip_smoke.py `cs_dense_function`: a zeroed
+cssize-sized array a stream, the kernel, nonzero, gather, cast). The
+sets are chip_smoke.py's: (a) the streams of `-P -c 1048576` over the
+first 8 genomes of its N = 10240 corpus, (b) 8 bacterial-genome streams
+(`_cs_bacterial`), (c) the streams of `-P -c 1048576 --parse-by-seq`
+over the first 8,192 records of its by-record corpus, each captured
+from the port's CLI. The script
+
+1. builds both and prints ptxas' report;
+2. holds the new route, the plain version and OTHER's function equal on
+   every set;
+3. times the new route and OTHER's function by CUDA events (mean of a
+   few calls after a warm-up) in turns: other, new, new, other;
+4. builds copies of the kernel with one constant changed (CS_VARIANTS:
+   `items8` 8 hashes a thread in a tile, `t2048` 2,048 entries a sparse
+   bin, `bitonic` every sparse bin sorted by the bitonic sort), holds
+   each to the kernel on every set and times each in turns with the
+   kernel's own C entry (variant, new, variant; no wrapper in either);
+5. prints each launch's device time on every set (torch.profiler);
+6. times the two routes over set (c) as the sketch route runs them, by
+   the host clock (`sketch/count`'s work): the streams from host memory,
+   a stream at a time through OTHER's function with its ids and sums
+   copied back (the dense route), and all at once through
+   `countsketch_many` (one upload, one call, the copies back), in turns.
+
+It prints its JSON as its last line.
 """
 
 import ctypes
@@ -312,7 +346,194 @@ def css_main(other: str, check: bool) -> int:
     return 0
 
 
+# copies of csrc/countsketch.cu with one constant changed (all exact)
+CS_VARIANTS = {
+    "items8": (((re.compile(r"constexpr int ITEMS = 16;"),
+                 "constexpr int ITEMS = 8;"), 1),),
+    "t2048": (((re.compile(r"constexpr int BIN_TARGET = 1024;"),
+                "constexpr int BIN_TARGET = 2048;"), 1),),
+    "bitonic": (((re.compile(r"constexpr int SUB_MAX = 32;"),
+                  "constexpr int SUB_MAX = 0;"), 1),),
+}
+
+
+def cs_variant(lib):
+    """A launcher of a built copy's C entry over a set, as
+    ops/countsketch.py launches it: (run, out, counts)."""
+    p, ll, ull = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong
+    lib.countsketch_scratch_ints.restype = ll
+    lib.countsketch_scratch_ints.argtypes = [ll, ctypes.c_int]
+    lib.countsketch_batch.restype = ctypes.c_int
+    lib.countsketch_batch.argtypes = [p, ll, p, ctypes.c_int, ull, ull, p, p,
+                                      p, p]
+
+    def launcher(hv, offsets, cssize):
+        n, S = hv.shape[0], offsets.shape[0] - 1
+        out = torch.empty((n, 2), dtype=torch.int32, device="cuda")
+        counts = torch.empty(S, dtype=torch.int64, device="cuda")
+        off = offsets.cuda()
+        scratch = torch.empty(lib.countsketch_scratch_ints(n, S),
+                              dtype=torch.int32, device="cuda")
+
+        def run():
+            err = lib.countsketch_batch(
+                hv.data_ptr(), n, off.data_ptr(), S, cssize,
+                ((1 << 64) - 1) // cssize, scratch.data_ptr(),
+                out.data_ptr(), counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+        return run, out, counts
+    return launcher
+
+
+def cs_sets():
+    """chip_smoke.py's CountSketch sets (a), (b) and (c), (a) and (c)
+    captured from the port's CLI over its corpora."""
+    from dashing2_tpu_torch import cli
+    lst = CS._corpus("northstar", CS.NS_SEED, CS.NS_ANCESTORS,
+                     CS.NS_MUTANTS, CS.NS_LENGTH)
+    with open(lst) as f:
+        first8 = [ln.strip() for ln in f if ln.strip()][:8]
+    CS._byseq_corpus()
+    d = os.path.join(CS.WORK, "byseq")
+    sets = {}
+    for tag, args in (("a", first8), ("c", ["--parse-by-seq", os.path.join(
+            d, "pairs.fa")])):
+        rec, undo = CS._capture_countsketch()
+        try:
+            assert cli.main(["sketch", "-k", "31", "-S", "256", "-P", "-c",
+                             "1048576", "--binary-output", "--cmpout",
+                             os.path.join(CS.WORK, f"{tag}.bin")]
+                            + args) == 0
+        finally:
+            undo()
+        sets[tag] = CS._cs_set(rec)
+    sets["b"] = CS._cs_bacterial(CS.CS_BACTERIA, 1 << 20)
+    return sets
+
+
+def countsketch_main(other: str) -> int:
+    import shutil
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+    from dashing2_tpu_torch.ops import countsketch as CSOP
+    smi = CS.phase_device()
+    CS.CS_DENSE_SOURCE = other
+    builds = {"new": CSOP.load_kernel, "dense": CS._cs_dense_lib}
+    for name, subs in CS_VARIANTS.items():
+        src = probe_source("countsketch", CSOP.SOURCE, name, subs)
+        builds[name] = (lambda nm, sr: lambda: native.build_shared(
+            f"countsketch_{nm}", [sr], native.nvcc_command(sr)))(name, src)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = dict(zip(builds, pool.map(lambda f: f(), builds.values())))
+    dense = libs["dense"]
+    variants = {name: cs_variant(libs[name]) for name in CS_VARIANTS}
+    for name in ["countsketch", "countsketch_dense"] + [
+            f"countsketch_{v}" for v in CS_VARIANTS]:
+        ptxas(name)
+    try:
+        sets = cs_sets()
+    finally:
+        shutil.rmtree(CS.WORK, ignore_errors=True)
+    rec = {"card": smi, "kernel": "countsketch", "other": other}
+    for tag, (hv, offsets, cssize) in sets.items():
+        out, counts = CSOP.countsketch_batch(hv, offsets, cssize)
+        pout, pcounts = CSOP.countsketch_batch_plain(hv, offsets, cssize)
+        k = int(counts.sum())
+        assert torch.equal(counts, pcounts) and torch.equal(out[:k],
+                                                            pout[:k]), tag
+        new_run, _, _ = cs_variant(libs["new"])(hv, offsets, cssize)
+        CS._cs_hold(tag, out[:k], CS.cs_dense_function(dense, hv, offsets,
+                                                      cssize))
+        del out, pout
+        CS._say(f"[exact] set {tag}: new == plain == other's function "
+                f"({offsets.shape[0] - 1} streams, {hv.shape[0]} hashes, "
+                f"{k} non-zero buckets)")
+
+        def run_new():
+            CSOP.countsketch_batch(hv, offsets, cssize)
+        rec[f"{tag}_bare_ms"] = CS._library_ms(new_run, 5)
+
+        def run_old():
+            CS.cs_dense_function(dense, hv, offsets, cssize)
+        reps = 3 if tag == "c" else 10
+        rec[tag] = in_turns([("turns", (("other", run_old), ("new", run_new),
+                                        ("new", run_new),
+                                        ("other", run_old)))],
+                            lambda run: CS._library_ms(run, reps))["turns"]
+        for name, launcher in variants.items():
+            run_v, vout, vcounts = launcher(hv, offsets, cssize)
+            run_v()
+            torch.cuda.synchronize()
+            assert torch.equal(vcounts, counts) and torch.equal(
+                vout[:k], CSOP.countsketch_batch(hv, offsets, cssize)[0][:k]
+            ), f"{name} != new on set {tag}"
+            rec[f"{tag}_{name}"] = in_turns(
+                [(f"{tag} {name}", ((name, run_v), ("new", new_run),
+                                    (name, run_v)))],
+                lambda run: CS._library_ms(run, reps))[f"{tag} {name}"]
+            del vout, run_v
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run_new()
+            torch.cuda.synchronize()
+        launches = {}
+        for ev in prof.key_averages():
+            if ev.device_time_total:
+                name = re.search(r"cs_\w+(<\w+>)?", ev.key)
+                launches[name.group(0) if name else ev.key.split("(")[0]
+                         .strip()] = ev.device_time_total / 3e3
+        rec[f"{tag}_launch_ms"] = launches
+        CS._say(f"[profile] set {tag}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in sorted(launches.items(),
+                                                  key=lambda kv: -kv[1])))
+        nbytes = 8 * hv.shape[0] + 8 * k + 8 * offsets.shape[0]
+        bound_ms, bound_by = CS._bound(hv.shape[0] * CS.CS_OPS, "int32",
+                                       nbytes)
+        best = {name: min(ms for nm, ms in rec[tag] if nm == name)
+                for name in ("new", "other")}
+        rec[f"{tag}_bound_ms"] = bound_ms
+        CS._say(f"[bound] set {tag}: {bound_ms:.5f} ms ({bound_by}); new at "
+                f"{100 * bound_ms / best['new']:.2f}%, other at "
+                f"{100 * bound_ms / best['other']:.2f}%")
+    # the two routes over set (c) as sketch/count runs them, host clock
+    hv, offsets, cssize = sets["c"]
+    host = hv.cpu().numpy().view(np.uint64)
+    streams = [host[int(offsets[s]):int(offsets[s + 1])]
+               for s in range(offsets.shape[0] - 1)]
+
+    def route_old():
+        for x in streams:
+            h = torch.from_numpy(x.view(np.int64)).cuda()
+            (ids, sums), = CS.cs_dense_function(
+                dense, h, torch.tensor([0, len(x)]), cssize)
+            ids.cpu().numpy()
+            sums.cpu().numpy()
+
+    def route_new():
+        CSOP.countsketch_many(streams, cssize, "cuda")
+
+    def wall(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    route_new()
+    rec["route_c_ms"] = in_turns([("route", (
+        ("other", route_old), ("new", route_new), ("new", route_new),
+        ("other", route_old)))], wall)["route"]
+    print(json.dumps(rec))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "countsketch":
+        if not torch.cuda.is_available():
+            print("no CUDA card", file=sys.stderr)
+            return 2
+        return countsketch_main(os.path.abspath(sys.argv[2]))
     if len(sys.argv) >= 3 and sys.argv[1] == "css":
         if not torch.cuda.is_available():
             print("no CUDA card", file=sys.stderr)

@@ -1465,26 +1465,65 @@ def test_css_sketch_many_launches_the_kernel(card):
     np.testing.assert_array_equal(got[2], want[2])
 
 
-@pytest.mark.parametrize("cssize", [1, 7, 1 << 20])
-def test_countsketch_kernel_matches_plain(card, cssize):
-    """csrc/countsketch.cu against its plain version: every bucket, then
-    the compacted ids and sums, exactly; one launch."""
+def _countsketch_cases():
+    from countsketch_planted import planted_batches
+    return planted_batches()
+
+
+@pytest.mark.parametrize("case", range(13))
+def test_countsketch_kernel_matches_plain(card, case):
+    """csrc/countsketch.cu against its plain version on
+    tests/countsketch_planted.py's batches (a repeated hash in a dense and
+    a sparse bin, sums cancelling on a bin's edges, a ragged last bin,
+    streams either side of each form's threshold, ranges that split,
+    empty streams among random ones): every stream's count and non-zero
+    buckets exactly; one launch a batch."""
     from dashing2_tpu_torch.ops import countsketch as CS
-    rng = np.random.default_rng(cssize)
-    hv = rng.integers(0, 1 << 64, 300000, dtype=np.uint64)
-    hv[:50000] = hv[50000:100000] ^ np.uint64(1)
-    t = torch.from_numpy(hv.view(np.int64)).to(card)
+    cases = _countsketch_cases()
+    assert len(cases) == 13
+    name, streams, cssize = cases[case]
+    offsets = np.zeros(len(streams) + 1, np.int64)
+    np.cumsum([len(x) for x in streams], out=offsets[1:])
+    hv = torch.from_numpy(np.concatenate(streams).view(np.int64))
+    off = torch.from_numpy(offsets)
     before = CS.launches.launches
-    got = CS.countsketch_buckets(t, cssize)
+    out, counts = CS.countsketch_batch(hv.to(card), off, cssize)
     torch.cuda.synchronize()
-    assert CS.launches.launches == before + 1 and got.dtype == torch.int32
-    want = CS.countsketch_buckets_plain(t, cssize)
-    assert torch.equal(got.to(torch.int64), want)
-    ids, sums = CS.countsketch_counts(t, cssize)
-    cids, csums = CS.countsketch_counts(t.cpu(), cssize)
-    assert torch.equal(ids.cpu(), cids) and torch.equal(sums.cpu(), csums)
-    empty = CS.countsketch_buckets(t[:0], cssize)
-    assert not empty.any()
+    assert CS.launches.launches == before + 1, name
+    want, want_counts = CS.countsketch_batch_plain(hv, off, cssize)
+    assert torch.equal(counts.cpu(), want_counts), name
+    k = int(want_counts.sum())
+    assert torch.equal(out[:k].cpu(), want[:k]), name
+    # the same on the card's plain version, and through countsketch_many
+    pout, pcounts = CS.countsketch_batch_plain(hv.to(card), off, cssize)
+    assert torch.equal(pcounts.cpu(), want_counts)
+    assert torch.equal(pout[:k].cpu(), want[:k])
+    got = CS.countsketch_many(streams, cssize, card)
+    cpu = CS.countsketch_many(streams, cssize, "cpu")
+    for (a, b), (c, d) in zip(got, cpu):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+
+
+def test_countsketch_kernel_refusals(card):
+    """A launch with a bad argument raises before the kernel runs: offsets
+    on the card or not rising from 0 to n, a bucket count out of [1,
+    2^31), int32 hashes; an all-empty batch launches and counts zeros."""
+    from dashing2_tpu_torch.ops import countsketch as CS
+    hv = torch.arange(10, dtype=torch.int64, device=card)
+    with pytest.raises(TypeError, match="offsets"):
+        CS.countsketch_batch(hv, torch.tensor([0, 10], device=card), 7)
+    with pytest.raises(ValueError, match="offsets"):
+        CS.countsketch_batch(hv, torch.tensor([0, 11]), 7)
+    for cssize in (0, 1 << 31):
+        with pytest.raises(ValueError, match="cssize"):
+            CS.countsketch_batch(hv, torch.tensor([0, 10]), cssize)
+    with pytest.raises(TypeError):
+        CS.countsketch_batch(hv.to(torch.int32), torch.tensor([0, 10]), 7)
+    out, counts = CS.countsketch_batch(hv[:0], torch.zeros(4,
+                                                           dtype=torch.int64),
+                                       7)
+    assert counts.tolist() == [0, 0, 0] and out.shape == (0, 2)
 
 
 def test_cache_cli_on_card_equals_cpu(card, tmp_path):

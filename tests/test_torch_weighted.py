@@ -295,6 +295,49 @@ def test_weighted_cli_bytes_equal_jax(corpus, job, tmp_path, monkeypatch):
     assert len(got) > 0 and got == _read(out_j)
 
 
+@pytest.mark.parametrize("threads", ["1", "4"])
+@pytest.mark.parametrize("by_record", [False, True])
+@pytest.mark.parametrize("flag", ["-B", "-P"])
+def test_countsketch_cli_bytes_equal_jax(corpus, flag, by_record, threads,
+                                         tmp_path, monkeypatch):
+    """-B/-P with -c, over the genomes or (--parse-by-seq) over the
+    records of one multi-FASTA of them, with -p 1 and 4, with the default
+    batch of hashes and with batches of 5,000 (two items each: an item
+    has about 1,980) and of 1,000 (every item longer: alone): the JAX
+    CLI's bytes, and every batch one countsketch call."""
+    from dashing2_tpu_torch.ops import countsketch as CS
+    lst, _, _, paths = corpus
+    if by_record:
+        multi = tmp_path / "multi.fa"
+        multi.write_bytes(b"".join(_read(p) for p in paths))
+        inputs = ["--parse-by-seq", str(multi)]
+    else:
+        inputs = ["-F", lst]
+    argv = ["sketch", "-k", "21", "-S", "16", "--binary-output", flag, "-c",
+            "1000", "-p", threads] + inputs
+    out_j = str(tmp_path / "jax.out")
+    monkeypatch.setenv("DASHING2_TPU_MULTICHIP", "0")
+    assert jax_cli.main(argv + ["--cmpout", out_j]) == 0
+    want = _read(out_j)
+    assert len(want) == 4 * len(paths) * (len(paths) - 1) // 2
+    calls = []
+    real = CS.countsketch_batch
+
+    def counted(hv, offsets, cssize):
+        calls.append(offsets.shape[0] - 1)
+        return real(hv, offsets, cssize)
+    monkeypatch.setattr(CS, "countsketch_batch", counted)
+    for budget in (CS.BATCH_HASHES, 5000, 1000):
+        monkeypatch.setattr(CS, "BATCH_HASHES", budget)
+        calls.clear()
+        out_p = str(tmp_path / f"port{budget}.out")
+        assert cli.main(argv + ["--cmpout", out_p, "--device", "cpu"]) == 0
+        assert _read(out_p) == want, budget
+        assert sum(calls) == len(paths)
+        assert len(calls) == {5000: (len(paths) + 1) // 2,
+                              1000: len(paths)}.get(budget, 1)
+
+
 @pytest.mark.parametrize("flag", ["-B", "-P"])
 def test_weighted_panel_equals_jax(corpus, flag, tmp_path, monkeypatch):
     _, refs, queries, _ = corpus
@@ -346,13 +389,13 @@ def test_countsketch_counts_equal_jax_route(corpus):
             np.testing.assert_array_equal(u, nz.astype(np.uint64))
             np.testing.assert_array_equal(c, np.abs(buckets[nz]))
     hv = np.array([2, 4098, 3, 4099], np.uint64)
-    u, c = PCORE._count_one(Dashing2Options(
-        sspace=SketchSpace.SPACE_MULTISET, cssize=4096), hv)
+    (u, c), = PCORE._count_sketched(Dashing2Options(
+        sspace=SketchSpace.SPACE_MULTISET, cssize=4096), [hv], "cpu")
     assert len(u) == 2 and (c == 2).all()
     # an odd bucket count: 2 (even, -1) and 4097 (odd, +1) share bucket 2
-    u, c = PCORE._count_one(Dashing2Options(
+    (u, c), = PCORE._count_sketched(Dashing2Options(
         sspace=SketchSpace.SPACE_MULTISET, cssize=4095),
-        np.array([2, 4097], np.uint64))
+        [np.array([2, 4097], np.uint64)], "cpu")
     assert len(u) == 0 and len(c) == 0
 
 
