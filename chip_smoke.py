@@ -17,20 +17,23 @@ k-mer database (`-s`, `-N`) and `contain`, the interval inputs
 (`--bed`, `--bigwig`, `--leafcutter`), `wsketch` and the edit-distance
 space (`-E`, `--parse-by-seq`, `--compute-edit-distance`, `--greedy
 ...f`) and the chunked route (`--parse-by-seq` outside `-E`,
-`--filterset`, `--by-chrom`, `.xz`/`.bz2` inputs) and the sketch cache
-(`--cache`, `--outprefix`) through the port's own CLI.
+`--filterset`, `--by-chrom`, `.xz`/`.bz2` inputs), the sketch cache
+(`--cache`, `--outprefix`), the minimizer sequences (`--seq`,
+`--long-kmers`, `printmin`) and u128 exact sets (`--set`/`--countdict
+--long-kmers`) through the port's own CLI.
 It exits non-zero when a phase fails (nothing is caught), when torch sees
 no card, or when the port is not importable:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: nvcc for csrc/tri_eq.cu, csrc/tri_comb.cu, csrc/gtlt.cu,
    csrc/int_counts.cu, csrc/weighted_draws.cu, csrc/omh.cu,
-   csrc/oph_rows.cu, csrc/css.cu and csrc/countsketch.cu (sm_90a),
+   csrc/oph_rows.cu (its `oph_rows` and `hash_rows` entries),
+   csrc/css.cu and csrc/countsketch.cu (sm_90a),
    the earlier dense-bucket CountSketch kernel
    (experiments/countsketch_dense.cu, phase 44's yardstick) and g++ for
-   the native sketcher, FASTA reader, formatter and Myers edit distance,
-   all started together; build seconds and ptxas' register/spill
-   report;
+   the native sketcher, FASTA reader, formatter, Myers edit distance
+   and span edit distance, all started together; build seconds and
+   ptxas' register/spill report;
 3. kernels against plain, on the card: exact u16 equality of
    `tri_eq_counts` and `tri_eq_counts_plain` for n in {1, 2, 63, 129,
    1000, 1025, 4097} and m in {30, 62, 64, 96, 98, 100, 126, 128, 130,
@@ -220,7 +223,7 @@ no card, or when the port is not importable:
    1% of their bases mutated (about 1 Mbp a query), binary and text,
    the lookup on the card; the binary bytes equal `--device cpu`'s, and
    each query covers more than half of its genomes' keys;
-27. `sketch --bed` over 16 peak files (10,000-20,000 intervals of
+27. `sketch --bed` over 8 peak files (10,000-20,000 intervals of
    200-1,000 bp over 24 chromosomes, 60% of each file's peaks from its
    family's set of four): the one-permutation default (host), then
    `--full-setsketch` (css.cu), `-B --normalize-intervals`
@@ -286,7 +289,7 @@ no card, or when the port is not importable:
    the clusters hold every sequence once; over the first 32 sequences
    byte-equal to `--device cpu`;
 35. `-E --parse-by-seq --compute-edit-distance` all pairs over the
-   first 512 sequences, binary: 1000 sampled values equal `myers_one`;
+   first 256 sequences, binary: 1000 sampled values equal `myers_one`;
 36. whole-file `-E` (each genome file one item, about 20,000 positions,
    three pieces) over the first 1024 genomes of the N = 10240 corpus,
    `-o`: one omh and one gtlt_self launch; 8 genomes' written registers
@@ -312,8 +315,8 @@ no card, or when the port is not importable:
    launch; every value equal to the CPU epilogue at the plain counts
    of the written registers; the first 64 records' registers equal the
    chunked route's on the CPU; the names the records';
-39. `--parse-by-seq --topk 10` over all 32,768 records: oph_rows the
-   only hand kernel; the graph byte-equal to neighbor_graph_main on
+39. `--parse-by-seq --topk 10` over the first 8,192 records: oph_rows
+   the only hand kernel; the graph byte-equal to neighbor_graph_main on
    the card over the native engine's registers of phase 37;
 40. `--filterset` over the first 5,120 genomes of the N = 10240 corpus
    with a 256 kb filter FASTA cut from 64 of them: the full-register
@@ -375,7 +378,43 @@ no card, or when the port is not importable:
    one countsketch call a batch of hashes, the draws on
    weighted_draws.cu, one gtlt_self launch; its wall and `sketch/hash`,
    `/count` and `/weighted` spans; the job over the first 64 records
-   byte-equal to `--device cpu`.
+   byte-equal to `--device cpu`;
+47. (after 46) csrc/oph_rows.cu's `hash_rows` entry (the port of the
+   XLA engines `_hash_chunk_batch` and `_hash_chunk_batch128`) against
+   its plain version on the card, the kept tokens (and the high words
+   of full keys) and the rows' counts bit for bit: over phase 37's
+   first 256 records in phase 37's encodings and the 128-bit code's
+   full keys with minimizers, then over the whole corpus in the --seq
+   route's batches at `-k 15 -w 31` and `--long-kmers -k 40 -w 60`
+   (full keys); the kernel timed by CUDA events over those batches,
+   after a warm-up, through its wrapper (the keep flags zeroed, the
+   launch, one compaction on the card) and as bare launches, with the
+   bound (HASH_ROLL_OPS and HASH_MINI_OPS a valid position,
+   HASH_MASK_OPS a position the minimizers select; a byte a base read,
+   8 or 16 a kept token written); the plain version on the first 256
+   records;
+48. `sketch --seq --parse-by-seq -k 15 -w 31 -o` and `--long-kmers -k
+   40 -w 60 -o` over all 32,768 records: hash_rows the only hand
+   kernel; the written file's 32,768 sequences, names, lengths (the
+   cardinalities) and token width; over the first 64 records the card's
+   `-o` bytes == `--device cpu`'s, `printmin` of both the same text,
+   and the sequences == the whole run's first 64; the `sketch/read`,
+   `/chunk`, `/hash-rows` spans and the wall;
+49. `--seq -k 15 -w 31` all pairs over the first 256 records with `-o`
+   (card == `--device cpu` bytes; 200 values == the longer length
+   minus `span_edit_distance`, the numpy DP, over the written
+   sequences), and `--topk 10` over the first 1,024 (card ==
+   `--device cpu` bytes); the distances on the host
+   (native/span_ed.cpp);
+50. (after 22) `sketch --set` and `--countdict` with `-k 40
+   --long-kmers --cache --outprefix D` all pairs over the first 1024
+   genomes of the N = 10240 corpus: no hand kernel (the joins in torch
+   on the card over the u128 keys' ranks); 1024 `.kmerset128` files
+   (sorted distinct keys after the cardinality; a count dictionary's
+   `.kmercounts.f64` of as many counts summing to it); `cmp
+   --presketched` over the `--set` job's files == its bytes; each job,
+   and the presketched load, over the first 16 genomes: card bytes ==
+   `--device cpu` bytes.
 
 Each main path runs with every launch counter set to 0 just before its
 CLI call and read just after it. Each phase prints its wall, and phases
@@ -394,7 +433,8 @@ unequal-register count, eq = m - d). No single call computes (gt, lt)
 counts, so gtlt_self_counts, gtlt_counts and int_counts have none;
 nor does one call draw weighted registers (weighted_draws), select and
 fold OrderMinHash words (omh), encode, select and bucket-min k-mers
-(oph_rows), or draw CSetSketch registers (css); the CountSketch's is
+(oph_rows) or encode, select and mask them (hash_rows), or draw
+CSetSketch registers (css); the CountSketch's is
 `torch.bincount(idx, weights=sign, minlength=cssize)` a stream over the
 bucket ids and signs (made before its window), then `torch.nonzero` and
 the gather. The kernels line gives
@@ -411,7 +451,9 @@ inside the run's limit on a slower host). Phases 15, 18, 21, 23 and 25
 take the first HALF_N = 5120 genomes, and phase 27 16 BED files instead
 of 32, to make room for phase 35's exact job (about 90 s of host Myers
 distances over 1024 sequences; 768 since phases 37-42, 512 since
-phase 37 also times the bare launch): each spends most of its time on
+phase 37 also times the bare launch); to make room for phases 47-50,
+phase 27 takes 8 BED files, phase 35 256 sequences and phase 39 the
+first 8,192 records: each spends most of its time on
 host reading, expansion, hashing and counting, or on draws, in proportion to its
 items, and its kernels' launches and shapes are timed elsewhere. The
 comparison's work depends only on N and m; 20 kb genomes still carry
@@ -426,10 +468,11 @@ the CPU. Phases 31-36 run at full width (m = 1024) over 8192 sequences;
 their `--device cpu` checks run on cuts (32 sequences, 8 genomes: the
 plain OMH on the CPU takes seconds for a few dozen sequences at m =
 1024, the cut jobs' `cpu` walls say how many), and the exact all-pairs
-job takes the first 512 sequences (130,816 host Myers distances, about
+job takes the first 256 sequences (32,640 host Myers distances, about
 0.17-0.19 ms a pair on 8 threads). Phases 37-42 run at full width over
-the 32,768-record corpus (phase 38 its first 8,192 records, phase 42 its
-first 2,048), 5,120 genomes (phase 40) and 256 genomes (phase 41); the
+the 32,768-record corpus (phases 38 and 39 its first 8,192 records,
+phase 42 its first 2,048), 5,120 genomes (phase 40)
+and 256 genomes (phase 41); the
 CPU checks of phase 42 run over 64 records for `--set`, 32 for
 `--full-setsketch` and 8 for `-B` (the plain CSetSketch and weighted
 draws are slow on the CPU: 10.8 s for 64 records and 8.6 s for 16);
@@ -440,7 +483,13 @@ Phase 45 runs over the first 256 genomes (its jobs' work scales with
 their items; the kernels' shapes are timed in phases 43 and 44) and its
 `--device cpu` check over 16 genomes, 1 for `-B` (the plain weighted
 draws take 260-500 ns each on the CPU: 15.3 s for 2 genomes on the
-H100 machine's host).
+H100 machine's host). Phases 47-49 run over phase 37's whole corpus
+(the kernel and the `-o` jobs), its first 256 records (all pairs: the
+span DP costs O(n^2) a pair on the host) and its first 1,024
+(`--topk 10`); their `--device cpu` checks over 64 records and the
+comparisons' own inputs. Phase 50 runs over the first 1024 genomes
+(host hashing and counting of 20k u128 keys a genome, as in the JAX
+package) and its CPU checks over 16.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -561,13 +610,15 @@ def phase_build():
     builds = {"tri_eq": NT.load_kernel, "tri_comb": NC.load_kernel,
               "gtlt": G.load_kernel, "int_counts": IC.load_kernel,
               "weighted_draws": WD.load_kernel, "omh": OP.load_kernel,
-              "oph_rows": OR.load_kernel, "css": CSS.load_kernel,
+              "oph_rows": OR.load_kernel,
+              "css": CSS.load_kernel,
               "countsketch": CS.load_kernel,
               "countsketch_dense": _cs_dense_lib,
               "ophsketch": native.load_oph_lib,
               "fastx": native.load_fastx_lib,
               "emitfmt": native.load_emit_lib,
-              "myersed": native.load_myers_lib}
+              "myersed": native.load_myers_lib,
+              "spaned": native.load_span_lib}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -580,7 +631,8 @@ def phase_build():
     _say(f"[build] all {len(builds)} in {time.perf_counter() - t0:.3f} s, in "
          "parallel: " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
     for name in ("tri_eq", "tri_comb", "gtlt", "int_counts",
-                 "weighted_draws", "omh", "oph_rows", "css", "countsketch"):
+                 "weighted_draws", "omh", "oph_rows", "css",
+                 "countsketch"):
         for ln in native.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln:
                 _say(f"[build] ptxas {name}: {ln.strip()}")
@@ -2201,6 +2253,81 @@ def phase_exact_knn(lst: str, counters):
     _hold_pairs("set-knn", rec["results"][0], ia[pick], ib[pick])
 
 
+# phase 50: u128 exact sets (`--set`/`--countdict --long-kmers`) over the
+# first EXACT_SUBSET genomes, with --cache; CPU checks over U128_CPU
+U128_ARGS = ["-k", "40", "--long-kmers"]
+U128_CPU = 16
+U128_JOBS = (("set128", ["--set"]), ("countdict128", ["--countdict"]))
+
+
+def phase_u128_sets(lists, counters):
+    """`sketch --set` and `--countdict` with `-k 40 --long-kmers --cache
+    --outprefix D` all pairs over the first EXACT_SUBSET genomes: no hand
+    kernel (the joins in torch on the card, on the keys' ranks); every
+    genome's `.kmerset128` (and `.kmercounts.f64`) written, the
+    cardinalities the set sizes (the count sums); `cmp --presketched`
+    over the --set job's `.kmerset128` files == the --set job's bytes;
+    each job and the presketched load of the first U128_CPU genomes'
+    files: card bytes == --device cpu bytes."""
+    import numpy as np
+    from dashing2_tpu_torch import u128 as U
+    sub = lists[0]
+    with open(sub) as f:
+        paths = [ln.strip() for ln in f if ln.strip()]
+    d = os.path.join(os.path.dirname(sub), "u128")
+    os.makedirs(d, exist_ok=True)
+    cut = _write_list(os.path.join(d, "cut.txt"), paths[:U128_CPU])
+    n = EXACT_SUBSET
+    runs = {}
+    for tag, flags in U128_JOBS:
+        prefix = os.path.join(d, tag)
+        os.makedirs(prefix)
+        out = os.path.join(d, f"{tag}.bin")
+        argv = ["sketch"] + U128_ARGS + flags + ["--binary-output"]
+        wall, spans, launches = _run_cli(tag, argv + [
+            "--cache", "--outprefix", prefix, "--cmpout", out, "-F", sub],
+            n, counters)
+        assert not any(launches.values()), launches
+        _say_exact_spans(tag, spans)
+        assert os.path.getsize(out) == 4 * n * (n - 1) // 2
+        vals = np.fromfile(out, dtype=np.float32)
+        assert np.isfinite(vals).all() and (vals >= 0).all() \
+            and (vals <= 1).all()
+        keys = sorted(os.path.join(prefix, f) for f in os.listdir(prefix)
+                      if f.endswith(".kmerset128"))
+        assert len(keys) == n, len(keys)
+        card = float(np.fromfile(keys[0], np.float64, count=1)[0])
+        raw = np.fromfile(keys[0], np.uint64, offset=8).reshape(-1, 2)
+        u = U.from_words(raw[:, 1], raw[:, 0])
+        assert len(u) > 10000 and np.array_equal(
+            np.lexsort((u["lo"], u["hi"])), np.arange(len(u))) and len(
+            U.unique_counts(u)[0]) == len(u)
+        if tag == "set128":
+            assert card == len(u)
+            pre = os.path.join(d, "presketched.bin")
+            _run_cli("set128 presketched", [
+                "cmp", "--presketched", "--binary-output", "--cmpout", pre]
+                + keys, n, counters)
+            _same_bytes([out, pre])
+            os.remove(pre)
+            cut_keys = keys[:U128_CPU]
+        else:
+            counts = np.fromfile(keys[0][:keys[0].rfind(".")]
+                                 + ".kmercounts.f64", np.float64)
+            assert len(counts) == len(u) and card == counts.sum()
+        _vs_cpu(f"{tag} cut", argv + ["-F", cut], out + ".cut", U128_CPU,
+                counters)
+        runs[tag] = dict(wall=wall, launches=launches)
+        _say(f"[{tag}] {n} genomes: {n} .kmerset128 files, the first "
+             f"holding {len(u)} sorted u128 keys (cardinality {card})")
+        os.remove(out)
+    _vs_cpu("set128 presketched cut", ["cmp", "--presketched",
+                                       "--binary-output"] + cut_keys,
+            os.path.join(d, "pre-cut"), U128_CPU, counters)
+    shutil.rmtree(d, ignore_errors=True)
+    return runs
+
+
 # ----------------------------------------------------------------------
 # weighted sketches (-B, -P): csrc/weighted_draws.cu
 # ----------------------------------------------------------------------
@@ -2570,7 +2697,7 @@ INTERVAL_M = 1024
 # BED: peak files of a transcription factor's ChIP-seq size, sharing
 # intervals by family, over 24 chromosomes
 # (16 files, to leave phase 35 room in the run's time limit)
-BED_FILES, BED_FAMILIES, BED_SHARED = 16, 4, 0.6
+BED_FILES, BED_FAMILIES, BED_SHARED = 8, 4, 0.6
 BED_INTERVALS = (10000, 20000)
 BED_WIDTH = (200, 1000)
 BED_CHROMS = [f"chr{i}" for i in range(1, 23)] + ["chrX", "chrY"]
@@ -3234,7 +3361,7 @@ EDIT_EDGES = 1000            # edges held to myers_one
 # pairs of host Myers distances, about 0.17-0.19 ms a pair on the 8
 # threads of an H100 machine's host; 1024 sequences, then 768, until
 # the chunked route's phases needed the room)
-EDIT_ALLPAIRS_N = 512
+EDIT_ALLPAIRS_N = 256
 EDIT_WHOLE_N = 1024          # whole-file -E over the N = 10240 genomes
 EDIT_WHOLE_SAMPLE = 8
 EDIT_WHOLE_CUT = 8
@@ -3644,6 +3771,7 @@ BYSEQ_ARGS = ["-k", str(BYSEQ_K), "-S", str(BYSEQ_M)]
 BYSEQ_SLICE = 256            # records of the per-encoding check
 BYSEQ_PAIRS_N = 8192         # records of the all-pairs job (phase 38)
 BYSEQ_COUNTING_N = 2048      # records of the counting-route jobs (42)
+BYSEQ_KNN_N = 8192           # records of the --topk 10 job (39)
 # records of phase 42's --device cpu runs: --set, --full-setsketch and
 # -B (the plain CSetSketch and weighted draws are slow on the CPU)
 BYSEQ_CUTS = {"set": 64, "fss": 32, "bmh": 8}
@@ -3675,8 +3803,8 @@ CHUNKED_SPANS = ("sketch", "sketch/read", "sketch/chunk", "sketch/oph-rows",
 
 def _byseq_corpus():
     """(FASTA path, records) of the by-record corpus under build/, and
-    the FASTAs of its first BYSEQ_SLICE, BYSEQ_PAIRS_N, BYSEQ_COUNTING_N
-    and BYSEQ_CUTS records."""
+    the FASTAs of its first BYSEQ_SLICE, BYSEQ_PAIRS_N, BYSEQ_COUNTING_N,
+    BYSEQ_KNN_N, SEQ_KNN_N and BYSEQ_CUTS records."""
     from dashing2_tpu_torch.io.corpus import edited_sequences, write_fasta
     d = os.path.join(WORK, "byseq")
     recs = edited_sequences(BYSEQ_SEED, BYSEQ_FAMILIES, BYSEQ_MEMBERS,
@@ -3687,7 +3815,8 @@ def _byseq_corpus():
         recs[i] = (recs[i][0], recs[i][1][:BYSEQ_K - 1 - i % 7])
     fa = write_fasta(os.path.join(d, "byseq.fa"), recs)
     for name, n in (("slice", BYSEQ_SLICE), ("pairs", BYSEQ_PAIRS_N),
-                    ("counting", BYSEQ_COUNTING_N)):
+                    ("counting", BYSEQ_COUNTING_N), ("knn", BYSEQ_KNN_N),
+                    (f"first{SEQ_KNN_N}", SEQ_KNN_N)):
         write_fasta(os.path.join(d, f"{name}.fa"), recs[:n])
     for n in set(BYSEQ_CUTS.values()):
         write_fasta(os.path.join(d, f"cut{n}.fa"), recs[:n])
@@ -3921,29 +4050,29 @@ def phase_byseq_allpairs(recs, counters):
 
 
 def phase_byseq_knn(fa: str, recs, host_regs, counters):
-    """`--parse-by-seq --topk 10` over all BYSEQ_N records: registers on
-    the card (oph_rows the only hand kernel), LSH candidates and pair
-    counts; the graph == neighbor_graph_main on the card over the
-    native engine's registers of phase 37."""
+    """`--parse-by-seq --topk 10` over the first BYSEQ_KNN_N records:
+    registers on the card (oph_rows the only hand kernel), LSH
+    candidates and pair counts; the graph == neighbor_graph_main on the
+    card over the native engine's registers of phase 37."""
     import numpy as np
     from dashing2_tpu_torch.cmp import graph as PG
     from dashing2_tpu_torch.io import formats
     from dashing2_tpu_torch.result import SketchingResult
     from dashing2_tpu_torch.sketch.core import _finalize_one_perm
-    n, m = BYSEQ_N, BYSEQ_M
+    n, m = BYSEQ_KNN_N, BYSEQ_M
     d = os.path.join(WORK, "byseq")
     out = os.path.join(d, "knn.bin")
     argv = ["sketch", "--parse-by-seq", "--topk", "10", "--binary-output"] \
-        + BYSEQ_ARGS + ["--cmpout", out, fa]
+        + BYSEQ_ARGS + ["--cmpout", out, os.path.join(d, "knn.fa")]
     wall, spans, launches = _run_cli("byseq-knn", argv, n, counters, 0)
     assert launches["oph_rows"] >= 1 and not any(
         v for k, v in launches.items() if k != "oph_rows"), launches
     _say_spans("byseq-knn", spans, CHUNKED_SPANS)
     opts = _cli_opts(argv)
     opts.outfile_path = out + ".host"
-    names = [nm for nm, _ in recs]
-    res = _finalize_one_perm(opts, SketchingResult(names=names), host_regs,
-                             None, n, m)
+    names = [nm for nm, _ in recs[:n]]
+    res = _finalize_one_perm(opts, SketchingResult(names=names),
+                             host_regs[:n].copy(), None, n, m)
     PG.neighbor_graph_main(opts, res, device="cuda")
     size = _same_bytes([out, out + ".host"])
     indptr, indices, _ = formats.read_knn_csr(out)
@@ -4154,8 +4283,322 @@ def phase_byseq_countsketch(counters):
     return dict(wall=wall, launches=launches, streams=_cs_set(rec))
 
 
+# ----------------------------------------------------------------------
+# phases 47-49: minimizer sequences (--seq, printmin) on csrc/oph_rows.cu's
+# hash_rows entry
+# ----------------------------------------------------------------------
+
+# the --seq jobs' settings: 15-mers in windows of 31 (u64 tokens), and
+# --long-kmers 40-mers in windows of 60 (full 128-bit tokens)
+SEQ_ARGS = ["-k", "15", "-w", "31"]
+SEQ128_ARGS = ["--long-kmers", "-k", "40", "-w", "60"]
+SEQ_PAIRS_N = BYSEQ_SLICE    # records of the --seq all-pairs job (49)
+SEQ_KNN_N = 1024             # records of the --seq --topk 10 job (49)
+SEQ_CUT = 64                 # records of the --device cpu runs (48)
+SEQ_SAMPLE = 200             # all-pairs values held to the numpy DP (49)
+# the least integer work of hash_rows, reckoned as OPH_OPS is (32-bit
+# lane instructions): a valid position's rolled code (15; the 128-bit
+# code's two words 30) and, with w > k, its minimizer scan (12: a van
+# Herk/Gil-Werman window minimum's prefix and suffix u64 mins and their
+# min, and the tie test); the maskfn chain (30; full keys' two words 60)
+# only where a position is masked: every valid one with w <= k, only
+# those the minimizers select with w > k
+HASH_ROLL_OPS, HASH_MASK_OPS, HASH_MINI_OPS = 15, 30, 12
+# the per-encoding check: phase 37's encodings, and the 128-bit code's
+# full keys with minimizers
+HASH_CASES = OPH_CASES + (("u128-full-w60", dict(k=40, w=60, use128=True)),)
+SEQ_SPANS = ("sketch", "sketch/read", "sketch/chunk", "sketch/hash-rows",
+             "write-sketches", "compare+emit", "cmp/mmer-dist",
+             "lsh-index-build", "lsh-candidates", "refine", "emit/write")
+
+
+def _hash_bound(items, k: int, w: int, full: bool, kept: int):
+    """(bound ms, what sets it, valid positions) of hash_rows over
+    `items` at the int32 rate: HASH_ROLL_OPS (and with w > k
+    HASH_MINI_OPS) a valid position, HASH_MASK_OPS a masked one (with
+    w > k the selected positions, here the `kept` tokens: the timed jobs
+    have no downsample or filterset), ROLL and MASK twice for full keys;
+    beside 1 byte read a base and 8 bytes (16 for full keys) written a
+    kept token."""
+    nvalid = _valid_windows(items, k)
+    nbases = sum(len(c) for it in items for c in it.codes)
+    words = 2 if full else 1
+    nmasked = kept if w > k else nvalid
+    ops = (nvalid * (words * HASH_ROLL_OPS
+                     + (HASH_MINI_OPS if w > k else 0))
+           + nmasked * words * HASH_MASK_OPS)
+    bound_ms, bound_by = _bound(ops, "int32",
+                                nbases + (16 if full else 8) * kept)
+    return bound_ms, bound_by, nvalid
+
+
+def _bare_hash_ms(batches, hkw, x2, reps: int) -> float:
+    """Mean device time of the bare C entry `hash_rows` over the batches
+    on prebuilt Params, rows and outputs (keep flags zeroed beforehand):
+    CUDA events around the library calls only."""
+    import ctypes
+    import torch
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    lib = OR.load_kernel()
+    npos = [r.shape[1] - hkw["k"] + 1 for r in batches]
+    params = [OR.kernel_params(hkw, r.shape[0], r.shape[1], 0, 0,
+                               xormask2_hi=x2) for r in batches]
+    most = max(r.shape[0] * p for r, p in zip(batches, npos))
+    tok = torch.empty(most, dtype=torch.int64, device="cuda")
+    hi = (torch.empty(most, dtype=torch.int64, device="cuda")
+          if x2 is not None else None)
+    keeps = [[torch.zeros(r.shape[0] * p, dtype=torch.uint8, device="cuda")
+              for r, p in zip(batches, npos)] for _ in range(reps + 1)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(keep):
+        for r, prm, kp in zip(batches, params, keep):
+            assert lib.hash_rows(ctypes.byref(prm), r.data_ptr(), None,
+                                 None, tok.data_ptr(),
+                                 hi.data_ptr() if hi is not None else None,
+                                 kp.data_ptr(), stream) == 0
+    launch(keeps[-1])                             # warm-up
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for keep in keeps[:reps]:
+        launch(keep)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def phase_hash_rows_vs_plain(fa: str):
+    """hash_rows against hash_rows_plain on the card, tokens (and the
+    high words of full keys) and the rows' counts bit for bit: over the
+    first BYSEQ_SLICE records in each encoding of HASH_CASES (phase 37's
+    and the 128-bit code's full keys with minimizers), then over the
+    whole corpus at the --seq jobs' settings (SEQ_ARGS; SEQ128_ARGS,
+    full keys) in the --seq route's batches. The kernel timed by CUDA
+    events over those prebuilt batches, after a warm-up, through its
+    wrapper (the keep flags' zeroing, the launch, the compaction by one
+    `nonzero`) and as bare launches; the plain version on the first
+    BYSEQ_SLICE records."""
+    import numpy as np
+    import torch
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.enums import Alphabet, KmerSketchResultType
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    from dashing2_tpu_torch.sketch import core as PC
+    d = os.path.join(WORK, "byseq")
+    slice_fa = os.path.join(d, "slice.fa")
+    seq = KmerSketchResultType.FULL_MMER_SEQUENCE
+    for tag, kw in HASH_CASES:
+        kw = dict(kw)
+        if "alphabet" in kw:
+            kw["alphabet"] = Alphabet[kw["alphabet"]]
+        opts = Dashing2Options(parse_by_seq=True, kmer_result=seq, **kw)
+        _, _, hkw, batches = _rows_of(
+            opts, [os.path.join(d, "protein.fa") if "alphabet" in kw
+                   else slice_fa])
+        rows = torch.from_numpy(batches[0][0]).cuda()
+        x2 = opts.xormask2_hi if tag.startswith("u128-full") else None
+        fs = None
+        if tag == "filterset":
+            lo, _, _ = OR.hash_rows_plain(rows, hkw)
+            hv = np.unique(lo.cpu().numpy().view(np.uint64))
+            fs = torch.from_numpy(hv[::3].copy().view(np.int64)).cuda()
+        want = OR.hash_rows_plain(rows, hkw, fs, x2)
+        got = OR.hash_rows(rows, hkw, fs, x2)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("tokens", "high words",
+                                         "counts")):
+            assert (g is None) == (w is None) and (
+                g is None or torch.equal(g, w)), (tag, what)
+        _say(f"[hash] {tag}: hash_rows == hash_rows_plain, "
+             f"{int(got[2].sum())} tokens of {rows.shape[0]} rows of "
+             f"{rows.shape[1]} codes" + ("; full keys" if x2 else "")
+             + (f"; filterset of {fs.numel()} hashes" if fs is not None
+                else ""))
+    run = {}
+    for tag, args in (("seq", SEQ_ARGS), ("seq128", SEQ128_ARGS)):
+        k, w = int(args[args.index("-k") + 1]), int(args[args.index("-w")
+                                                          + 1])
+        opts = Dashing2Options(k=k, w=w, use128="--long-kmers" in args,
+                               parse_by_seq=True, kmer_result=seq)
+        items, chunk_len, hkw, batches = _rows_of(opts, [fa],
+                                                  PC.BATCH_CODES["cuda"])
+        x2 = opts.xormask2_hi if "--long-kmers" in args else None
+        on_card = [torch.from_numpy(r).cuda() for r, _ in batches]
+        kept = 0
+        for r in on_card:
+            got = OR.hash_rows(r, hkw, None, x2)
+            want = OR.hash_rows_plain(r, hkw, None, x2)
+            for g, w_ in zip(got, want):
+                assert (g is None) == (w_ is None) and (
+                    g is None or torch.equal(g, w_)), tag
+            kept += int(got[2].sum())
+            del got, want
+        torch.cuda.empty_cache()
+        # warmed up first: the caching allocator holds the wrapper's
+        # buffers from then on, as it does across the route's batches
+        ms = _library_ms(lambda: [OR.hash_rows(r, hkw, None, x2)
+                                  for r in on_card], 3)
+        bare_ms = _bare_hash_ms(on_card, hkw, x2, 3)
+        bound_ms, bound_by, nvalid = _hash_bound(items, k, w, x2 is not None,
+                                                 kept)
+        cut = int(np.searchsorted(batches[0][1], BYSEQ_SLICE))
+        part = on_card[0][:cut].contiguous()
+        slice_ms = _library_ms(lambda: OR.hash_rows(part, hkw, None, x2), 3)
+        OR.hash_rows_plain(part, hkw, None, x2)
+        plain_ms = _cuda_ms(lambda: OR.hash_rows_plain(part, hkw, None, x2),
+                            1)
+        _say(f"[hash] {tag} ({' '.join(args)}): {len(items)} records in "
+             f"{sum(len(r) for r in on_card)} rows of {on_card[0].shape[1]} "
+             f"codes (chunk length {chunk_len}), {len(on_card)} batches; "
+             f"kernel tokens and counts == plain's over the whole corpus; "
+             f"{nvalid} valid windows, {kept} kept tokens; through the "
+             f"wrapper over the batches (CUDA events, mean of 3) {ms:.3f} "
+             f"ms, the bare launches {bare_ms:.3f} ms; bound "
+             f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
+             f"reached; on the first {BYSEQ_SLICE} records the wrapper "
+             f"{slice_ms:.3f} ms, plain {plain_ms:.3f} ms (one run); "
+             "library: none")
+        run[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, err=0, library_ms=None,
+                        bare_ms=bare_ms, slice_ms=slice_ms)
+        del on_card
+        torch.cuda.empty_cache()
+    out = dict(run["seq"])
+    out["full_keys"] = run["seq128"]
+    out["plain_shape"] = (f"the first {BYSEQ_SLICE} of the {BYSEQ_N} "
+                          f"records ms and bound_ms cover (kernel there "
+                          f"{run['seq']['slice_ms']:.3f} ms)")
+    return out
+
+
+def _printmin_text(path: str) -> str:
+    import io
+    from dashing2_tpu_torch.io.printmin import printmin_main
+    buf = io.StringIO()
+    assert printmin_main(path, out=buf) == 0
+    return buf.getvalue()
+
+
+def phase_seq_sketch(tag: str, args, fa: str, recs, counters):
+    """`sketch --seq --parse-by-seq -o` over all BYSEQ_N records (`args`:
+    SEQ_ARGS or SEQ128_ARGS): hash_rows the only hand kernel; the
+    written sequences' count, lengths, names and token width; the job
+    over the first SEQ_CUT records on the card and with --device cpu:
+    equal `-o` bytes and equal `printmin` text, and its sequences == the
+    whole run's first SEQ_CUT."""
+    import numpy as np
+    from dashing2_tpu_torch.io import formats
+    d = os.path.join(WORK, "byseq")
+    out = os.path.join(d, f"{tag}.seq")
+    argv = ["sketch", "--seq", "--parse-by-seq"] + args + ["-o", out]
+    wall, spans, launches = _run_cli(tag, argv + [fa], BYSEQ_N, counters, 0)
+    assert launches["hash_rows"] >= 1 and not any(
+        v for key, v in launches.items() if key != "hash_rows"), launches
+    _say_spans(tag, spans, SEQ_SPANS)
+    data = formats.read_mmer_sequences(out)
+    names, cards = formats.read_names_file(out + ".names.txt")
+    assert data["nseqs"] == BYSEQ_N and names == [n for n, _ in recs]
+    lens = np.array([len(s) for s in data["seqs"]])
+    assert np.array_equal(cards, lens) and data["use128"] == (
+        "--long-kmers" in args)
+    cut = os.path.join(d, f"cut{SEQ_CUT}.fa")
+    files = [f"{out}.cut.{dev}" for dev in ("cuda", "cpu")]
+    for f, dev in zip(files, ("cuda", "cpu")):
+        _run_cli(f"{tag} cut {dev}", argv[:-1] + [f, cut, "--device", dev],
+                 SEQ_CUT, counters, 0)
+    size = _same_bytes(files)
+    text = _printmin_text(files[0])
+    assert text == _printmin_text(files[1]) and text.count("\n") == SEQ_CUT
+    first = formats.read_mmer_sequences(files[0])["seqs"]
+    assert all(np.array_equal(a, b) for a, b in zip(first, data["seqs"]))
+    _say(f"[{tag}] {BYSEQ_N} sequences, {int(lens.sum())} tokens "
+         f"({'u128' if data['use128'] else 'u64'}), lengths "
+         f"{int(lens.min())}-{int(lens.max())}, mean {lens.mean():.1f}; "
+         f"the first {SEQ_CUT} records: card -o == --device cpu -o "
+         f"({size} bytes), printmin text equal ({len(text)} characters), "
+         f"== the whole run's first {SEQ_CUT}")
+    for f in files + [out, out + ".names.txt"]:
+        os.remove(f)
+    return dict(wall=wall, launches=launches)
+
+
+def phase_seq_compare(recs, counters):
+    """The --seq comparisons (SEQ_ARGS): all pairs over the first
+    SEQ_PAIRS_N records with `-o`, binary: card == --device cpu bytes,
+    every value finite and at most the longer sequence's length,
+    SEQ_SAMPLE values == max length - the numpy DP (`span_edit_distance`)
+    over the written sequences; `--topk 10` over the first SEQ_KNN_N
+    records: card == --device cpu bytes."""
+    import numpy as np
+    from dashing2_tpu_torch.cmp.editdist import span_edit_distance
+    from dashing2_tpu_torch.io import formats
+    d = os.path.join(WORK, "byseq")
+    runs = {}
+    n = SEQ_PAIRS_N
+    out, sig = os.path.join(d, "seqpairs.bin"), os.path.join(d, "seqpairs.seq")
+    argv = (["sketch", "--seq", "--parse-by-seq"] + SEQ_ARGS
+            + ["--binary-output", "-o", sig, os.path.join(d, "slice.fa")])
+    files = []
+    for dev in ("cuda", "cpu"):
+        files.append(f"{out}.{dev}")
+        wall, spans, launches = _run_cli(
+            f"seq-pairs {dev}", argv + ["--cmpout", files[-1], "--device",
+                                        dev], n, counters)
+        if dev == "cuda":
+            runs["seq-pairs"] = dict(wall=wall, launches=launches)
+            _say_spans("seq-pairs", spans, SEQ_SPANS)
+    size = _same_bytes(files)
+    assert size == 4 * n * (n - 1) // 2
+    vals = np.fromfile(files[0], dtype=np.float32)
+    seqs = formats.read_mmer_sequences(sig)["seqs"]
+    lens = np.array([len(s) for s in seqs])
+    ia, ib = np.triu_indices(n, 1)
+    assert np.isfinite(vals).all() and (vals >= 0).all() and (
+        vals <= np.maximum(lens[ia], lens[ib])).all()
+    rng = np.random.default_rng(BYSEQ_SEED)
+    pick = rng.choice(len(vals), SEQ_SAMPLE, replace=False)
+    for p in pick:
+        i, j = int(ia[p]), int(ib[p])
+        want = max(lens[i], lens[j]) - span_edit_distance(seqs[i], seqs[j])
+        assert vals[p] == np.float32(want), (i, j)
+    _say(f"[seq-pairs] {n} records: card bytes == --device cpu bytes "
+         f"({size} bytes); {SEQ_SAMPLE} values == max length - the numpy "
+         f"DP; value histogram (matching tokens a pair) quartiles "
+         f"{np.percentile(vals, [25, 50, 75]).tolist()}")
+    for f in files + [sig, sig + ".names.txt"]:
+        os.remove(f)
+    n = SEQ_KNN_N
+    out = os.path.join(d, "seqknn.bin")
+    argv = (["sketch", "--seq", "--parse-by-seq", "--topk", "10"] + SEQ_ARGS
+            + ["--binary-output", os.path.join(d, f"first{n}.fa")])
+    files = []
+    for dev in ("cuda", "cpu"):
+        files.append(f"{out}.{dev}")
+        wall, spans, launches = _run_cli(
+            f"seq-knn {dev}", argv + ["--cmpout", files[-1], "--device",
+                                      dev], n, counters, 0)
+        if dev == "cuda":
+            runs["seq-knn"] = dict(wall=wall, launches=launches)
+            _say_spans("seq-knn", spans, SEQ_SPANS)
+    size = _same_bytes(files)
+    indptr, indices, _ = formats.read_knn_csr(files[0])
+    names = [nm for nm, _ in recs[:n]]
+    rows = np.repeat(np.arange(n), np.diff(indptr.astype(np.int64)))
+    fam = np.array([int(nm.split("_")[0][3:]) for nm in names])
+    same = float(np.mean(fam[rows] == fam[indices]))
+    _say(f"[seq-knn] {len(indices)} edges over {n} records "
+         f"({100 * same:.1f}% within a family); card bytes == --device cpu "
+         f"bytes ({size} bytes)")
+    for f in files:
+        os.remove(f)
+    return runs
+
+
 def phase_chunked(lst: str, counters):
-    """Phases 37-42 and 46, the chunked route."""
+    """Phases 37-42 and 46, the chunked route, and phases 47-49, the
+    minimizer sequences over the same corpus."""
     t0 = time.perf_counter()
     fa, recs = _byseq_corpus()
     _say(f"[byseq] corpus: {BYSEQ_N} records, "
@@ -4183,9 +4626,21 @@ def phase_chunked(lst: str, counters):
     runs["byseq-pmh-c"] = timed("byseq -P -c job", phase_byseq_countsketch,
                                 counters)
     _say(f"[wall] chunked-route phases: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    hash_run = timed("hash_rows kernel", phase_hash_rows_vs_plain, fa)
+    for tag, args in (("seq-sketch", SEQ_ARGS),
+                      ("seq128-sketch", SEQ128_ARGS)):
+        runs[tag] = timed(f"{tag} job", phase_seq_sketch, tag, args, fa,
+                          recs, counters)
+    runs.update(timed("seq comparison jobs", phase_seq_compare, recs,
+                      counters))
+    _say(f"[wall] minimizer-sequence phases: "
+         f"{time.perf_counter() - t0:.3f} s")
     shutil.rmtree(os.path.join(WORK, "byseq"), ignore_errors=True)
     kernel["launches"] = sum(r["launches"]["oph_rows"] for r in runs.values())
-    return kernel, runs
+    hash_run["launches"] = sum(r["launches"]["hash_rows"]
+                               for r in runs.values())
+    return kernel, runs, hash_run
 
 
 # ----------------------------------------------------------------------
@@ -4792,7 +5247,7 @@ def main() -> int:
                 "int_counts": IC.rect_launches,
                 "weighted_draws": WD.launches, "omh": OP.launches,
                 "oph_rows": OR.launches, "css": CSS.launches,
-                "countsketch": CS.launches}
+                "countsketch": CS.launches, "hash_rows": OR.hash_launches}
     t_start = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -4886,9 +5341,10 @@ def main() -> int:
         timed("set-knn jobs", phase_exact_knn, half, counters)
         timed(f"{EXACT_CPU_JOBS[2][0]} job", phase_exact_vs_cpu,
               *EXACT_CPU_JOBS[2], lists, counters)
+        timed("u128 set jobs", phase_u128_sets, lists, counters)
         _say(f"[wall] exact-set phases: {time.perf_counter() - t0:.3f} s")
         omh_run, e_runs = phase_edit(lst, counters)
-        oph_run, c_runs = phase_chunked(lst, counters)
+        oph_run, c_runs, hash_run = phase_chunked(lst, counters)
         cs_sets = {"a": w_jobs["pmh-c"].pop("streams"),
                    "b": _cs_bacterial(CS_BACTERIA, 1 << 20),
                    "b31": _cs_bacterial(1, (1 << 31) - 1),
@@ -5072,6 +5528,26 @@ def main() -> int:
         "bound_all_draws_ms": css_run["bound_all_ms"],
         "lane_slots": css_run["lane_slots"],
         "plain_shape": css_run["plain_shape"],
+    })
+    # the minimizer sequences' hash stream: the --seq settings over the
+    # by-record corpus timed (and the --long-kmers full keys under
+    # "full_keys"), launches of the --seq jobs
+    kernels.append({
+        "name": "hash_rows",
+        "route": "cuda",
+        "source": "dashing2_tpu_torch/csrc/oph_rows.cu",
+        "replaces": "dashing2_tpu/sketch/core.py:59",
+        "launches": hash_run["launches"],
+        "max_abs_err": hash_run["err"],
+        "ms": hash_run["ms"],
+        "plain_ms": hash_run["plain_ms"],
+        "bound_ms": hash_run["bound_ms"],
+        "bound_by": hash_run["bound_by"],
+        "library_ms": None,
+        "bare_ms": hash_run["bare_ms"],
+        "slice_ms": hash_run["slice_ms"],
+        "full_keys": hash_run["full_keys"],
+        "plain_shape": hash_run["plain_shape"],
     })
     # the CountSketch: set (c), the by-record -P -c job's batch, timed
     # (sets (a), (b) and (c) under "sets"); launches of both -P -c jobs

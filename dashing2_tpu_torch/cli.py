@@ -1,7 +1,7 @@
 """dashing2-compatible command-line interface of the PyTorch/CUDA port.
 
 Port of dashing2_tpu/cli.py: `_add_shared` and `_build_opts` are copies,
-so flags keep their reference names and build the same options. Four
+so flags keep their reference names and build the same options. Five
 subcommands exist, and they run only the slices the port covers:
 
 * `sketch`: native sketching of FASTA/FASTQ inputs, one-permutation by
@@ -10,13 +10,16 @@ subcommands exist, and they run only the slices the port covers:
   `--setsketch-ab a,b` or `--fastcmp-bytes/-shorts/-words`, the
   weighted sketches `-B` (`--multiset`) and `-P` (`--prob`), whose
   counts `-c` turns into a CountSketch's, or the exact k-mer sets
-  (`--set`) and count dictionaries (`--countdict`), or OrderMinHash
+  (`--set`) and count dictionaries (`--countdict`; u128 keys with
+  `--long-kmers`), or the minimizer sequences (`--seq`, with
+  `--hp-compress`; u128 tokens with `--long-kmers`), or OrderMinHash
   registers in the edit-distance space (`-E`, one item a record with
   `--parse-by-seq`, the raw sequences kept, `--seqs-in-ram`); or of
   interval inputs, `--bed`, `--bigwig` (with `--by-chrom`, one item a
   chromosome) and `--leafcutter`, in set space, FullSetSketch or -B/-P
   (`--normalize-intervals`). `-o` writes the stacked signatures
-  (nothing for exact sets), with `-s` the k-mer database
+  (the stacked minimizer sequences of `--seq`; nothing for exact
+  sets), with `-s` the k-mer database
   `<-o>.kmer64` and with `-N` its counts `<-o>.kmercounts.f64` (FASTA
   one-permutation jobs). `--cache` (`-W`) loads each FASTA item's
   sketch artifact where it exists and writes it where it does not (in
@@ -24,10 +27,10 @@ subcommands exist, and they run only the slices the port covers:
   the JAX package). With --cmpout, the comparison:
 * `cmp` (alias `dist`): sketch and compare, or with `--presketched`
   compare stacked signature files (`-o` output, with its .names.txt),
-  single sketch caches (.opss, .ss, .bmh, .pmh) and exact k-mer set
-  caches (.kmerset64, and .mmerseq64 with its <stem>kmercounts.f64
-  counts as a count dictionary); the output goes to stdout without
-  --cmpout.
+  single sketch caches (.opss, .ss, .bmh, .pmh), exact k-mer set
+  caches (.kmerset64, .kmerset128) and minimizer sequences (.mmerseq64,
+  .mmerseq128; with a <stem>kmercounts.f64 of as many counts, a count
+  dictionary); the output goes to stdout without --cmpout.
 
 The comparison is the all-pairs matrix of any measure (similarity,
 `--mash-distance`, `--containment`, `--symmetric-containment`,
@@ -38,7 +41,8 @@ to f32, and `--bbit-sigs` compares their bits for equality), over
 (`--bbit-sigs`) or SetSketch a/b quantised (without it), or over the
 registers a sketch-compressed job quantised, over the weighted
 registers (compared for equality, or quantised by `--fastcmp`), or over
-exact sets (their intersections joined on the card); emitted as binary f32,
+exact sets (their intersections joined on the card), or over minimizer
+sequences (their span edit distances, on the host); emitted as binary f32,
 PHYLIP, the symmetric TSV or, with `--asymmetric-all-pairs`, the full
 square; with `-Q`, the references-by-queries panel; and the LSH
 neighbour jobs (`--topk`, `--similarity-threshold`, `--greedy`,
@@ -47,14 +51,16 @@ sets a bottom-k index), emitted as CSR or text (cmp/graph.py);
 `--greedy ...f` writes the clusters as FASTA. An `-E` job compares its
 registers like full registers compared for equality (or their low bits
 with `--fastcmp`), or with `--compute-edit-distance` or
-`--exact-kmer-dist` computes exact edit distances (cmp/editdist.py).
+`--exact-kmer-dist` computes exact edit distances (cmp/editdist.py);
+these two flags run with `-E` and `--seq` only.
 `--pairlist` sketches the unique paths it names and compares them
 all-pairs, as the reference does.
 
 * `wsketch`: pre-aggregated weighted sets (flat or CSR binary vectors),
   sketch/wsketch.py;
 * `contain`: coverage of queries against a `.kmer64` database,
-  cmp/contain.py.
+  cmp/contain.py;
+* `printmin`: a `--seq -o` file as text (io/printmin.py).
 
 Every other option is rejected with an error naming it. `--device`
 (default cuda) picks where the CSetSketch and weighted draws, the
@@ -334,11 +340,9 @@ def _build_opts(a: argparse.Namespace) -> Dashing2DistOptions:
 
 
 # options outside the slice: dest -> the flag a user typed
-_OUTSIDE_SLICE = {
-    "mmer_seq": "--seq", "hpcompress": "--hp-compress",
-    "entmin": "--entmin", "warm_only": "--warm-only",
-}
-# options the port runs only in the edit-distance space (-E)
+_OUTSIDE_SLICE = {"entmin": "--entmin", "warm_only": "--warm-only"}
+# options the port runs only in the edit-distance space (-E) and over
+# minimizer sequences (--seq)
 _EDIT_ONLY = {
     "compute_edit": "--compute-edit-distance",
     "exact_kmer_dist": "--exact-kmer-dist",
@@ -352,9 +356,9 @@ def _slice_errors(p: argparse.ArgumentParser, a: argparse.Namespace,
     a flag outside the slice is reported as such even where building
     the options would fail. --compute-edit-distance and
     --exact-kmer-dist run only with -E (--edit-distance; the BED
-    sketcher refuses -E, as the JAX package's does)."""
+    sketcher refuses -E, as the JAX package's does) or --seq."""
     outside = dict(_OUTSIDE_SLICE)
-    if not a.edit_distance:
+    if not (a.edit_distance or a.mmer_seq):
         outside.update(_EDIT_ONLY)
     errs = [flag for dest, flag in outside.items()
             if getattr(a, dest) != p.get_default(dest)]
@@ -456,7 +460,13 @@ def _main(argv: List[str]) -> int:
                        help="where the draws (wsketch) or the lookup "
                             "(contain) run (default cuda); cpu runs the "
                             "plain PyTorch versions")
+    ppm = sub.add_parser("printmin", help="print minimizer sequences")
+    ppm.add_argument("minfile")
     a = top.parse_args(argv)
+    if a.command == "printmin":
+        # host only: decodes a file
+        from .io.printmin import printmin_main
+        return printmin_main(a.minfile)
 
     from .device import resolve
     try:
@@ -494,7 +504,8 @@ def _main(argv: List[str]) -> int:
         with phase("sketch", opts.verbosity):
             result = _do_sketch(opts, groups, device)
         result.nq = nq
-        if a.outfile and result.signatures is not None:
+        if a.outfile and (result.signatures is not None
+                          or result.mmer_sequences is not None):
             with phase("write-sketches", opts.verbosity):
                 _write_outputs(opts, a.outfile, result)
     if compares:
@@ -521,8 +532,16 @@ def _write_outputs(opts: Dashing2DistOptions, outfile: str,
                    result: SketchingResult) -> None:
     """-o: the stacked signatures (and names), with -s the k-mer
     database <-o>.kmer64 and with -N the registers' counts
-    <-o>.kmercounts.f64, which only one-permutation FASTA jobs have."""
+    <-o>.kmercounts.f64, which only one-permutation FASTA jobs have; or
+    the stacked minimizer sequences of --seq and their names."""
     from .io import formats
+    if result.mmer_sequences is not None:
+        formats.write_mmer_sequences(
+            outfile, result.mmer_sequences, opts.k, opts.w, opts.alphabet,
+            opts.canonicalize)
+        formats.write_names_file(outfile + ".names.txt", result.names,
+                                 result.cardinalities)
+        return
     formats.write_stacked_signatures(outfile, result.cardinalities,
                                      result.signatures, result.names)
     if result.kmers is not None:
@@ -544,17 +563,20 @@ def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
     files (PANEL): nq becomes the number of ITEMS they contain (a
     stacked file holds many). A .kmerset64 file is an exact k-mer set: an
     f64 cardinality (0 or less: the key count) then u64 keys, sorted on
-    load; a .mmerseq64 file with a sibling <stem>kmercounts.f64 of as
-    many f64 counts is a count dictionary, its repeated keys summed
-    (cmp_main.cpp:107,335-351). u128 keys (.kmerset128, .mmerseq128),
-    minimizer sequences (.mmerseq64 without counts) and sets larger than
-    --sig-ram-limit, which the JAX package streams from the file, are
-    not ported."""
+    load (.kmerset128: u128 keys, little-endian (lo, hi)); a .mmerseq64
+    (.mmerseq128) file is a minimizer sequence, or with a sibling
+    <stem>kmercounts.f64 of as many f64 counts a count dictionary, its
+    repeated keys summed (cmp_main.cpp:107,335-351). Sequences compare
+    by their exact span edit distances (`exact_kmer_dist` re-applied, as
+    the JAX loader does). .kmerset64 sets larger than --sig-ram-limit,
+    which the JAX package streams from the file, are not ported."""
     import os
+    from . import u128 as U
     from .io import formats
     result = SketchingResult()
     cards_all, sig_rows = [], []
     kmer_sets, kmer_counts = [], []
+    mmer_seqs = []
     items_per_path = []
     for path in groups:
         if path.endswith((".opss", ".ss", ".bmh", ".pmh")):
@@ -570,8 +592,9 @@ def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
             cards_all.append(np.array([card]))
             sig_rows.append(regs[None, :])
             items_per_path.append(1)
-        elif path.endswith(".kmerset64"):
-            if os.path.getsize(path) > opts.sig_ram_limit:
+        elif path.endswith((".kmerset64", ".kmerset128")):
+            if path.endswith(".kmerset64") \
+                    and os.path.getsize(path) > opts.sig_ram_limit:
                 raise NotImplementedError(
                     f"{path}: exact sets larger than --sig-ram-limit are "
                     "streamed from their files in the JAX package, which "
@@ -579,36 +602,41 @@ def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
             opts.kmer_result = KmerSketchResultType.FULL_MMER_SET
             card = float(np.fromfile(path, np.float64, count=1)[0])
             kmers = np.fromfile(path, dtype=np.uint64, offset=8)
+            if path.endswith(".kmerset128"):
+                pairs = kmers.reshape(-1, 2)    # (lo, hi) little-endian
+                kmers = U.from_words(pairs[:, 1], pairs[:, 0])
+                opts.use128 = True
             result.names.append(path)
-            kmer_sets.append(np.sort(kmers))
+            kmer_sets.append(U.sort(kmers) if U.is_u128(kmers)
+                             else np.sort(kmers))
             cards_all.append(np.array([card if card > 0
                                        else float(len(kmers))]))
             items_per_path.append(1)
-        elif path.endswith(".mmerseq64") and os.path.isfile(
-                path[:path.rfind(".")] + "kmercounts.f64"):
-            tokens = np.fromfile(path, dtype=np.uint64)
-            counts = np.fromfile(path[:path.rfind(".")] + "kmercounts.f64",
-                                 dtype=np.float64)
-            if len(counts) != len(tokens):
-                raise NotImplementedError(
-                    f"{path}: a minimizer sequence (its counts file does "
-                    "not match it); sequences are not ported (ROADMAP "
-                    "Queue 1 item 8)")
+        elif path.endswith((".mmerseq64", ".mmerseq128")):
+            if path.endswith(".mmerseq128"):
+                tokens = U.read_file(path)
+                opts.use128 = True
+            else:
+                tokens = np.fromfile(path, dtype=np.uint64)
+            countg = path[:path.rfind(".")] + "kmercounts.f64"
+            counts = (np.fromfile(countg, dtype=np.float64)
+                      if os.path.isfile(countg) else None)
+            result.names.append(path)
+            items_per_path.append(1)
+            if counts is None or len(counts) != len(tokens):
+                opts.kmer_result = KmerSketchResultType.FULL_MMER_SEQUENCE
+                mmer_seqs.append(tokens)
+                cards_all.append(np.array([float(len(tokens))]))
+                continue
             # dict keys must be unique and sorted for the joins; a
             # positional stream may repeat a token
             u, inv = np.unique(tokens, return_inverse=True)
             csum = np.zeros(len(u), np.float64)
             np.add.at(csum, inv, counts)
             opts.kmer_result = KmerSketchResultType.FULL_MMER_COUNTDICT
-            result.names.append(path)
             kmer_sets.append(u)
             kmer_counts.append(csum)
             cards_all.append(np.array([float(csum.sum())]))
-            items_per_path.append(1)
-        elif path.endswith((".kmerset128", ".mmerseq64", ".mmerseq128")):
-            raise NotImplementedError(
-                f"{path}: u128 exact sets and minimizer sequences are not "
-                "ported (ROADMAP Queue 1 item 8)")
         else:
             cards, sigs = formats.read_stacked_signatures(path)
             try:
@@ -628,6 +656,11 @@ def _load_presketched(opts: Dashing2DistOptions, groups: List[str],
         result.kmer_sets = kmer_sets
         if kmer_counts and len(kmer_counts) == len(kmer_sets):
             result.kmer_set_counts = kmer_counts
+        opts.exact_kmer_dist = True
+    if mmer_seqs:
+        result.mmer_sequences = mmer_seqs
+        # the options' coupling (kmer_result >= FULL_MMER_SET: exact
+        # span distances) ran before the suffix set kmer_result
         opts.exact_kmer_dist = True
     if nq_files:
         result.nq = int(sum(items_per_path[-nq_files:]))

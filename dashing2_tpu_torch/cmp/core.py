@@ -46,8 +46,12 @@ Exact k-mer sets and count dictionaries (`--set`, `--countdict`) take
 the JAX generic row-block route: per row block, the intersection sizes
 joined on the device (cmp/wcompare.py, one column table a job), copied
 out as int64, then the host numpy f64 `exact_measures`, cast to f32;
-pair lists likewise, on the padded pair merge. `_prep` and
-`_representation` never see them.
+pair lists likewise, on the padded pair merge. u128 keys (`--long-kmers`)
+join as their ranks (cmp/wcompare.py). Minimizer sequences (`--seq`)
+take the same row-block loop over their exact span edit distances
+(`--exact-kmer-dist`, which their result type sets; positional hamming
+matches without it) on the host (cmp/wcompare.py::mmer_sequence_pairs).
+`_prep` and `_representation` never see them.
 
 m >= 65536 and the other representations raise NotImplementedError
 naming their ROADMAP item.
@@ -535,6 +539,10 @@ def pairwise_matrix(opts: Dashing2DistOptions, result: SketchingResult,
     if _edit_exact(opts):
         yield from _edit_blocks(result, block, upper_only, n, nq)
         return
+    if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
+        yield from _edit_blocks(result, block, upper_only, n, nq,
+                                _mmer_pairs(opts), "cmp/mmer-dist")
+        return
     if _exact_sets(opts):
         yield from _exact_blocks(opts, result, block, upper_only, dev, n, nq)
         return
@@ -570,26 +578,49 @@ def _edit_exact(opts: Dashing2DistOptions) -> bool:
         opts.exact_kmer_dist or opts.measure == Measure.M_EDIT_DISTANCE)
 
 
+def _mmer_pairs(opts: Dashing2DistOptions):
+    """The pair function of minimizer sequences, and their diagonal: a
+    sequence against itself is at distance 0 (M_EDIT_DISTANCE 0, the
+    other measures its length) and matches itself at every position."""
+    def pairs(result, ia, ib):
+        return W.mmer_sequence_pairs(opts, result, ia, ib)
+
+    def diagonal(result, idx):
+        lens = np.array([len(result.mmer_sequences[int(i)]) for i in idx],
+                        np.float64)
+        if opts.exact_kmer_dist and opts.measure == Measure.M_EDIT_DISTANCE:
+            return np.zeros_like(lens)
+        return lens
+    return pairs, diagonal
+
+
 def _edit_blocks(result: SketchingResult, block: int, upper_only: bool,
-                 n: int, nq: int) -> Iterator[Tuple[int, np.ndarray]]:
-    """pairwise_matrix of exact edit distances (the JAX generic row-block
-    loop over `_measure_block`'s edit-distance branch,
-    dashing2_tpu/cmp/core.py l.615-621), on the host (cmp/editdist.py:
-    threads over each block's pairs). Levenshtein is symmetric and
-    integral, so an all-pairs block computes only its pairs above the
-    diagonal; full rows (--asymmetric-all-pairs) mirror them from a
-    square kept for the job, the diagonal 0. A panel computes every
-    reference-query pair. Values are the f64 distances cast to f32, as
-    in the JAX package."""
+                 n: int, nq: int, pair_fns=None, span_name="cmp/editdist"
+                 ) -> Iterator[Tuple[int, np.ndarray]]:
+    """pairwise_matrix of a symmetric pair function on the host, the JAX
+    generic row-block loop over `_measure_block`'s edit-distance and
+    minimizer-sequence branches (dashing2_tpu/cmp/core.py l.615-627):
+    exact edit distances of the raw sequences (cmp/editdist.py: threads
+    over each block's pairs), or `pair_fns` = (pairs, diagonal) (the
+    minimizer sequences', `_mmer_pairs`). Every value is symmetric, so
+    an all-pairs block computes only its pairs above the diagonal; full
+    rows (--asymmetric-all-pairs) mirror them from a square kept for
+    the job, the diagonal from `diagonal` (0 for Levenshtein). A panel
+    computes every reference-query pair. Values are the f64 values cast
+    to f32, as in the JAX package."""
     from .editdist import edit_distances_pairs
+    pairs, diagonal = pair_fns or (edit_distances_pairs, None)
     nf = n - nq
     square = None if upper_only or nq else np.zeros((n, n), np.float32)
+    if square is not None and diagonal is not None:
+        idx = np.arange(n)
+        square[idx, idx] = diagonal(result, idx).astype(np.float32)
     for start in range(0, nf, block):
         rows = np.arange(start, min(start + block, nf))
         if nq:
             cols = np.arange(nf, n)
-            with span("cmp/editdist"):
-                vals = edit_distances_pairs(
+            with span(span_name):
+                vals = pairs(
                     result, np.repeat(rows, nq), np.tile(cols, len(rows)))
             yield start, vals.reshape(len(rows), nq).astype(np.float32)
             continue
@@ -597,8 +628,8 @@ def _edit_blocks(result: SketchingResult, block: int, upper_only: bool,
         ia = np.repeat(rows, cnt)
         first = np.concatenate([[0], np.cumsum(cnt)[:-1]])
         ib = np.arange(len(ia)) - np.repeat(first - rows - 1, cnt)
-        with span("cmp/editdist"):
-            vals = edit_distances_pairs(result, ia, ib).astype(np.float32)
+        with span(span_name):
+            vals = pairs(result, ia, ib).astype(np.float32)
         if upper_only:
             blk = np.zeros((len(rows), n), np.float32)
             blk[ia - start, ib] = vals
@@ -703,6 +734,11 @@ def measure_pairs(opts: Dashing2DistOptions, result: SketchingResult,
         from .editdist import edit_distances_pairs
         with span("cmp/editdist"):
             return edit_distances_pairs(result, ia, ib).astype(np.float32)
+    if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
+        # dashing2_tpu/cmp/core.py l.2127-2129
+        with span("cmp/mmer-dist"):
+            return W.mmer_sequence_pairs(opts, result, ia, ib).astype(
+                np.float32)
     dev = resolve(device)
     if _exact_sets(opts):
         # exact sets: dashing2_tpu/cmp/core.py l.2130-2133

@@ -4,12 +4,14 @@ Copy of dashing2_tpu/cmp/graph.py for one process: the same LSH
 candidates (cmp/lsh.py), the same per-item selection and greedy walk,
 and the same bytes out. The pair measures run on the caller's device
 through cmp/core.py::measure_pairs (counts on the card for a CUDA job).
-Exact k-mer sets and count dictionaries (`--set`, `--countdict`) index
-their bottom-k hashes and refine on exact intersections
-(cmp/wcompare.py, on the caller's device). Left out: the JAX package's
-multi-host branches (ROADMAP Queue 1 item 9), its EXACT_KNN environment
-switch (`build_exact_lists` is a plain function here) and the `--seq`
-minimizer-stream index (item 8). Edit-distance (`-E`) jobs index their
+Exact k-mer sets and count dictionaries (`--set`, `--countdict`, u64 or
+u128 keys) index their bottom-k hashes and refine on exact
+intersections (cmp/wcompare.py, on the caller's device); minimizer
+sequences (`--seq`) index the bottom-k of their distinct tokens and
+refine on span edit distances (host). Left out: the JAX package's
+multi-host branches (ROADMAP Queue 1 item 9) and its EXACT_KNN
+environment switch (`build_exact_lists` is a plain function here).
+Edit-distance (`-E`) jobs index their
 OrderMinHash registers (the signatures), refine on them or on exact edit
 distances (cmp/editdist.py), and `--greedy ...f` writes each cluster's
 representative sequence.
@@ -62,7 +64,16 @@ def _index_source(opts: Dashing2DistOptions, result: SketchingResult,
     sets index their bottom-k hashes (-S of them): a set's first -S, and
     a count dictionary's -S with the smallest hash // count
     (fastxsketch.cpp:24-47,451-459), in u64 integer division on the host
-    and a stable sort."""
+    and a stable sort (u128 keys: by the f64 ratio, as in the JAX
+    package, a retrieval heuristic whose candidates are refined
+    exactly); minimizer sequences the -S smallest of their distinct
+    tokens."""
+    from .. import u128 as U
+    if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
+        k = max(opts.sketchsize, 1)
+        bk = [(U.unique_counts(s)[0] if U.is_u128(s) else np.unique(s))[:k]
+              for s in result.mmer_sequences]
+        return LSHIndex.build(np.zeros((0, 0)), opts.nLSH, bottomk=bk)
     if opts.kmer_result >= KmerSketchResultType.FULL_MMER_SET:
         k = max(opts.sketchsize, 1)
         counts = result.kmer_set_counts
@@ -71,7 +82,11 @@ def _index_source(opts: Dashing2DistOptions, result: SketchingResult,
             bk = []
             for s, c in zip(result.kmer_sets, counts):
                 c = np.maximum(np.asarray(c, np.float64), 1.0)
-                ratio = s // c.astype(np.uint64)
+                if U.is_u128(s):
+                    ratio = (s["hi"].astype(np.float64) * 2.0 ** 64
+                             + s["lo"].astype(np.float64)) / c
+                else:
+                    ratio = s // c.astype(np.uint64)
                 bk.append(s[np.argsort(ratio, kind="stable")[:k]])
         else:
             bk = [s[:k] for s in result.kmer_sets]

@@ -5,11 +5,11 @@ Copy of dashing2_tpu/cmp/lsh.py (numpy, with the port's own hashing.py):
 (the native gzip format) and `save_ssi`/`load_ssi` (the reference's gz
 layout), byte for byte and candidate for candidate the JAX package's,
 in register mode and in the bottom-k mode over exact k-mer sets
-(`--set`, `--countdict`: items sharing a bottom-k hash are candidates).
-Left out: the u128 keys of `--long-kmers` exact sets and the `--seq`
-minimizer streams (ROADMAP Queue 1 item 8), the multi-host column shards
-(Queue 1 item 9), and the incremental insert/query interface, which no
-job calls.
+(`--set`, `--countdict`; `--long-kmers` u128 keys bucket on their low
+word) and minimizer sequences (`--seq`): items sharing a bottom-k hash
+are candidates. Left out: the multi-host column shards (ROADMAP Queue 1
+item 9) and the incremental insert/query interface, which no job
+calls.
 
 Reference: src/ssi.h:40-539. Structure kept: nLSH tables, table i groups
 ``nperhashes[i]`` registers per key over ``nperrows[i]`` subtables
@@ -159,8 +159,15 @@ class LSHIndex:
         ints); or `bottomk`, each item's u64 bottom-k hashes, for the
         exact-set index (ssi.h's bottom-k mode)."""
         if bottomk is not None:
+            # u128 keys: bucket on the LOW word of the (full-128-bit
+            # ordered) bottom-k keys. Candidate generation only: items
+            # sharing a full key share its low word (no false negatives);
+            # a low-word collision adds a spurious candidate, removed by
+            # the exact refinement that follows every candidate stage
+            from .. import u128 as U
             return cls(m=0, nperhashes=[], nperrows=[], group_indices=[],
-                       keys=[], bottomk=list(bottomk))
+                       keys=[], bottomk=[h["lo"] if U.is_u128(h) else h
+                                         for h in bottomk])
         regs64 = registers_as_u64(registers)
         m = regs64.shape[1]
         nperhashes, nperrows = lsh_table_shapes(nLSH, m)

@@ -1,7 +1,9 @@
-"""Exact k-mer set and count-dictionary intersections, in torch.
+"""Exact k-mer set and count-dictionary intersections, in torch, and the
+minimizer-sequence comparisons.
 
-Port of dashing2_tpu/cmp/wcompare.py's two engines for in-memory u64
-sets (`--set`, `--countdict`, `cmp --presketched` over `.kmerset64`):
+Port of dashing2_tpu/cmp/wcompare.py's two engines for in-memory sets
+(`--set`, `--countdict`, `cmp --presketched` over `.kmerset64` and
+`.kmerset128`):
 
 * `exact_intersections` (and `ExactJoin`, which keeps one column table
   across the row blocks of a job): the vectorized posting-list join. The
@@ -27,6 +29,15 @@ for `--device cpu`. The JAX package counts on the host (numpy) on its
 CPU backend and for short pair lists; the port has no host route, and
 the integers are the same on every route. The JAX engines are numpy and
 XLA, not Pallas: there is no TPU kernel behind them.
+
+u128 keys (`--long-kmers`, u128.py), which the JAX package joins on the
+host, are rank-encoded once a job (`_ranks128`: a joint sort of the
+(hi, lo) pairs on the device, equal keys one rank); both engines then
+run on the int64 ranks unchanged, and the integers come out the same.
+
+`mmer_sequence_pairs` compares minimizer sequences (`--seq`): the span
+edit distance (cmp/editdist.py, on the host) or the positional hamming
+count (`hamming_matches`).
 
 Keys travel as int64 bit patterns. Equality and grouping are the same in
 the signed view, and both sides of every `searchsorted` are sorted in
@@ -66,6 +77,50 @@ _PAD = (1 << 63) - 1
 _TOP = -(1 << 63)
 
 
+def hamming_matches(a: np.ndarray, b: np.ndarray) -> float:
+    """Equal positions over the overlap plus the length difference
+    (hamming_compare, wcompare.cpp:52-55; the streaming hamming_compare_f
+    :89-107 computes the same value)."""
+    n = min(len(a), len(b))
+    return float((a[:n] == b[:n]).sum()) + float(max(len(a), len(b)) - n)
+
+
+def mmer_sequence_pairs(opts, result: SketchingResult, ia: np.ndarray,
+                        ib: np.ndarray) -> np.ndarray:
+    """(P,) f64 minimizer-sequence (--seq) comparisons of the pairs
+    (ia[p], ib[p]) (cmp_core.cpp:547-553): the exact span edit distance
+    under --exact-kmer-dist (the distance under
+    --compute-edit-distance, else max_len - distance), positional
+    hamming matches otherwise. The distances of the whole list run in
+    one native call (cmp/editdist.py `edit_distances_pairs`)."""
+    from ..enums import Measure
+    from .editdist import edit_distances_pairs
+    seqs = result.mmer_sequences
+    ia = np.asarray(ia, np.int64)
+    ib = np.asarray(ib, np.int64)
+    if not opts.exact_kmer_dist:
+        return np.array([hamming_matches(seqs[int(i)], seqs[int(j)])
+                         for i, j in zip(ia, ib)], np.float64)
+    dist = edit_distances_pairs(result, ia, ib)
+    if opts.measure == Measure.M_EDIT_DISTANCE:
+        return dist
+    lens = np.array([len(q) for q in seqs], np.float64)
+    return np.maximum(lens[ia], lens[ib]) - dist
+
+
+def _ranks128(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(K,) int64 ranks of the u128 keys (hi, lo) (int64 bit patterns) on
+    their device: equal keys one rank, distinct keys distinct ranks."""
+    order = torch.argsort(lo, stable=True)
+    order = order[torch.argsort(hi[order], stable=True)]
+    h, low = hi[order], lo[order]
+    new = torch.ones(len(order), dtype=torch.int64, device=hi.device)
+    new[1:] = ((h[1:] != h[:-1]) | (low[1:] != low[:-1])).to(torch.int64)
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.cumsum(new, 0) - 1
+    return ranks
+
+
 def _counts_int64(counts) -> np.ndarray:
     """Concatenated f64 counts as int64, refusing any that f64 sums could
     not hold exactly."""
@@ -80,21 +135,30 @@ def _counts_int64(counts) -> np.ndarray:
 
 
 class DeviceSets:
-    """The result's sets on `dev`: keys (K,) int64 in item order, their
-    counts (K,) int64 or None, and the item offsets (n + 1,) on the host
-    and on `dev`; `table`, the ExactJoin of all items that the pairs'
-    posting join makes on first use. Made once per (result, device) by
+    """The result's sets on `dev`: keys (K,) int64 in item order (u128
+    keys as their ranks), their counts (K,) int64 or None, and the item
+    offsets (n + 1,) on the host and on `dev`; `table`, the ExactJoin of
+    all items that the pairs' posting join makes on first use. Made once per (result, device) by
     `device_sets`."""
 
     def __init__(self, result: SketchingResult, dev: torch.device):
+        from .. import u128 as U
         sets = result.kmer_sets
         lens = np.array([len(s) for s in sets], np.int64)
         self.offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
         self.n = len(sets)
         with span("cmp/exact-h2d"):
-            keys = (np.concatenate([np.asarray(s, np.uint64) for s in sets])
-                    if self.offs[-1] else np.zeros(0, np.uint64))
-            self.keys = torch.from_numpy(keys.view(np.int64)).to(dev)
+            if any(U.is_u128(s) for s in sets):
+                keys = (np.concatenate(sets) if self.offs[-1]
+                        else np.zeros(0, U.U128))
+                self.keys = _ranks128(*(torch.from_numpy(
+                    np.ascontiguousarray(keys[w]).view(np.int64)).to(dev)
+                    for w in ("hi", "lo")))
+            else:
+                keys = (np.concatenate([np.asarray(s, np.uint64)
+                                        for s in sets])
+                        if self.offs[-1] else np.zeros(0, np.uint64))
+                self.keys = torch.from_numpy(keys.view(np.int64)).to(dev)
             self.counts = None
             if result.kmer_set_counts is not None:
                 self.counts = torch.from_numpy(

@@ -1,4 +1,5 @@
-// One-permutation registers of chunk rows, for sm_90a (H100).
+// One-permutation registers of chunk rows, and their k-mer hash streams,
+// for sm_90a (H100).
 //
 // Replaces the JAX package's device OPH engine, the XLA function
 // `_fused_oph_fn` (dashing2_tpu/sketch/core.py:146): `_hash_chunk_batch`
@@ -8,6 +9,18 @@
 // which give the same bytes). Its plain version is
 // dashing2_tpu_torch/ops/oph_rows.py `oph_rows_plain`; the two agree bit
 // for bit (tests/test_torch_cuda.py, chip_smoke.py).
+//
+// A second C entry, `hash_rows`, is the port of the XLA engines
+// `_hash_chunk_batch` (dashing2_tpu/sketch/core.py:59) and
+// `_hash_chunk_batch128` (:103) as the `--seq` route calls them: the
+// same stages up to the masks, then, instead of the bucket-min, each
+// surviving position's masked token written at its place in a dense
+// (R, npos) array with a keep flag (zeroed by the caller), which the
+// caller compacts. With `full_key` (DNA128 only) the masked high word
+// maskfn(hi, xormask2_hi) too (the raw hi with a zero seed); the
+// downsample test and the filterset probe read the masked low word, as
+// in the JAX function. Its plain versions are ops/oph_rows.py
+// `hash_chunk_batch` and `hash_chunk_batch128`.
 //
 // Input: R rows of W alphabet codes (INVALID = 0xFF), each a chunk of
 // one item (row_item[r], or -1 to skip the row); the job's encoding and
@@ -95,6 +108,10 @@ constexpr int MAX_SYMBOLS = 32;
 constexpr int MAX_OFFSETS = 256;
 enum Mode { MODE_DNA = 0, MODE_BASEB = 1, MODE_SPACED = 2, MODE_ROLL = 3,
             MODE_DNA128 = 4 };
+// what a block does with its surviving positions: bucket-min them into
+// registers (oph_rows), or write their tokens (hash_rows; with the
+// masked high word too)
+enum Out { OUT_BUCKETS = 0, OUT_STREAM = 1, OUT_STREAM128 = 2 };
 
 }  // namespace
 
@@ -106,6 +123,8 @@ struct Params {
     int32_t mode, k, span, nwin, canon, seed_is_zero, downsample, base,
         bits, noff, run, smem_buckets;
     int32_t offsets[MAX_OFFSETS];
+    uint64_t xormask2_hi;               // hash_rows with full_key only
+    int32_t full_key;
 };
 
 namespace {
@@ -113,7 +132,7 @@ namespace {
 // Shared-memory layout of a block, in bytes (ops/oph_rows.py
 // `smem_bytes` computes the same total).
 struct Layout {
-    int64_t ring, table, ext, buckets, sc, ky, wm, stage, va, wl, total;
+    int64_t ring, table, ext, buckets, sc, ky, kh, wm, stage, va, wl, total;
     int64_t E, NW, nstage;
 };
 
@@ -134,6 +153,7 @@ __host__ __device__ inline Layout layout(const Params& p) {
     L.buckets = at; at += p.smem_buckets ? 8 * p.m : 0;
     L.sc = at;      at += 8 * L.E;
     L.ky = at;      at += 8 * L.E;
+    L.kh = at;      at += p.full_key ? 8 * L.E : 0;
     L.wm = at;      at += 8 * L.NW;
     at = align16(at);
     L.stage = at;   at += L.nstage;
@@ -166,6 +186,16 @@ __device__ __forceinline__ uint64_t rotl(uint64_t x, int s) {
         | __funnelshift_l(hi, lo, s);
 }
 
+// The outputs of a launch: registers (and counts) for oph_rows, the
+// dense tokens (and high words) and keep flags for hash_rows.
+struct Outs {
+    unsigned long long* regs;
+    unsigned int* counts;
+    uint64_t* tok;
+    uint64_t* tok_hi;
+    uint8_t* keep;
+};
+
 // What one block shares between its stages.
 struct Ctx {
     const Params* p;
@@ -176,22 +206,52 @@ struct Ctx {
     uint64_t* ring;                     // this warp's ring
     int64_t reg0;                       // item * m
     bool count_pass;
+    Outs o;                             // hash_rows' outputs
+    int64_t pos0;                       // row * npos
 };
 
-// One position's key through the masks to its bucket.
-__device__ __forceinline__ void consume(const Ctx& cx, uint64_t key) {
+// The masked token of a key, or false where the downsample test or the
+// filterset drops it.
+__device__ __forceinline__ bool masked(const Ctx& cx, uint64_t key,
+                                       uint64_t* h_out) {
     const Params& p = *cx.p;
     const uint64_t h = p.seed_is_zero ? key : wanghash(key ^ p.xormask);
+    *h_out = h;
     if (p.downsample && !(wanghash(h ^ p.ds_salt) < p.ds_threshold))
-        return;
+        return false;
     if (p.fs_len) {
         int64_t lo = 0, hi = p.fs_len;
         while (lo < hi) {
             const int64_t mid = (lo + hi) >> 1;
             if (cx.fs[mid] < h) lo = mid + 1; else hi = mid;
         }
-        if (lo < p.fs_len && cx.fs[lo] == h) return;
+        if (lo < p.fs_len && cx.fs[lo] == h) return false;
     }
+    return true;
+}
+
+// hash_rows: a surviving position's token (and masked high word) at its
+// place q in the row.
+template <int OUT>
+__device__ __forceinline__ void emit(const Ctx& cx, bool valid,
+                                     uint64_t key, uint64_t khi,
+                                     int64_t q) {
+    uint64_t h;
+    if (!valid || !masked(cx, key, &h)) return;
+    const Params& p = *cx.p;
+    const int64_t at = cx.pos0 + q;
+    cx.o.tok[at] = h;
+    if constexpr (OUT == OUT_STREAM128)
+        cx.o.tok_hi[at] = p.seed_is_zero ? khi
+                                         : wanghash(khi ^ p.xormask2_hi);
+    cx.o.keep[at] = 1;
+}
+
+// One position's key through the masks to its bucket.
+__device__ __forceinline__ void consume(const Ctx& cx, uint64_t key) {
+    const Params& p = *cx.p;
+    uint64_t h;
+    if (!masked(cx, key, &h)) return;
     const uint64_t id = wanghash(h ^ p.oph_xor);
     const uint64_t b = (p.m & (p.m - 1)) == 0 ? id & (uint64_t)(p.m - 1)
                                               : id % (uint64_t)p.m;
@@ -312,18 +372,21 @@ struct Roller {
         // MODE_SPACED: only the count
     }
 
-    // the (score, key) of the window that starts at stage index qi
+    // the (score, key) of the window that starts at stage index qi, and
+    // the 128-bit code's high word (0 in the other modes)
     __device__ __forceinline__ void code(const Params& p,
                                          const uint8_t* __restrict__ stage,
                                          int qi, uint64_t* score,
-                                         uint64_t* key) const {
+                                         uint64_t* key, uint64_t* khi) const {
+        *khi = 0;
         if constexpr (MODE == MODE_DNA || MODE == MODE_ROLL) {
             *key = CANON && rc < v ? rc : v;
             *score = *key;
         } else if constexpr (MODE == MODE_DNA128) {
             const bool r = CANON && (rchi < vhi || (rchi == vhi && rc < v));
             *key = r ? rc : v;
-            *score = ((r ? rchi : vhi) >> 1) ^ *key;
+            *khi = r ? rchi : vhi;
+            *score = (*khi >> 1) ^ *key;
         } else if constexpr (MODE == MODE_BASEB) {
             *key = *score = v;
         } else {  // MODE_SPACED
@@ -335,18 +398,17 @@ struct Roller {
     }
 };
 
-template <int MODE, bool CANON>
+template <int MODE, bool CANON, int OUT>
 __global__ void __launch_bounds__(THREADS)
 oph_rows_kernel(const __grid_constant__ Params p,
                 const uint8_t* __restrict__ codes,
                 const int32_t* __restrict__ row_item,
-                const uint64_t* __restrict__ fs,
-                unsigned long long* __restrict__ regs,
-                unsigned int* __restrict__ counts, int count_pass) {
+                const uint64_t* __restrict__ fs, Outs o, int count_pass) {
     extern __shared__ __align__(16) unsigned char smem[];
+    unsigned long long* __restrict__ regs = o.regs;
     const int64_t r = blockIdx.x / p.nseg;
     const int64_t s = blockIdx.x % p.nseg;
-    const int32_t item = row_item[r];
+    const int32_t item = row_item ? row_item[r] : 0;
     if (item < 0) return;                       // the whole block
     const Layout Ly = layout(p);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -369,9 +431,11 @@ oph_rows_kernel(const __grid_constant__ Params p,
     cx.p = &p;
     cx.fs = fs;
     cx.regs = regs;
-    cx.counts = counts;
+    cx.counts = o.counts;
     cx.reg0 = (int64_t)item * p.m;
     cx.count_pass = count_pass != 0;
+    cx.o = o;
+    cx.pos0 = r * p.npos;
     cx.ring = reinterpret_cast<uint64_t*>(smem + Ly.ring) + warp * RING;
     cx.sbk = p.smem_buckets && !count_pass
         ? reinterpret_cast<unsigned long long*>(smem + Ly.buckets)
@@ -379,6 +443,7 @@ oph_rows_kernel(const __grid_constant__ Params p,
     uint64_t* T = reinterpret_cast<uint64_t*>(smem + Ly.table);
     uint64_t* sc = reinterpret_cast<uint64_t*>(smem + Ly.sc);
     uint64_t* ky = reinterpret_cast<uint64_t*>(smem + Ly.ky);
+    uint64_t* kh = reinterpret_cast<uint64_t*>(smem + Ly.kh);
     uint64_t* wm = reinterpret_cast<uint64_t*>(smem + Ly.wm);
     uint8_t* va = smem + Ly.va;
     uint8_t* wl = smem + Ly.wl;
@@ -463,17 +528,20 @@ oph_rows_kernel(const __grid_constant__ Params p,
             const bool in = t < un;
             ro.push(stage, T, qi0 + t + sm1, in);
             const bool valid = in && ro.len >= p.span;
-            uint64_t score = U64MAX, key = 0;
-            if (valid) ro.code(p, stage, qi0 + t, &score, &key);
+            uint64_t score = U64MAX, key = 0, khi = 0;
+            if (valid) ro.code(p, stage, qi0 + t, &score, &key, &khi);
             if (mini) {
                 if (in) {
                     const int e = ds + u0 + t;
                     sc[e] = score;
                     va[e] = valid;
                     if (MODE == MODE_DNA128) ky[e] = key;
+                    if (OUT == OUT_STREAM128) kh[e] = khi;
                 }
-            } else {
+            } else if constexpr (OUT == OUT_BUCKETS) {
                 ring.push(cx, valid, key);
+            } else {
+                emit<OUT>(cx, valid, key, khi, e0 + u0 + t);
             }
         }
     }
@@ -497,7 +565,7 @@ oph_rows_kernel(const __grid_constant__ Params p,
         for (int base = 0; base < p1 - p0; base += THREADS) {
             const int i = base + tid;           // position p0 + i
             bool sel = false;
-            uint64_t key = 0;
+            uint64_t key = 0, khi = 0;
             if (i < p1 - p0) {
                 const int e = i + h;            // its score slot
                 if (va[e]) {
@@ -509,11 +577,16 @@ oph_rows_kernel(const __grid_constant__ Params p,
                         hit = hit || (wl[i + d] && wm[i + d] == v);
                     sel = hit && !dup;
                     key = MODE == MODE_DNA128 ? ky[e] : v;
+                    if (OUT == OUT_STREAM128) khi = kh[e];
                 }
             }
-            ring.push(cx, sel, key);
+            if constexpr (OUT == OUT_BUCKETS)
+                ring.push(cx, sel, key);
+            else
+                emit<OUT>(cx, sel, key, khi, p0 + i);
         }
     }
+    if constexpr (OUT != OUT_BUCKETS) return;
     ring.drain(cx);
     if (cx.sbk) {
         __syncthreads();
@@ -525,25 +598,75 @@ oph_rows_kernel(const __grid_constant__ Params p,
     }
 }
 
-template <int MODE, bool CANON>
+// One launch (oph_rows: two with counts) of the kernel for OUT.
+template <int MODE, bool CANON, int OUT>
 cudaError_t launch(const Params& p, size_t smem, const uint8_t* codes,
                    const int32_t* row_item, const uint64_t* fs,
-                   unsigned long long* regs, unsigned int* counts,
-                   cudaStream_t stream) {
+                   const Outs& o, cudaStream_t stream) {
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            oph_rows_kernel<MODE, CANON>,
+            oph_rows_kernel<MODE, CANON, OUT>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return e;
     }
     const unsigned blocks = (unsigned)(p.R * p.nseg);
-    oph_rows_kernel<MODE, CANON><<<blocks, THREADS, smem, stream>>>(
-        p, codes, row_item, fs, regs, counts, 0);
+    oph_rows_kernel<MODE, CANON, OUT><<<blocks, THREADS, smem, stream>>>(
+        p, codes, row_item, fs, o, 0);
     cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess || counts == nullptr) return e;
-    oph_rows_kernel<MODE, CANON><<<blocks, THREADS, smem, stream>>>(
-        p, codes, row_item, fs, regs, counts, 1);
+    if (e != cudaSuccess || OUT != OUT_BUCKETS || o.counts == nullptr)
+        return e;
+    oph_rows_kernel<MODE, CANON, OUT><<<blocks, THREADS, smem, stream>>>(
+        p, codes, row_item, fs, o, 1);
     return cudaGetLastError();
+}
+
+// Checks the caller's Params and sets nseg; false where nothing is to
+// be done (*err = 0) or the Params are bad (*err set).
+bool prepare(Params& p, int* err) {
+    *err = 0;
+    const int64_t lo = p.own_lo > 0 ? p.own_lo : 0;
+    const int64_t hi = p.own_hi < p.npos ? p.own_hi : p.npos;
+    if (p.R <= 0 || hi <= lo) return false;
+    const int64_t h = p.nwin > 1 ? p.nwin - 1 : 0;
+    // every rolled position needs a thread's run
+    if (p.seg <= 0 || p.run <= 0 || p.run % 4
+            || (int64_t)THREADS * p.run < p.seg + 2 * h
+            || p.mode < MODE_DNA || p.mode > MODE_DNA128) {
+        *err = (int)cudaErrorInvalidValue;
+        return false;
+    }
+    p.nseg = (hi - lo + p.seg - 1) / p.seg;
+    if (p.R * p.nseg > 0x7FFFFFFF) {
+        *err = (int)cudaErrorInvalidConfiguration;
+        return false;
+    }
+    return true;
+}
+
+template <int OUT>
+cudaError_t dispatch(const Params& p, const uint8_t* codes,
+                     const int32_t* row_item, const uint64_t* fs,
+                     const Outs& o, cudaStream_t stream) {
+    const size_t smem = (size_t)layout(p).total;
+#define OPH_LAUNCH(M, C) launch<M, C, OUT>(p, smem, codes, row_item, fs, \
+                                            o, stream)
+    if constexpr (OUT == OUT_STREAM128)     // full keys: DNA128 only
+        return p.canon ? OPH_LAUNCH(MODE_DNA128, true)
+                       : OPH_LAUNCH(MODE_DNA128, false);
+    switch (p.mode) {
+    case MODE_DNA:
+        return p.canon ? OPH_LAUNCH(MODE_DNA, true)
+                       : OPH_LAUNCH(MODE_DNA, false);
+    case MODE_BASEB: return OPH_LAUNCH(MODE_BASEB, false);
+    case MODE_SPACED: return OPH_LAUNCH(MODE_SPACED, false);
+    case MODE_ROLL:
+        return p.canon ? OPH_LAUNCH(MODE_ROLL, true)
+                       : OPH_LAUNCH(MODE_ROLL, false);
+    default:
+        return p.canon ? OPH_LAUNCH(MODE_DNA128, true)
+                       : OPH_LAUNCH(MODE_DNA128, false);
+    }
+#undef OPH_LAUNCH
 }
 
 }  // namespace
@@ -559,37 +682,31 @@ int oph_rows(const Params* host_params, const uint8_t* codes,
              unsigned long long* regs, unsigned int* counts,
              cudaStream_t stream) {
     Params p = *host_params;
-    const int64_t lo = p.own_lo > 0 ? p.own_lo : 0;
-    const int64_t hi = p.own_hi < p.npos ? p.own_hi : p.npos;
-    if (p.R <= 0 || hi <= lo) return 0;
-    const int64_t h = p.nwin > 1 ? p.nwin - 1 : 0;
-    // every rolled position needs a thread's run
-    if (p.seg <= 0 || p.run <= 0 || p.run % 4
-            || (int64_t)THREADS * p.run < p.seg + 2 * h
-            || p.mode < MODE_DNA || p.mode > MODE_DNA128)
+    p.full_key = 0;
+    int err;
+    if (!prepare(p, &err)) return err;
+    const Outs o{regs, counts, nullptr, nullptr, nullptr};
+    return (int)dispatch<OUT_BUCKETS>(p, codes, row_item, fs, o, stream);
+}
+
+// The masked tokens of R rows' surviving positions: tok[r * npos + q]
+// (and with p.full_key, DNA128 only, tok_hi[...]) where keep[r * npos
+// + q] = 1; keep must be zeroed by the caller, tok and tok_hi are
+// written only there. row_item may be null (every row kept). One
+// launch; returns its CUDA error (0 = none).
+int hash_rows(const Params* host_params, const uint8_t* codes,
+              const int32_t* row_item, const uint64_t* fs, uint64_t* tok,
+              uint64_t* tok_hi, uint8_t* keep, cudaStream_t stream) {
+    Params p = *host_params;
+    p.smem_buckets = 0;
+    if (p.full_key && (p.mode != MODE_DNA128 || tok_hi == nullptr))
         return (int)cudaErrorInvalidValue;
-    p.nseg = (hi - lo + p.seg - 1) / p.seg;
-    if (p.R * p.nseg > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
-    const size_t smem = (size_t)layout(p).total;
-#define OPH_LAUNCH(M, C) launch<M, C>(p, smem, codes, row_item, fs, regs, \
-                                       counts, stream)
-    cudaError_t e;
-    switch (p.mode) {
-    case MODE_DNA:
-        e = p.canon ? OPH_LAUNCH(MODE_DNA, true) : OPH_LAUNCH(MODE_DNA, false);
-        break;
-    case MODE_BASEB: e = OPH_LAUNCH(MODE_BASEB, false); break;
-    case MODE_SPACED: e = OPH_LAUNCH(MODE_SPACED, false); break;
-    case MODE_ROLL:
-        e = p.canon ? OPH_LAUNCH(MODE_ROLL, true)
-                    : OPH_LAUNCH(MODE_ROLL, false);
-        break;
-    default:
-        e = p.canon ? OPH_LAUNCH(MODE_DNA128, true)
-                    : OPH_LAUNCH(MODE_DNA128, false);
-    }
-#undef OPH_LAUNCH
-    return (int)e;
+    int err;
+    if (!prepare(p, &err)) return err;
+    const Outs o{nullptr, nullptr, tok, tok_hi, keep};
+    return (int)(p.full_key
+        ? dispatch<OUT_STREAM128>(p, codes, row_item, fs, o, stream)
+        : dispatch<OUT_STREAM>(p, codes, row_item, fs, o, stream));
 }
 
 }  // extern "C"

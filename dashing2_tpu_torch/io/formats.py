@@ -1,8 +1,8 @@
 """Binary on-disk formats — the compatibility surface (SURVEY §1.1).
 
 Copy of dashing2_tpu/io/formats.py, cut to the formats of `sketch -o`
-(with -s/-N), `cmp --presketched`, `contain` and the neighbour graphs'
-CSR:
+(with -s/-N, and of `--seq`), `cmp --presketched`, `contain`,
+`printmin` and the neighbour graphs' CSR:
 
 * Stacked signatures  (-o): u64 nseqs, u64 sketchsize, f64 cards[nseqs],
   RegT sigs[nseqs*sketchsize]  (src/sketch_core.cpp:130-139,
@@ -15,6 +15,10 @@ CSR:
 * K-mer database (--save-kmers, .kmer64): u32 dtype|canon<<8, u32
   sketchsize, u32 k, u32 w, u64 seed, then u64 kmers
   (src/fastxsketch.cpp:245-264).
+* Minimizer sequences (`--seq -o`): u64 nseqs, u32 k, u32 w, u32
+  alphabet|canon<<8|use128<<9, f64 lengths[nseqs], then every
+  sequence's u64 tokens (u128 tokens as little-endian (lo, hi) pairs)
+  (src/fastxsketch.cpp:526-553, src/printminmain.cpp).
 * Contain output: u64 nref, u64 nq, f32 coverage[nq*nref],
   f32 meandepth[nq*nref] (src/contain_main.cpp:246-250).
 
@@ -174,6 +178,53 @@ def read_kmer_db(path: str) -> KmerDB:
     return KmerDB(k=k, w=w, canon=bool((d >> 8) & 1),
                   alphabet=Alphabet(d & 0xFF), sketchsize=s, seed=seed,
                   kmers=kmers)
+
+
+# ----------------------------------------------------------------------
+# Minimizer sequences
+# ----------------------------------------------------------------------
+
+def write_mmer_sequences(path: str, seqs: Sequence[np.ndarray], k: int,
+                         w: int, alphabet: Alphabet, canon: bool) -> None:
+    """Stacked minimizer sequences. u128 token streams (--long-kmers
+    structured arrays) set header bit 9 and store little-endian u128
+    tokens (lo, hi words), the layout of .kmerset128."""
+    from .. import u128 as U
+    use128 = any(U.is_u128(s) for s in seqs)
+    with open(path, "wb") as f:
+        np.array([len(seqs)], dtype=np.uint64).tofile(f)
+        np.array([k, w,
+                  int(alphabet) | (int(canon) << 8)
+                  | (int(use128) << 9)],
+                 dtype=np.uint32).tofile(f)
+        np.array([len(s) for s in seqs], dtype=np.float64).tofile(f)
+        for s in seqs:
+            if use128:
+                U.tofile_bytes(np.asarray(s, U.U128)).tofile(f)
+            else:
+                np.ascontiguousarray(s, dtype=np.uint64).tofile(f)
+
+
+def read_mmer_sequences(path: str):
+    """{k, w, canon, alphabet, nseqs, use128, seqs} of a file written by
+    `write_mmer_sequences` (u128 tokens as structured arrays)."""
+    from .. import u128 as U
+    dat = np.memmap(path, np.uint8, mode="r")
+    nseqs = int(dat[:8].view(np.uint64)[0])
+    k, w, dt = (int(x) for x in dat[8:20].view(np.uint32))
+    use128 = bool(dt & 512)
+    cards = dat[20:20 + 8 * nseqs].view(np.float64)
+    flat64 = np.array(dat[20 + 8 * nseqs:].view(np.uint64))
+    if use128:
+        pairs = flat64.reshape(-1, 2)       # (lo, hi) little-endian
+        flat = U.from_words(pairs[:, 1], pairs[:, 0])
+    else:
+        flat = flat64
+    indptr = np.concatenate([[0], np.cumsum(cards.astype(np.uint64))])
+    seqs = [flat[int(indptr[i]):int(indptr[i + 1])] for i in range(nseqs)]
+    return {"k": k, "w": w, "canon": bool(dt & 256),
+            "alphabet": Alphabet(dt & 0xFF), "nseqs": nseqs,
+            "use128": use128, "seqs": seqs}
 
 
 # ----------------------------------------------------------------------

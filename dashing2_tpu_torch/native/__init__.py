@@ -8,7 +8,10 @@ emit_fmt.cpp and myers_ed.cpp, are copies of the JAX package's files of
 the same names in its native/ directory, line for line (one comment each
 of fastx_reader.h, fastx_reader.cpp and myers_ed.cpp cites the upstream
 source by name instead of by a local path); the port builds only these
-copies and reads no file of the JAX package. Unlike the JAX loader, a
+copies and reads no file of the JAX package. span_ed.cpp, the
+minimizer sequences' edit distance, is the port's own (the JAX package
+runs that DP in numpy, cmp/editdist.py `span_edit_distance`). Unlike the
+JAX loader, a
 failed build raises: the port has no Python fallback for anything on its
 main path (the Python FASTA parser serves only .xz and .bz2 inputs, and
 the edit-distance space's raw sequences, as in the JAX package; the
@@ -138,7 +141,8 @@ def nvcc_command(src: str) -> Callable[[str], List[str]]:
 def load_oph_lib() -> ctypes.CDLL:
     """The native threaded OPH sketcher (the port's copy of oph_sketch.cpp),
     with the file-driver entry `oph_sketch_files`, the k-mer hash entry
-    `hash_rows_native` of the counting route, `oph_update_hashed`, the
+    `hash_rows_native` of the counting route (`hash_rows_native128`, its
+    full 128-bit keys for `--long-kmers` exact sets), `oph_update_hashed`, the
     one-permutation update over pre-hashed items (set-space intervals),
     and `oph_rows_native`, the registers of chunk rows (a second
     reference for csrc/oph_rows.cu in the tests and chip_smoke.py).
@@ -191,6 +195,14 @@ def load_oph_lib() -> ctypes.CDLL:
             c.POINTER(c.c_uint64),
             c.POINTER(c.c_uint64), c.c_int64, c.c_int64,
             c.POINTER(c.c_uint64)]
+        lib.hash_rows_native128.restype = c.c_int64
+        lib.hash_rows_native128.argtypes = [
+            c.POINTER(c.c_ubyte), c.c_int64, c.c_int64,
+            c.c_int32, c.c_int32, c.c_int32, c.c_int32,
+            c.c_uint64, c.c_uint64,
+            c.c_int32, c.c_uint64, c.c_uint64,
+            c.POINTER(c.c_uint64), c.c_int64,
+            c.POINTER(c.c_uint64), c.POINTER(c.c_uint64)]
         lib._sigs_set = True
     return lib
 
@@ -241,5 +253,20 @@ def load_myers_lib() -> ctypes.CDLL:
                                     ctypes.c_int64, ctypes.c_int, i64p]
         lib.myers_one.restype = ctypes.c_int64
         lib.myers_one.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+        lib._sigs_set = True
+    return lib
+
+
+def load_span_lib() -> ctypes.CDLL:
+    """The O(nm) edit distance over token sequences (span_ed.cpp), batch
+    and threads: the minimizer-sequence distances of `--seq`."""
+    src = os.path.join(_HERE, "span_ed.cpp")
+    lib = build_shared("spaned", [src], _gxx(src, ["-lpthread"], []))
+    if not getattr(lib, "_sigs_set", False):
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        lib.span_ed_batch.restype = None
+        lib.span_ed_batch.argtypes = [u64p, u64p, i64p, i64p, i64p,
+                                      ctypes.c_int64, ctypes.c_int, i64p]
         lib._sigs_set = True
     return lib

@@ -34,6 +34,15 @@ sequence or at a non-alphabet base), each row a chunk of one item:
 Rows may be split or ordered in any way among batches: a register is a
 min, a count the multiplicity of the final min (the caller merges
 batches as `_merge_oph` does).
+
+`hash_rows` is the same source's second entry, the port of the XLA
+engines `_hash_chunk_batch` and `_hash_chunk_batch128`
+(dashing2_tpu/sketch/core.py:59, :103) as the `--seq` route calls them:
+the stages above up to the masks, then each row's surviving positions'
+masked tokens (with `--long-kmers`, full 128-bit keys: the masked high
+word too) in position order, with the row's count of them. Its plain
+versions are `hash_chunk_batch` and `hash_chunk_batch128`, compacted by
+a torch mask.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ SMEM_LIMIT = 232448          # dynamic shared memory a block may use
 SMEM_BUCKETS_MAX_M = 8192
 
 launches = LaunchCount()
+hash_launches = LaunchCount()   # hash_rows
 
 
 def encoding(hkw: dict):
@@ -129,23 +139,61 @@ def hash_chunk_batch(codes: torch.Tensor, hkw: dict,
     return hashed, valid
 
 
-def check_rows(codes: torch.Tensor, row_item: torch.Tensor, n_items: int,
-               m: int, filterset: Optional[torch.Tensor]) -> None:
+def hash_chunk_batch128(codes: torch.Tensor, hkw: dict, xormask2_hi: int,
+                        filterset: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the JAX `_hash_chunk_batch128`: codes (R, L)
+    uint8 -> (hi', lo' int64 (R, npos), valid bool (R, npos)), npos =
+    L - k + 1, (hi', lo') the u128 maskfn of the canonical 128-bit code
+    (lo' = wanghash(lo ^ xormask), hi' = wanghash(hi ^ xormask2_hi); the
+    raw code with a zero seed). Minimizers score (hi >> 1) ^ lo; the
+    downsample test and the filterset probe read the masked low word."""
+    k, w = hkw["k"], hkw["w"]
+    hi, lo, valid = K.dna_kmer_codes128(codes, k, hkw["canon"])
+    if hkw["seed_is_zero"]:
+        mhi, mlo = hi, lo
+    else:
+        mlo = DH.maskfn(lo, hkw["xormask"])
+        mhi = DH.maskfn(hi, xormask2_hi)
+    if w > k:
+        valid = K.minimizer_mask(DH.srl(hi, 1) ^ lo, valid, k, w)
+    own_lo, own_hi = K.owned_kmer_range(k, w, hkw["chunk_len"])
+    pos = torch.arange(mlo.shape[-1], device=codes.device)
+    valid = valid & (pos >= own_lo) & (pos < own_hi)
+    ds = hkw["downsample_threshold"]
+    if ds < U64_ALL:
+        valid = valid & DH.u64_lt(
+            DH.wanghash(mlo ^ DH.s64(DOWNSAMPLE_SALT)), ds)
+    if filterset is not None and filterset.numel():
+        fs = filterset ^ K.FLIP
+        at = torch.searchsorted(fs, (mlo ^ K.FLIP).contiguous())
+        at = at.clamp_(max=fs.numel() - 1)
+        valid = valid & (fs[at] != (mlo ^ K.FLIP))
+    return mhi, mlo, valid
+
+
+def _check_codes(codes: torch.Tensor,
+                 filterset: Optional[torch.Tensor]) -> None:
     if codes.dtype != torch.uint8 or codes.dim() != 2 \
             or not codes.is_contiguous():
         raise ValueError("codes must be a contiguous (R, L) uint8 tensor")
-    if row_item.dtype != torch.int32 or row_item.shape != codes.shape[:1] \
-            or not row_item.is_contiguous():
-        raise ValueError("row_item must be a contiguous (R,) int32 tensor")
-    if row_item.device != codes.device or (
-            filterset is not None and filterset.device != codes.device):
-        raise ValueError("codes, row items and filterset on different "
-                         "devices")
+    if filterset is not None and filterset.device != codes.device:
+        raise ValueError("codes and filterset on different devices")
     if filterset is not None and (filterset.dtype != torch.int64
                                   or filterset.dim() != 1
                                   or not filterset.is_contiguous()):
         raise ValueError("the filterset must be a contiguous 1-d int64 "
                          "tensor of sorted u64 bits")
+
+
+def check_rows(codes: torch.Tensor, row_item: torch.Tensor, n_items: int,
+               m: int, filterset: Optional[torch.Tensor]) -> None:
+    _check_codes(codes, filterset)
+    if row_item.dtype != torch.int32 or row_item.shape != codes.shape[:1] \
+            or not row_item.is_contiguous():
+        raise ValueError("row_item must be a contiguous (R,) int32 tensor")
+    if row_item.device != codes.device:
+        raise ValueError("codes and row items on different devices")
     if not 1 <= m < 1 << 31 or n_items < 0:
         raise ValueError(f"m={m}, n_items={n_items} out of range")
 
@@ -301,7 +349,8 @@ class Params(ctypes.Structure):
         + [(f, ctypes.c_int32) for f in (
             "mode", "k", "span", "nwin", "canon", "seed_is_zero",
             "downsample", "base", "bits", "noff", "run", "smem_buckets")] \
-        + [("offsets", ctypes.c_int32 * MAX_OFFSETS)]
+        + [("offsets", ctypes.c_int32 * MAX_OFFSETS),
+           ("xormask2_hi", ctypes.c_uint64), ("full_key", ctypes.c_int32)]
 
 
 def _align16(x: int) -> int:
@@ -311,22 +360,25 @@ def _align16(x: int) -> int:
 def use_smem_buckets(m: int) -> bool:
     """Whether the bucket-min runs in a block's shared memory (m <=
     SMEM_BUCKETS_MAX_M) or as a read-tested global atomicMin a
-    position."""
-    return m <= SMEM_BUCKETS_MAX_M
+    position; m = 0 for hash_rows, which has no buckets."""
+    return 0 < m <= SMEM_BUCKETS_MAX_M
 
 
-def smem_bytes(seg: int, span: int, nwin: int, m: int) -> int:
+def smem_bytes(seg: int, span: int, nwin: int, m: int,
+               full: bool = False) -> int:
     """Dynamic shared memory of a block (csrc/oph_rows.cu `layout`): the
     warps' rings, the rolling table, the warps' extents of codes, the
     shared buckets, with minimizers
-    the scores, keys and validity of seg + 2 (nwin - 1) positions and the
-    minima and liveness of seg + nwin - 1 windows, and the staged codes."""
+    the scores, keys (with `full`, hash_rows' full keys, high words too)
+    and validity of seg + 2 (nwin - 1) positions and the minima and
+    liveness of seg + nwin - 1 windows, and the staged codes."""
     h = nwin - 1 if nwin > 1 else 0
     E = seg + 2 * h if nwin > 1 else 0
     NW = seg + h if nwin > 1 else 0
     nstage = _align16((E if nwin > 1 else seg) + span - 1 + 32)
     at = 8 * (THREADS // 32) * RING + 8 * MAX_SYMBOLS + 8 * (THREADS // 32) \
-        + (8 * m if use_smem_buckets(m) else 0) + 16 * E + 8 * NW
+        + (8 * m if use_smem_buckets(m) else 0) + 16 * E \
+        + (8 * E if full else 0) + 8 * NW
     return _align16(_align16(at) + nstage + E + NW)
 
 
@@ -337,7 +389,8 @@ def run_length(n: int) -> int:
     return r + 4 if (r // 4) % 2 == 0 else r
 
 
-def geometry(span: int, nwin: int, m: int) -> Tuple[int, int, int]:
+def geometry(span: int, nwin: int, m: int, full: bool = False
+             ) -> Tuple[int, int, int]:
     """(run, seg, shared bytes) of the kernel's blocks: the longest run
     of rolled positions a thread takes and a block's owned positions.
     Without minimizers runs of at least span + 4 (32 to 252: on the
@@ -351,7 +404,7 @@ def geometry(span: int, nwin: int, m: int) -> Tuple[int, int, int]:
     if nwin <= 1:
         run = run_length(min(max(span + 4, 32), 252))
         seg = THREADS * run
-        smem = smem_bytes(seg, span, nwin, m)
+        smem = smem_bytes(seg, span, nwin, m, full)
         if smem > SMEM_LIMIT:
             raise ValueError(f"span {span}: the kernel's staged codes do "
                              "not fit in a block's shared memory")
@@ -360,7 +413,7 @@ def geometry(span: int, nwin: int, m: int) -> Tuple[int, int, int]:
     seg = 512
     while True:
         run = run_length(-(-(seg + 2 * h) // THREADS))
-        smem = smem_bytes(seg, span, nwin, m)
+        smem = smem_bytes(seg, span, nwin, m, full)
         if smem <= SMEM_LIMIT:
             return run, seg, smem
         if seg <= 32:
@@ -370,13 +423,17 @@ def geometry(span: int, nwin: int, m: int) -> Tuple[int, int, int]:
 
 
 def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
-                  seed: int = H.OPH_DEFAULT_SEED) -> Params:
-    """The kernel's Params for a batch of R rows of L codes."""
+                  seed: int = H.OPH_DEFAULT_SEED,
+                  xormask2_hi: Optional[int] = None) -> Params:
+    """The kernel's Params for a batch of R rows of L codes: m registers
+    an item, or m = 0 for hash_rows (with `xormask2_hi`, its full
+    128-bit keys)."""
     mode, base, bits, offsets, table, canon = encoding(hkw)
     k, w = hkw["k"], hkw["w"]
     span = hkw.get("span") or k
     nwin = w - k + 1 if w > k else 1
-    run, seg, _ = geometry(span, nwin, m)
+    full = xormask2_hi is not None
+    run, seg, _ = geometry(span, nwin, m, full)
     p = Params()
     lo, hi = K.owned_kmer_range(span, w, hkw["chunk_len"])
     p.R, p.W, p.npos, p.own_lo, p.own_hi = R, L, L - span + 1, lo, hi
@@ -403,18 +460,24 @@ def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
     p.downsample = int(hkw["downsample_threshold"] < U64_ALL)
     p.base, p.bits = base, bits
     p.run, p.smem_buckets = run, int(use_smem_buckets(m))
+    p.full_key = int(full)
+    p.xormask2_hi = (xormask2_hi or 0) & U64_ALL
     return p
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build (once per source hash) and load csrc/oph_rows.cu; raises
-    when nvcc is missing or the build fails."""
+    """Build (once per source hash) and load csrc/oph_rows.cu, with its
+    `oph_rows` and `hash_rows` entries; raises when nvcc is missing or
+    the build fails."""
     from ..native import build_shared, nvcc_command
     lib = build_shared("oph_rows", [SOURCE], nvcc_command(SOURCE))
     if not getattr(lib, "_sigs_set", False):
         p = ctypes.c_void_p
         lib.oph_rows.restype = ctypes.c_int
         lib.oph_rows.argtypes = [ctypes.POINTER(Params), p, p, p, p, p, p]
+        lib.hash_rows.restype = ctypes.c_int
+        lib.hash_rows.argtypes = [ctypes.POINTER(Params), p, p, p, p, p, p,
+                                  p]
         lib._sigs_set = True
     return lib
 
@@ -453,3 +516,77 @@ def oph_rows(codes: torch.Tensor, row_item: torch.Tensor, n_items: int,
         raise RuntimeError(f"oph_rows kernel launch failed: CUDA error {err}")
     launches.launches += 1
     return regs, counts
+
+
+def hash_rows_plain(codes: torch.Tensor, hkw: dict,
+                    filterset: Optional[torch.Tensor] = None,
+                    xormask2_hi: Optional[int] = None):
+    """Plain version of `hash_rows`, on the tensors' device:
+    `hash_chunk_batch` (with `xormask2_hi`, `hash_chunk_batch128`), then
+    the surviving tokens taken by a mask in row-major order."""
+    _check_hash_rows(codes, hkw, filterset, xormask2_hi)
+    if xormask2_hi is None:
+        lo, valid = hash_chunk_batch(codes, hkw, filterset)
+        hi = None
+    else:
+        hi, lo, valid = hash_chunk_batch128(codes, hkw, xormask2_hi,
+                                            filterset)
+    return (lo[valid], None if hi is None else hi[valid],
+            valid.sum(1, dtype=torch.int64))
+
+
+def _check_hash_rows(codes: torch.Tensor, hkw: dict,
+                     filterset: Optional[torch.Tensor],
+                     xormask2_hi: Optional[int]) -> None:
+    _check_codes(codes, filterset)
+    if codes.shape[1] < (hkw.get("span") or hkw["k"]):
+        raise ValueError("rows shorter than the k-mer span")
+    if xormask2_hi is not None and encoding(hkw)[0] != DNA128:
+        raise ValueError("full 128-bit keys need the 128-bit DNA code "
+                         "(--long-kmers, k <= 64, no spacing)")
+
+
+def hash_rows(codes: torch.Tensor, hkw: dict,
+              filterset: Optional[torch.Tensor] = None,
+              xormask2_hi: Optional[int] = None):
+    """Rows of codes -> (tokens (T,) int64 u64 bits, high words (T,)
+    int64 or None, per-row counts (R,) int64), on the tensors' device:
+    each row's owned positions that survive minimizers, downsampling and
+    the filterset, their masked tokens in row-major order (the row's
+    positions in order), as the JAX `_hash_chunk_batch` computes them
+    and the `--seq` route keeps them; with `xormask2_hi` (the 128-bit
+    DNA code only) the full keys of `_hash_chunk_batch128`, whose masked
+    high words come second. codes (R, L) uint8; `hkw` the JAX package's
+    `_hash_kwargs`; filterset sorted u64 bits (int64) or None. The CUDA
+    kernel for CUDA tensors (csrc/oph_rows.cu `hash_rows`: dense tokens
+    and keep flags, compacted on the card by one `nonzero`), the plain
+    version for CPU tensors."""
+    if codes.device.type == "cpu":
+        return hash_rows_plain(codes, hkw, filterset, xormask2_hi)
+    if codes.device.type != "cuda":
+        raise ValueError(f"no hash_rows for device {codes.device}")
+    _check_hash_rows(codes, hkw, filterset, xormask2_hi)
+    dev = codes.device
+    R, L = codes.shape
+    npos = L - (hkw.get("span") or hkw["k"]) + 1
+    full = xormask2_hi is not None
+    fs_len = 0 if filterset is None else int(filterset.numel())
+    params = kernel_params(hkw, R, L, 0, fs_len, xormask2_hi=xormask2_hi)
+    lib = load_kernel()
+    tok = torch.empty((R, npos), dtype=torch.int64, device=dev)
+    tok_hi = (torch.empty((R, npos), dtype=torch.int64, device=dev)
+              if full else None)
+    keep = torch.zeros((R, npos), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hash_rows(
+            ctypes.byref(params), codes.data_ptr(), None,
+            filterset.data_ptr() if fs_len else None, tok.data_ptr(),
+            tok_hi.data_ptr() if full else None, keep.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_rows kernel launch failed: CUDA error "
+                           f"{err}")
+    hash_launches.launches += 1
+    at = keep.view(-1).nonzero().squeeze(1)
+    return (tok.view(-1)[at], None if tok_hi is None else tok_hi.view(-1)[at],
+            keep.sum(1, dtype=torch.int64))

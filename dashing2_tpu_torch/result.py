@@ -6,7 +6,9 @@ FullSetSketch registers, or the u8/u16/u32 registers a sketch-compressed
 FullSetSketch job quantised), (optionally) k-mer ids and their counts
 (-s/-N of one-permutation jobs), and the exact k-mer
 sets of `--set`/`--countdict` jobs (each item's distinct u64 hashes,
-sorted, with their f64 counts for a count dictionary), and the raw
+or with `--long-kmers` u128 keys (u128.py), sorted, with their f64
+counts for a count dictionary), the minimizer sequences of `--seq`
+jobs (each item's kept tokens in sequence order, u64 or u128), and the raw
 sequences of an edit-distance (`-E`) job, which its exact edit
 distances and `--greedy ...f` read (a list, or an io/seqstore.py
 SequenceStore). The system has no
@@ -31,6 +33,7 @@ class SketchingResult:
     kmercounts: Optional[np.ndarray] = None           # (N, m) f32
     kmer_sets: Optional[List[np.ndarray]] = None      # N sorted u64 sets
     kmer_set_counts: Optional[List[np.ndarray]] = None  # N f64 counts
+    mmer_sequences: Optional[List[np.ndarray]] = None   # N token streams
     sequences: Optional[Sequence[bytes]] = None       # N raw (-E)
     nq: int = 0  # number of query items (PANEL); stored at the tail
 
@@ -54,11 +57,10 @@ def from_reference(ref) -> SketchingResult:
     """Copy a dashing2_tpu.result.SketchingResult (or anything with its
     attribute names) into the port's container: one-permutation or
     FullSetSketch signatures of any register dtype, exact k-mer sets
-    and their counts, or edit-distance registers with their raw
-    sequences (carried as a list of bytes), with their cardinalities.
-    Arrays are copied, so
-    the port's in-place densification never touches the reference's
-    data.
+    and their counts, minimizer sequences, or edit-distance registers
+    with their raw sequences (carried as a list of bytes), with their
+    cardinalities. Arrays are copied, so the port's in-place
+    densification never touches the reference's data.
     The ordered-register cache that the reference's full-register
     comparison leaves on its result (`_ordered_cache`: (regt32, bits)) is
     carried too, so both packages compare the same register bits."""
@@ -68,6 +70,8 @@ def from_reference(ref) -> SketchingResult:
                           kmers=_copy(ref.kmers),
                           kmer_sets=_copy_list(ref.kmer_sets),
                           kmer_set_counts=_copy_list(ref.kmer_set_counts),
+                          mmer_sequences=_copy_list(
+                              getattr(ref, "mmer_sequences", None)),
                           nq=int(ref.nq))
     seqs = getattr(ref, "sequences", None)
     if seqs is not None:

@@ -26,13 +26,21 @@ Port of the routes of dashing2_tpu/sketch/core.py behind a
   reads each item (a group, or a record with --parse-by-seq; the native
   reader, or the Python parser for .xz/.bz2), `_native_hash_codes_list`
   hashes it (oph_sketch.cpp `hash_rows_native`, with the filterset's
-  probe), np.unique counts it (in a pool with -p > 1; with -c in the
-  weighted spaces a CountSketch over a batch of items at a time,
-  csrc/countsketch.cu on the card); then
+  probe; with --long-kmers exact sets `_native_hash_codes_list128`, the
+  full 128-bit keys of `hash_rows_native128`, u128.py), np.unique
+  counts it (in a pool with -p > 1; with -c in the weighted spaces a
+  CountSketch over a batch of items at a time, csrc/countsketch.cu on
+  the card); then
   ops/sketch_kernels.py::css_sketch_many draws the CSetSketch
   registers (csrc/css.cu on the card), sketch/weighted.py the weighted
   ones (csrc/weighted_draws.cu), or the distinct hashes (and their
   counts) are the result;
+* the minimizer sequences (--seq, `_sketch_seq`, the FULL_MMER_SEQUENCE
+  branch of the JAX `_sketch_fastx_core`): the chunked route's rows, each
+  batch through ops/oph_rows.py::hash_rows on the device
+  (csrc/oph_rows.cu's `hash_rows` entry on the card), each item's kept
+  tokens in row order (with --long-kmers full 128-bit keys), then
+  --hp-compress on the host;
 * the edit-distance space (-E, with or without --parse-by-seq):
   `_load_raw` reads each record with the Python parser, keeps its raw
   bytes in an io/seqstore.py SequenceStore (the JAX `_load_items`), and
@@ -41,9 +49,8 @@ Port of the routes of dashing2_tpu/sketch/core.py behind a
   `_sketch_fastx_core` branch, dashing2_tpu/sketch/core.py:1047-1059).
 
 --filterset (`_filterset_array`) applies on every route but -E, as in
-the JAX package. The configurations no route covers raise
-NotImplementedError naming the ROADMAP Queue 1 item that ports them
-(`_unsupported`).
+the JAX package. --entmin, which no route covers, raises
+NotImplementedError naming its ROADMAP Queue 1 item (`_unsupported`).
 """
 
 from __future__ import annotations
@@ -137,16 +144,25 @@ _WEIGHTED = (SketchSpace.SPACE_MULTISET, SketchSpace.SPACE_PSET)
 def _unsupported(opts: Dashing2Options) -> List[str]:
     """Reasons the port cannot sketch this job (empty if it can)."""
     why = []
-    hkw = _hash_kwargs(opts, 1 << 15)
-    if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
-        why.append("--seq (item 8)")
-    if _exact_sets(opts) and hkw["use128"] and not hkw["rolling"] \
-            and not hkw["spacing_offsets"]:
-        why.append("--long-kmers exact sets, u128 keys (item 8)")
     if opts.entmin and opts.sspace != SketchSpace.SPACE_EDIT_DISTANCE:
         why.append("--entmin, whose entropy scores go through a libm log2 "
                    "that no engine reproduces bit for bit (item 7)")
     return why
+
+
+def _full128(hkw: dict) -> bool:
+    """Keys are full 128-bit (--long-kmers with a DNA alphabet, neither
+    the rolling hash nor spaced seeds): the exact sets and minimizer
+    sequences keep them (u128.py), register sketches their low word."""
+    return bool(hkw["use128"] and not hkw["rolling"]
+                and not hkw["spacing_offsets"])
+
+
+def _exact128_keys(opts: Dashing2Options) -> bool:
+    """The JAX `_exact128_keys`: --long-kmers with a DNA alphabet, the
+    gate of the u128 cache and file layouts."""
+    return bool(opts.use128 and opts.alphabet in (Alphabet.DNA,
+                                                  Alphabet.DNAC))
 
 
 def _exact_sets(opts: Dashing2Options) -> bool:
@@ -176,7 +192,8 @@ def sketch_fastx(opts: Dashing2Options, groups: Sequence[str],
     --count-threshold > 1 and -B/-P the counting route, whose CSetSketch
     or weighted draws run on `device` (a CUDA request without a card
     raises; nothing falls back). --set and --countdict count on the host
-    and touch no device. -E draws OrderMinHash registers on `device`.
+    and touch no device. --seq hashes its rows on `device`. -E draws
+    OrderMinHash registers on `device`.
     With --cache (outside --parse-by-seq and -E, as in the JAX package)
     each item's artifact is loaded where it exists and written where it
     does not (`_sketch_cached`)."""
@@ -197,6 +214,8 @@ def _sketch_routes(opts: Dashing2Options, groups: Sequence[str], device
     """`sketch_fastx` without the cache: the route of the job."""
     if opts.sspace == SketchSpace.SPACE_EDIT_DISTANCE:
         return _sketch_edit(opts, groups, device)
+    if opts.kmer_result == KmerSketchResultType.FULL_MMER_SEQUENCE:
+        return _sketch_seq(opts, groups, device)
     if _exact_sets(opts):
         return _sketch_exact(opts, groups)
     if opts.sspace in _WEIGHTED:
@@ -398,6 +417,28 @@ def _merge_oph(regs_a, counts_a, regs_b, counts_b):
     return regs, counts
 
 
+def _chunked_items(opts: Dashing2Options, groups: Sequence[str]
+                   ) -> Tuple[List[str], Iterable[_Item], int]:
+    """(names, items, chunk length) of the chunked routes: the items
+    read as they are reached above STREAM_BYTES of input (the records'
+    names from a first pass), with chunks of 2^15; else all at once, the
+    chunk length from the longest record."""
+    if _should_stream(groups):
+        names = (_count_records(groups) if opts.parse_by_seq
+                 else list(groups))
+        return names, _load_items(opts, groups), 1 << 15
+    items = list(_load_items(opts, groups))
+    return [it.name for it in items], items, _auto_chunk_len(items)
+
+
+def _device_filterset(opts: Dashing2Options, dev: torch.device
+                      ) -> Optional[torch.Tensor]:
+    """`_filterset_array` as int64 bits on `dev`, or None."""
+    fs = _filterset_array(opts)
+    return (torch.from_numpy(fs.view(np.int64)).to(dev)
+            if fs is not None and len(fs) else None)
+
+
 def _sketch_chunked(opts: Dashing2Options, groups: Sequence[str], device
                     ) -> SketchingResult:
     """The one-permutation jobs the file driver declines: the ONE_PERM
@@ -410,20 +451,10 @@ def _sketch_chunked(opts: Dashing2Options, groups: Sequence[str], device
     count follows its min). With the filterset's probe on the device."""
     from ..io.prefetch import prefetch
     dev = resolve(device)
-    if _should_stream(groups):
-        names = (_count_records(groups) if opts.parse_by_seq
-                 else list(groups))
-        items: Iterable[_Item] = _load_items(opts, groups)
-        chunk_len = 1 << 15
-    else:
-        items = list(_load_items(opts, groups))
-        names = [it.name for it in items]
-        chunk_len = _auto_chunk_len(items)
+    names, items, chunk_len = _chunked_items(opts, groups)
     n, m = len(names), opts.sketchsize
     hkw = _hash_kwargs(opts, chunk_len)
-    fs = _filterset_array(opts)
-    fs_dev = (torch.from_numpy(fs.view(np.int64)).to(dev)
-              if fs is not None and len(fs) else None)
+    fs_dev = _device_filterset(opts, dev)
     want_counts = bool(opts.save_kmercounts)
     regs = mmvec.alloc((n, m), np.uint64, opts.sig_ram_limit, fill=U64MAX)
     counts = (mmvec.alloc((n, m), np.uint32, opts.sig_ram_limit, fill=0)
@@ -445,6 +476,56 @@ def _sketch_chunked(opts: Dashing2Options, groups: Sequence[str], device
     res = SketchingResult(names=names)
     with span("sketch/finalize"):
         return _finalize_one_perm(opts, res, regs, counts, n, m)
+
+
+def _sketch_seq(opts: Dashing2Options, groups: Sequence[str], device
+                ) -> SketchingResult:
+    """--seq: each item's minimizer sequence, the FULL_MMER_SEQUENCE
+    branch of the JAX `_sketch_fastx_core`
+    (dashing2_tpu/sketch/core.py:1237-1285). The chunked route's rows
+    (`_chunked_items`, `_iter_chunk_batches`), each batch through
+    ops/oph_rows.py::hash_rows on `device` (minimizers, ownership,
+    downsampling, the filterset's probe); each row's kept tokens come
+    back in position order with the row's count, and join their item's
+    sequence in row order. With --long-kmers (`_full128`) the tokens are
+    full 128-bit keys (u128.py). --hp-compress then drops each token
+    equal to the one before it. The cardinality is the sequence's
+    length."""
+    from .. import u128 as U
+    from ..io.prefetch import prefetch
+    dev = resolve(device)
+    names, items, chunk_len = _chunked_items(opts, groups)
+    n = len(names)
+    hkw = _hash_kwargs(opts, chunk_len)
+    full = _full128(hkw)
+    x2 = opts.xormask2_hi if full else None
+    fs_dev = _device_filterset(opts, dev)
+    acc: List[List[np.ndarray]] = [[] for _ in range(n)]
+    for rows, rid in prefetch(_iter_chunk_batches(
+            opts, items, chunk_len, BATCH_CODES[dev.type])):
+        with span("sketch/hash-rows"):
+            lo, hi, cnt = OR.hash_rows(torch.from_numpy(rows).to(dev), hkw,
+                                       fs_dev, x2)
+            lo = lo.cpu().numpy().view(np.uint64)
+            if full:
+                lo = U.from_words(hi.cpu().numpy().view(np.uint64), lo)
+            cnt = cnt.cpu().numpy()
+            # rows arrive in item order: each item's tokens are one run
+            first = np.flatnonzero(np.r_[True, rid[1:] != rid[:-1]])
+            ends = np.cumsum(cnt)[np.r_[first[1:], len(rid)] - 1]
+            for item, a, b in zip(rid[first], np.r_[0, ends[:-1]], ends):
+                acc[item].append(lo[a:b])
+    empty = np.zeros(0, U.U128 if full else np.uint64)
+    seqs = []
+    for parts in acc:
+        hv = np.concatenate(parts) if parts else empty
+        if opts.homopolymer_compress_minimizers and len(hv):
+            hv = hv[np.r_[True, hv[1:] != hv[:-1]]]
+        seqs.append(hv)
+    res = SketchingResult(names=names)
+    res.mmer_sequences = seqs
+    res.cardinalities = np.array([len(q) for q in seqs], np.float64)
+    return res
 
 
 def _native_oph_rows(lib, chunks: np.ndarray, hkw: dict, m: int,
@@ -582,21 +663,75 @@ def _native_hash_codes_list(lib, codes_list, hkw: dict,
     return np.concatenate(parts)
 
 
+def _native_hash_codes_list128(lib, codes_list, hkw: dict,
+                               xormask2_hi: int,
+                               filterset: Optional[np.ndarray] = None
+                               ) -> np.ndarray:
+    """u128 variant of `_native_hash_codes_list` (the JAX function of
+    that name): the compact FULL masked (hi', lo') keys of the records
+    (the u128 maskfn of enums.h:144-148) as a structured u128 array,
+    by `hash_rows_native128`; the minimizer, downsample and filterset
+    gates of `_hash_chunk_batch128`, which read the masked low word."""
+    from .. import u128 as U
+    k = hkw["k"]
+    ds = hkw["downsample_threshold"] < (1 << 64) - 1
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    fs_p, fs_len = _u64p(filterset)
+    buckets: dict = {}
+    for c in codes_list:
+        if len(c) < k:
+            continue
+        L = 256
+        while L < len(c):
+            L <<= 1
+        buckets.setdefault(L, []).append(c)
+    parts: List[np.ndarray] = []
+    for L, recs in sorted(buckets.items()):
+        rcap = max(1, (32 << 20) // L)
+        for s in range(0, len(recs), rcap):
+            grp = recs[s:s + rcap]
+            rows = np.full((len(grp), L), K.INVALID, np.uint8)
+            for r, c in enumerate(grp):
+                rows[r, :len(c)] = c
+            npos = L - k + 1
+            out_hi = np.empty(len(grp) * npos, np.uint64)
+            out_lo = np.empty(len(grp) * npos, np.uint64)
+            cnt = lib.hash_rows_native128(
+                rows.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+                len(grp), L, k, hkw["w"], int(hkw["canon"]),
+                int(hkw["seed_is_zero"]), hkw["xormask"],
+                xormask2_hi & 0xFFFFFFFFFFFFFFFF, int(ds),
+                hkw["downsample_threshold"] & 0xFFFFFFFFFFFFFFFF,
+                DOWNSAMPLE_SALT, fs_p, fs_len,
+                out_hi.ctypes.data_as(u64p), out_lo.ctypes.data_as(u64p))
+            parts.append(U.from_words(out_hi[:cnt], out_lo[:cnt]))
+    if not parts:
+        return np.zeros(0, U.U128)
+    return np.concatenate(parts)
+
+
 def _thresholded(opts: Dashing2Options, u: np.ndarray, c: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """The items seen at least --count-threshold times."""
+    """The items seen at least --count-threshold times (u64 keys as
+    u64; u128 keys stay structured)."""
+    from .. import u128 as U
     if opts.count_threshold > 1:
         keep = c >= opts.count_threshold
         u, c = u[keep], c[keep]
-    return u.astype(np.uint64, copy=False), c.astype(np.float64, copy=False)
+    if not U.is_u128(u):
+        u = u.astype(np.uint64, copy=False)
+    return u, c.astype(np.float64, copy=False)
 
 
 def _count_one(opts: Dashing2Options, hv: np.ndarray
                ) -> Tuple[np.ndarray, np.ndarray]:
-    """The distinct hashes (sorted u64) and their counts (f64), those seen
-    fewer than --count-threshold times dropped."""
+    """The distinct hashes (sorted u64, or u128 keys in u128 order) and
+    their counts (f64), those seen fewer than --count-threshold times
+    dropped."""
+    from .. import u128 as U
     t0 = time.perf_counter()
-    u, c = np.unique(hv, return_counts=True)
+    u, c = (U.unique_counts(hv) if U.is_u128(hv)
+            else np.unique(hv, return_counts=True))
     add_span("sketch/count", time.perf_counter() - t0)
     return _thresholded(opts, u, c)
 
@@ -627,21 +762,26 @@ def _count_stream(opts: Dashing2Options, groups: Sequence[str],
                   device=torch.device("cpu")
                   ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Each item's distinct hashes and their counts: native hashing item
-    by item (with the filterset's probe), counting in a pool of -p
-    threads when -p > 1. With -c in a weighted space the items' streams
-    are counted in batches instead (`_count_sketched`). The items' names
-    are appended to `names`."""
+    by item (with the filterset's probe; the full 128-bit keys of
+    --long-kmers exact sets), counting in a pool of -p threads when -p >
+    1. With -c in a weighted space the items' streams are counted in
+    batches instead (`_count_sketched`). The items' names are appended
+    to `names`."""
     from ..native import load_oph_lib
     lib = load_oph_lib()
     hkw = _hash_kwargs(opts, 1 << 15)
     fs = _filterset_array(opts)
+    exact128 = _exact_sets(opts) and _full128(hkw)
 
     def streams():
         for item in _load_items(opts, groups):
             if names is not None:
                 names.append(item.name)
             with span("sketch/hash"):
-                hv = _native_hash_codes_list(lib, item.codes, hkw, fs)
+                hv = (_native_hash_codes_list128(lib, item.codes, hkw,
+                                                 opts.xormask2_hi, fs)
+                      if exact128 else
+                      _native_hash_codes_list(lib, item.codes, hkw, fs))
             yield hv
     if opts.cssize > 0 and opts.sspace in _WEIGHTED:
         return _count_sketched(opts, streams(), device)
@@ -735,7 +875,8 @@ def _sketch_exact(opts: Dashing2Options, groups: Sequence[str]
                   ) -> SketchingResult:
     """The JAX generic route's exact finalization
     (dashing2_tpu/sketch/core.py:1445-1455): --set keeps each item's
-    distinct sorted hashes, with their number as the cardinality;
+    distinct sorted hashes (u128 keys with --long-kmers), with their
+    number as the cardinality;
     --countdict also keeps their counts, with their sum as the
     cardinality. An item shorter than k has an empty set."""
     names: List[str] = []
@@ -844,36 +985,57 @@ def _counts_dest(keys_dest: str) -> str:
     return keys_dest[:keys_dest.rfind(".")] + ".kmercounts.f64"
 
 
-def _write_kmer_set(keys: np.ndarray, path: str, card: float) -> None:
-    """An exact set's cache (fastxsketch.cpp:467-489): the f64
-    cardinality, then the u64 keys."""
+def _write_kmer_set(keys: np.ndarray, path: str,
+                    card: Optional[float] = None) -> None:
+    """An exact set's or minimizer sequence's cache (fastxsketch.cpp:
+    467-489, 526-553): the f64 cardinality (sets only; a sequence's file
+    is headerless), then the u64 keys raw or the u128 keys little-endian
+    (lo, hi)."""
+    from .. import u128 as U
     with open(path, "wb") as f:
-        np.float64(card).tofile(f)
-        np.ascontiguousarray(keys, np.uint64).tofile(f)
+        if card is not None:
+            np.float64(card).tofile(f)
+        if U.is_u128(keys):
+            U.tofile_bytes(np.asarray(keys, U.U128)).tofile(f)
+        else:
+            np.ascontiguousarray(keys, np.uint64).tofile(f)
 
 
 def _read_kmer_set(opts: Dashing2Options, path: str,
-                   beside: Sequence[str] = ()):
-    """(cardinality, u64 keys) of an exact set's cache. The JAX package
-    streams one from its file (io/diskset.py) where it and the files
-    `beside` it hold more than --sig-ram-limit bytes, which is not
-    ported."""
-    if sum(os.path.getsize(p) for p in (path, *beside)) \
+                   beside: Sequence[str] = (), with_card: bool = True):
+    """(cardinality, keys) of an exact set's cache, or with `with_card`
+    False the keys of a (headerless) minimizer sequence's: u64, or u128
+    keys (`_exact128_keys`). The JAX package streams a u64 set from its
+    file (io/diskset.py) where it and the files `beside` it hold more
+    than --sig-ram-limit bytes, which is not ported."""
+    from .. import u128 as U
+    u128 = _exact128_keys(opts)
+    if with_card and not u128 and sum(
+            os.path.getsize(p) for p in (path, *beside)) \
             > opts.sig_ram_limit:
         raise NotImplementedError(
             f"{path}: exact-set caches larger than --sig-ram-limit are "
             "streamed from their files in the JAX package, which is not "
             "ported (ROADMAP Queue 1 item 8)")
-    card = float(np.fromfile(path, np.float64, count=1)[0])
-    return card, np.fromfile(path, dtype=np.uint64, offset=8)
+    off = 8 if with_card else 0
+    raw = np.fromfile(path, dtype=np.uint64, offset=off)
+    if u128:
+        if len(raw) % 2:
+            raise ValueError(f"{path}: odd u64 count for u128 keys")
+        pairs = raw.reshape(-1, 2)
+        raw = U.from_words(pairs[:, 1], pairs[:, 0])
+    if not with_card:
+        return raw
+    return float(np.fromfile(path, np.float64, count=1)[0]), raw
 
 
 def _load_cached(opts: Dashing2Options, group: str, dest: str, sig_dt,
                  want_kmers: bool):
     """(cardinality, payload) of the item's artifact, or None for a miss
     (a missing, short or unreadable file): the registers with their
-    `.kmers.u64`/`.kmercounts.f32` siblings, an exact set's keys, or a
-    count dictionary's keys and `.kmercounts.f64` counts."""
+    `.kmers.u64`/`.kmercounts.f32` siblings, an exact set's keys, a
+    count dictionary's keys and `.kmercounts.f64` counts, or a minimizer
+    sequence (its length the cardinality)."""
     from ..io import formats
     from ..io.cache import makedest
     kres = opts.kmer_result
@@ -891,6 +1053,9 @@ def _load_cached(opts: Dashing2Options, group: str, dest: str, sig_dt,
             return None
         if kres == KmerSketchResultType.FULL_MMER_SET:
             return _read_kmer_set(opts, dest)
+        if kres == KmerSketchResultType.FULL_MMER_SEQUENCE:
+            seq = _read_kmer_set(opts, dest, with_card=False)
+            return float(len(seq)), seq
         card, regs = formats.read_sketch_cache(dest, dtype=sig_dt)
         m = opts.sketchsize
         kk = cc = None
@@ -916,12 +1081,15 @@ def _sketch_cached(opts: Dashing2Options, groups: Sequence[str], device
     artifact (a write that fails is skipped). Artifacts: the registers
     (.opss/.ss/.bmh/.pmh: f64, or the quantised width of a
     sketch-compressed FullSetSketch), with -s/-N in set space their
-    `.kmers.u64`/`.kmercounts.f32`, an exact set's `.kmerset64`, a count
-    dictionary's keys and `.kmercounts.f64`."""
+    `.kmers.u64`/`.kmercounts.f32`, an exact set's `.kmerset64` (u128
+    keys: `.kmerset128`), a count dictionary's keys and
+    `.kmercounts.f64`, a minimizer sequence's `.mmerseq64`
+    (`.mmerseq128`)."""
     from ..io import formats
     from ..io.cache import makedest
     kres = opts.kmer_result
     exact = _exact_sets(opts)
+    seq = kres == KmerSketchResultType.FULL_MMER_SEQUENCE
     m, n = opts.sketchsize, len(groups)
     sig_dt = (_CACHE_DTYPES[opts.fd_level] if opts.sketch_compressed_set
               else np.float64)
@@ -946,6 +1114,8 @@ def _sketch_cached(opts: Dashing2Options, groups: Sequence[str], device
         res.kmer_sets = [None] * n
         if kres == KmerSketchResultType.FULL_MMER_COUNTDICT:
             res.kmer_set_counts = [None] * n
+    elif seq:
+        res.mmer_sequences = [None] * n
     else:
         res.signatures = np.zeros((n, m), sig_dt)
         if want_kmers and opts.save_kmers:
@@ -961,6 +1131,8 @@ def _sketch_cached(opts: Dashing2Options, groups: Sequence[str], device
                 res.kmer_sets[i], res.kmer_set_counts[i] = payload
             elif exact:
                 res.kmer_sets[i] = payload
+            elif seq:
+                res.mmer_sequences[i] = payload
             else:
                 regs, kk, cc = payload
                 res.signatures[i] = regs
@@ -974,6 +1146,8 @@ def _sketch_cached(opts: Dashing2Options, groups: Sequence[str], device
             res.kmer_sets[i] = sub.kmer_sets[si]
             if res.kmer_set_counts is not None:
                 res.kmer_set_counts[i] = sub.kmer_set_counts[si]
+        elif seq:
+            res.mmer_sequences[i] = sub.mmer_sequences[si]
         else:
             res.signatures[i] = sub.signatures[si]
             if res.kmers is not None:
@@ -991,6 +1165,8 @@ def _sketch_cached(opts: Dashing2Options, groups: Sequence[str], device
                     _counts_dest(kdest))
             elif exact:
                 _write_kmer_set(res.kmer_sets[i], dest, res.cardinalities[i])
+            elif seq:
+                _write_kmer_set(res.mmer_sequences[i], dest)
             else:
                 formats.write_sketch_cache(dest, res.cardinalities[i],
                                            res.signatures[i])

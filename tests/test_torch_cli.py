@@ -146,7 +146,19 @@ def test_compressed_registers_equal_jax(corpus, flags, monkeypatch):
 # options the port has run since the chunked route (ROADMAP item 7):
 # their cases below hold the port to the JAX CLI instead of a refusal
 RUN_NOW = ("--filterset", "--by-chrom", "--parse-by-seq", "--outprefix",
-           "--cache")
+           "--cache", "--seq", "--hp-compress")
+
+
+# genomes a --seq job compares: the JAX package computes every
+# minimizer-sequence distance in a numpy row loop (2,470 tokens a genome
+# at k = 31), so these jobs take the first few genomes of the corpus
+SEQ_GENOMES = 6
+
+
+def _inputs(argv, lst, paths):
+    """The job's inputs: the corpus list, or for --seq its first
+    SEQ_GENOMES genomes."""
+    return paths[:SEQ_GENOMES] if "--seq" in argv else ["-F", lst]
 
 
 def _run_both(argv, tmp_path, capsys):
@@ -178,12 +190,13 @@ def test_cli_rejects_options_outside_the_slice(corpus, extra, tmp_path,
     (with --leafcutter over FASTA inputs, which both CLIs fail to parse
     alike) run since the chunked route, --outprefix and --cache (the
     port's cold run beside the inputs, then the JAX CLI's warm one)
-    since the cache: the JAX CLI's exit code, bytes and error
-    message."""
+    since the cache, --seq and --hp-compress (which only --seq reads)
+    since the minimizer sequences: the JAX CLI's exit code, bytes and
+    error message."""
     lst, paths = corpus
     if any(flag in extra for flag in RUN_NOW):
         argv = NORTH_STAR + [paths[0] if a == "fs.txt" else a
-                             for a in extra] + ["-F", lst]
+                             for a in extra] + _inputs(extra, lst, paths)
         port, jax = _run_both(argv, tmp_path, capsys)
         assert port == jax
         assert extra[0] not in ("--filterset", "--cache") \
@@ -208,12 +221,15 @@ def test_cli_rejects_other_comparisons(corpus, argv, tmp_path, capsys):
     """Jobs outside the slice exit 2. `--bed --by-chrom` (--by-chrom is
     ignored for BED, as in the JAX CLI; FASTA inputs fail to parse as
     BED in both) and `--parse-by-seq` (one item a record) run since the
-    chunked route: the JAX CLI's exit code, bytes and error message."""
-    lst, _ = corpus
+    chunked route, `cmp --seq` and `--hp-compress` since the minimizer
+    sequences: the JAX CLI's exit code, bytes and error message."""
+    lst, paths = corpus
     if any(flag in argv for flag in RUN_NOW):
-        port, jax = _run_both(argv + ["-F", lst], tmp_path, capsys)
+        port, jax = _run_both(argv + _inputs(argv, lst, paths), tmp_path,
+                              capsys)
         assert port == jax
-        assert "--parse-by-seq" not in argv or (port[0] == 0 and port[1])
+        assert not ({"--parse-by-seq", "--seq"} & set(argv)) \
+            or (port[0] == 0 and port[1])
         return
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--cmpout", str(tmp_path / "o"), "-F", lst,

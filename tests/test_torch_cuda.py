@@ -1341,6 +1341,103 @@ def test_oph_rows_on_card_equals_cpu(card):
     assert torch.equal(got[1].cpu(), cpu[1])
 
 
+# ----------------------------------------------------------------------
+# hash_rows: csrc/oph_rows.cu's hash-stream entry against its plain
+# versions (hash_chunk_batch, hash_chunk_batch128)
+# ----------------------------------------------------------------------
+
+# (config, full 128-bit keys, zero seed, downsample and filterset): every
+# encoding of OPH_CONFIGS with the low word, its edge rows, and the
+# 128-bit code's full keys with and without a seed, minimizers,
+# downsampling and a filterset of low words
+HASH_CASES = ([(cfg, False, False, False) for cfg in sorted(OPH_CONFIGS)]
+              + [("all-padding", False, False, False),
+                 ("short-stretch", False, False, False),
+                 ("dna-k31", False, True, False),
+                 ("u128-k40", True, False, False),
+                 ("u128-k40", True, True, False),
+                 ("u128-k63-w80", True, False, False),
+                 ("u128-k63-w80", True, True, True),
+                 ("u128-k40", True, False, True)])
+
+
+def _hash_case(cfg, zero_seed, masks):
+    """(codes, hkw, filterset) of a HASH_CASES row, on the CPU."""
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    codes, _, _, _, hkw, fs = (_oph_edge_case(cfg) if cfg in OPH_EDGES
+                               else _oph_rows_case(cfg))
+    hkw = dict(hkw, seed_is_zero=zero_seed)
+    if masks:
+        hkw["downsample_threshold"] = int(0.4 * (1 << 64))
+        lo, _ = OR.hash_chunk_batch(codes, hkw)
+        hv = np.unique(lo.numpy().reshape(-1).view(np.uint64))
+        fs = torch.from_numpy(hv[::5].copy().view(np.int64))
+    return codes, hkw, fs
+
+
+@pytest.mark.parametrize("cfg,full,zero_seed,masks", HASH_CASES)
+def test_hash_rows_kernel_matches_plain(card, cfg, full, zero_seed, masks):
+    """csrc/oph_rows.cu `hash_rows` == hash_rows_plain bit for bit: the
+    kept tokens in row order, the high words of full keys and the rows'
+    counts; one launch."""
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    codes, hkw, fs = _hash_case(cfg, zero_seed, masks)
+    x2 = Dashing2Options(seedseed=7).xormask2_hi if full else None
+    dev = [x.to(card) if x is not None else None for x in (codes, fs)]
+    want = OR.hash_rows_plain(dev[0], hkw, dev[1], x2)
+    before = OR.hash_launches.launches
+    got = OR.hash_rows(dev[0], hkw, dev[1], x2)
+    torch.cuda.synchronize()
+    assert OR.hash_launches.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert (got[1] is None) == (not full)
+    if full:
+        assert torch.equal(got[1], want[1])
+    assert (int(got[2].sum()) == 0) == (cfg == "all-padding")
+
+
+def test_hash_rows_refuses_full_keys_outside_dna128(card):
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    codes, hkw, _ = _hash_case("dna-k31", False, False)
+    with pytest.raises(ValueError, match="128-bit"):
+        OR.hash_rows(codes.to(card), hkw, None, 123)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--seq", "-k", "15", "-w", "31"],
+    ["--seq", "-k", "15", "-w", "31", "--hp-compress", "--parse-by-seq"],
+    ["--seq", "--long-kmers", "-k", "40", "-w", "60", "--parse-by-seq"],
+    ["--seq", "-k", "15", "-w", "31", "--parse-by-seq", "--topk", "3"],
+    ["--set", "--long-kmers", "-k", "40", "--parse-by-seq"],
+    ["--countdict", "--long-kmers", "-k", "40", "--parse-by-seq",
+     "--topk", "3"]])
+def test_seq_and_u128_cli_on_card_equals_cpu(card, tmp_path, flags):
+    """--seq (hash_rows on the card) and u128 exact sets (their joins on
+    the card): the CPU run's bytes (the comparison, and -o of --seq)."""
+    from dashing2_tpu_torch import cli
+    from dashing2_tpu_torch.io.corpus import edited_sequences, write_fasta
+    fa = write_fasta(str(tmp_path / "s.fa"), edited_sequences(
+        54, 6, 6, length=(200, 5000), n_every=3))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out, sig = tmp_path / f"o-{dev}", tmp_path / f"s-{dev}"
+        extra = ["-o", str(sig)] if "--seq" in flags else []
+        before = _hash_launches()
+        assert cli.main(["sketch", "--binary-output", "--cmpout", str(out)]
+                        + extra + flags + [fa, "--device", dev]) == 0
+        assert (_hash_launches() > before) == (dev == "cuda"
+                                            and "--seq" in flags)
+        outs.append(out.read_bytes()
+                    + (sig.read_bytes() if extra else b""))
+    assert outs[0] == outs[1] and outs[0]
+
+
+def _hash_launches() -> int:
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    return OR.hash_launches.launches
+
+
 @pytest.mark.parametrize("flags", [
     ["--parse-by-seq"], ["--parse-by-seq", "--fastcmp", "0.5", "--bbit-sigs"],
     ["--parse-by-seq", "-w", "40"], ["--by-chrom"], ["--parse-by-seq", "-B"]])

@@ -15,9 +15,10 @@
   for all-pairs, panel and neighbour jobs; counts that are not whole
   numbers are refused by name.
 * u128 exact sets and minimizer sequences (.kmerset128, .mmerseq128,
-  .mmerseq64 without counts), and sets larger than --sig-ram-limit
-  (which the JAX package streams from the file), raise, naming ROADMAP
-  Queue 1 item 8.
+  .mmerseq64 without counts): the JAX CLI's bytes (seeded files; the
+  JAX package's cache files in tests/test_torch_seq.py and
+  test_torch_u128.py). Sets larger than --sig-ram-limit (which the JAX
+  package streams from the file) raise, naming ROADMAP Queue 1 item 8.
 * `cmp` over FASTA inputs without --cmpout writes to stdout: the JAX
   CLI's bytes.
 Tolerance zero throughout.
@@ -30,6 +31,7 @@ import pytest
 
 import dashing2_tpu.cli as jax_cli
 from dashing2_tpu_torch import cli
+from dashing2_tpu_torch import u128 as U
 from dashing2_tpu_torch.io.corpus import write_corpus
 
 
@@ -218,16 +220,36 @@ def test_presketched_kmerset64_above_the_ram_limit_raises(tmp_path, capsys):
                                     ".mmerseq128"])
 def test_presketched_exact_inputs_raise(suffix, tmp_path, capsys):
     """u128 keys, and minimizer sequences (a .mmerseq64 file without its
-    counts)."""
-    path = tmp_path / f"x{suffix}"
-    np.zeros(4, np.uint64).tofile(path)
-    rc = cli.main(["cmp", "--presketched", "--cmpout",
-                   str(tmp_path / "o.bin"), str(path), str(path),
-                   "--device", "cpu"])
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue 1 item 8" in err and suffix in err
-    assert not (tmp_path / "o.bin").exists()
+    counts), load since the minimizer-sequence slice: three seeded files
+    of the kind (keys from a shared pool: a .kmerset128 set sorted after
+    its f64 cardinality, a sequence's tokens in stream order with
+    repeats) compare to the JAX CLI's bytes, all pairs and --topk."""
+    rng = np.random.default_rng(len(suffix))
+    pool = rng.integers(0, 1 << 64, (40, 2), dtype=np.uint64)
+    files = []
+    for i in range(3):
+        pick = pool[rng.integers(0, 40, 60 + 9 * i)]
+        path = tmp_path / f"x{i}{suffix}"
+        with open(path, "wb") as f:
+            keys = U.from_words(pick[:, 0], pick[:, 1])
+            if suffix == ".kmerset128":
+                np.float64(0.0).tofile(f)
+                U.tofile_bytes(np.unique(keys)).tofile(f)
+            elif suffix == ".mmerseq64":
+                pick[:, 1].tofile(f)
+            else:
+                U.tofile_bytes(keys).tofile(f)
+        files.append(str(path))
+    for flags in ([], ["--topk", "1"]):
+        outs = []
+        for tag, fn, extra in (("p", cli.main, ["--device", "cpu"]),
+                               ("j", jax_cli.main, [])):
+            out = tmp_path / f"{tag}.bin"
+            assert fn(["cmp", "--presketched", "--binary-output",
+                       "--cmpout", str(out)] + flags + files + extra) == 0
+            outs.append(_read(out))
+        capsys.readouterr()
+        assert outs[0] == outs[1] and outs[0]
 
 
 @pytest.mark.parametrize("flags", [["--full-setsketch"],

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from dashing2_tpu.config import Dashing2Options as JOptions
+from dashing2_tpu.enums import KmerSketchResultType as JKres
 from dashing2_tpu.enums import SketchSpace as JSpace
 from dashing2_tpu.sketch.core import sketch_fastx as jax_sketch_fastx
 from dashing2_tpu_torch.config import Dashing2Options
@@ -64,14 +65,14 @@ def test_sketch_matches_jax(groups, cfg, native_files, monkeypatch):
     dict(kmer_result=KmerSketchResultType.FULL_MMER_SET, use128=True),
 ])
 def test_configs_outside_the_file_driver_raise(groups, opts):
-    """--entmin, --seq and u128 exact sets raise, naming their ROADMAP
-    item. The rest run and equal the JAX package's: --parse-by-seq (one
-    item a record) and --by-chrom on the chunked route, -E (its own
+    """--entmin raises, naming its ROADMAP item. The rest run and equal
+    the JAX package's: --parse-by-seq (one item a record) and --by-chrom
+    on the chunked route, -E (its own route), --seq (minimizer sequences
+    on the chunked route's rows) and u128 exact sets (the counting
     route), --filterset (here the first genome as the filter FASTA) on
     the file driver, --cache (the port's cold run beside the inputs with
     -s, then the JAX package's warm one)."""
-    runs = ("parse_by_seq" in opts or "by_chrom" in opts
-            or "filterset_path" in opts or "cache_sketches" in opts)
+    runs = "entmin" not in opts
     if not runs:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sketch_fastx(Dashing2Options(k=21, sketchsize=64, **opts),
@@ -83,10 +84,19 @@ def test_configs_outside_the_file_driver_raise(groups, opts):
     jkw = dict(kw)
     if "sspace" in kw:
         jkw["sspace"] = JSpace(int(kw["sspace"]))
+    if "kmer_result" in kw:
+        jkw["kmer_result"] = JKres(int(kw["kmer_result"]))
     got = sketch_fastx(Dashing2Options(**kw), groups, device="cpu")
     want = jax_sketch_fastx(JOptions(**jkw), groups)
     assert got.names == want.names
-    np.testing.assert_array_equal(got.signatures, want.signatures)
+    for attr in ("signatures", "mmer_sequences", "kmer_sets"):
+        g, w = getattr(got, attr), getattr(want, attr, None)
+        assert (g is None) == (w is None), attr
+        if g is not None:
+            assert len(g) == len(w), attr
+            for a, b in zip(g, w):
+                assert np.asarray(a).dtype == np.asarray(b).dtype, attr
+                np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got.cardinalities, want.cardinalities)
     if got.kmers is not None:
         np.testing.assert_array_equal(got.kmers, want.kmers)
