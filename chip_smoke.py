@@ -383,12 +383,15 @@ no card, or when the port is not importable:
    XLA engines `_hash_chunk_batch` and `_hash_chunk_batch128`) against
    its plain version on the card, the kept tokens (and the high words
    of full keys) and the rows' counts bit for bit: over phase 37's
-   first 256 records in phase 37's encodings and the 128-bit code's
-   full keys with minimizers, then over the whole corpus in the --seq
+   first 256 records, with tests/seq_planted.py's rows beside them (a
+   homopolymer, tandem repeats of period 5 and nwin, N runs of 1 to
+   nwin bases), in phase 37's encodings and the 128-bit code's full
+   keys with minimizers, then over the whole corpus in the --seq
    route's batches at `-k 15 -w 31` and `--long-kmers -k 40 -w 60`
-   (full keys); the kernel timed by CUDA events over those batches,
-   after a warm-up, through its wrapper (the keep flags zeroed, the
-   launch, one compaction on the card) and as bare launches, with the
+   (full keys); the kernel timed by CUDA events over those
+   batches, after a warm-up, through its wrapper (the tokens' launch,
+   the scan of the segments' counts, the placement launch, the read of
+   the total) and as the bare launches of its two C entries, with the
    bound (HASH_ROLL_OPS and HASH_MINI_OPS a valid position,
    HASH_MASK_OPS a position the minimizers select; a byte a base read,
    8 or 16 a kept token written); the plain version on the first 256
@@ -4333,59 +4336,75 @@ def _hash_bound(items, k: int, w: int, full: bool, kept: int):
 
 
 def _bare_hash_ms(batches, hkw, x2, reps: int) -> float:
-    """Mean device time of the bare C entry `hash_rows` over the batches
-    on prebuilt Params, rows and outputs (keep flags zeroed beforehand):
-    CUDA events around the library calls only."""
+    """Mean device time of the bare C entries `hash_rows` and
+    `hash_place` over the batches on prebuilt Params, slabs, outputs and
+    offsets (those of a first call): CUDA events around the library
+    calls only, no scan and no host sync."""
     import ctypes
     import torch
     from dashing2_tpu_torch.ops import oph_rows as OR
     lib = OR.load_kernel()
-    npos = [r.shape[1] - hkw["k"] + 1 for r in batches]
-    params = [OR.kernel_params(hkw, r.shape[0], r.shape[1], 0, 0,
-                               xormask2_hi=x2) for r in batches]
-    most = max(r.shape[0] * p for r, p in zip(batches, npos))
-    tok = torch.empty(most, dtype=torch.int64, device="cuda")
-    hi = (torch.empty(most, dtype=torch.int64, device="cuda")
-          if x2 is not None else None)
-    keeps = [[torch.zeros(r.shape[0] * p, dtype=torch.uint8, device="cuda")
-              for r, p in zip(batches, npos)] for _ in range(reps + 1)]
     stream = torch.cuda.current_stream().cuda_stream
+    words = 2 if x2 is not None else 1
+    calls = []
+    for r in batches:
+        prm = OR.kernel_params(hkw, r.shape[0], r.shape[1], 0, 0,
+                               xormask2_hi=x2)
+        nblk = r.shape[0] * OR.segments(prm)
+        cap = OR.token_capacity(prm)
+        counts = torch.empty(nblk, dtype=torch.int64, device="cuda")
+        starts = torch.empty_like(counts)
+        cursor = torch.empty(1, dtype=torch.int64, device="cuda")
+        slab = torch.empty((words, cap), dtype=torch.int64, device="cuda")
+        out = torch.empty_like(slab)
+        ptrs = [t[i].data_ptr() if i < words else None
+                for t in (slab, out) for i in (0, 1)]
+        args = (ctypes.byref(prm), r.data_ptr(), None, None, ptrs[0],
+                ptrs[1], cap, counts.data_ptr(), starts.data_ptr(),
+                cursor.data_ptr(), stream)
+        assert lib.hash_rows(*args) == 0
+        offsets = torch.cumsum(counts, 0) - counts
+        assert int(cursor) <= cap
+        calls.append((args, (nblk, counts.data_ptr(), starts.data_ptr(),
+                             offsets.data_ptr(), ptrs[0], ptrs[1], cap,
+                             ptrs[2], ptrs[3], stream),
+                      (counts, starts, cursor, slab, out, offsets)))
 
-    def launch(keep):
-        for r, prm, kp in zip(batches, params, keep):
-            assert lib.hash_rows(ctypes.byref(prm), r.data_ptr(), None,
-                                 None, tok.data_ptr(),
-                                 hi.data_ptr() if hi is not None else None,
-                                 kp.data_ptr(), stream) == 0
-    launch(keeps[-1])                             # warm-up
+    def launch():
+        for main, place, _ in calls:
+            assert lib.hash_rows(*main) == 0
+            assert lib.hash_place(*place) == 0
+    launch()                                      # warm-up
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for keep in keeps[:reps]:
-        launch(keep)
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return _cuda_ms(launch, reps)
 
 
 def phase_hash_rows_vs_plain(fa: str):
     """hash_rows against hash_rows_plain on the card, tokens (and the
     high words of full keys) and the rows' counts bit for bit: over the
     first BYSEQ_SLICE records in each encoding of HASH_CASES (phase 37's
-    and the 128-bit code's full keys with minimizers), then over the
-    whole corpus at the --seq jobs' settings (SEQ_ARGS; SEQ128_ARGS,
-    full keys) in the --seq route's batches. The kernel timed by CUDA
-    events over those prebuilt batches, after a warm-up, through its
-    wrapper (the keep flags' zeroing, the launch, the compaction by one
-    `nonzero`) and as bare launches; the plain version on the first
+    and the 128-bit code's full keys with minimizers), with
+    tests/seq_planted.py's rows beside them (a homopolymer, tandem
+    repeats of period 5 and nwin, N runs of 1 to nwin bases at several
+    offsets), then over the whole corpus at the --seq jobs' settings
+    (SEQ_ARGS; SEQ128_ARGS, full keys) in the --seq route's batches. The
+    kernel timed by CUDA events over those prebuilt batches, after a
+    warm-up, through its wrapper (the tokens' launch, the scan of the
+    segments' counts, the placement launch, the rows' sums, the read of
+    the total) and as the bare launches; the plain version on the first
     BYSEQ_SLICE records."""
     import numpy as np
     import torch
     from dashing2_tpu_torch.config import Dashing2Options
     from dashing2_tpu_torch.enums import Alphabet, KmerSketchResultType
+    from dashing2_tpu_torch.ops import kmers as K
     from dashing2_tpu_torch.ops import oph_rows as OR
     from dashing2_tpu_torch.sketch import core as PC
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from seq_planted import planted_rows
+    finally:
+        sys.path.pop(0)
     d = os.path.join(WORK, "byseq")
     slice_fa = os.path.join(d, "slice.fa")
     seq = KmerSketchResultType.FULL_MMER_SEQUENCE
@@ -4397,7 +4416,12 @@ def phase_hash_rows_vs_plain(fa: str):
         _, _, hkw, batches = _rows_of(
             opts, [os.path.join(d, "protein.fa") if "alphabet" in kw
                    else slice_fa])
-        rows = torch.from_numpy(batches[0][0]).cuda()
+        nwin = hkw["w"] - hkw["k"] + 1 if hkw["w"] > hkw["k"] else 1
+        planted = planted_rows(batches[0][0].shape[1],
+                               K.alphabet_size(hkw["alphabet"]), nwin,
+                               BYSEQ_SEED)
+        rows = torch.from_numpy(np.concatenate([batches[0][0], planted])
+                                ).cuda()
         x2 = opts.xormask2_hi if tag.startswith("u128-full") else None
         fs = None
         if tag == "filterset":
@@ -4413,7 +4437,9 @@ def phase_hash_rows_vs_plain(fa: str):
                 g is None or torch.equal(g, w)), (tag, what)
         _say(f"[hash] {tag}: hash_rows == hash_rows_plain, "
              f"{int(got[2].sum())} tokens of {rows.shape[0]} rows of "
-             f"{rows.shape[1]} codes" + ("; full keys" if x2 else "")
+             f"{rows.shape[1]} codes ({len(planted)} planted, "
+             f"{int(got[2][-len(planted):].sum())} tokens)"
+             + ("; full keys" if x2 else "")
              + (f"; filterset of {fs.numel()} hashes" if fs is not None
                 else ""))
     run = {}
@@ -4455,7 +4481,8 @@ def phase_hash_rows_vs_plain(fa: str):
              f"kernel tokens and counts == plain's over the whole corpus; "
              f"{nvalid} valid windows, {kept} kept tokens; through the "
              f"wrapper over the batches (CUDA events, mean of 3) {ms:.3f} "
-             f"ms, the bare launches {bare_ms:.3f} ms; bound "
+             f"ms, the bare launches (tokens and placement) {bare_ms:.3f} "
+             f"ms; bound "
              f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
              f"reached; on the first {BYSEQ_SLICE} records the wrapper "
              f"{slice_ms:.3f} ms, plain {plain_ms:.3f} ms (one run); "

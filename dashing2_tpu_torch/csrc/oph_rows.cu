@@ -14,13 +14,16 @@
 // `_hash_chunk_batch` (dashing2_tpu/sketch/core.py:59) and
 // `_hash_chunk_batch128` (:103) as the `--seq` route calls them: the
 // same stages up to the masks, then, instead of the bucket-min, each
-// surviving position's masked token written at its place in a dense
-// (R, npos) array with a keep flag (zeroed by the caller), which the
-// caller compacts. With `full_key` (DNA128 only) the masked high word
-// maskfn(hi, xormask2_hi) too (the raw hi with a zero seed); the
-// downsample test and the filterset probe read the masked low word, as
-// in the JAX function. Its plain versions are ops/oph_rows.py
-// `hash_chunk_batch` and `hash_chunk_batch128`.
+// block writes its segment's surviving tokens, in position order, to a
+// range of a token slab that it reserves with one atomicAdd, with the
+// segment's count and the range's start; a third entry, `hash_place`,
+// moves each segment's tokens to its offset in the output (an
+// exclusive scan of the counts, which the caller takes). With
+// `full_key` (DNA128 only) the masked high word maskfn(hi, xormask2_hi)
+// too (the raw hi with a zero seed); the downsample test and the
+// filterset probe read the masked low word, as in the JAX function. Its
+// plain versions are ops/oph_rows.py `hash_chunk_batch` and
+// `hash_chunk_batch128`.
 //
 // Input: R rows of W alphabet codes (INVALID = 0xFF), each a chunk of
 // one item (row_item[r], or -1 to skip the row); the job's encoding and
@@ -38,9 +41,13 @@
 //   * with nwin = w - k + 1 > 1, the minimizer rule of `minimizer_mask`:
 //     q is kept iff it is valid, some live window (all nwin positions
 //     valid, inside [0, npos)) containing q has q's score as its
-//     minimum, and no position in the nwin - 1 before q (the u64 max
-//     before the row) has an equal score; invalid positions score the
-//     u64 max;
+//     minimum, and no position in the h = nwin - 1 before q (the u64
+//     max before the row) has an equal score; invalid positions score
+//     the u64 max. Restated as the kernel computes it: q is kept iff it
+//     is the leftmost argmin of some live window and no position in
+//     [q - h, q - 1] has an equal score (a window containing q whose
+//     minimum equals q's score, with no equal score before q in it, has
+//     q as its leftmost argmin; and conversely);
 //   * owned positions only ([own_lo, own_hi): chunk halos), maskfn, the
 //     downsample test, the filterset probe, id = wanghash(h ^ oph_xor).
 //
@@ -48,17 +55,27 @@
 // codes are 1 byte a position, the registers 8 bytes each), so the
 // design spends as few of them as it can on each position:
 //   * A block of 128 threads takes one segment of a row: `seg` owned
-//     positions (with minimizers also the nwin - 1 scored on each side).
-//     It stages the segment's codes in shared memory with aligned
-//     16-byte loads, so no device byte is read twice, and finds the
-//     first and last code that is not INVALID (a warp reduction and one
-//     barrier); a block with none leaves there.
+//     positions (with minimizers also the h scored on each side). It
+//     stages the segment's codes in shared memory with aligned 16-byte
+//     loads, so no device byte is read twice, and finds the first and
+//     last code that is not INVALID (a warp reduction and one barrier);
+//     a block with none leaves there.
 //   * Only the positions whose windows lie between those two codes are
 //     rolled: chunk padding past a record's end costs nothing more. They
-//     are cut into runs of at most about `run` positions (4 times an
-//     odd number, so the 32 lanes of a warp, a run apart, read 32
-//     distinct banks), one a thread, as few warps as hold them and each
-//     of those warps full; the other warps skip the rolling.
+//     are cut into runs (4 times an odd number of positions, so the 32
+//     lanes of a warp, a run apart, read 32 distinct banks), one a
+//     thread. Where the keys go straight to the rings (below), runs of at
+//     most about `run` over as few warps as hold them, each of those
+//     warps full; the other warps skip the rolling. Where the scores are
+//     staged, over all 128 threads: a segment is 128 runs of `run` less
+//     the halos, `run` the longest (up to 4 span) for which four blocks
+//     share an SM (else two, else one: ops/oph_rows.py `geometry`), so
+//     that the SM keeps enough warps to hide the rolling's shared loads
+//     while the span - 1 bases a run pushes before its first code stay
+//     a fair share of its pushes; a segment cut short by a record's end
+//     keeps every warp rolling on shorter runs. The loops of the roll
+//     and of the window stage are unrolled by 4, so that a thread's
+//     shared loads of several steps are in flight at once.
 //   * A thread builds its run's first window from its bases, then rolls
 //     one base a step: 2-bit DNA v = ((v << 2) | c) & mask and the
 //     reverse complement rc = (rc >> 2) | ((3 - c) << 2(k - 1)) (on
@@ -75,14 +92,34 @@
 //     bits leave the window before the count reaches k again). Spaced
 //     seeds build each valid code from their offsets in shared memory;
 //     only their validity is rolled.
-//   * The valid positions' keys go into a ring of 64 in shared memory a
-//     warp (ballot + popc); whenever 32 are waiting, the 32 lanes hash
-//     one each, so the hash chains run on full warps however ragged the
-//     valid positions are.
-//   * With minimizers the runs write their scores (and validity) to
-//     shared memory instead; the windows' minima and liveness and the
-//     selection rule follow as in `minimizer_mask`, and the selected
-//     keys go through the same rings.
+//   * oph_rows without minimizers: the valid positions' keys go into a
+//     ring of 64 in shared memory a warp (ballot + popc); whenever 32
+//     are waiting, the 32 lanes hash one each, so the hash chains run
+//     on full warps however ragged the valid positions are.
+//   * Otherwise (minimizers, and every hash_rows job) the runs stage
+//     each position's score (the u64 max where invalid), its validity
+//     and, for the 128-bit code, its key's low word in shared memory
+//     (a full key's high word is ((score ^ lo) << 1) | its low bit,
+//     which the validity byte keeps). With minimizers, the window
+//     stage (van Herk / Gil-Werman): the windows' slots are cut into
+//     chunks of nwin, and a thread a chunk walks it backwards for the
+//     suffix minima (the leftmost argmin, and whether the suffix is all
+//     valid, kept as a 16-bit slot index), then the next chunk forwards
+//     for the prefix minimum; window j = [j, j + h] is the suffix of
+//     j's chunk and a prefix of the next, so its leftmost argmin and
+//     its liveness follow from one compare, about three u64 steps a
+//     position. The argmin of each live window is flagged where it is
+//     owned (neighbouring windows flag the same position; equal writes).
+//   * The flagged candidates (with minimizers, about 2 / (nwin + 1) of
+//     the positions; without, the valid ones) are listed in position
+//     order by a block scan, and the list is taken 128 at a time, one a
+//     thread, so the h-wide tie test and the masks run on full warps:
+//     oph_rows pushes the survivors into the rings; hash_rows flags
+//     them, counts them by a second block scan over the list, reserves
+//     their range of the slab and writes them in order. A segment's
+//     range that would pass the slab's capacity is not written (its
+//     count is): the caller sees the cursor past the capacity and runs
+//     the batch again with room for it.
 //   * The bucket-min, for m up to ops/oph_rows.py's SMEM_BUCKETS_MAX_M
 //     (`smem_buckets`): a block-level bucket-min in shared memory (a u64
 //     atomicMin there is a compare-and-swap loop on sm_90), flushed by
@@ -106,6 +143,8 @@ constexpr uint8_t INVALID = 0xFF;
 constexpr uint64_t U64MAX = ~0ULL;
 constexpr int MAX_SYMBOLS = 32;
 constexpr int MAX_OFFSETS = 256;
+constexpr int MAX_SLOTS = 1 << 15;     // staged slots a 16-bit index holds
+constexpr uint16_t MARK = 0x8000;      // a 16-bit slot index's flag bit
 enum Mode { MODE_DNA = 0, MODE_BASEB = 1, MODE_SPACED = 2, MODE_ROLL = 3,
             MODE_DNA128 = 4 };
 // what a block does with its surviving positions: bucket-min them into
@@ -129,11 +168,18 @@ struct Params {
 
 namespace {
 
+// Whether a block stages its positions' scores (minimizers, and every
+// hash_rows job: m = 0) or pushes its keys straight into the rings.
+__host__ __device__ inline bool staged(const Params& p) {
+    return p.nwin > 1 || p.m == 0;
+}
+
 // Shared-memory layout of a block, in bytes (ops/oph_rows.py
 // `smem_bytes` computes the same total).
 struct Layout {
-    int64_t ring, table, ext, buckets, sc, ky, kh, wm, stage, va, wl, total;
-    int64_t E, NW, nstage;
+    int64_t ring, table, ext, scan, buckets, sc, ky, ix, stage, va, cf,
+        total;
+    int64_t E, nstage;
 };
 
 __host__ __device__ inline int64_t align16(int64_t x) {
@@ -142,23 +188,23 @@ __host__ __device__ inline int64_t align16(int64_t x) {
 
 __host__ __device__ inline Layout layout(const Params& p) {
     Layout L;
+    const bool st = staged(p);
     const int64_t h = p.nwin > 1 ? p.nwin - 1 : 0;
-    L.E = p.nwin > 1 ? p.seg + 2 * h : 0;       // scored positions
-    L.NW = p.nwin > 1 ? p.seg + h : 0;          // windows
-    L.nstage = align16((p.nwin > 1 ? L.E : p.seg) + p.span - 1 + 32);
+    L.E = st ? p.seg + 2 * h : 0;               // staged slots
+    L.nstage = align16((st ? L.E : p.seg) + p.span - 1 + 32);
     int64_t at = 0;
     L.ring = at;    at += 8 * (int64_t)WARPS * RING;
     L.table = at;   at += 8 * MAX_SYMBOLS;
     L.ext = at;     at += 8 * WARPS;
+    L.scan = at;    at += 16;
     L.buckets = at; at += p.smem_buckets ? 8 * p.m : 0;
     L.sc = at;      at += 8 * L.E;
-    L.ky = at;      at += 8 * L.E;
-    L.kh = at;      at += p.full_key ? 8 * L.E : 0;
-    L.wm = at;      at += 8 * L.NW;
+    L.ky = at;      at += p.mode == MODE_DNA128 ? 8 * L.E : 0;
+    L.ix = at;      at += 2 * L.E;
     at = align16(at);
     L.stage = at;   at += L.nstage;
     L.va = at;      at += L.E;
-    L.wl = at;      at += L.NW;
+    L.cf = at;      at += p.nwin > 1 ? L.E : 0;
     L.total = align16(at);
     return L;
 }
@@ -186,14 +232,19 @@ __device__ __forceinline__ uint64_t rotl(uint64_t x, int s) {
         | __funnelshift_l(hi, lo, s);
 }
 
-// The outputs of a launch: registers (and counts) for oph_rows, the
-// dense tokens (and high words) and keep flags for hash_rows.
+// The outputs of a launch: registers (and counts) for oph_rows; for
+// hash_rows the token slab (and high words) of `cap` tokens, the
+// cursor its ranges are reserved from, and each block's count and
+// range start.
 struct Outs {
     unsigned long long* regs;
     unsigned int* counts;
     uint64_t* tok;
     uint64_t* tok_hi;
-    uint8_t* keep;
+    long long* seg_count;
+    long long* seg_start;
+    unsigned long long* cursor;
+    long long cap;
 };
 
 // What one block shares between its stages.
@@ -206,8 +257,6 @@ struct Ctx {
     uint64_t* ring;                     // this warp's ring
     int64_t reg0;                       // item * m
     bool count_pass;
-    Outs o;                             // hash_rows' outputs
-    int64_t pos0;                       // row * npos
 };
 
 // The masked token of a key, or false where the downsample test or the
@@ -228,23 +277,6 @@ __device__ __forceinline__ bool masked(const Ctx& cx, uint64_t key,
         if (lo < p.fs_len && cx.fs[lo] == h) return false;
     }
     return true;
-}
-
-// hash_rows: a surviving position's token (and masked high word) at its
-// place q in the row.
-template <int OUT>
-__device__ __forceinline__ void emit(const Ctx& cx, bool valid,
-                                     uint64_t key, uint64_t khi,
-                                     int64_t q) {
-    uint64_t h;
-    if (!valid || !masked(cx, key, &h)) return;
-    const Params& p = *cx.p;
-    const int64_t at = cx.pos0 + q;
-    cx.o.tok[at] = h;
-    if constexpr (OUT == OUT_STREAM128)
-        cx.o.tok_hi[at] = p.seed_is_zero ? khi
-                                         : wanghash(khi ^ p.xormask2_hi);
-    cx.o.keep[at] = 1;
 }
 
 // One position's key through the masks to its bucket.
@@ -297,6 +329,42 @@ struct Ring {
         head = tail;
     }
 };
+
+// The exclusive prefix of c over the block's threads in order, and in
+// *total their sum; every thread calls it (two barriers; `wsum` holds
+// WARPS ints).
+__device__ __forceinline__ int block_scan(int c, int* wsum, int* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int x = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+        if (lane >= d) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    int before = 0, all = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        const int s = wsum[w];
+        before += w < warp ? s : 0;
+        all += s;
+    }
+    __syncthreads();
+    *total = all;
+    return before + x - c;
+}
+
+// A thread's share [*i0, *i1) of n items cut into THREADS contiguous
+// pieces, each 4 x odd long (lanes a piece apart read distinct banks of
+// a byte array).
+__device__ __forceinline__ void piece(int n, int* i0, int* i1) {
+    int per = (n + THREADS - 1) / THREADS;
+    per = (per + 3) & ~3;
+    if (((per >> 2) & 1) == 0) per += 4;
+    *i0 = min((int)threadIdx.x * per, n);
+    *i1 = min(*i0 + per, n);
+}
 
 // The rolling state of one run: the codes of the window that ends at
 // the last pushed base, and `len`, the valid bases since the last
@@ -404,19 +472,27 @@ oph_rows_kernel(const __grid_constant__ Params p,
                 const uint8_t* __restrict__ codes,
                 const int32_t* __restrict__ row_item,
                 const uint64_t* __restrict__ fs, Outs o, int count_pass) {
+    constexpr bool STREAM = OUT != OUT_BUCKETS;
     extern __shared__ __align__(16) unsigned char smem[];
     unsigned long long* __restrict__ regs = o.regs;
     const int64_t r = blockIdx.x / p.nseg;
     const int64_t s = blockIdx.x % p.nseg;
-    const int32_t item = row_item ? row_item[r] : 0;
-    if (item < 0) return;                       // the whole block
-    const Layout Ly = layout(p);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int32_t item = row_item ? row_item[r] : 0;
+    if (item < 0) {                             // the whole block
+        if (STREAM && tid == 0) {
+            o.seg_count[blockIdx.x] = 0;
+            o.seg_start[blockIdx.x] = 0;
+        }
+        return;
+    }
+    const Layout Ly = layout(p);
     const int64_t lo = p.own_lo > 0 ? p.own_lo : 0;
     const int64_t hi = p.own_hi < p.npos ? p.own_hi : p.npos;
     const int64_t p0 = lo + s * p.seg;
     const int64_t p1 = p0 + p.seg < hi ? p0 + p.seg : hi;
     const bool mini = p.nwin > 1;
+    const bool st = STREAM || mini;             // staged(p)
     const int h = mini ? p.nwin - 1 : 0;
     // rolled positions [e0, e1): the owned ones, with minimizers also h
     // on each side (inside [0, npos)); below, positions are counted
@@ -434,19 +510,17 @@ oph_rows_kernel(const __grid_constant__ Params p,
     cx.counts = o.counts;
     cx.reg0 = (int64_t)item * p.m;
     cx.count_pass = count_pass != 0;
-    cx.o = o;
-    cx.pos0 = r * p.npos;
     cx.ring = reinterpret_cast<uint64_t*>(smem + Ly.ring) + warp * RING;
     cx.sbk = p.smem_buckets && !count_pass
         ? reinterpret_cast<unsigned long long*>(smem + Ly.buckets)
         : nullptr;
     uint64_t* T = reinterpret_cast<uint64_t*>(smem + Ly.table);
+    int* scan = reinterpret_cast<int*>(smem + Ly.scan);
     uint64_t* sc = reinterpret_cast<uint64_t*>(smem + Ly.sc);
     uint64_t* ky = reinterpret_cast<uint64_t*>(smem + Ly.ky);
-    uint64_t* kh = reinterpret_cast<uint64_t*>(smem + Ly.kh);
-    uint64_t* wm = reinterpret_cast<uint64_t*>(smem + Ly.wm);
+    uint16_t* ix = reinterpret_cast<uint16_t*>(smem + Ly.ix);
     uint8_t* va = smem + Ly.va;
-    uint8_t* wl = smem + Ly.wl;
+    uint8_t* cf = smem + Ly.cf;
 
     // stage the bases with aligned 16-byte loads: stage[a + j] = base
     // e0 + j, a = the misalignment of row + e0
@@ -480,12 +554,6 @@ oph_rows_kernel(const __grid_constant__ Params p,
     if (MODE == MODE_ROLL && tid < MAX_SYMBOLS) T[tid] = p.roll[tid];
     if (cx.sbk)
         for (int64_t b = tid; b < p.m; b += THREADS) cx.sbk[b] = U64MAX;
-    if (mini) {
-        for (int64_t e = tid; e < Ly.E; e += THREADS) {
-            sc[e] = U64MAX;
-            va[e] = 0;
-        }
-    }
     int* ext = reinterpret_cast<int*>(smem + Ly.ext);
     first = __reduce_min_sync(0xFFFFFFFFu, first);
     last = __reduce_max_sync(0xFFFFFFFFu, last);
@@ -502,12 +570,32 @@ oph_rows_kernel(const __grid_constant__ Params p,
     // codes: every other one is invalid
     const int ulo = first - a;
     const int uhi = min(last - a - p.span + 2, ne);
-    if (uhi <= ulo) return;                     // no window: nothing
+    if (uhi <= ulo) {                           // no window: nothing
+        if (STREAM && tid == 0) {
+            o.seg_count[blockIdx.x] = 0;
+            o.seg_start[blockIdx.x] = 0;
+        }
+        return;
+    }
+    const int ds = (int)(e0 - qs);              // score slot of e0
+    if (st) {
+        // the slots that are not rolled: invalid, scored the u64 max
+        const int r0 = ds + ulo, r1 = ds + uhi;
+        for (int e = tid; e < Ly.E; e += THREADS) {
+            if (e < r0 || e >= r1) {
+                sc[e] = U64MAX;
+                va[e] = 0;
+            }
+            if (mini) cf[e] = 0;
+        }
+    }
 
     // this thread's run of positions [u0, u0 + un): the range cut into
-    // runs of at most about p.run that fill whole warps
+    // runs that fill whole warps, of at most about p.run where the
+    // codes go straight to the rings, and over every warp where they
+    // are staged (so that all of them roll: a run is then at most p.run)
     const int nx = uhi - ulo;
-    const int nwu = (nx + 32 * p.run - 1) / (32 * p.run);
+    const int nwu = st ? WARPS : (nx + 32 * p.run - 1) / (32 * p.run);
     int run = (nx + 32 * nwu - 1) / (32 * nwu);
     run = (run + 3) & ~3;
     if (((run >> 2) & 1) == 0) run += 4;        // 4 x odd
@@ -523,78 +611,176 @@ oph_rows_kernel(const __grid_constant__ Params p,
             for (int j = 0; j < p.span - 1; ++j)
                 ro.push(stage, T, qi0 + j, true);
         const int sm1 = p.span - 1;
-        const int ds = (int)(e0 - qs);          // score slot of e0
+#pragma unroll 4
         for (int t = 0; t < run; ++t) {
             const bool in = t < un;
             ro.push(stage, T, qi0 + t + sm1, in);
             const bool valid = in && ro.len >= p.span;
             uint64_t score = U64MAX, key = 0, khi = 0;
             if (valid) ro.code(p, stage, qi0 + t, &score, &key, &khi);
-            if (mini) {
+            if (st) {
                 if (in) {
                     const int e = ds + u0 + t;
                     sc[e] = score;
-                    va[e] = valid;
+                    va[e] = (uint8_t)(valid
+                        | (OUT == OUT_STREAM128 ? (khi & 1) << 1 : 0));
                     if (MODE == MODE_DNA128) ky[e] = key;
-                    if (OUT == OUT_STREAM128) kh[e] = khi;
                 }
             } else if constexpr (OUT == OUT_BUCKETS) {
                 ring.push(cx, valid, key);
-            } else {
-                emit<OUT>(cx, valid, key, khi, e0 + u0 + t);
             }
         }
     }
-    if (mini) {
+    if (st) {
         __syncthreads();
-        const int64_t nw = p.npos - p.nwin + 1;
-        const int nwt = (int)(p1 - p0) + h;
-        for (int e = tid; e < nwt; e += THREADS) {
-            const int64_t j = qs + e;   // window j covers [j, j + h]
-            uint64_t mn = U64MAX;
-            bool wlive = j >= 0 && j < nw;
-            for (int d = 0; d <= h; ++d) {
-                const uint64_t v = sc[e + d];
-                mn = v < mn ? v : mn;
-                wlive = wlive && va[e + d];
-            }
-            wm[e] = mn;
-            wl[e] = wlive;
-        }
-        __syncthreads();
-        for (int base = 0; base < p1 - p0; base += THREADS) {
-            const int i = base + tid;           // position p0 + i
-            bool sel = false;
-            uint64_t key = 0, khi = 0;
-            if (i < p1 - p0) {
-                const int e = i + h;            // its score slot
-                if (va[e]) {
-                    const uint64_t v = sc[e];
-                    bool dup = false;
-                    for (int d = 1; d <= h; ++d) dup = dup || sc[e - d] == v;
-                    bool hit = false;
-                    for (int d = 0; d <= h; ++d)   // windows p0 + i - h ..
-                        hit = hit || (wl[i + d] && wm[i + d] == v);
-                    sel = hit && !dup;
-                    key = MODE == MODE_DNA128 ? ky[e] : v;
-                    if (OUT == OUT_STREAM128) khi = kh[e];
+        const int no = (int)(p1 - p0);          // owned: slots [h, h + no)
+        if (mini) {
+            // van Herk / Gil-Werman over chunks of nwin slots: window j
+            // (slots [j, j + h]) is the suffix of its chunk from j and
+            // the next chunk's prefix up to j + h
+            const int N = p.nwin;
+            const int nwt = no + h;             // windows: slots [0, nwt)
+            const int nch = (nwt + N - 1) / N;
+            for (int c = tid; c < nch; c += THREADS) {
+                const int b = c * N;
+                uint64_t best = U64MAX;
+                int bi = b + h;
+                bool ok = true;
+#pragma unroll 4
+                for (int i = b + h; i >= b; --i) {  // suffix minima
+                    const uint64_t v = sc[i];
+                    if (v <= best) {            // ties: the leftmost
+                        best = v;
+                        bi = i;
+                    }
+                    ok = ok && (va[i] & 1);
+                    ix[i] = (uint16_t)(bi | (ok ? MARK : 0));
+                }
+                uint64_t pb = U64MAX;           // the prefix so far
+                int pi = 0;
+                bool pok = true;
+                const int jn = min(N, nwt - b);
+#pragma unroll 4
+                for (int t = 0; t < jn; ++t) {
+                    if (t > 0) {
+                        const int i = b + h + t;
+                        const uint64_t v = sc[i];
+                        if (v < pb) {
+                            pb = v;
+                            pi = i;
+                        }
+                        pok = pok && (va[i] & 1);
+                    }
+                    const unsigned x = ix[b + t];
+                    if ((x & MARK) && pok) {        // a live window
+                        const int si = x & (MARK - 1);
+                        const int q = sc[si] <= pb ? si : pi;
+                        if (q >= h && q < h + no) cf[q] = 1;
+                    }
                 }
             }
-            if constexpr (OUT == OUT_BUCKETS)
+            __syncthreads();
+        }
+        // the candidates (flagged, or every valid owned slot without
+        // minimizers) listed in position order
+        int i0, i1, ncand;
+        piece(no, &i0, &i1);
+        const uint8_t* flag = mini ? cf : va;
+        int c = 0;
+        for (int i = i0; i < i1; ++i) c += flag[h + i] & 1;
+        int at = block_scan(c, scan, &ncand);
+        for (int i = i0; i < i1; ++i)
+            if (flag[h + i] & 1) ix[at++] = (uint16_t)(h + i);
+        __syncthreads();
+        // the tie test and the masks, a candidate a thread (full warps)
+        for (int base = 0; base < ncand; base += THREADS) {
+            const int i = base + tid;
+            bool sel = false;
+            uint64_t key = 0;
+            if (i < ncand) {
+                const int q = ix[i];
+                const uint64_t v = sc[q];
+                bool dup = false;
+                for (int d = 1; d <= h; ++d) dup |= sc[q - d] == v;
+                sel = !dup;
+                key = MODE == MODE_DNA128 ? ky[q] : v;
+            }
+            if constexpr (OUT == OUT_BUCKETS) {
                 ring.push(cx, sel, key);
-            else
-                emit<OUT>(cx, sel, key, khi, p0 + i);
+            } else if (i < ncand) {
+                uint64_t hh;
+                if (sel && masked(cx, key, &hh)) ix[i] |= MARK;
+            }
+        }
+        if constexpr (STREAM) {
+            // the survivors: counted, their range of the slab reserved,
+            // written in order
+            __syncthreads();
+            int nk;
+            piece(ncand, &i0, &i1);
+            c = 0;
+            for (int i = i0; i < i1; ++i) c += ix[i] >> 15;
+            at = block_scan(c, scan, &nk);
+            if (tid == 0) {
+                const unsigned long long s0 =
+                    nk ? atomicAdd(o.cursor, (unsigned long long)nk) : 0;
+                o.seg_count[blockIdx.x] = nk;
+                o.seg_start[blockIdx.x] = (long long)s0;
+                reinterpret_cast<unsigned long long*>(scan)[1] = s0;
+            }
+            __syncthreads();
+            const long long s0 =
+                (long long)reinterpret_cast<unsigned long long*>(scan)[1];
+            if (c == 0 || s0 + nk > o.cap) return;
+            for (int i = i0; i < i1; ++i) {
+                const unsigned x = ix[i];
+                if (!(x & MARK)) continue;
+                const int q = x & (MARK - 1);
+                const uint64_t key = MODE == MODE_DNA128 ? ky[q] : sc[q];
+                const long long w = s0 + at++;
+                o.tok[w] = p.seed_is_zero ? key : wanghash(key ^ p.xormask);
+                if constexpr (OUT == OUT_STREAM128) {
+                    const uint64_t khi = ((sc[q] ^ key) << 1)
+                        | ((va[q] >> 1) & 1);
+                    o.tok_hi[w] = p.seed_is_zero
+                        ? khi : wanghash(khi ^ p.xormask2_hi);
+                }
+            }
+            return;
         }
     }
-    if constexpr (OUT != OUT_BUCKETS) return;
-    ring.drain(cx);
-    if (cx.sbk) {
-        __syncthreads();
-        for (int64_t b = tid; b < p.m; b += THREADS) {
-            const unsigned long long v = cx.sbk[b];
-            if (v != U64MAX && v < __ldcg(regs + cx.reg0 + b))
-                atomicMin(regs + cx.reg0 + b, v);
+    if constexpr (OUT == OUT_BUCKETS) {
+        ring.drain(cx);
+        if (cx.sbk) {
+            __syncthreads();
+            for (int64_t b = tid; b < p.m; b += THREADS) {
+                const unsigned long long v = cx.sbk[b];
+                if (v != U64MAX && v < __ldcg(regs + cx.reg0 + b))
+                    atomicMin(regs + cx.reg0 + b, v);
+            }
         }
+    }
+}
+
+// hash_rows' placement: a warp a segment copies its count of tokens
+// (and high words) from its range of the slab to its offset in the
+// output; a segment whose range or place would pass `cap` is skipped
+// (the batch overflowed the slab and runs again).
+__global__ void __launch_bounds__(THREADS)
+place_kernel(int64_t nblk, const long long* __restrict__ seg_count,
+             const long long* __restrict__ seg_start,
+             const long long* __restrict__ offsets,
+             const uint64_t* __restrict__ tok,
+             const uint64_t* __restrict__ tok_hi, long long cap,
+             uint64_t* __restrict__ out, uint64_t* __restrict__ out_hi) {
+    const int64_t sgm = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
+    if (sgm >= nblk) return;
+    const long long n = seg_count[sgm], a = seg_start[sgm],
+        at = offsets[sgm];
+    if (n == 0 || a + n > cap || at + n > cap) return;
+    for (long long i = threadIdx.x & 31; i < n; i += 32) {
+        out[at + i] = tok[a + i];
+        if (tok_hi) out_hi[at + i] = tok_hi[a + i];
     }
 }
 
@@ -628,9 +814,11 @@ bool prepare(Params& p, int* err) {
     const int64_t hi = p.own_hi < p.npos ? p.own_hi : p.npos;
     if (p.R <= 0 || hi <= lo) return false;
     const int64_t h = p.nwin > 1 ? p.nwin - 1 : 0;
-    // every rolled position needs a thread's run
+    // every rolled position needs a thread's run, every staged slot a
+    // 16-bit index
     if (p.seg <= 0 || p.run <= 0 || p.run % 4
             || (int64_t)THREADS * p.run < p.seg + 2 * h
+            || (staged(p) && p.seg + 2 * h >= MAX_SLOTS)
             || p.mode < MODE_DNA || p.mode > MODE_DNA128) {
         *err = (int)cudaErrorInvalidValue;
         return false;
@@ -683,30 +871,58 @@ int oph_rows(const Params* host_params, const uint8_t* codes,
              cudaStream_t stream) {
     Params p = *host_params;
     p.full_key = 0;
+    if (p.m <= 0) return (int)cudaErrorInvalidValue;
     int err;
     if (!prepare(p, &err)) return err;
-    const Outs o{regs, counts, nullptr, nullptr, nullptr};
+    const Outs o{regs, counts, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 0};
     return (int)dispatch<OUT_BUCKETS>(p, codes, row_item, fs, o, stream);
 }
 
-// The masked tokens of R rows' surviving positions: tok[r * npos + q]
-// (and with p.full_key, DNA128 only, tok_hi[...]) where keep[r * npos
-// + q] = 1; keep must be zeroed by the caller, tok and tok_hi are
-// written only there. row_item may be null (every row kept). One
-// launch; returns its CUDA error (0 = none).
+// The masked tokens of R rows' surviving positions (p.m = 0): block
+// b = r * nseg + s (segment s of row r) writes seg_count[b] tokens, in
+// position order, to tok[seg_start[b] ...] (and with p.full_key, DNA128
+// only, tok_hi[...]), a range it reserves from *cursor (zeroed here);
+// where the range would pass `cap` it writes only the count and the
+// start, and *cursor ends past cap. row_item may be null (every row
+// kept). One launch; returns its CUDA error (0 = none).
 int hash_rows(const Params* host_params, const uint8_t* codes,
               const int32_t* row_item, const uint64_t* fs, uint64_t* tok,
-              uint64_t* tok_hi, uint8_t* keep, cudaStream_t stream) {
+              uint64_t* tok_hi, long long cap, long long* seg_count,
+              long long* seg_start, unsigned long long* cursor,
+              cudaStream_t stream) {
     Params p = *host_params;
     p.smem_buckets = 0;
-    if (p.full_key && (p.mode != MODE_DNA128 || tok_hi == nullptr))
+    if (p.m != 0 || cap < 0
+            || (p.full_key && (p.mode != MODE_DNA128 || tok_hi == nullptr)))
         return (int)cudaErrorInvalidValue;
     int err;
     if (!prepare(p, &err)) return err;
-    const Outs o{nullptr, nullptr, tok, tok_hi, keep};
+    cudaError_t e = cudaMemsetAsync(cursor, 0, sizeof(*cursor), stream);
+    if (e != cudaSuccess) return (int)e;
+    const Outs o{nullptr, nullptr, tok, p.full_key ? tok_hi : nullptr,
+                 seg_count, seg_start, cursor, cap};
     return (int)(p.full_key
         ? dispatch<OUT_STREAM128>(p, codes, row_item, fs, o, stream)
         : dispatch<OUT_STREAM>(p, codes, row_item, fs, o, stream));
+}
+
+// hash_rows' placement: out[offsets[b] + i] = tok[seg_start[b] + i] for
+// i < seg_count[b], each of the nblk segments (and tok_hi into out_hi
+// where tok_hi is not null); offsets is the exclusive scan of
+// seg_count. One launch; returns its CUDA error (0 = none).
+int hash_place(long long nblk, const long long* seg_count,
+               const long long* seg_start, const long long* offsets,
+               const uint64_t* tok, const uint64_t* tok_hi, long long cap,
+               uint64_t* out, uint64_t* out_hi, cudaStream_t stream) {
+    if (nblk <= 0) return 0;
+    if ((tok_hi == nullptr) != (out_hi == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const long long blocks = (nblk + WARPS - 1) / WARPS;
+    if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+    place_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
+        nblk, seg_count, seg_start, offsets, tok, tok_hi, cap, out, out_hi);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

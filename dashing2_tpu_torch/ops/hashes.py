@@ -15,6 +15,8 @@ dashing2_tpu_torch.hashing and the JAX package).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import hashing as H
@@ -61,8 +63,11 @@ def maskfn(x: torch.Tensor, xormask: int = H.XORMASK) -> torch.Tensor:
     return wanghash(x ^ s64(xormask))
 
 
+@functools.lru_cache(maxsize=None)
 def oph_xor(seed: int = H.OPH_DEFAULT_SEED) -> int:
-    """The u64 the OPH bucket hash xors in before its WangHash."""
+    """The u64 the OPH bucket hash xors in before its WangHash (cached:
+    the Mersenne Twister's first draw costs about 0.1 ms in Python, once
+    a seed rather than once a kernel launch)."""
     return H.mt19937_64_first(seed) ^ H.CEIXOR_OPH
 
 

@@ -345,12 +345,16 @@ def minimizer_mask(scores: torch.Tensor, valid: torch.Tensor, k: int,
     only where all its positions are valid; position i is selected iff
     it is valid, some live window containing i has its score as minimum,
     and no position in the nwin - 1 before i (the u64 max before the
-    start) has an equal score."""
+    start) has an equal score. Rows of fewer than nwin positions hold no
+    window and select nothing (the JAX function selects nothing there
+    too, or raises where its log-step shifts pass the row's end)."""
     nwin = w - k + 1
     if nwin <= 1:
         return valid
     s = torch.where(valid, scores ^ FLIP, SMAX)
     n = s.shape[-1]
+    if n < nwin:
+        return torch.zeros_like(valid)
     wmin = window_min(s, nwin)
     wlive = window_min(valid.to(torch.int64), nwin) > 0
     hit = torch.zeros_like(valid)

@@ -42,7 +42,13 @@ the stages above up to the masks, then each row's surviving positions'
 masked tokens (with `--long-kmers`, full 128-bit keys: the masked high
 word too) in position order, with the row's count of them. Its plain
 versions are `hash_chunk_batch` and `hash_chunk_batch128`, compacted by
-a torch mask.
+a torch mask. On the card the kernel compacts them itself: a block a
+row segment writes its segment's tokens in order to a range of a slab
+it reserves, with the segment's count; a second entry moves each
+segment's tokens to its offset, the exclusive scan of the counts.
+`window_select_plain` and `compact_plain` are the plain models of the
+kernel's window stage and of that compaction, which the CPU tests hold
+to `kmers.minimizer_mask`, the JAX package's and `hash_rows_plain`.
 """
 
 from __future__ import annotations
@@ -72,13 +78,20 @@ MAX_OFFSETS = 256            # spaced-seed offsets the kernel's Params hold
 MAX_SYMBOLS = 32             # rolling-table entries the kernel's Params hold
 THREADS = 128                # threads a block, csrc/oph_rows.cu
 RING = 64                    # keys a warp's ring holds, csrc/oph_rows.cu
-SMEM_LIMIT = 232448          # dynamic shared memory a block may use
+SMEM_SM = 233472             # shared memory of an SM (1 KB a block reserved)
+SMEM_LIMIT = SMEM_SM - 1024  # dynamic shared memory a block may use
+# blocks an SM that a staged block's geometry tries to leave room for,
+# in order (experiments/torch_kernel_turns.py `hash_rows`)
+SHARES = (8, 4, 2, 1)
+MAX_SLOTS = 1 << 15          # staged slots a 16-bit index holds
 # m up to which the bucket-min runs in a block's shared memory (both
 # forms timed on the H100 by experiments/oph_rows_turns.py)
 SMEM_BUCKETS_MAX_M = 8192
 
 launches = LaunchCount()
-hash_launches = LaunchCount()   # hash_rows
+# hash_rows: two launches a call, the tokens (C entry `hash_rows`) and
+# their placement (`hash_place`); two more where the slab overflowed
+hash_launches = LaunchCount()
 
 
 def encoding(hkw: dict):
@@ -338,6 +351,132 @@ def rolled_codes_plain(codes: torch.Tensor, hkw: dict, run: int,
     return score, key, valid
 
 
+def _u64_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ~DH.u64_lt(b, a)
+
+
+def window_select_plain(score: torch.Tensor, valid: torch.Tensor,
+                        nwin: int, seg: int, own_lo: int, own_hi: int
+                        ) -> torch.Tensor:
+    """Plain model of csrc/oph_rows.cu's window stage, for the tests:
+    score (R, npos) int64 u64 bits and valid bool -> bool (R, npos), the
+    owned positions ([own_lo, own_hi)) that the minimizer rule keeps
+    (before downsampling and the filterset), computed as the kernel's
+    blocks compute them. The owned positions are cut into segments of
+    `seg`; a segment scores its positions with h = nwin - 1 more on each
+    side (the u64 max and invalid outside the row). Its windows' slots
+    are cut into chunks of nwin: backwards over a chunk, each slot's
+    suffix minimum with its leftmost argmin and whether the suffix is
+    all valid; forwards over the next chunk, the prefix minimum; window
+    j (slots [j, j + h]) is live where both parts are all valid, and its
+    leftmost argmin is the suffix's where the suffix's minimum is at
+    most the prefix's. Each live window's argmin is a candidate where it
+    is owned, and only the candidates take the tie test: kept where no
+    score in the h slots before it is equal. Without minimizers the
+    valid owned positions."""
+    R, npos = score.shape
+    dev = score.device
+    lo, hi = max(own_lo, 0), min(own_hi, npos)
+    keep = torch.zeros((R, npos), dtype=torch.bool, device=dev)
+    if hi <= lo:
+        return keep
+    if nwin <= 1:
+        keep[:, lo:hi] = valid[:, lo:hi]
+        return keep
+    N, h = nwin, nwin - 1
+    s_all = torch.where(valid, score, -1)
+    rows = torch.arange(R, device=dev)[:, None]
+    for p0 in range(lo, hi, seg):
+        p1 = min(p0 + seg, hi)
+        no = p1 - p0
+        nwt = no + h                        # windows: slots [0, nwt)
+        nch = -(-nwt // N)
+        E = (nch + 1) * N
+        pos = p0 - h + torch.arange(E, device=dev)
+        inside = (pos >= 0) & (pos < min(npos, p1 + h))
+        at = pos.clamp(0, npos - 1)
+        sc = torch.where(inside[None], s_all[:, at], -1)
+        va = inside[None] & valid[:, at]
+        cur, cva = sc[:, :nch * N].view(R, nch, N), va[:, :nch * N].view(
+            R, nch, N)
+        nxt, nva = sc[:, N:].view(R, nch, N), va[:, N:].view(R, nch, N)
+        start = torch.arange(nch, device=dev)[None, :] * N
+        shape = (R, nch)
+        best = torch.full(shape, -1, dtype=torch.int64, device=dev)
+        bi = torch.full(shape, N - 1, dtype=torch.int64, device=dev)
+        ok = torch.ones(shape, dtype=torch.bool, device=dev)
+        s_idx = torch.empty((R, nch, N), dtype=torch.int64, device=dev)
+        s_ok = torch.empty((R, nch, N), dtype=torch.bool, device=dev)
+        for i in range(N - 1, -1, -1):      # suffix minima
+            v = cur[..., i]
+            take = _u64_le(v, best)         # ties: the leftmost
+            best = torch.where(take, v, best)
+            bi = torch.where(take, i, bi)
+            ok = ok & cva[..., i]
+            s_idx[..., i], s_ok[..., i] = bi, ok
+        pb = torch.full(shape, -1, dtype=torch.int64, device=dev)
+        pi = torch.zeros(shape, dtype=torch.int64, device=dev)
+        pok = torch.ones(shape, dtype=torch.bool, device=dev)
+        cand = torch.zeros((R, E), dtype=torch.bool, device=dev)
+        for t in range(N):
+            if t > 0:                       # the next chunk's prefix
+                v = nxt[..., t - 1]
+                take = DH.u64_lt(v, pb)
+                pb = torch.where(take, v, pb)
+                pi = torch.where(take, t - 1, pi)
+                pok = pok & nva[..., t - 1]
+            live = s_ok[..., t] & pok & (start + t < nwt)
+            si = s_idx[..., t]
+            sv = torch.gather(cur, 2, si[..., None])[..., 0]
+            q = torch.where(_u64_le(sv, pb), start + si, start + N + pi)
+            live &= (q >= h) & (q < h + no)
+            cand[rows.expand_as(q)[live], q[live]] = True
+        r_i, q_i = cand.nonzero(as_tuple=True)
+        v = sc[r_i, q_i]
+        dup = torch.zeros_like(r_i, dtype=torch.bool)
+        for d in range(1, h + 1):           # the tie test, candidates only
+            dup |= sc[r_i, q_i - d] == v
+        keep[r_i[~dup], p0 + q_i[~dup] - h] = True
+    return keep
+
+
+def compact_plain(keep: torch.Tensor, tokens: torch.Tensor, seg: int,
+                  own_lo: int, own_hi: int, order=None):
+    """Plain model of hash_rows' compaction on the card, for the tests:
+    keep bool and tokens int64 (R, npos) -> (the kept tokens in
+    row-major order, per-row counts int64 (R,)). Each segment of `seg`
+    owned positions of a row (a block) counts its kept positions and
+    reserves a range of a slab from a cursor, in `order` (a permutation
+    of the R x nseg segments: the order the blocks reach their atomicAdd;
+    row-major where None), and writes its tokens there in position
+    order; the exclusive scan of the counts in row-major order gives
+    each segment's offset, where its tokens move (`hash_place`); a
+    row's count is the sum of its segments'. Kept positions outside
+    [own_lo, own_hi) are never seen."""
+    R, npos = keep.shape
+    lo, hi = max(own_lo, 0), min(own_hi, npos)
+    bounds = [(p0, min(p0 + seg, hi)) for p0 in range(lo, hi, seg)]
+    nseg = len(bounds)
+    parts = [tokens[r, p0:p1][keep[r, p0:p1]] for r in range(R)
+             for p0, p1 in bounds]
+    counts = torch.tensor([len(x) for x in parts], dtype=torch.int64)
+    slab = torch.empty(int(counts.sum()), dtype=torch.int64)
+    starts = torch.empty_like(counts)
+    cursor = 0
+    for b in (range(R * nseg) if order is None else order):
+        starts[b] = cursor
+        slab[cursor:cursor + len(parts[b])] = parts[b]
+        cursor += len(parts[b])
+    offsets = torch.cumsum(counts, 0) - counts
+    out = torch.empty_like(slab)
+    for b in range(R * nseg):
+        n, a, at = int(counts[b]), int(starts[b]), int(offsets[b])
+        out[at:at + n] = slab[a:a + n]
+    per_row = (counts.view(R, nseg).sum(1) if nseg
+               else torch.zeros(R, dtype=torch.int64))
+    return out, per_row
+
+
 class Params(ctypes.Structure):
     """csrc/oph_rows.cu `Params`, field for field."""
     _fields_ = [(f, ctypes.c_int64) for f in (
@@ -364,22 +503,22 @@ def use_smem_buckets(m: int) -> bool:
     return 0 < m <= SMEM_BUCKETS_MAX_M
 
 
-def smem_bytes(seg: int, span: int, nwin: int, m: int,
-               full: bool = False) -> int:
+def smem_bytes(seg: int, span: int, nwin: int, m: int, words: int = 1,
+               stream: bool = False) -> int:
     """Dynamic shared memory of a block (csrc/oph_rows.cu `layout`): the
     warps' rings, the rolling table, the warps' extents of codes, the
-    shared buckets, with minimizers
-    the scores, keys (with `full`, hash_rows' full keys, high words too)
-    and validity of seg + 2 (nwin - 1) positions and the minima and
-    liveness of seg + nwin - 1 windows, and the staged codes."""
+    block scan's words, the shared buckets; where the block stages its
+    scores (minimizers, or `stream`: hash_rows) the scores of seg +
+    2 (nwin - 1) slots (with `words` = 2, the 128-bit code, its keys'
+    low words too), their 16-bit indices, validity and, with
+    minimizers, candidate flags; and the staged codes."""
     h = nwin - 1 if nwin > 1 else 0
-    E = seg + 2 * h if nwin > 1 else 0
-    NW = seg + h if nwin > 1 else 0
-    nstage = _align16((E if nwin > 1 else seg) + span - 1 + 32)
+    staged = nwin > 1 or stream
+    E = seg + 2 * h if staged else 0
+    nstage = _align16((E if staged else seg) + span - 1 + 32)
     at = 8 * (THREADS // 32) * RING + 8 * MAX_SYMBOLS + 8 * (THREADS // 32) \
-        + (8 * m if use_smem_buckets(m) else 0) + 16 * E \
-        + (8 * E if full else 0) + 8 * NW
-    return _align16(_align16(at) + nstage + E + NW)
+        + 16 + (8 * m if use_smem_buckets(m) else 0) + 8 * words * E + 2 * E
+    return _align16(_align16(at) + nstage + E + (E if nwin > 1 else 0))
 
 
 def run_length(n: int) -> int:
@@ -389,37 +528,48 @@ def run_length(n: int) -> int:
     return r + 4 if (r // 4) % 2 == 0 else r
 
 
-def geometry(span: int, nwin: int, m: int, full: bool = False
-             ) -> Tuple[int, int, int]:
+def geometry(span: int, nwin: int, m: int, words: int = 1,
+             stream: bool = False) -> Tuple[int, int, int]:
     """(run, seg, shared bytes) of the kernel's blocks: the longest run
     of rolled positions a thread takes and a block's owned positions.
-    Without minimizers runs of at least span + 4 (32 to 252: on the
-    H100, k = 31, 36 beat 20-28 and 68-132, whose warm-up is shorter
-    but whose blocks keep fewer warps busy; experiments/oph_rows_turns.py)
-    and 128 runs a segment; with them segments of 512 owned positions
-    (halved until the block's scores and windows fit), cut into 128
-    runs (on the H100, k = 21, w = 31: 512 beat 1024-4096, whose runs
-    warm up less but whose blocks, larger in shared memory, fit fewer
-    on an SM; experiments/oph_rows_turns.py)."""
-    if nwin <= 1:
+    oph_rows without minimizers: runs of at least span + 4 (32 to 252:
+    on the H100, k = 31, 36 beat 20-28 and 68-132, whose warm-up is
+    shorter but whose blocks keep fewer warps busy;
+    experiments/oph_rows_turns.py) and 128 runs a segment. Where the
+    block stages its scores (minimizers, and every hash_rows job,
+    `stream`; `words` 2 for the 128-bit code's keys): 128 runs a block,
+    the segment what they cover less the h = nwin - 1 halo slots on each
+    side, the runs the longest 4 x odd from (span - 1) / 2 (a warm-up
+    of at most two pushes a position) up to 4 span whose block leaves
+    room for the most blocks of SHARES on its SM. On the H100 the warps
+    an SM hide the rolling's latency more than long runs save warm-up
+    (experiments/torch_kernel_turns.py `hash_rows`, the by-record
+    corpus): -k 15 -w 31 runs of 12 or 20 (ten or six blocks an SM)
+    1.74 ms, 28 (four) 1.93, 36-44 (three) 2.25-2.36, 60 (two) 3.32,
+    76-100 (one) 6.10-6.35; full keys -k 40 -w 60 runs of 20 (four)
+    2.58-2.60, 12 (seven, a warm-up of 39 bases) 2.88-2.89, 28 (three)
+    3.91, 36 (two) 3.62, 44 (one) 6.41."""
+    if nwin <= 1 and not stream:
         run = run_length(min(max(span + 4, 32), 252))
         seg = THREADS * run
-        smem = smem_bytes(seg, span, nwin, m, full)
+        smem = smem_bytes(seg, span, nwin, m)
         if smem > SMEM_LIMIT:
             raise ValueError(f"span {span}: the kernel's staged codes do "
                              "not fit in a block's shared memory")
         return run, seg, smem
-    h = nwin - 1
-    seg = 512
-    while True:
-        run = run_length(-(-(seg + 2 * h) // THREADS))
-        smem = smem_bytes(seg, span, nwin, m, full)
-        if smem <= SMEM_LIMIT:
-            return run, seg, smem
-        if seg <= 32:
-            raise ValueError(f"w: {nwin} windows of the kernel do not fit "
-                             "in a block's shared memory")
-        seg //= 2
+    h = nwin - 1 if nwin > 1 else 0
+    longest = run_length(max(4 * span, 12))
+    shortest = min(run_length(max(-(-(span - 1) // 2), 1)), longest)
+    for n in SHARES:
+        # alone on an SM, any run that fits
+        for run in range(longest, 3 if n == 1 else shortest - 1, -8):
+            seg = THREADS * run - 2 * h
+            if 0 < seg and seg + 2 * h < MAX_SLOTS:
+                smem = smem_bytes(seg, span, nwin, m, words, stream)
+                if smem <= SMEM_SM // n - 1024:
+                    return run, seg, smem
+    raise ValueError(f"w: {nwin} windows of the kernel do not fit in a "
+                     "block's shared memory")
 
 
 def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
@@ -433,7 +583,8 @@ def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
     span = hkw.get("span") or k
     nwin = w - k + 1 if w > k else 1
     full = xormask2_hi is not None
-    run, seg, _ = geometry(span, nwin, m, full)
+    run, seg, _ = geometry(span, nwin, m, 2 if mode == DNA128 else 1,
+                           stream=m == 0)
     p = Params()
     lo, hi = K.owned_kmer_range(span, w, hkw["chunk_len"])
     p.R, p.W, p.npos, p.own_lo, p.own_hi = R, L, L - span + 1, lo, hi
@@ -467,7 +618,7 @@ def kernel_params(hkw: dict, R: int, L: int, m: int, fs_len: int,
 
 def load_kernel() -> ctypes.CDLL:
     """Build (once per source hash) and load csrc/oph_rows.cu, with its
-    `oph_rows` and `hash_rows` entries; raises when nvcc is missing or
+    `oph_rows`, `hash_rows` and `hash_place` entries; raises when nvcc is missing or
     the build fails."""
     from ..native import build_shared, nvcc_command
     lib = build_shared("oph_rows", [SOURCE], nvcc_command(SOURCE))
@@ -475,9 +626,12 @@ def load_kernel() -> ctypes.CDLL:
         p = ctypes.c_void_p
         lib.oph_rows.restype = ctypes.c_int
         lib.oph_rows.argtypes = [ctypes.POINTER(Params), p, p, p, p, p, p]
+        ll = ctypes.c_longlong
         lib.hash_rows.restype = ctypes.c_int
-        lib.hash_rows.argtypes = [ctypes.POINTER(Params), p, p, p, p, p, p,
-                                  p]
+        lib.hash_rows.argtypes = [ctypes.POINTER(Params), p, p, p, p, p, ll,
+                                  p, p, p, p]
+        lib.hash_place.restype = ctypes.c_int
+        lib.hash_place.argtypes = [ll, p, p, p, p, p, ll, p, p, p]
         lib._sigs_set = True
     return lib
 
@@ -546,6 +700,26 @@ def _check_hash_rows(codes: torch.Tensor, hkw: dict,
                          "(--long-kmers, k <= 64, no spacing)")
 
 
+def segments(p: Params) -> int:
+    """Segments a row of a launch (the C entries' `nseg`): its owned
+    positions cut into p.seg."""
+    lo, hi = max(p.own_lo, 0), min(p.own_hi, p.npos)
+    return -(-(hi - lo) // p.seg) if p.R > 0 and hi > lo else 0
+
+
+def token_capacity(p: Params) -> int:
+    """Tokens the slab of a hash_rows launch holds at first: every owned
+    position without minimizers; with them 2.5 / (nwin + 1) of the owned
+    positions (random minimizers keep about 2 / (nwin + 1) of the valid
+    ones) and 4096 more, at most every owned one. A batch that keeps
+    more runs again with room for all (`hash_rows`)."""
+    lo, hi = max(p.own_lo, 0), min(p.own_hi, p.npos)
+    owned = p.R * max(hi - lo, 0)
+    if p.nwin <= 1:
+        return owned
+    return min(owned, 5 * owned // (2 * (p.nwin + 1)) + 4096)
+
+
 def hash_rows(codes: torch.Tensor, hkw: dict,
               filterset: Optional[torch.Tensor] = None,
               xormask2_hi: Optional[int] = None):
@@ -557,10 +731,17 @@ def hash_rows(codes: torch.Tensor, hkw: dict,
     and the `--seq` route keeps them; with `xormask2_hi` (the 128-bit
     DNA code only) the full keys of `_hash_chunk_batch128`, whose masked
     high words come second. codes (R, L) uint8; `hkw` the JAX package's
-    `_hash_kwargs`; filterset sorted u64 bits (int64) or None. The CUDA
-    kernel for CUDA tensors (csrc/oph_rows.cu `hash_rows`: dense tokens
-    and keep flags, compacted on the card by one `nonzero`), the plain
-    version for CPU tensors."""
+    `_hash_kwargs`; filterset sorted u64 bits (int64) or None. The plain
+    version for CPU tensors. For CUDA tensors csrc/oph_rows.cu: the
+    `hash_rows` launch writes each segment's tokens in order to a range
+    of a slab of `token_capacity` tokens, with the segment's count and
+    the range's start; an exclusive scan of the counts (torch) gives
+    each segment's offset, and the `hash_place` launch moves the tokens
+    there. One host sync: the read of the tokens' total. A batch whose
+    tokens overflow the slab (the total past its capacity) runs both
+    launches again with a slab of that total. Scratch: the slab and the
+    output, each the capacity's tokens (two words a token for full
+    keys), and three int64 a segment."""
     if codes.device.type == "cpu":
         return hash_rows_plain(codes, hkw, filterset, xormask2_hi)
     if codes.device.type != "cuda":
@@ -568,25 +749,51 @@ def hash_rows(codes: torch.Tensor, hkw: dict,
     _check_hash_rows(codes, hkw, filterset, xormask2_hi)
     dev = codes.device
     R, L = codes.shape
-    npos = L - (hkw.get("span") or hkw["k"]) + 1
     full = xormask2_hi is not None
+    words = 2 if full else 1
     fs_len = 0 if filterset is None else int(filterset.numel())
     params = kernel_params(hkw, R, L, 0, fs_len, xormask2_hi=xormask2_hi)
+    nseg = segments(params)
+    if nseg == 0:
+        def none():
+            return torch.empty(0, dtype=torch.int64, device=dev)
+        return (none(), none() if full else None,
+                torch.zeros(R, dtype=torch.int64, device=dev))
     lib = load_kernel()
-    tok = torch.empty((R, npos), dtype=torch.int64, device=dev)
-    tok_hi = (torch.empty((R, npos), dtype=torch.int64, device=dev)
-              if full else None)
-    keep = torch.zeros((R, npos), dtype=torch.uint8, device=dev)
+    counts = torch.empty(R * nseg, dtype=torch.int64, device=dev)
+    starts = torch.empty_like(counts)
+    cursor = torch.empty(1, dtype=torch.int64, device=dev)
+    cap = token_capacity(params)
+
+    def ptr(t: torch.Tensor, i: int):
+        return t[i].data_ptr() if i < t.shape[0] else None
     with torch.cuda.device(dev):
-        err = lib.hash_rows(
-            ctypes.byref(params), codes.data_ptr(), None,
-            filterset.data_ptr() if fs_len else None, tok.data_ptr(),
-            tok_hi.data_ptr() if full else None, keep.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"hash_rows kernel launch failed: CUDA error "
-                           f"{err}")
-    hash_launches.launches += 1
-    at = keep.view(-1).nonzero().squeeze(1)
-    return (tok.view(-1)[at], None if tok_hi is None else tok_hi.view(-1)[at],
-            keep.sum(1, dtype=torch.int64))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        while True:
+            slab = torch.empty((words, cap), dtype=torch.int64, device=dev)
+            err = lib.hash_rows(
+                ctypes.byref(params), codes.data_ptr(), None,
+                filterset.data_ptr() if fs_len else None, ptr(slab, 0),
+                ptr(slab, 1), cap, counts.data_ptr(), starts.data_ptr(),
+                cursor.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"hash_rows kernel launch failed: CUDA "
+                                   f"error {err}")
+            hash_launches.launches += 1
+            offsets = torch.cumsum(counts, 0).sub_(counts)
+            out = torch.empty_like(slab)
+            err = lib.hash_place(
+                R * nseg, counts.data_ptr(), starts.data_ptr(),
+                offsets.data_ptr(), ptr(slab, 0), ptr(slab, 1), cap,
+                ptr(out, 0), ptr(out, 1), stream)
+            if err != 0:
+                raise RuntimeError(f"hash_place kernel launch failed: CUDA "
+                                   f"error {err}")
+            hash_launches.launches += 1
+            per_row = counts.view(R, nseg).sum(1)
+            total = int(cursor)
+            if total <= cap:
+                break
+            cap = total
+            del slab, out
+    return (out[0, :total], out[1, :total] if full else None, per_row)

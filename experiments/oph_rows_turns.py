@@ -23,8 +23,9 @@ unless said) and times one pass over them per version:
 - `mini` (k = 21, w = 31 minimizers), `roll` (k = 48, the rolling hash)
   and `u128` (k = 40, the 128-bit code's low word): the kernel against
   OLD; `mini` also at segments of 256, 1,024, 2,048 and 4,096 owned
-  positions (ops/oph_rows.py `geometry` takes 512: runs of at most 12
-  positions, a warm-up of 20).
+  positions, each with the runs that cover it (ops/oph_rows.py
+  `geometry` takes 128 runs of 28 positions, segments of 3,564; at
+  commit 2d1f800 it took 512, runs of 12).
 
 Every version of a case but the probes gives the same registers over
 the corpus bit for bit (held here), and on the first 256 records of

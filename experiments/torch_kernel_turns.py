@@ -8,9 +8,11 @@ and nvcc:
     python3 experiments/torch_kernel_turns.py css OTHER.cu [--check]
     python3 experiments/torch_kernel_turns.py countsketch OTHER.cu
 
+    python3 experiments/torch_kernel_turns.py hash_rows OTHER.cu
+
 `css` (csrc/css.cu, C entry `css_pass`) is described under CSS below,
-`countsketch` under COUNTSKETCH; the rest of this text is the nibble
-kernels'.
+`countsketch` under COUNTSKETCH, `hash_rows` under HASH_ROWS; the rest
+of this text is the nibble kernels'.
 
 KERNEL is `tri_eq` (csrc/tri_eq.cu, C entry `tri_eq_counts_u16`) or
 `tri_comb` (csrc/tri_comb.cu, `tri_comb_counts_u16`). OTHER.cu is any
@@ -98,6 +100,40 @@ from the port's CLI. The script
    `countsketch_many` (one upload, one call, the copies back), in turns.
 
 It prints its JSON as its last line.
+
+HASH_ROWS. csrc/oph_rows.cu's `hash_rows` path against OTHER.cu, a
+source of the kernel before the window stage and the compaction were
+redesigned (`git show e42f2d9:dashing2_tpu_torch/csrc/oph_rows.cu`: its
+`hash_rows` writes each kept token at its place with a keep flag;
+segments of 512 owned positions with minimizers), over chip_smoke.py's
+by-record corpus (32,768 records) in the `--seq` route's batches. The
+script
+
+1. builds both and the probes below, and prints ptxas' report and the
+   kernels that spill;
+2. holds the new wrapper, OTHER's whole function (as the wrapper of
+   commit e42f2d9 ran it: the (R, npos) token arrays, a zeroed keep
+   array, the launch, `nonzero`, the gathers, the rows' sums) and the
+   plain version equal over the corpus at `-k 15 -w 31` (`seq`) and `--long-kmers -k
+   40 -w 60` (`seq128`, full keys), and every run-length variant to the
+   new wrapper;
+3. times, by CUDA events (mean of a few calls after a warm-up), in
+   turns (other, new, new, other): the whole functions, and the bare
+   launches (OTHER's launch on zeroed keep flags; the new two C entries
+   on the offsets of a first call); each run-length variant
+   (`runN`: 128 runs of N positions a block, seg = 128 N - 2 h; the
+   geometry's choice is ops/oph_rows.py `geometry`'s), the `few-warps` copy (a segment's rolled range cut
+   into runs of about the geometry's over as few warps as hold them, as
+   the codes that go straight to the rings are; exact) and each probe
+   (`seq` only, bare, in turns with the new bare launches: `stage-only`
+   leaves after staging the codes, `no-window` skips the window stage
+   (no candidate), `no-tie` the tie test, `no-write` the tokens'
+   writes), with the bound of chip_smoke.py's `_hash_bound`;
+4. times `oph_rows` (registers only, m = 1024) at `-k 21 -w 31` (the
+   window stage it shares) and at k = 31 (no minimizers), OTHER's C
+   entry against the new one, both exact against each other, in turns.
+
+Its JSON goes to chiprun_out/hash_rows_turns.json.
 """
 
 import ctypes
@@ -528,7 +564,329 @@ def countsketch_main(other: str) -> int:
     return 0
 
 
+# hash_rows: the --seq jobs, and the run lengths tried beside the
+# geometry's
+HASH_JOBS = {"seq": (dict(k=15, w=31), False),
+             "seq128": (dict(k=40, w=60, use128=True), True)}
+HASH_RUNS = {"seq": (20, 28, 36, 60), "seq128": (12, 28, 36, 44)}
+HASH_REPS = 3
+# copies of csrc/oph_rows.cu with one stage taken out (wrong tokens), or
+# one choice changed (HASH_EXACT: the kernel's own tokens)
+HASH_PROBES = {
+    name: (((re.compile(re.escape(text)), repl), count),)
+    for name, text, repl, count in (
+        ("stage-only",
+         "if (uhi <= ulo) {                           // no window",
+         "if (true) {                                 // no window", 1),
+        ("no-window", "for (int c = tid; c < nch; c += THREADS) {",
+         "for (int c = tid; c < 0 * nch; c += THREADS) {", 1),
+        ("no-tie", "for (int d = 1; d <= h; ++d) dup |= sc[q - d] == v;",
+         "dup = v == 0;", 1),
+        ("no-write", "if (c == 0 || s0 + nk > o.cap) return;",
+         "if (c >= 0) return;", 1),
+        ("few-warps", "const int nwu = st ? WARPS : ",
+         "const int nwu = ", 1),
+        ("no-unroll", "#pragma unroll 4\n", "", 3))}
+HASH_EXACT = ("few-warps", "no-unroll")
+
+
+def _spills(name: str) -> None:
+    """The kernels of a built library that ptxas reports spilling, by
+    name (demangled where c++filt is found)."""
+    func, out = None, []
+    for ln in native.build_logs.get(name, "").splitlines():
+        if "Function properties for" in ln:
+            func = ln.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in ln and not ln.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores"):
+            out.append((func, ln.strip()))
+    for func, ln in out:
+        try:
+            func = subprocess.run(["c++filt", func], capture_output=True,
+                                  text=True, check=True).stdout.strip()
+        except (OSError, subprocess.CalledProcessError):
+            pass
+        CS._say(f"[spill] {name}: {func}: {ln}")
+    if not out:
+        CS._say(f"[spill] {name}: no kernel spills")
+
+
+def _old_geometry(p):
+    """OTHER's (commit e42f2d9) minimizer geometry on the new Params:
+    segments of 512 owned positions, runs that cover them with their
+    halos."""
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    h = p.nwin - 1
+    p.seg = 512
+    p.run = OR.run_length(-(-(p.seg + 2 * h) // OR.THREADS))
+    return p
+
+
+def _hash_sigs(lib, old: bool):
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.oph_rows.restype = ctypes.c_int
+    lib.oph_rows.argtypes = [ctypes.POINTER(OR.Params)] + [p] * 6
+    lib.hash_rows.restype = ctypes.c_int
+    lib.hash_rows.argtypes = ([ctypes.POINTER(OR.Params)] + [p] * 6 + [p]
+                              if old else
+                              [ctypes.POINTER(OR.Params)] + [p] * 5
+                              + [ll] + [p] * 4)
+    if not old:
+        lib.hash_place.restype = ctypes.c_int
+        lib.hash_place.argtypes = [ll, p, p, p, p, p, ll, p, p, p]
+    return lib
+
+
+def hash_rows_main(other: str) -> int:
+    import shutil
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.enums import KmerSketchResultType
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    from dashing2_tpu_torch.sketch import core as PC
+    smi = CS.phase_device()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    sources = {"new": OR.SOURCE, "other": other}
+    for name, subs in HASH_PROBES.items():
+        sources[name] = probe_source("oph_rows", OR.SOURCE, name, subs)
+
+    def build(name):
+        src = sources[name]
+        lib = OR.load_kernel() if name == "new" else native.build_shared(
+            f"oph_rows_{name}", [src], native.nvcc_command(src))
+        return _hash_sigs(lib, name == "other")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(build, sources)))
+    CS._say(f"[build] {len(libs)} libraries in "
+            f"{time.perf_counter() - t0:.3f} s")
+    for name in ["oph_rows"] + [f"oph_rows_{n}" for n in sources
+                                if n != "new"]:
+        ptxas(name)
+    _spills("oph_rows")
+    _spills("oph_rows_other")
+    fa, _ = CS._byseq_corpus()
+    stream = torch.cuda.current_stream().cuda_stream
+    seq = KmerSketchResultType.FULL_MMER_SEQUENCE
+    rec = {"card": smi, "kernel": "hash_rows", "other": other}
+
+    def new_bare(lib, batch, full, over=None):
+        """The new two C entries over a batch, on the offsets of a first
+        call: (run, outputs)."""
+        r, hkw, x2 = batch
+        R, L = r.shape
+        prm = OR.kernel_params(hkw, R, L, 0, 0, xormask2_hi=x2)
+        if over:
+            prm.run = over
+            prm.seg = OR.THREADS * over - 2 * (prm.nwin - 1)
+        nblk = R * OR.segments(prm)
+        cap = OR.token_capacity(prm)
+        w = 2 if full else 1
+        counts = torch.empty(nblk, dtype=torch.int64, device="cuda")
+        starts = torch.empty_like(counts)
+        cursor = torch.empty(1, dtype=torch.int64, device="cuda")
+        slab = torch.empty((w, cap), dtype=torch.int64, device="cuda")
+        out = torch.empty_like(slab)
+
+        def ptr(t, i):
+            return t[i].data_ptr() if i < t.shape[0] else None
+
+        def main_launch():
+            assert lib.hash_rows(ctypes.byref(prm), r.data_ptr(), None, None,
+                                 ptr(slab, 0), ptr(slab, 1), cap,
+                                 counts.data_ptr(), starts.data_ptr(),
+                                 cursor.data_ptr(), stream) == 0
+        main_launch()
+        offsets = torch.cumsum(counts, 0) - counts
+        assert int(cursor) <= cap
+
+        def run():
+            main_launch()
+            assert lib.hash_place(nblk, counts.data_ptr(), starts.data_ptr(),
+                                  offsets.data_ptr(), ptr(slab, 0),
+                                  ptr(slab, 1), cap, ptr(out, 0),
+                                  ptr(out, 1), stream) == 0
+        run()
+        torch.cuda.synchronize()
+        total = int(cursor)
+        return run, (out[0, :total], out[1, :total] if full else None,
+                     counts.view(R, -1).sum(1))
+
+    def old_parts(batch, full):
+        r, hkw, x2 = batch
+        R, L = r.shape
+        prm = _old_geometry(OR.kernel_params(hkw, R, L, 0, 0,
+                                             xormask2_hi=x2))
+        npos = prm.npos
+        tok = torch.empty((R, npos), dtype=torch.int64, device="cuda")
+        hi = torch.empty_like(tok) if full else None
+        return prm, tok, hi, npos
+
+    def old_function(batch, full):
+        prm, tok, hi, npos = old_parts(batch, full)
+        r = batch[0]
+        keep = torch.zeros((r.shape[0], npos), dtype=torch.uint8,
+                           device="cuda")
+        assert libs["other"].hash_rows(
+            ctypes.byref(prm), r.data_ptr(), None, None, tok.data_ptr(),
+            hi.data_ptr() if full else None, keep.data_ptr(), stream) == 0
+        at = keep.view(-1).nonzero().squeeze(1)
+        return (tok.view(-1)[at], hi.view(-1)[at] if full else None,
+                keep.sum(1, dtype=torch.int64))
+
+    def old_bare(batch, full):
+        prm, tok, hi, npos = old_parts(batch, full)
+        r = batch[0]
+        keeps = [torch.zeros((r.shape[0], npos), dtype=torch.uint8,
+                             device="cuda") for _ in range(HASH_REPS + 1)]
+        state = {"i": 0}
+
+        def run():
+            keep = keeps[state["i"] % len(keeps)]
+            state["i"] += 1
+            assert libs["other"].hash_rows(
+                ctypes.byref(prm), r.data_ptr(), None, None, tok.data_ptr(),
+                hi.data_ptr() if full else None, keep.data_ptr(),
+                stream) == 0
+        return run
+
+    def same(a, b):
+        return all((x is None) == (y is None) and (
+            x is None or torch.equal(x, y)) for x, y in zip(a, b))
+
+    def wrapper(batch):
+        r, hkw, x2 = batch
+        return OR.hash_rows(r, hkw, None, x2)
+
+    for job, (kw, full) in HASH_JOBS.items():
+        opts = Dashing2Options(parse_by_seq=True, kmer_result=seq, **kw)
+        items, _, hkw, batches = CS._rows_of(opts, [fa],
+                                             PC.BATCH_CODES["cuda"])
+        x2 = opts.xormask2_hi if full else None
+        on_card = [(torch.from_numpy(r).cuda(), hkw, x2) for r, _ in batches]
+        kept = 0
+        for b in on_card:
+            got = wrapper(b)
+            assert same(got, old_function(b, full)), job
+            assert same(got, OR.hash_rows_plain(b[0], b[1], None, b[2])), job
+            kept += int(got[2].sum())
+        bound_ms, bound_by, nvalid = CS._hash_bound(items, kw["k"], kw["w"],
+                                                    full, kept)
+        rec[f"{job}_bound_ms"] = bound_ms
+        CS._say(f"[exact] {job}: new == other's function == plain over "
+                f"{len(items)} records, {len(on_card)} batches, {kept} "
+                f"tokens; bound {bound_ms:.4f} ms ({bound_by}, {nvalid} "
+                "valid positions)")
+
+        def new_fn():
+            for b in on_card:
+                wrapper(b)
+
+        def old_fn():
+            for b in on_card:
+                old_function(b, full)
+        bare_new = [new_bare(libs["new"], b, full)[0] for b in on_card]
+        bare_old = [old_bare(b, full) for b in on_card]
+
+        def runner(runs):
+            def run():
+                for f in runs:
+                    f()
+            return run
+        rounds = [("function", (("other", old_fn), ("new", new_fn),
+                                ("new", new_fn), ("other", old_fn))),
+                  ("bare", (("other", runner(bare_old)),
+                            ("new", runner(bare_new)),
+                            ("new", runner(bare_new)),
+                            ("other", runner(bare_old))))]
+        for run_len in HASH_RUNS[job]:
+            runs = []
+            for b in on_card:
+                run, got = new_bare(libs["new"], b, full, run_len)
+                assert same(got, wrapper(b)), (job, run_len)
+                runs.append(run)
+            rounds.append((f"run{run_len}", ((f"run{run_len}", runner(runs)),
+                                             ("new", runner(bare_new)),
+                                             (f"run{run_len}",
+                                              runner(runs)))))
+        for name in HASH_PROBES:
+            if job != "seq" and name not in HASH_EXACT:
+                continue
+            runs = []
+            for b in on_card:
+                run, got = new_bare(libs[name], b, full)
+                assert name not in HASH_EXACT or same(got, wrapper(b))
+                runs.append(run)
+            rounds.append((name, ((name, runner(runs)),
+                                  ("new", runner(bare_new)),
+                                  (name, runner(runs)))))
+        out = in_turns(rounds, lambda run: CS._library_ms(run, HASH_REPS))
+        rec[job] = out
+        for key in ("function", "bare"):
+            best = {n: min(ms for nm, ms in out[key] if nm == n)
+                    for n in ("new", "other")}
+            CS._say(f"[bound] {job} {key}: new {best['new']:.4f} ms "
+                    f"({100 * bound_ms / best['new']:.1f}%), other "
+                    f"{best['other']:.4f} ms "
+                    f"({100 * bound_ms / best['other']:.1f}%)")
+        del on_card, bare_new, bare_old
+        torch.cuda.empty_cache()
+    # oph_rows: the window stage at k = 21, w = 31, and k = 31
+    for job, kw in (("oph-k21-w31", dict(k=21, w=31)), ("oph-k31", dict(
+            k=31))):
+        m = 1024
+        opts = Dashing2Options(sketchsize=m, parse_by_seq=True, **kw)
+        items, _, hkw, batches = CS._rows_of(opts, [fa],
+                                             PC.BATCH_CODES["cuda"])
+        args = [(torch.from_numpy(r).cuda(),
+                 torch.from_numpy(i - i[0]).cuda(),
+                 int(i[-1]) - int(i[0]) + 1) for r, i in batches]
+
+        def oph(name):
+            lib = libs[name]
+            plist = []
+            for r, _, _ in args:
+                prm = OR.kernel_params(hkw, r.shape[0], r.shape[1], m, 0)
+                plist.append(_old_geometry(prm) if name == "other"
+                             and "w" in kw else prm)
+            regs = [torch.empty((n, m), dtype=torch.int64, device="cuda")
+                    for _, _, n in args]
+
+            def run():
+                for (r, i, _), prm, g in zip(args, plist, regs):
+                    g.fill_(-1)
+                    assert lib.oph_rows(ctypes.byref(prm), r.data_ptr(),
+                                        i.data_ptr(), None, g.data_ptr(),
+                                        None, stream) == 0
+            run()
+            torch.cuda.synchronize()
+            return run, [g.clone() for g in regs]
+        run_new, got_new = oph("new")
+        run_old, got_old = oph("other")
+        assert all(torch.equal(a, b) for a, b in zip(got_new, got_old)), job
+        rec[job] = in_turns([(job, (("other", run_old), ("new", run_new),
+                                    ("new", run_new), ("other", run_old)))],
+                            lambda run: CS._library_ms(run, HASH_REPS))[job]
+        CS._say(f"[exact] {job}: new registers == other's over "
+                f"{len(items)} records")
+        del args
+        torch.cuda.empty_cache()
+    shutil.rmtree(CS.WORK, ignore_errors=True)
+    with open(os.path.join(ROOT, "chiprun_out", "hash_rows_turns.json"),
+              "w") as f:
+        json.dump(rec, f)
+    print(json.dumps(rec))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "hash_rows":
+        if not torch.cuda.is_available():
+            print("no CUDA card", file=sys.stderr)
+            return 2
+        return hash_rows_main(os.path.abspath(sys.argv[2]))
     if len(sys.argv) >= 3 and sys.argv[1] == "countsketch":
         if not torch.cuda.is_available():
             print("no CUDA card", file=sys.stderr)

@@ -1282,12 +1282,31 @@ OPH_EDGES = {
     "m-32768-mini": ("mini-21-31", 32768, None),
     # a filterset with counts (and minimizers)
     "filterset-counts": ("filterset", 1000, None),
+    # tests/seq_planted.py's rows: equal scores (a homopolymer, tandem
+    # repeats of period 5 and nwin) and N runs of 1 to nwin bases, with
+    # minimizers in three encodings
+    "planted-mini": ("mini-21-31", 100, "planted"),
+    "planted-roll": ("roll-40-w60", 100, "planted"),
+    "planted-u128": ("u128-k63-w80", 100, "planted"),
+    # rows of many segments of the window stage
+    "long-rows": ("mini-21-31", 100, "long"),
 }
 
 
 def _oph_edge_case(case):
+    from seq_planted import planted_rows
     cfg, m, how = OPH_EDGES[case]
-    codes, item, n, _, hkw, fs = _oph_rows_case(cfg, m=m)
+    if how == "planted":
+        L = 5000
+        nwin = OPH_CONFIGS[cfg][0]["w"] - OPH_CONFIGS[cfg][0]["k"] + 1
+        rows = planted_rows(L, 4, nwin, seed=len(case))
+        codes, item, n, _, hkw, fs = _oph_rows_case(
+            cfg, m=m, R=6 + rows.shape[0], L=L)
+        codes[6:] = torch.from_numpy(rows)
+        return codes, item, n, m, hkw, fs
+    codes, item, n, _, hkw, fs = (_oph_rows_case(cfg, m=m, R=6, L=60000)
+                                  if how == "long"
+                                  else _oph_rows_case(cfg, m=m))
     if how == "pad":
         codes[:] = 0xFF
     elif how == "short":
@@ -1358,7 +1377,33 @@ HASH_CASES = ([(cfg, False, False, False) for cfg in sorted(OPH_CONFIGS)]
                  ("u128-k40", True, True, False),
                  ("u128-k63-w80", True, False, False),
                  ("u128-k63-w80", True, True, True),
-                 ("u128-k40", True, False, True)])
+                 ("u128-k40", True, False, True),
+                 ("planted-mini", False, False, False),
+                 ("planted-mini", False, False, True),
+                 ("planted-roll", False, False, False),
+                 ("planted-u128", True, False, False),
+                 ("planted-u128", False, True, False),
+                 ("long-rows", False, False, False)])
+# the staged blocks' geometry: ops/oph_rows.py `geometry` (four blocks
+# an SM), the longest runs a block alone fits, and runs of 12 (segments
+# of 1,536 less the halos: many a row)
+HASH_GEOMETRIES = ("default", "alone", "short")
+
+
+def _force_geometry(monkeypatch, how):
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    if how == "alone":
+        monkeypatch.setattr(OR, "SHARES", (1,))
+    elif how == "short":
+        real = OR.geometry
+
+        def short(span, nwin, m, words=1, stream=False):
+            h = nwin - 1 if nwin > 1 else 0
+            if not (nwin > 1 or stream) or OR.THREADS * 12 <= 2 * h:
+                return real(span, nwin, m, words, stream)
+            seg = OR.THREADS * 12 - 2 * h
+            return 12, seg, OR.smem_bytes(seg, span, nwin, m, words, stream)
+        monkeypatch.setattr(OR, "geometry", short)
 
 
 def _hash_case(cfg, zero_seed, masks):
@@ -1375,13 +1420,17 @@ def _hash_case(cfg, zero_seed, masks):
     return codes, hkw, fs
 
 
+@pytest.mark.parametrize("geometry", HASH_GEOMETRIES)
 @pytest.mark.parametrize("cfg,full,zero_seed,masks", HASH_CASES)
-def test_hash_rows_kernel_matches_plain(card, cfg, full, zero_seed, masks):
+def test_hash_rows_kernel_matches_plain(card, monkeypatch, cfg, full,
+                                        zero_seed, masks, geometry):
     """csrc/oph_rows.cu `hash_rows` == hash_rows_plain bit for bit: the
     kept tokens in row order, the high words of full keys and the rows'
-    counts; one launch."""
+    counts, at each segment length of HASH_GEOMETRIES; two launches (the
+    tokens, their placement)."""
     from dashing2_tpu_torch.config import Dashing2Options
     from dashing2_tpu_torch.ops import oph_rows as OR
+    _force_geometry(monkeypatch, geometry)
     codes, hkw, fs = _hash_case(cfg, zero_seed, masks)
     x2 = Dashing2Options(seedseed=7).xormask2_hi if full else None
     dev = [x.to(card) if x is not None else None for x in (codes, fs)]
@@ -1389,12 +1438,62 @@ def test_hash_rows_kernel_matches_plain(card, cfg, full, zero_seed, masks):
     before = OR.hash_launches.launches
     got = OR.hash_rows(dev[0], hkw, dev[1], x2)
     torch.cuda.synchronize()
-    assert OR.hash_launches.launches == before + 1
+    assert OR.hash_launches.launches == before + 2
     assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
     assert (got[1] is None) == (not full)
     if full:
         assert torch.equal(got[1], want[1])
     assert (int(got[2].sum()) == 0) == (cfg == "all-padding")
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_hash_rows_overflowing_slab_runs_again(card, monkeypatch, full):
+    """A batch whose tokens pass the slab's capacity (here 5 tokens) runs
+    both launches again with room for all: == plain, four launches."""
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    monkeypatch.setattr(OR, "token_capacity", lambda p: 5)
+    codes, hkw, _ = _hash_case("u128-k63-w80" if full else "mini-21-31",
+                               False, False)
+    x2 = Dashing2Options(seedseed=7).xormask2_hi if full else None
+    want = OR.hash_rows_plain(codes.to(card), hkw, None, x2)
+    before = OR.hash_launches.launches
+    got = OR.hash_rows(codes.to(card), hkw, None, x2)
+    assert OR.hash_launches.launches == before + 4
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None) and (g is None or torch.equal(g, w))
+
+
+def test_hash_rows_allocates_no_dense_array(card):
+    """The card route of hash_rows holds no (R, npos) array: across one
+    call on 256 rows of 20,000 random bases (k = 15, w = 31) the peak of
+    allocated device memory stays under 8 bytes x (4 kept tokens + 3 a
+    row segment + 1 a row) + 1 MiB, where one (R, npos) int64 array
+    alone is about 9 kept tokens' bytes."""
+    from dashing2_tpu_torch.config import Dashing2Options
+    from dashing2_tpu_torch.ops import oph_rows as OR
+    from dashing2_tpu_torch.sketch import core as PC
+    R, L = 256, 20000
+    opts = Dashing2Options(k=15, w=31)
+    hkw = PC._hash_kwargs(opts, L - 100)
+    rng = np.random.default_rng(5)
+    codes = torch.from_numpy(rng.integers(0, 4, (R, L)).astype(np.uint8)
+                             ).to(card)
+    params = OR.kernel_params(hkw, R, L, 0, 0)
+    nseg = OR.segments(params)
+    OR.hash_rows(codes, hkw)                  # build and warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = OR.hash_rows(codes, hkw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = int(got[2].sum())
+    dense = 8 * R * (L - 15 + 1)
+    assert kept > R * (L - 100) // 20
+    assert peak <= 8 * (4 * kept + 3 * R * nseg + R) + (1 << 20) < dense
+    want = OR.hash_rows_plain(codes, hkw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
 
 
 def test_hash_rows_refuses_full_keys_outside_dna128(card):
